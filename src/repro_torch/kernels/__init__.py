@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper, each with its plain PyTorch version.
+
+Each kernel directory holds a plain version (``ref.py``) and a wrapper
+(``ops.py``) that takes the plain version for CPU tensors and launches the
+kernel (``csrc/<name>.cu``, built by :mod:`._build`) for CUDA tensors.
+
+* ``chain_vm`` — batches of single-WQ chains, one client context per block
+  (managed WQ and straight-line forms).
+* ``hopscotch`` — the batched hopscotch get, one thread per query.
+"""

@@ -1,14 +1,17 @@
-"""Chip smoke test: drive the PyTorch/CUDA port's RedN GET path on one card.
+"""Chip smoke test: drive the PyTorch/CUDA port's two paths on one card —
+the RedN GET path and the LM serving path (qwen3-1.7b prefill and
+ServeEngine decode).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, then
-runs five phases and raises on any mismatch:
+It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
+``nvcc`` per source, all started together), then runs nine phases and
+raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build.
-2. ``kv_get``          — the main path at a real size: a 4-shard hopscotch
+2. ``kv_get``          — the GET path at a real size: a 4-shard hopscotch
                          store (4 x 65,536 buckets, 157,286 keys, 60% load)
                          answers zipf GET batches through ``sharded_get`` on
                          the redn, one_sided and two_sided paths, each row
@@ -21,13 +24,38 @@ runs five phases and raises on any mismatch:
                          version on 1,024 seeded random programs.
 5. ``hopscotch_probe`` — the hopscotch kernel against the plain lookup on
                          every shard table, and against the redn answers.
+6. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
+                         bf16, seeded random weights): ``make_prefill_step``
+                         on 4 x 2,048 prompt tokens (one flash-attention
+                         launch per layer), then 8 ``decode_step``s whose
+                         last logits are held against ``forward`` over all
+                         2,056 tokens.
+7. ``lm_serve``        — ``ServeEngine`` (8 slots, s_max 4,096): token-bucket
+                         admission of a client mix, 32 ticks with the host
+                         driver crashed at tick 16 (one decode-attention
+                         launch per layer per tick), every tick finite and
+                         in the vocab.  Here and in ``lm_prefill`` the
+                         decode kernel is then held against its plain
+                         version on a layer's cache as the drive left it,
+                         at the drive's lengths (idle slots' zeros
+                         included).
+8. ``flash_kernel``    — the flash-attention kernel against its plain
+                         version at the prefill shape (causal), windowed
+                         and in length mode, float32 and bfloat16.
+9. ``decode_kernel``   — the decode kernel against its plain version over a
+                         32,768-long bf16 cache (B 16), lengths spread over
+                         [1, S], whole and as two ``kpos_offset`` shards;
+                         and in float32.  A planted fault (half of each
+                         sequence's rows dropped) must fail the check.
 
-Each kernel's launches are counted over the drive of its phase only (the
+Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
-timing launches come after.  Every kernel is exact (int32), so its
-tolerance is 0.  The last lines are the kernels' JSON, the card line from
-``nvidia-smi`` and the result line.  Without a CUDA card, or outside a
-checkout, the script exits non-zero and prints no result.
+timing launches come after.  The int32 kernels are exact (tolerance 0);
+the flash kernel is held at 2e-5 (float32) and 2e-2 (bfloat16),
+test_kernels.py's tolerances, and the decode partial at DECODE_TOL in
+both types.  The last lines are the kernels' JSON, the
+card line from ``nvidia-smi`` and the result line.  Without a CUDA card,
+or outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -42,6 +70,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory bandwidth (data sheet)
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py's
+# Last logits of prefill + decode against one forward over the same tokens
+# (different shapes, so different bf16 roundings): bf16 keeps 8 significant
+# bits, so one rounding flip moves an activation by ~2^-8 of its size, and
+# flips accumulate over 28 layers.  The logits' std is 0.02 * sqrt(2048),
+# ~0.9, at these init scales; 1/8 of that unit scale bounds the rounding,
+# while a wrong cache or mask moves logits by O(1).  Float32 (the CPU
+# rehearsal) keeps test_system.py's 2e-3.
+LOGIT_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.125}
+# The decode partial against its plain version, in either type: both read
+# the same inputs and accumulate in float32, so the limit is set from the
+# readings of sound runs (at most 1.7e-6, on l / l over a 32,768-long
+# cache), not from bf16's precision.  A dropped half of each sequence's
+# rows moves acc / l by orders of magnitude more (PERF.md).
+DECODE_TOL = 1e-5
 
 
 def _import_port():
@@ -54,15 +98,23 @@ def _import_port():
 
 
 _import_port()
+from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import isa, machine, programs  # noqa: E402
 from repro_torch.core.engine import ChainEngine  # noqa: E402
 from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_vm import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.chain_vm import ref as chain_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.hopscotch import ops as hop_ops  # noqa: E402
 from repro_torch.kvstore import hopscotch, store  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.rdma import transport  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -91,14 +143,40 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+LAUNCH_COUNTS = (chain_ops.launches, hop_ops.launches, fa_ops.launches,
+                 dec_ops.launches)
+
+
 def reset_launches():
-    for counts in (chain_ops.launches, hop_ops.launches):
+    for counts in LAUNCH_COUNTS:
         for k in counts:
             counts[k] = 0
 
 
 def read_launches() -> dict:
-    return {**chain_ops.launches, **hop_ops.launches}
+    return {k: n for counts in LAUNCH_COUNTS for k, n in counts.items()}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def require_close(got, want, tol: float, what: str) -> float:
+    """Raise unless |got - want| <= tol + tol * |want| everywhere (and both
+    are finite); returns the max absolute difference."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    bad = diff > tol + tol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} values off by more "
+                             f"than {tol} (max {float(diff.max())})")
+    return float(diff.max())
 
 
 def require_equal(a, b, what: str) -> int:
@@ -459,12 +537,365 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: LM prefill (and decode continuing it)
+# ---------------------------------------------------------------------------
+
+def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
+                     time_it=True):
+    """The prompt pass of ``batch`` seeded prompts, then ``extra`` decode
+    steps continuing them; the last logits against ``forward`` over the
+    whole ``prompt + extra`` tokens."""
+    layers = cfg.num_layers if torch.device(device).type == "cuda" else 0
+    dt = params.embed.embedding.dtype
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (
+        batch, prompt + extra)).astype(np.int32)).to(device)
+    prefill_step = train_loop.make_prefill_step(cfg, s_max=prompt + 64)
+    serve_step = train_loop.make_serve_step(cfg)
+    if time_it:
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    last, caches, lengths = prefill_step(params, {"tokens": toks[:, :prompt]})
+    sync(device)
+    first_s = time.perf_counter() - t0
+    flash_launches = read_launches()["flash_attention"]
+    if flash_launches != layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{flash_launches} times, expected {layers}")
+    step_ms = []
+    reset_launches()
+    for i in range(extra):
+        t0 = time.perf_counter()
+        lengths = lengths + 1
+        logits, caches = serve_step(params, toks[:, prompt + i], caches,
+                                    lengths)
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_launches = read_launches()["decode_partial"]
+    if decode_launches != layers * extra:
+        raise AssertionError(f"{extra} decode steps launched decode_partial "
+                             f"{decode_launches} times, expected "
+                             f"{layers * extra}")
+    if logits.shape != (batch, cfg.padded_vocab):
+        raise AssertionError(f"decode logits {tuple(logits.shape)}")
+    cache_errs = require_cache_decode(caches[-1], lengths, cfg.num_heads,
+                                      "decode on the prefill cache")
+    full, _, _ = model_lib.forward(params, {"tokens": toks}, cfg)
+    err_prefill = require_close(last, full[:, prompt - 1], LOGIT_TOL[dt],
+                                "prefill last logits vs forward")
+    err_decode = require_close(logits, full[:, -1], LOGIT_TOL[dt],
+                               "decoded last logits vs forward")
+    del full
+    result = dict(batch=batch, prompt=prompt, decode_steps=extra,
+                  flash_launches=flash_launches,
+                  decode_launches=decode_launches,
+                  max_abs_err_prefill=err_prefill,
+                  max_abs_err_decode=err_decode, logit_tol=LOGIT_TOL[dt],
+                  cache_decode_errs=cache_errs, first_prefill_s=first_s,
+                  decode_step_ms=step_ms)
+    if time_it:
+        sync(device)
+        t0 = time.perf_counter()
+        prefill_step(params, {"tokens": toks[:, :prompt]})
+        sync(device)
+        result["prefill_s"] = time.perf_counter() - t0
+        result["prefill_tokens_per_s"] = batch * prompt / result["prefill_s"]
+        result["decode_ms_per_step_median"] = float(np.median(step_ms))
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        prof = device_profile(
+            lambda: prefill_step(params, {"tokens": toks[:, :prompt]}), 1)
+        prof["idle_share"] = 1 - prof["device_ms"] / (result["prefill_s"]
+                                                      * 1e3)
+        result["prefill_profile"] = prof
+        prof = device_profile(lambda: serve_step(
+            params, toks[:, prompt + extra - 1], caches, lengths), 3)
+        prof["idle_share"] = 1 - (prof["device_ms"]
+                                  / result["decode_ms_per_step_median"])
+        result["decode_profile"] = prof
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: LM serving (ServeEngine decode ticks)
+# ---------------------------------------------------------------------------
+
+def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
+                   crash_at=16, time_it=True):
+    """Admission of a client mix, the admitted requests in slots (the rest
+    idle at length 0), ``ticks`` decode ticks with the host driver crashed
+    at ``crash_at``."""
+    layers = cfg.num_layers if torch.device(device).type == "cuda" else 0
+    if time_it:
+        torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, s_max=s_max, n_slots=n_slots, burst=4.0,
+                      device=device)
+    mix = [0, 0, 0, 0, 0, 0, 1, 2][:n_slots]
+    admitted = eng.admit(mix)
+    want = [True] * 4 + [False] * 2 + [True] * 2
+    if admitted != want[:n_slots]:
+        raise AssertionError(f"admission {admitted}, expected {want}")
+    rng = np.random.RandomState(1)
+    slots = 0
+    for client, ok in zip(mix, admitted):
+        if ok:
+            eng.add_request(slots, client, int(rng.randint(1,
+                                                           cfg.vocab_size)))
+            slots += 1
+    finite = []
+    serve = eng._serve
+
+    def checked_serve(*args):
+        logits, caches = serve(*args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+    eng._serve = checked_serve
+
+    sync(device)
+    reset_launches()
+    per_tick, tick_ms, tokens = [], [], []
+    t_start = time.perf_counter()
+    for tick in range(ticks):
+        if tick == crash_at:
+            eng.crash_host_driver()
+        t0 = time.perf_counter()
+        tokens.append(eng.step())          # reads the tokens back: a sync
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        per_tick.append(read_launches()["decode_partial"])
+    wall = time.perf_counter() - t_start
+    tokens = np.stack(tokens)
+    launches = [b - a for a, b in zip([0] + per_tick[:-1], per_tick)]
+    if launches != [layers] * ticks:
+        raise AssertionError(f"decode_partial launches per tick {launches}, "
+                             f"expected {layers}")
+    if not all(bool(f) for f in finite):
+        raise AssertionError("non-finite logits in a serving tick")
+    if tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
+        raise AssertionError("a sampled token lies outside the vocab")
+    if eng.host_alive() or eng.stats["steps"] != ticks or \
+            eng.stats["tokens"] != slots * ticks:
+        raise AssertionError(f"serving did not continue after the crash: "
+                             f"{eng.stats}")
+    want_lengths = [1 + ticks] * slots + [0] * (n_slots - slots)
+    if eng.lengths.cpu().tolist() != want_lengths:
+        raise AssertionError(f"lengths {eng.lengths.tolist()}")
+    cache_errs = require_cache_decode(eng.caches[-1], eng.lengths,
+                                      cfg.num_heads,
+                                      "decode on the serving cache")
+    result = dict(slots=n_slots, active=slots, s_max=s_max, ticks=ticks,
+                  crash_at=crash_at, admitted=admitted,
+                  decode_launches=per_tick[-1], stats=dict(eng.stats),
+                  cache_decode_errs=cache_errs)
+    if time_it:
+        result["tokens_per_s"] = slots * ticks / wall
+        result["ms_per_tick_mean"] = wall * 1e3 / ticks
+        result["ms_per_tick_median"] = float(np.median(tick_ms))
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        prof = device_profile(eng.step, 3)
+        prof["idle_share"] = 1 - (prof["device_ms"]
+                                  / result["ms_per_tick_median"])
+        result["tick_profile"] = prof
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def random_qkv(device, seed, dtype, b, h, kh, sq, sk, d):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d)
+
+
+def phase_flash_kernel(device, b=4, h=16, kh=8, s=2048, d=128,
+                       time_it=True):
+    rng = np.random.RandomState(3)
+    lengths = torch.from_numpy(np.sort(rng.randint(1, s + 1, b)).astype(
+        np.int32)).to(device)
+    cases = [  # name, (b, sq), kwargs
+        ("causal", (b, s), dict(mode="causal")),
+        ("window", (1, s), dict(mode="causal", window=s // 4)),
+        ("length", (b, 16), dict(mode="length", lengths=lengths)),
+    ]
+    errs = {}
+    for i, (name, (bb, sq), kw) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = random_qkv(device, i, dtype, bb, h, kh, sq, s, d)
+            if "lengths" in kw:
+                kw = dict(kw, lengths=lengths[:bb])
+            got = fa_ops.flash_attention(q, k, v, **kw)
+            want = fa_ref.attention_reference(q, k, v, **kw)
+            errs[f"{name}/{str(dtype)[6:]}"] = require_close(
+                got, want, TOL[dtype], f"flash {name} {dtype}")
+            del got, want
+    result = dict(max_abs_err=errs["causal/bfloat16"], errs=errs,
+                  shape=(b, h, kh, s, s, d), bound_by="operations")
+    q, k, v = random_qkv(device, 0, torch.bfloat16, b, h, kh, s, s, d)
+    flops = 4.0 * b * h * d * s * (s + 1) / 2    # the causal (q, k) pairs
+    nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())     # q, k, v, out
+    result["bound_ms"] = max(flops / BF16_FLOP_PER_S,
+                             nbytes / HBM_BYTES_PER_S) * 1e3
+    if flops / BF16_FLOP_PER_S < nbytes / HBM_BYTES_PER_S:
+        result["bound_by"] = "bytes"
+    if time_it:
+        result["ms"] = cuda_ms(lambda: fa_ops.flash_attention(q, k, v))
+        result["plain_ms"] = cuda_ms(
+            lambda: fa_ref.attention_reference(q, k, v), reps=2)
+        result["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        result["tflop_per_s"] = flops / (result["ms"] * 1e-3) / 1e12
+    return result
+
+
+def require_partial_close(got, want, tol: float, what: str) -> dict:
+    """Hold a decode partial (acc, m, l) to the plain one; returns the max
+    errors.  acc and l both carry the factor exp(-m), and m, a max of dot
+    products rounded in another order, differs from the plain version's by
+    ulps, which moves the un-normalised acc (of size up to l) by more than
+    the limit.  So both are divided by the plain version's l (acc / l is
+    the attention output); m is held as it is."""
+    (acc, m, l), (pa, pm, pl) = got, want
+    unit = pl.clamp(min=1e-30)
+    return dict(
+        acc=require_close(acc / unit, pa / unit, tol, f"{what}: acc / l"),
+        l=require_close(l / unit, pl / unit, tol, f"{what}: l / l"),
+        m=require_close(m, pm, tol, f"{what}: m"))
+
+
+def require_cache_decode(cache, lengths, n_heads: int, what: str) -> dict:
+    """The decode kernel on a layer's cache as the main path left it, at
+    the path's lengths, against its plain version, with a seeded query; a
+    row of length 0 (an idle slot) must give acc 0 and l 0."""
+    k, v = cache["k"], cache["v"]
+    gen = torch.Generator(device=k.device).manual_seed(6)
+    q = torch.randn((k.shape[0], n_heads, 1, k.shape[3]), generator=gen,
+                    device=k.device).to(k.dtype)
+    got = dec_ops.decode_partial(q, k, v, lengths)
+    errs = require_partial_close(
+        got, dec_ref.decode_partial_reference(q, k, v, lengths), DECODE_TOL,
+        what)
+    idle = lengths == 0
+    if bool((got[0][idle] != 0).any() | (got[2][idle] != 0).any()):
+        raise AssertionError(f"{what}: an idle row gives a non-zero partial")
+    errs["idle_rows"] = int(idle.sum())
+    return errs
+
+
+def planted_fault_err(q, k, v, lengths, want, tol: float) -> float:
+    """The check against a faulty partial that read only the first half of
+    each sequence's rows: raises unless the check rejects it, and returns
+    its largest acc / l error."""
+    fault = dec_ref.decode_partial_reference(q, k, v, (lengths + 1) // 2)
+    unit = want[2].clamp(min=1e-30)
+    err = float((fault[0] / unit - want[0] / unit).abs().max())
+    try:
+        require_partial_close(fault, want, tol, "planted fault")
+    except AssertionError:
+        return err
+    raise AssertionError("the decode check passes a partial that dropped "
+                         "half of each sequence's rows")
+
+
+def phase_decode_kernel(device, b=16, h=16, kh=8, s=32768, d=128,
+                        time_it=True):
+    rng = np.random.RandomState(4)
+    ln = rng.randint(1, s + 1, b)
+    ln[0], ln[-1] = 1, s
+    lengths = torch.from_numpy(ln.astype(np.int32)).to(device)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        q, k, v = random_qkv(device, 5, dtype, b, h, kh, 1, s, d)
+        want = dec_ref.decode_partial_reference(q, k, v, lengths)
+        got = dec_ops.decode_partial(q, k, v, lengths)
+        for part, err in require_partial_close(got, want, DECODE_TOL,
+                                               f"decode {dtype}").items():
+            errs[f"{part}/{t}"] = err
+        # two shards of the cache, each with its kpos_offset, combined
+        half = s // 2
+        parts = [dec_ops.decode_partial(
+            q, k[:, :, i * half:(i + 1) * half],
+            v[:, :, i * half:(i + 1) * half], lengths,
+            kpos_offset=i * half) for i in range(2)]
+        errs[f"shards/{t}"] = require_close(
+            dec_ops.combine_partials(parts),
+            want[0] / want[2].clamp(min=1e-30), DECODE_TOL,
+            f"decode 2 shards {dtype}")
+        if dtype == torch.bfloat16:
+            fault_err = planted_fault_err(q, k, v, lengths, want, DECODE_TOL)
+        del got, want, parts
+    visible = int(lengths.clamp(max=s).sum())
+    nbytes = (2.0 * visible * kh * d * k.element_size()   # visible K, V rows
+              + q.numel() * q.element_size() + b * h * (d + 2) * 4)
+    result = dict(max_abs_err=errs["acc/bfloat16"], errs=errs, tol=DECODE_TOL,
+                  planted_fault_err=fault_err, shape=(b, h, kh, s, d),
+                  visible_rows=visible,
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    if time_it:
+        result["ms"] = cuda_ms(lambda: dec_ops.decode_partial(q, k, v,
+                                                              lengths))
+        result["plain_ms"] = cuda_ms(
+            lambda: dec_ref.decode_partial_reference(q, k, v, lengths),
+            reps=2)
+        mask = (torch.arange(s, device=device)[None, None, None, :]
+                < lengths[:, None, None, None])
+        result["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True))
+        result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
+    return result
+
+
+# ---------------------------------------------------------------------------
+# where the LM path's device time goes
+# ---------------------------------------------------------------------------
+
+KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
+                 ("decode_attention", ("decode_kernel",)),
+                 ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+
+
+def device_profile(fn, steps: int) -> dict:
+    """Device time by kernel group over ``steps`` calls of ``fn`` (a
+    torch.profiler trace of the card), per call, and the number of device
+    kernels per call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels += e.count
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in e.key for k in keys)), "other")
+        groups[group] += us / 1e3 / steps
+    return dict(device_ms=sum(groups.values()), by_group_ms=groups,
+                device_ops=kernels / steps)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 KERNELS = (
     # name, phase, source, replaces
-    ("chain_vm.run_managed", "chain_kernel", "src/repro_torch/csrc/chain_vm.cu",
+    ("chain_vm.run_managed", "chain_kernel",
+     "src/repro_torch/csrc/chain_vm.cu",
      "src/repro/kernels/chain_vm/kernel.py:66"),
     ("chain_vm.run_chains", "chain_straight",
      "src/repro_torch/csrc/chain_vm.cu",
@@ -472,7 +903,21 @@ KERNELS = (
     ("hopscotch.hopscotch_lookup", "hopscotch_probe",
      "src/repro_torch/csrc/hopscotch.cu",
      "src/repro/kernels/hopscotch/kernel.py:31"),
+    ("flash_attention.flash_attention", "flash_kernel",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:31"),
+    ("decode_attention.decode_partial", "decode_kernel",
+     "src/repro_torch/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:24"),
 )
+LM_ARCH = "qwen3-1.7b"
+
+
+def run_phase(phases, key, fn):
+    t0 = time.perf_counter()
+    phases[key] = fn()
+    print(f"[{key}] {time.perf_counter() - t0:.1f} s: {phases[key]}",
+          flush=True)
 
 
 def main() -> int:
@@ -480,6 +925,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this test runs on the "
                          "card only")
     device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain float32 is exact
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"[card] {name} | nvidia-smi: {card} | torch {torch.__version__} "
@@ -497,14 +944,32 @@ def main() -> int:
     t0 = time.perf_counter()
     kv_res, kv, dk, dv = phase_kv_get(device)
     print(f"[kv_get] {time.perf_counter() - t0:.1f} s: {kv_res}", flush=True)
-    for key, fn in (("chain_kernel", lambda: phase_chain_kernel(device)),
-                    ("chain_straight", lambda: phase_chain_straight(device)),
-                    ("hopscotch_probe",
-                     lambda: phase_hopscotch_probe(device, kv, dk, dv))):
-        t0 = time.perf_counter()
-        phases[key] = fn()
-        print(f"[{key}] {time.perf_counter() - t0:.1f} s: {phases[key]}",
-              flush=True)
+    run_phase(phases, "chain_kernel", lambda: phase_chain_kernel(device))
+    run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
+    run_phase(phases, "hopscotch_probe",
+              lambda: phase_hopscotch_probe(device, kv, dk, dv))
+    del kv, dk, dv
+
+    cfg = registry.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    sync(device)
+    print(f"[lm] {LM_ARCH}: {sum(p.numel() for p in params.parameters())} "
+          f"parameters ({cfg.dtype}) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    run_phase(phases, "lm_prefill",
+              lambda: phase_lm_prefill(device, cfg, params))
+    run_phase(phases, "lm_serve", lambda: phase_lm_serve(device, cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    run_phase(phases, "flash_kernel", lambda: phase_flash_kernel(device))
+    torch.cuda.empty_cache()
+    run_phase(phases, "decode_kernel", lambda: phase_decode_kernel(device))
+    # the attention kernels' launches are those of the LM path's drives
+    phases["flash_kernel"]["launches"] = phases["lm_prefill"][
+        "flash_launches"]
+    phases["decode_kernel"]["launches"] = phases["lm_serve"][
+        "decode_launches"]
 
     rows = []
     for kname, phase, source, replaces in KERNELS:
@@ -514,11 +979,13 @@ def main() -> int:
         rows.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes",
-            library_ms=None))
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r.get("bound_by", "bytes"),
+            library_ms=r.get("library_ms")))
         print(f"[times] {kname} ({card}): {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"shape {r['shape']}", flush=True)
+              f"library {r.get('library_ms')}, shape {r['shape']}",
+              flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

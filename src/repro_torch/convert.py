@@ -1,9 +1,8 @@
 """Carry state over from the JAX package, given as numpy arrays.
 
-The port holds no weights; its state is the chain VM's machines and the
-store's tables.  These functions build the port's objects from the JAX
-package's, passed across as plain numpy arrays and tuples, so that both
-packages can run from the same state:
+These functions build the port's objects from the JAX package's, passed
+across as plain numpy arrays and tuples, so that both packages can run
+from the same state:
 
 * :func:`spec_from_tuple` — a ``MachineSpec`` (any 6-tuple in its field
   order) to the port's :class:`~repro_torch.core.machine.MachineSpec`;
@@ -12,11 +11,20 @@ packages can run from the same state:
   :func:`vmstate_to_numpy` back;
 * :func:`kv_from_numpy` — the ``(keys (S, n), vals (S, n, V))`` pair of
   ``ShardedKV.device_arrays()`` to the port's
-  :class:`~repro_torch.kvstore.store.ShardedKV`.
+  :class:`~repro_torch.kvstore.store.ShardedKV`;
+* :func:`lm_params_from_numpy` — the LM's parameter tree (numpy leaves;
+  bfloat16 leaves as the ``bfloat16`` numpy type JAX hands out, or as
+  float32) to the port's :class:`~repro_torch.models.model.Model`;
+* :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy` — the KV caches
+  between the JAX layout ``{"groups": [per pattern position, stacked over
+  groups], "rem": [...]}`` and the port's list of one {'k','v'} per layer.
+
+Layer ``g * pattern_len + pos`` of the port is group ``g`` of the JAX
+package's ``groups[pos]``; the ``rem`` layers follow.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -25,6 +33,8 @@ from . import device as device_mod
 from .core.machine import MachineSpec, VMState
 from .kvstore import hopscotch
 from .kvstore.store import ShardedKV
+from .models import model as model_lib
+from .models.config import ModelConfig
 
 _VM_DTYPES = dict(last_comp_time=np.float32, clock=np.float32,
                   halted=np.bool_)
@@ -66,3 +76,89 @@ def kv_from_numpy(keys: np.ndarray, vals: np.ndarray,
                                        neighborhood)
               for s in range(keys.shape[0])]
     return ShardedKV(tables, keys.shape[0], vals.shape[2], neighborhood)
+
+
+# --- the LM ------------------------------------------------------------------
+
+def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A numpy array (float32, or numpy's ``bfloat16`` extension type) as a
+    tensor of ``dtype``; bfloat16 goes through float32, which is exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(dev, dtype)
+
+
+def _layer_trees(stack: Mapping, cfg: ModelConfig) -> List[Mapping]:
+    """The per-layer trees of a JAX ``{"groups", "rem"}`` stack, in layer
+    order."""
+    out: List = [None] * cfg.num_layers
+    p_len = cfg.pattern_len
+    for pos, tree in enumerate(stack["groups"] or []):
+        for g in range(cfg.n_groups):
+            out[g * p_len + pos] = _index(tree, g)
+    for i, tree in enumerate(stack["rem"]):
+        out[cfg.n_groups * p_len + i] = tree
+    return out
+
+
+def _index(tree, g: int):
+    if isinstance(tree, Mapping):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return np.asarray(tree)[g]
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device=None) -> model_lib.Model:
+    """The JAX package's LM parameters (a tree of numpy arrays) as the
+    port's ``Model`` on ``device``, value for value."""
+    dev = device_mod.resolve(device)
+    m = model_lib.Model(cfg, dev)
+    named = dict(m.named_parameters())
+    flat = {"embed.embedding": tree["embed"]["embedding"],
+            "final_norm": tree["final_norm"]}
+    if "lm_head" in tree["embed"]:
+        flat["embed.lm_head"] = tree["embed"]["lm_head"]
+    for i, layer in enumerate(_layer_trees(tree["decoder"], cfg)):
+        for part in ("norm1", "norm2"):
+            flat[f"decoder.{i}.{part}"] = layer[part]
+        for part in ("attn", "ffn"):
+            for name, a in layer[part].items():
+                flat[f"decoder.{i}.{part}.{name}"] = a
+    if set(flat) != set(named):
+        raise ValueError(f"parameter trees differ: only in JAX "
+                         f"{sorted(set(flat) - set(named))}, only in the "
+                         f"port {sorted(set(named) - set(flat))}")
+    with torch.no_grad():
+        for name, a in flat.items():
+            t = named[name]
+            if tuple(np.shape(a)) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {np.shape(a)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(_tensor(a, t.dtype, dev))
+    return m
+
+
+def lm_cache_from_numpy(tree: Mapping, cfg: ModelConfig,
+                        device=None) -> List[Dict[str, torch.Tensor]]:
+    """A JAX ``{"groups", "rem"}`` cache tree (numpy leaves) as the port's
+    list of one {'k','v'} per layer, in the model's dtype."""
+    dev = device_mod.resolve(device)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return [{name: _tensor(layer[name], dt, dev) for name in ("k", "v")}
+            for layer in _layer_trees(tree, cfg)]
+
+
+def lm_cache_to_numpy(caches, cfg: ModelConfig) -> Dict:
+    """The port's per-layer caches as the JAX ``{"groups", "rem"}`` layout,
+    float32 numpy arrays (bfloat16 widens exactly)."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    p_len, n_groups = cfg.pattern_len, cfg.n_groups
+    groups = [{name: np.stack([arr(caches[g * p_len + pos][name])
+                               for g in range(n_groups)])
+               for name in ("k", "v")} for pos in range(p_len)]
+    rem = [{name: arr(caches[n_groups * p_len + i][name])
+            for name in ("k", "v")} for i in range(cfg.n_rem)]
+    return {"groups": groups, "rem": rem}

@@ -7,4 +7,8 @@ kernel (``csrc/<name>.cu``, built by :mod:`._build`) for CUDA tensors.
 * ``chain_vm`` — batches of single-WQ chains, one client context per block
   (managed WQ and straight-line forms).
 * ``hopscotch`` — the batched hopscotch get, one thread per query.
+* ``flash_attention`` — blocked online-softmax attention, forward, one
+  block per (query tile, head, batch row).
+* ``decode_attention`` — the flash-decode partial of one query token,
+  one block per (KV head, batch row).
 """

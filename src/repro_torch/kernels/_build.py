@@ -20,9 +20,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chain_vm", "hopscotch")
+SOURCES = ("chain_vm", "hopscotch", "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# what the attention kernels take: element types (their codes in the C
+# interface) and head dims
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -94,3 +99,32 @@ def pointer(t) -> ctypes.c_void_p:
 
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def kernel_input(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_attention_inputs(q, k, v, what: str) -> None:
+    """Raise unless q (B, H, Sq, D), k/v (B, KH, Sk, D) are CUDA tensors of
+    one supported type with a supported head dim and H % KH == 0."""
+    if q.device.type != "cuda":
+        raise ValueError(f"q on {q.device}: the {what} kernel runs on CUDA "
+                         "tensors (CPU tensors take the plain path)")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"expected q (B, H, Sq, D), k and v (B, KH, Sk, D);"
+                         f" got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what} takes float32 or bfloat16 q, k, v of one "
+                         f"type; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"{q.shape[1]} query heads do not group over "
+                         f"{k.shape[1]} KV heads")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")

@@ -1,0 +1,89 @@
+"""Blocks and the layer stack.
+
+The stack is an ``nn.ModuleList`` of blocks run in a Python loop; layer i
+has kind ``cfg.layer_type(i)``.  (The JAX package stacks parameters by
+pattern group and scans over the groups; ``repro_torch.convert`` maps its
+layout onto this one.)  Caches are a list with one {'k','v'} per layer.
+This slice holds the attention kinds with a dense FFN; RWKV, recurrent,
+MoE and cross-attention blocks raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from . import attention, layers
+
+ATTN_KINDS = ("global", "local", "nope")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, kind: str, device):
+        super().__init__()
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(f"{kind!r} blocks are not ported yet")
+        if cfg.is_moe:
+            raise NotImplementedError("MoE blocks are not ported yet")
+        if cfg.cross_attention:
+            raise NotImplementedError("cross-attention is not ported yet")
+        self.kind = kind
+        self.norm1 = layers.param((cfg.d_model,), torch.float32, device)
+        self.norm2 = layers.param((cfg.d_model,), torch.float32, device)
+        self.attn = attention.Attention(cfg, device)
+        self.ffn = layers.FFN(cfg, device)
+
+
+def init_block(p: Block, cfg, gen: torch.Generator) -> None:
+    p.norm1.zero_()
+    p.norm2.zero_()
+    attention.init_attention(p.attn, cfg, gen)
+    layers.init_ffn(p.ffn, cfg, gen)
+
+
+def apply_block(p: Block, x, cfg, *, return_cache: bool = False,
+                s_max: Optional[int] = None):
+    """Returns (x, cache or None).  (The JAX block also returns the MoE
+    auxiliary loss, which is 0 without MoE.)"""
+    h = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+    o, cache = attention.apply_attention(
+        p.attn, h, cfg, p.kind, return_cache=return_cache, s_max=s_max)
+    x = x + o
+    h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
+    return x + layers.apply_ffn(p.ffn, h2, cfg), cache
+
+
+def apply_block_decode(p: Block, x, cfg, cache: Dict, *, lengths):
+    """One-token decode. Returns (x, cache), the cache updated in place."""
+    h = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+    o, cache = attention.apply_attention_decode(p.attn, h, cfg, p.kind,
+                                                cache, lengths=lengths)
+    x = x + o
+    h2 = layers.rms_norm(x, p.norm2, cfg.norm_eps)
+    return x + layers.apply_ffn(p.ffn, h2, cfg), cache
+
+
+def make_stack(cfg, n_layers: int, device) -> nn.ModuleList:
+    return nn.ModuleList(Block(cfg, cfg.layer_type(i), device)
+                         for i in range(n_layers))
+
+
+def apply_stack(stack: nn.ModuleList, x, cfg, *, return_cache: bool = False,
+                s_max: Optional[int] = None):
+    """Returns (x, caches (a list per layer) or None)."""
+    caches: List[Dict] = []
+    for blk in stack:
+        x, c = apply_block(blk, x, cfg, return_cache=return_cache,
+                           s_max=s_max)
+        caches.append(c)
+    return x, (caches if return_cache else None)
+
+
+def apply_stack_decode(stack: nn.ModuleList, x, cfg, caches: List[Dict], *,
+                       lengths):
+    new_caches = []
+    for blk, c in zip(stack, caches, strict=True):
+        x, c = apply_block_decode(blk, x, cfg, c, lengths=lengths)
+        new_caches.append(c)
+    return x, new_caches

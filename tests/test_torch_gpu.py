@@ -1,7 +1,9 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
-version on the same inputs (exact, int32), and the interpreter on the card
-against the interpreter on the CPU.  They skip without a card.  On the
-card (which has no JAX, so nothing here imports it):
+version on the same inputs (exact for the int32 kernels; the flash kernel
+at test_kernels.py's tolerances, 2e-5 in float32 and 2e-2 in bfloat16; the
+decode partial at 2e-5 in both types), and the interpreter on the card against the interpreter on the
+CPU.  They skip without a card.  On the card (which has no JAX, so nothing
+here imports it):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -12,10 +14,16 @@ import torch
 from repro_torch.core import isa, machine
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention import ref as dec_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.hopscotch import ops as hop_ops
 from repro_torch.kvstore import hopscotch
 
 pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -126,3 +134,117 @@ def test_interpreter_on_the_card_matches_the_cpu(cuda):
         spec, machine.VMState(*(a.to(cuda) for a in batch)), 200)
     for name, g, w in zip(machine.VMState._fields, got, want):
         assert torch.equal(g.cpu(), w), name
+
+
+# --- attention kernels -------------------------------------------------------
+
+def _qkv(cuda, seed, dtype, b, h, kh, sq, sk, d):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    return rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d)
+
+
+def _close(got, want, dtype, what):
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype], msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_kernel_matches_plain(cuda, dtype, d):
+    # tails: 200 and 333 are not multiples of the 64- or 32-row tiles
+    b, h, kh = 2, 4, 2
+    lengths = torch.tensor([1, 150], dtype=torch.int32, device=cuda)
+    cases = [  # (sq, sk, kwargs)
+        (200, 200, dict(mode="causal")),
+        (200, 200, dict(mode="causal", window=37)),
+        (77, 333, dict(mode="causal", q_offset=256)),
+        (77, 333, dict(mode="causal", window=64, q_offset=200)),
+        (3, 200, dict(mode="length", lengths=lengths)),
+        (3, 200, dict(mode="length", lengths=lengths, window=50)),
+        (130, 333, dict(mode="full")),
+    ]
+    for i, (sq, sk, kw) in enumerate(cases):
+        q, k, v = _qkv(cuda, i, dtype, b, h, kh, sq, sk, d)
+        before = fa_ops.launches["flash_attention"]
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = fa_ref.attention_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa_ops.launches["flash_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        _close(got, want, dtype, f"{kw}")
+
+
+def test_flash_kernel_gqa_groups_and_scale(cuda):
+    for kh in (1, 2, 4):
+        q, k, v = _qkv(cuda, kh, torch.bfloat16, 1, 8, kh, 160, 160, 128)
+        got = fa_ops.flash_attention(q, k, v, scale=0.05)
+        want = fa_ref.attention_reference(q, k, v, scale=0.05)
+        _close(got, want, torch.bfloat16, f"KH={kh}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_decode_kernel_matches_plain(cuda, dtype, d):
+    b, s = 5, 700
+    # an idle row (0), rows before, inside and past the shard at offset 128
+    lengths = torch.tensor([0, 1, 129, 600, 828], dtype=torch.int32,
+                           device=cuda)
+    for h, kh in ((8, 8), (8, 4), (8, 2), (12, 4), (16, 1)):
+        q, k, v = _qkv(cuda, h + kh, dtype, b, h, kh, 1, s, d)
+        for kw in (dict(), dict(window=100), dict(kpos_offset=128),
+                   dict(window=300, kpos_offset=128)):
+            before = dec_ops.launches["decode_partial"]
+            got = dec_ops.decode_partial(q, k, v, lengths, **kw)
+            want = dec_ref.decode_partial_reference(q, k, v, lengths, **kw)
+            torch.cuda.synchronize()
+            assert dec_ops.launches["decode_partial"] == before + 1
+            # both sides read the same inputs and accumulate in float32, so
+            # bf16 is held at the float32 limit too
+            for g, w, name in zip(got, want, ("acc", "m", "l")):
+                assert g.dtype == torch.float32
+                _close(g, w, torch.float32, f"H={h} KH={kh} {kw} {name}")
+            acc, m, l = got
+            if not kw:      # the idle row: zeros, -1e30, no NaN
+                assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
+                assert torch.all(m[0] == dec_ref.NEG_INF)
+                out = dec_ops.decode_attention(q, k, v, lengths)
+                assert torch.isfinite(out).all() and torch.all(out[0] == 0)
+
+
+def test_decode_shards_combine_on_the_card(cuda):
+    q, k, v = _qkv(cuda, 9, torch.float32, 3, 8, 2, 1, 1024, 128)
+    lengths = torch.tensor([1, 700, 1024], dtype=torch.int32, device=cuda)
+    want = dec_ref.decode_reference(q, k, v, lengths)
+    for n in (2, 4, 8):
+        w = 1024 // n
+        parts = [dec_ops.decode_partial(q, k[:, :, i * w:(i + 1) * w],
+                                        v[:, :, i * w:(i + 1) * w], lengths,
+                                        kpos_offset=i * w) for i in range(n)]
+        _close(dec_ops.combine_partials(parts), want, torch.float32, f"{n}")
+
+
+def test_attention_kernels_reject_and_raise(cuda):
+    q, k, v = _qkv(cuda, 0, torch.float32, 1, 2, 1, 4, 4, 48)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dim 48"):
+        dec_ops.decode_partial(q[:, :, :1], k, v,
+                               torch.ones(1, dtype=torch.int32, device=cuda))
+    q, k, v = _qkv(cuda, 0, torch.float16, 1, 2, 1, 4, 4, 32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_ops.flash_attention(q, k, v)
+    # a launch the card refuses (a grid dimension past 65,535) raises, and
+    # is not counted: there is no fallback to the plain version
+    q, k, v = _qkv(cuda, 0, torch.float32, 65536, 1, 1, 1, 1, 32)
+    lengths = torch.ones(65536, dtype=torch.int32, device=cuda)
+    before = (fa_ops.launches["flash_attention"],
+              dec_ops.launches["decode_partial"])
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        fa_ops.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="decode_partial launch failed"):
+        dec_ops.decode_partial(q, k, v, lengths)
+    assert (fa_ops.launches["flash_attention"],
+            dec_ops.launches["decode_partial"]) == before

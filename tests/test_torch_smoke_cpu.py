@@ -8,6 +8,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import registry
+from repro_torch.models import model as model_lib
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -55,6 +58,50 @@ def test_phase_hopscotch_probe_cpu(smoke, small_store):
     assert r["bound_ms"] > 0
 
 
+@pytest.fixture(scope="module")
+def smoke_lm():
+    cfg = registry.smoke_config("qwen3-1.7b")
+    return cfg, model_lib.init_params(cfg, seed=0, device="cpu")
+
+
+def test_phase_lm_prefill_cpu(smoke, smoke_lm):
+    cfg, params = smoke_lm
+    r = smoke.phase_lm_prefill("cpu", cfg, params, batch=2, prompt=12,
+                               extra=3, time_it=False)
+    assert r["flash_launches"] == r["decode_launches"] == 0   # plain path
+    assert r["max_abs_err_decode"] <= r["logit_tol"] == 2e-3
+    assert len(r["decode_step_ms"]) == 3
+    assert r["cache_decode_errs"]["idle_rows"] == 0
+
+
+def test_phase_lm_serve_cpu(smoke, smoke_lm):
+    cfg, params = smoke_lm
+    r = smoke.phase_lm_serve("cpu", cfg, params, s_max=48, n_slots=8,
+                             ticks=6, crash_at=3, time_it=False)
+    assert r["admitted"] == [True] * 4 + [False] * 2 + [True] * 2
+    assert r["active"] == 6 and r["stats"]["throttled"] == 2
+    assert r["stats"] == dict(steps=6, tokens=36, throttled=2)
+    assert r["cache_decode_errs"]["idle_rows"] == 2     # the idle slots
+
+
+def test_phase_flash_kernel_cpu(smoke):
+    r = smoke.phase_flash_kernel("cpu", b=2, h=4, kh=2, s=96, d=32,
+                                 time_it=False)
+    assert set(r["errs"]) == {f"{c}/{t}" for c in ("causal", "window",
+                                                    "length")
+                              for t in ("bfloat16", "float32")}
+    assert r["max_abs_err"] == 0          # the CPU compares plain to plain
+    assert r["bound_ms"] > 0
+
+
+def test_phase_decode_kernel_cpu(smoke):
+    r = smoke.phase_decode_kernel("cpu", b=3, h=4, kh=2, s=64, d=32,
+                                  time_it=False)
+    assert r["errs"]["shards/float32"] < r["tol"]
+    assert r["planted_fault_err"] > 100 * r["tol"]    # the check rejects it
+    assert r["visible_rows"] > 0 and r["bound_ms"] > 0
+
+
 def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
@@ -64,6 +111,7 @@ def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
+    assert len(smoke.KERNELS) == 5
     for name, _, source, replaces in smoke.KERNELS:
         assert (ROOT / source).is_file(), source
         path, line = replaces.split(":")

@@ -1,13 +1,13 @@
-"""Chip smoke test: drive the PyTorch/CUDA port's two paths on one card —
-the RedN GET path and the LM serving path (qwen3-1.7b prefill and
-ServeEngine decode).
+"""Chip smoke test: drive the PyTorch/CUDA port's paths on one card — the
+RedN GET path and the LM serving paths (qwen3-1.7b, rwkv6-7b and
+recurrentgemma-9b prefill, decode and ServeEngine ticks).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs nine phases and
+``nvcc`` per source, all started together), then runs thirteen phases and
 raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build.
@@ -38,7 +38,10 @@ raises on any mismatch:
                          decode kernel is then held against its plain
                          version on a layer's cache as the drive left it,
                          at the drive's lengths (idle slots' zeros
-                         included).
+                         included).  Then ``lm_float32``: the weights cast
+                         to float32, the ``lm_prefill`` drive again at
+                         2e-3, its ``forward`` the witness of the bf16
+                         decode (``decode_witness``).
 8. ``flash_kernel``    — the flash-attention kernel against its plain
                          version at the prefill shape (causal), windowed
                          and in length mode, float32 and bfloat16.
@@ -47,18 +50,43 @@ raises on any mismatch:
                          [1, S], whole and as two ``kpos_offset`` shards;
                          and in float32.  A planted fault (half of each
                          sequence's rows dropped) must fail the check.
+10. ``lm_rwkv``        — rwkv6-7b at full width and depth (32 RWKV6 layers,
+                         d 4,096, bf16, seeded random weights): the
+                         ``lm_prefill`` drive (one WKV6 launch per layer),
+                         then 16 ``ServeEngine`` ticks (8 slots, crash at
+                         tick 8).  The WKV6 kernel is then held against the
+                         plain scan and a float64 scan on layer 0's own
+                         (r, k, v, w, u) from the drive, whose decays
+                         include channels below the chunked form's range.
+                         Then control drives, each with a fault planted in
+                         the decode steps' recurrent state, and
+                         ``lm_float32``, whose witness must pass the bf16
+                         decode and fail each control.
+11. ``lm_griffin``     — recurrentgemma-9b at full width and depth (26
+                         recurrent layers, one RG-LRU launch each, and 12
+                         local-attention layers, head dim 256, 16 query
+                         heads on 1 KV head, window 2,048), s_max 4,096:
+                         the same drives; the window binds on the last
+                         rows.  The decode kernel is held on a local
+                         layer's cache as the drive left it.
+12. ``wkv6_kernel``    — the WKV6 kernel against its plain scan at the
+                         prefill shape, at a T that is not a multiple of 32
+                         and at T = 1, bfloat16 and float32.
+13. ``rglru_kernel``   — the RG-LRU kernel likewise.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
 timing launches come after.  The int32 kernels are exact (tolerance 0);
 the flash kernel is held at 2e-5 (float32) and 2e-2 (bfloat16),
-test_kernels.py's tolerances, and the decode partial at DECODE_TOL in
-both types.  The last lines are the kernels' JSON, the
+test_kernels.py's tolerances, the decode partial at DECODE_TOL in
+both types, the recurrences at REC_TOL and their float32 final states at
+STATE_TOL.  The last lines are the kernels' JSON, the
 card line from ``nvidia-smi`` and the result line.  Without a CUDA card,
 or outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -71,6 +99,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory bandwidth (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12             # H100 SXM float32 peak, no tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py's
 # Last logits of prefill + decode against one forward over the same tokens
 # (different shapes, so different bf16 roundings): bf16 keeps 8 significant
@@ -78,7 +107,10 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py's
 # flips accumulate over 28 layers.  The logits' std is 0.02 * sqrt(2048),
 # ~0.9, at these init scales; 1/8 of that unit scale bounds the rounding,
 # while a wrong cache or mask moves logits by O(1).  Float32 (the CPU
-# rehearsal) keeps test_system.py's 2e-3.
+# rehearsal) keeps test_system.py's 2e-3.  qwen3's decoded logits are held
+# to it; the recurrent models' bf16 prefill logits are, but their decode
+# departs further (PERF.md), and every model's decode is held by
+# ``decode_witness`` instead.
 LOGIT_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.125}
 # The decode partial against its plain version, in either type: both read
 # the same inputs and accumulate in float32, so the limit is set from the
@@ -86,6 +118,23 @@ LOGIT_TOL = {torch.float32: 2e-3, torch.bfloat16: 0.125}
 # cache), not from bf16's precision.  A dropped half of each sequence's
 # rows moves acc / l by orders of magnitude more (PERF.md).
 DECODE_TOL = 1e-5
+# The recurrences' outputs against their plain scans (and a float64 scan):
+# test_kernels.py's tolerances; the final states are float32 in either
+# input type and are held at the float32 limit.
+REC_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+STATE_TOL = 5e-5
+# The bf16 decode witness: bf16 decoded logits against float32 ``forward``
+# on the same weights may be WITNESS_K times as far from it as bf16
+# ``forward`` is on the same rows (the bf16 rounding floor of the model at
+# this depth).  Sound runs read 1.007-1.052 of it and the control runs,
+# each with one STATE_FAULTS fault planted in the decode step's recurrent
+# state, 6.09-11.1 (H100, full width and depth; PERF.md).  A fault of one
+# bf16 rounding reads as the floor: the CPU tests hold those casts.
+WITNESS_K = 2.0
+STATE_FAULTS = ("stale", "zero")
+# A WKV6 channel whose decay over a 32-step chunk falls below the chunked
+# form's 1e-30 clamp: 32 |log w| > 69 (w < ~0.115).
+CHUNK_LOG_RANGE = 69.0
 
 
 def _import_port():
@@ -110,8 +159,15 @@ from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.hopscotch import ops as hop_ops  # noqa: E402
+from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.rglru import ref as rg_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.kvstore import hopscotch, store  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import rwkv  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.rdma import transport  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
@@ -144,7 +200,7 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 LAUNCH_COUNTS = (chain_ops.launches, hop_ops.launches, fa_ops.launches,
-                 dec_ops.launches)
+                 dec_ops.launches, wkv_ops.launches, rg_ops.launches)
 
 
 def reset_launches():
@@ -540,17 +596,53 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
 # phase 6: LM prefill (and decode continuing it)
 # ---------------------------------------------------------------------------
 
-def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
-                     time_it=True):
+def path_launches(cfg, device):
+    """The kernel launches one prefill and one decode step of ``cfg``'s
+    model make: a flash-attention launch per attention layer, a WKV6 launch
+    per RWKV6 layer, an RG-LRU launch per recurrent layer, and a decode
+    launch per attention layer and step (none on the CPU, where the plain
+    versions run)."""
+    kinds = [cfg.layer_type(i) for i in range(cfg.num_layers)]
+    n_attn = sum(k in transformer.ATTN_KINDS for k in kinds)
+    on = int(torch.device(device).type == "cuda")
+    prefill = {"flash_attention": on * n_attn,
+               "wkv6": on * kinds.count("rwkv"),
+               "rglru": on * kinds.count("recurrent")}
+    return prefill, {"decode_partial": on * n_attn}
+
+
+def require_launches(want: dict, what: str) -> dict:
+    got = read_launches()
+    got = {k: got[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+    return got
+
+
+def last_attention_cache(cfg, caches):
+    """The last attention layer's cache and its window (None if the model
+    has no attention layer)."""
+    for i in reversed(range(cfg.num_layers)):
+        kind = cfg.layer_type(i)
+        if kind in transformer.ATTN_KINDS:
+            return caches[i], cfg.window if kind == "local" else 0
+    return None, 0
+
+
+def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
+             time_it=True):
     """The prompt pass of ``batch`` seeded prompts, then ``extra`` decode
-    steps continuing them; the last logits against ``forward`` over the
-    whole ``prompt + extra`` tokens."""
-    layers = cfg.num_layers if torch.device(device).type == "cuda" else 0
+    steps continuing them, and one ``forward`` over the whole ``prompt +
+    extra`` tokens; the prefill's last logits are held against it.  Returns
+    (the result, {"tokens", "decoded" (B, extra, V), "forward" (the same
+    rows of ``forward``)}, both float32)."""
+    want_prefill, want_step = path_launches(cfg, device)
     dt = params.embed.embedding.dtype
     rng = np.random.RandomState(0)
     toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (
         batch, prompt + extra)).astype(np.int32)).to(device)
-    prefill_step = train_loop.make_prefill_step(cfg, s_max=prompt + 64)
+    prefill_step = train_loop.make_prefill_step(cfg,
+                                                s_max=s_max or prompt + 64)
     serve_step = train_loop.make_serve_step(cfg)
     if time_it:
         torch.cuda.reset_peak_memory_stats()
@@ -560,11 +652,8 @@ def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
     last, caches, lengths = prefill_step(params, {"tokens": toks[:, :prompt]})
     sync(device)
     first_s = time.perf_counter() - t0
-    flash_launches = read_launches()["flash_attention"]
-    if flash_launches != layers:
-        raise AssertionError(f"prefill launched flash_attention "
-                             f"{flash_launches} times, expected {layers}")
-    step_ms = []
+    prefill_launches = require_launches(want_prefill, "the prefill")
+    step_ms, decoded = [], []
     reset_launches()
     for i in range(extra):
         t0 = time.perf_counter()
@@ -573,26 +662,27 @@ def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
                                     lengths)
         sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    decode_launches = read_launches()["decode_partial"]
-    if decode_launches != layers * extra:
-        raise AssertionError(f"{extra} decode steps launched decode_partial "
-                             f"{decode_launches} times, expected "
-                             f"{layers * extra}")
+        decoded.append(logits.float())
+    decode_launches = require_launches(
+        {k: n * extra for k, n in want_step.items()},
+        f"{extra} decode steps")["decode_partial"]
     if logits.shape != (batch, cfg.padded_vocab):
         raise AssertionError(f"decode logits {tuple(logits.shape)}")
-    cache_errs = require_cache_decode(caches[-1], lengths, cfg.num_heads,
-                                      "decode on the prefill cache")
+    cache, window = last_attention_cache(cfg, caches)
+    cache_errs = None if cache is None else require_cache_decode(
+        cache, lengths, cfg.num_heads, "decode on the prefill cache",
+        window=window)
     full, _, _ = model_lib.forward(params, {"tokens": toks}, cfg)
     err_prefill = require_close(last, full[:, prompt - 1], LOGIT_TOL[dt],
                                 "prefill last logits vs forward")
-    err_decode = require_close(logits, full[:, -1], LOGIT_TOL[dt],
-                               "decoded last logits vs forward")
+    rows = dict(tokens=toks, decoded=torch.stack(decoded, 1),
+                forward=full[:, prompt:].float().clone())
     del full
     result = dict(batch=batch, prompt=prompt, decode_steps=extra,
-                  flash_launches=flash_launches,
+                  prefill_launches=prefill_launches,
+                  flash_launches=prefill_launches["flash_attention"],
                   decode_launches=decode_launches,
-                  max_abs_err_prefill=err_prefill,
-                  max_abs_err_decode=err_decode, logit_tol=LOGIT_TOL[dt],
+                  max_abs_err_prefill=err_prefill, logit_tol=LOGIT_TOL[dt],
                   cache_decode_errs=cache_errs, first_prefill_s=first_s,
                   decode_step_ms=step_ms)
     if time_it:
@@ -614,7 +704,61 @@ def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
         prof["idle_share"] = 1 - (prof["device_ms"]
                                   / result["decode_ms_per_step_median"])
         result["decode_profile"] = prof
+    return result, rows
+
+
+def phase_lm_prefill(device, cfg, params, batch=4, prompt=2048, extra=8,
+                     s_max=None, time_it=True):
+    """``lm_drive``, with the last decoded logits also held against
+    ``forward`` at LOGIT_TOL.  The drive's rows are kept under "rows"."""
+    result, rows = lm_drive(device, cfg, params, batch, prompt, extra, s_max,
+                            time_it)
+    result["max_abs_err_decode"] = require_close(
+        rows["decoded"][:, -1], rows["forward"][:, -1], result["logit_tol"],
+        "decoded last logits vs forward")
+    result["rows"] = rows
     return result
+
+
+def decoded_rows(cfg, params, toks, prompt: int, s_max: int):
+    """Prefill ``toks[:, :prompt]``, decode the rest; the decoded logits
+    (B, steps, V) float32."""
+    last, caches, lengths = train_loop.make_prefill_step(cfg, s_max=s_max)(
+        params, {"tokens": toks[:, :prompt]})
+    serve_step = train_loop.make_serve_step(cfg)
+    out = []
+    for i in range(prompt, toks.shape[1]):
+        lengths = lengths + 1
+        logits, caches = serve_step(params, toks[:, i], caches, lengths)
+        out.append(logits.float())
+    return torch.stack(out, 1)
+
+
+class planted_state_fault:
+    """A decode fault planted for a control run: each one-token recurrence
+    step (WKV6's and RG-LRU's) hands on ``kind`` of state instead of the
+    one it computed: "stale" the state it was given, "zero" zeros."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def _plant(self, fn):
+        def step(*args):
+            out, new = fn(*args)
+            new = args[-1] if self.kind == "stale" else torch.zeros_like(new)
+            return out, new
+        return step
+
+    def __enter__(self):
+        self.saved = [(m, m.__dict__[n]) for m, n in (
+            (wkv_ops, "wkv6_decode_step"), (rg_ops, "rglru_decode_step"))]
+        for m, fn in self.saved:
+            setattr(m, fn.__name__, self._plant(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in self.saved:
+            setattr(m, fn.__name__, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +770,7 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
     """Admission of a client mix, the admitted requests in slots (the rest
     idle at length 0), ``ticks`` decode ticks with the host driver crashed
     at ``crash_at``."""
-    layers = cfg.num_layers if torch.device(device).type == "cuda" else 0
+    layers = path_launches(cfg, device)[1]["decode_partial"]
     if time_it:
         torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, s_max=s_max, n_slots=n_slots, burst=4.0,
@@ -680,9 +824,10 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
     want_lengths = [1 + ticks] * slots + [0] * (n_slots - slots)
     if eng.lengths.cpu().tolist() != want_lengths:
         raise AssertionError(f"lengths {eng.lengths.tolist()}")
-    cache_errs = require_cache_decode(eng.caches[-1], eng.lengths,
-                                      cfg.num_heads,
-                                      "decode on the serving cache")
+    cache, window = last_attention_cache(cfg, eng.caches)
+    cache_errs = None if cache is None else require_cache_decode(
+        cache, eng.lengths, cfg.num_heads, "decode on the serving cache",
+        window=window)
     result = dict(slots=n_slots, active=slots, s_max=s_max, ticks=ticks,
                   crash_at=crash_at, admitted=admitted,
                   decode_launches=per_tick[-1], stats=dict(eng.stats),
@@ -767,22 +912,26 @@ def require_partial_close(got, want, tol: float, what: str) -> dict:
         m=require_close(m, pm, tol, f"{what}: m"))
 
 
-def require_cache_decode(cache, lengths, n_heads: int, what: str) -> dict:
+def require_cache_decode(cache, lengths, n_heads: int, what: str,
+                         window: int = 0) -> dict:
     """The decode kernel on a layer's cache as the main path left it, at
-    the path's lengths, against its plain version, with a seeded query; a
-    row of length 0 (an idle slot) must give acc 0 and l 0."""
+    the path's lengths and window, against its plain version, with a
+    seeded query; a row of length 0 (an idle slot) must give acc 0 and
+    l 0."""
     k, v = cache["k"], cache["v"]
     gen = torch.Generator(device=k.device).manual_seed(6)
     q = torch.randn((k.shape[0], n_heads, 1, k.shape[3]), generator=gen,
                     device=k.device).to(k.dtype)
-    got = dec_ops.decode_partial(q, k, v, lengths)
+    got = dec_ops.decode_partial(q, k, v, lengths, window=window)
     errs = require_partial_close(
-        got, dec_ref.decode_partial_reference(q, k, v, lengths), DECODE_TOL,
+        got, dec_ref.decode_partial_reference(q, k, v, lengths,
+                                              window=window), DECODE_TOL,
         what)
     idle = lengths == 0
     if bool((got[0][idle] != 0).any() | (got[2][idle] != 0).any()):
         raise AssertionError(f"{what}: an idle row gives a non-zero partial")
     errs["idle_rows"] = int(idle.sum())
+    errs["window"] = window
     return errs
 
 
@@ -852,11 +1001,211 @@ def phase_decode_kernel(device, b=16, h=16, kh=8, s=32768, d=128,
 
 
 # ---------------------------------------------------------------------------
+# phases 10-11: the recurrent LM paths (rwkv6-7b, recurrentgemma-9b)
+# ---------------------------------------------------------------------------
+
+def check_wkv6_layer(r, k, v, w, u) -> dict:
+    """The WKV6 kernel on one layer's own inputs against the plain float32
+    scan and a float64 scan; the errors, also on the state rows of the
+    channels whose decay over a 32-step chunk leaves the chunked form's
+    range, and the share of such channels."""
+    dt = r.dtype
+    o, s = wkv_ops.wkv6(r, k, v, w, u)
+    po, ps = wkv_ref.wkv6_reference(r, k, v, w, u)
+    do, ds = wkv_ref.wkv6_reference(*(x.double() for x in (r, k, v, w, u)))
+    small = 32 * torch.log(w).abs() > CHUNK_LOG_RANGE      # (B, H, T, N)
+    rows = small.any(dim=2)                                 # (B, H, N)
+    out = dict(
+        shape=tuple(r.shape), dtype=str(dt)[6:],
+        o_vs_plain=require_close(o, po, REC_TOL[dt], "layer-0 o vs plain"),
+        s_vs_plain=require_close(s, ps, STATE_TOL, "layer-0 S vs plain"),
+        o_vs_f64=require_close(o, do, REC_TOL[dt], "layer-0 o vs float64"),
+        s_vs_f64=require_close(s, ds, STATE_TOL, "layer-0 S vs float64"),
+        small_decay_share=float(small.float().mean()),
+        small_decay_channel_share=float(small.any(dim=(0, 2)).float()
+                                        .mean()),
+        w_min=float(w.min()))
+    if bool(rows.any()):
+        out["s_vs_f64_small_decay_rows"] = float(
+            (s.double() - ds).abs()[rows].max())
+    return out
+
+
+def layer0_wkv6_inputs(cfg, params, tokens):
+    """Layer 0's WKV6 inputs (r, k, v, w, u) for ``tokens``, as its
+    ``time_mix`` forms them in the prefill."""
+    blk = params.decoder[0]
+    x = model_layers.embed_tokens(params.embed, tokens, cfg)
+    h = model_layers.rms_norm(x, blk.norm1, cfg.norm_eps)
+    r, k, v, w, _ = rwkv.time_mix_inputs(blk.mix, h, cfg)
+    return r, k, v, w, blk.mix.u
+
+
+def decode_witness(rows, truth, controls: dict) -> dict:
+    """The bf16 decoded logits against float32 ``forward`` of the same
+    weights (``truth``), within WITNESS_K times bf16 ``forward``'s own
+    distance from it on the same rows; each control's decoded logits must
+    fall outside that limit."""
+    floor = float((rows["forward"] - truth).abs().max())
+    if not floor > 0:
+        raise AssertionError("bf16 forward equals float32 forward: the "
+                             "witness needs a bf16 model")
+    limit = WITNESS_K * floor
+    err = float((rows["decoded"] - truth).abs().max())
+    out = dict(floor=floor, limit=limit, err=err, ratio=err / floor,
+               controls={})
+    if not err <= limit:
+        raise AssertionError(f"bf16 decoded logits {err} from float32 "
+                             f"forward, over {WITNESS_K} x bf16 forward's "
+                             f"{floor}")
+    for name, decoded in controls.items():
+        c = float((decoded - truth).abs().max())
+        out["controls"][name] = c
+        if not c > limit:
+            raise AssertionError(f"control {name!r} ({c}) passes the witness"
+                                 f" (limit {limit})")
+    return out
+
+
+def phase_lm_float32(device, cfg, params, rows, controls: dict, batch=4,
+                     prompt=2048, extra=8, s_max=None) -> dict:
+    """The weights cast to float32 in place and the ``lm_prefill`` drive
+    again, gated at LOGIT_TOL[float32]; its ``forward`` is then the
+    witness of the bf16 drive's decoded ``rows`` (``decode_witness``)."""
+    params.float()
+    result = phase_lm_prefill(
+        device, dataclasses.replace(cfg, dtype="float32"), params, batch,
+        prompt, extra, s_max, time_it=False)
+    f32 = result.pop("rows")
+    if not torch.equal(f32["tokens"], rows["tokens"]):
+        raise AssertionError("the float32 drive read other tokens")
+    result["bf16_decode_witness"] = decode_witness(rows, f32["forward"],
+                                                   controls)
+    return result
+
+
+def phase_lm_recurrent(device, cfg, params, batch=4, prompt=2048, extra=8,
+                       s_max=4096, n_slots=8, ticks=16, crash_at=8,
+                       time_it=True):
+    """The ``lm_prefill`` drive (its decode gated by ``lm_float32``) and
+    the ``lm_serve`` drive of a recurrent model in bf16; for RWKV6, the
+    WKV6 kernel then held on layer 0's own inputs from the drive's
+    prompt.  The control runs of ``decode_witness`` (the drive with each
+    ``planted_state_fault``), then ``lm_float32``."""
+    prefill, rows = lm_drive(device, cfg, params, batch, prompt, extra,
+                             s_max, time_it)
+    prefill["max_abs_err_decode"] = float(
+        (rows["decoded"][:, -1] - rows["forward"][:, -1]).abs().max())
+    result = dict(prefill=prefill)
+    if "rwkv" in [cfg.layer_type(i) for i in range(cfg.num_layers)]:
+        result["layer0_wkv6"] = check_wkv6_layer(*layer0_wkv6_inputs(
+            cfg, params, rows["tokens"][:, :prompt]))
+    result["serve"] = phase_lm_serve(device, cfg, params, s_max, n_slots,
+                                     ticks, crash_at, time_it)
+    controls = {}
+    for kind in STATE_FAULTS:
+        with planted_state_fault(kind):
+            controls[kind] = decoded_rows(cfg, params, rows["tokens"],
+                                          prompt, s_max)
+    result["lm_float32"] = phase_lm_float32(device, cfg, params, rows,
+                                            controls, batch, prompt, extra,
+                                            s_max)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: the recurrence kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def model_decays(gen, shape, device):
+    """Decays drawn as rwkv's init draws them with a zero LoRA term:
+    w = exp(-exp(w0)), w0 ~ N(-0.5, 0.5)."""
+    w0 = 0.5 * torch.randn(shape, generator=gen, device=device) - 0.5
+    return torch.exp(-torch.exp(w0))
+
+
+def wkv6_inputs(device, seed, dtype, b, h, t, n):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn((b, h, t, n), generator=gen, device=device)
+               .to(dtype) for _ in range(3))
+    u = 0.3 * torch.randn((h, n), generator=gen, device=device)
+    return r, k, v, model_decays(gen, (b, h, t, n), device), u
+
+
+def phase_wkv6_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for tt in (t, t // 2 + 1, 1):
+            args = wkv6_inputs(device, tt, dtype, b, h, tt, n)
+            o, s = wkv_ops.wkv6(*args)
+            po, ps = wkv_ref.wkv6_reference(*args)
+            key = f"T{tt}/{str(dtype)[6:]}"
+            errs[f"o/{key}"] = require_close(o, po, REC_TOL[dtype],
+                                             f"wkv6 o {key}")
+            errs[f"S/{key}"] = require_close(s, ps, STATE_TOL,
+                                             f"wkv6 S {key}")
+            del o, s, po, ps, args
+    args = wkv6_inputs(device, 0, torch.bfloat16, b, h, t, n)
+    r, w = args[0], args[3]
+    nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4
+              + args[4].numel() * 4 + r.numel() * r.element_size()
+              + b * h * n * n * 4)           # r, k, v, w, u in; o, S out
+    flops = b * h * t * (4.0 * n * n + 3 * n + 2 * n)
+    result = dict(max_abs_err=errs[f"o/T{t}/bfloat16"], errs=errs,
+                  shape=(b, h, t, n), bytes=nbytes, flops=flops,
+                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                               flops / F32_FLOP_PER_S) * 1e3,
+                  bound_by=("operations" if flops / F32_FLOP_PER_S
+                            > nbytes / HBM_BYTES_PER_S else "bytes"))
+    if time_it:
+        result["ms"] = cuda_ms(lambda: wkv_ops.wkv6(*args), reps=10)
+        result["plain_ms"] = cuda_ms(lambda: wkv_ref.wkv6_reference(*args),
+                                     reps=1)
+    return result
+
+
+def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
+    def inputs(seed, dtype, tt):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        # the path's decays: a = exp(-8 softplus(lam) r) >= ~0.86
+        a = 0.86 + 0.14 * torch.rand((b, tt, d), generator=gen,
+                                     device=device)
+        u = torch.randn((b, tt, d), generator=gen, device=device)
+        return a.to(dtype), u.to(dtype)
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for tt in (t, t // 2 + 1, 1):
+            a, u = inputs(tt, dtype, tt)
+            h, last = rg_ops.rglru(a, u)
+            ph, plast = rg_ref.rglru_reference(a, u)
+            key = f"T{tt}/{str(dtype)[6:]}"
+            errs[f"h/{key}"] = require_close(h, ph, REC_TOL[dtype],
+                                             f"rglru h {key}")
+            errs[f"last/{key}"] = require_close(last, plast, STATE_TOL,
+                                                f"rglru final h {key}")
+            del a, u, h, last, ph, plast
+    a, u = inputs(0, torch.float32, t)
+    nbytes = 3 * a.numel() * 4 + b * d * 4      # a, u in; h, final h out
+    result = dict(max_abs_err=errs[f"h/T{t}/float32"], errs=errs,
+                  shape=(b, t, d), bytes=nbytes,
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    if time_it:
+        result["ms"] = cuda_ms(lambda: rg_ops.rglru(a, u), reps=10)
+        result["plain_ms"] = cuda_ms(lambda: rg_ref.rglru_reference(a, u),
+                                     reps=1)
+        result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
+    return result
+
+
+# ---------------------------------------------------------------------------
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
                  ("decode_attention", ("decode_kernel",)),
+                 ("wkv6", ("wkv6_kernel",)),
+                 ("rglru", ("rglru_kernel",)),
                  ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
@@ -909,15 +1258,20 @@ KERNELS = (
     ("decode_attention.decode_partial", "decode_kernel",
      "src/repro_torch/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:24"),
+    ("rwkv6.wkv6", "wkv6_kernel", "src/repro_torch/csrc/wkv6.cu",
+     "src/repro/kernels/rwkv6/kernel.py:61"),
+    ("rglru.rglru", "rglru_kernel", "src/repro_torch/csrc/rglru.cu",
+     "src/repro/kernels/rglru/kernel.py:32"),
 )
 LM_ARCH = "qwen3-1.7b"
+RECURRENT_ARCHS = (("lm_rwkv", "rwkv6-7b"), ("lm_griffin", "recurrentgemma-9b"))
 
 
 def run_phase(phases, key, fn):
     t0 = time.perf_counter()
     phases[key] = fn()
-    print(f"[{key}] {time.perf_counter() - t0:.1f} s: {phases[key]}",
-          flush=True)
+    shown = {k: v for k, v in phases[key].items() if k != "rows"}
+    print(f"[{key}] {time.perf_counter() - t0:.1f} s: {shown}", flush=True)
 
 
 def main() -> int:
@@ -960,16 +1314,39 @@ def main() -> int:
     run_phase(phases, "lm_prefill",
               lambda: phase_lm_prefill(device, cfg, params))
     run_phase(phases, "lm_serve", lambda: phase_lm_serve(device, cfg, params))
+    run_phase(phases, "lm_float32", lambda: phase_lm_float32(
+        device, cfg, params, phases["lm_prefill"].pop("rows"), {}))
     del params
     torch.cuda.empty_cache()
     run_phase(phases, "flash_kernel", lambda: phase_flash_kernel(device))
     torch.cuda.empty_cache()
     run_phase(phases, "decode_kernel", lambda: phase_decode_kernel(device))
+    torch.cuda.empty_cache()
+    for key, arch in RECURRENT_ARCHS:
+        cfg = registry.get_config(arch)
+        t0 = time.perf_counter()
+        params = model_lib.init_params(cfg, seed=0, device=device)
+        sync(device)
+        print(f"[{key}] {arch}: {sum(p.numel() for p in params.parameters())}"
+              f" parameters ({cfg.dtype}) initialised in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        run_phase(phases, key, lambda: phase_lm_recurrent(device, cfg,
+                                                          params))
+        del params
+        torch.cuda.empty_cache()
+    run_phase(phases, "wkv6_kernel", lambda: phase_wkv6_kernel(device))
+    torch.cuda.empty_cache()
+    run_phase(phases, "rglru_kernel", lambda: phase_rglru_kernel(device))
     # the attention kernels' launches are those of the LM path's drives
     phases["flash_kernel"]["launches"] = phases["lm_prefill"][
         "flash_launches"]
     phases["decode_kernel"]["launches"] = phases["lm_serve"][
         "decode_launches"]
+    # the recurrences' launches are those of their paths' prefill drives
+    phases["wkv6_kernel"]["launches"] = phases["lm_rwkv"]["prefill"][
+        "prefill_launches"]["wkv6"]
+    phases["rglru_kernel"]["launches"] = phases["lm_griffin"]["prefill"][
+        "prefill_launches"]["rglru"]
 
     rows = []
     for kname, phase, source, replaces in KERNELS:

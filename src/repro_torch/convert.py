@@ -15,9 +15,11 @@ from the same state:
 * :func:`lm_params_from_numpy` — the LM's parameter tree (numpy leaves;
   bfloat16 leaves as the ``bfloat16`` numpy type JAX hands out, or as
   float32) to the port's :class:`~repro_torch.models.model.Model`;
-* :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy` — the KV caches
-  between the JAX layout ``{"groups": [per pattern position, stacked over
-  groups], "rem": [...]}`` and the port's list of one {'k','v'} per layer.
+* :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy` — the decode
+  caches between the JAX layout ``{"groups": [per pattern position,
+  stacked over groups], "rem": [...]}`` and the port's list of one dict
+  per layer (attention {'k','v'}, rwkv {'state','xtm','xcm'}, recurrent
+  {'conv','h'}).
 
 Layer ``g * pattern_len + pos`` of the port is group ``g`` of the JAX
 package's ``groups[pos]``; the ``rem`` layers follow.
@@ -122,8 +124,8 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     for i, layer in enumerate(_layer_trees(tree["decoder"], cfg)):
         for part in ("norm1", "norm2"):
             flat[f"decoder.{i}.{part}"] = layer[part]
-        for part in ("attn", "ffn"):
-            for name, a in layer[part].items():
+        for part in ("attn", "mix", "rec", "ffn"):
+            for name, a in layer.get(part, {}).items():
                 flat[f"decoder.{i}.{part}.{name}"] = a
     if set(flat) != set(named):
         raise ValueError(f"parameter trees differ: only in JAX "
@@ -142,23 +144,27 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
 def lm_cache_from_numpy(tree: Mapping, cfg: ModelConfig,
                         device=None) -> List[Dict[str, torch.Tensor]]:
     """A JAX ``{"groups", "rem"}`` cache tree (numpy leaves) as the port's
-    list of one {'k','v'} per layer, in the model's dtype."""
+    list of one dict per layer.  Each leaf takes its own dtype
+    (``model.cache_dtype``): the recurrent states 'state' and 'h' float32,
+    the rest the model's dtype."""
     dev = device_mod.resolve(device)
-    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    return [{name: _tensor(layer[name], dt, dev) for name in ("k", "v")}
+    return [{name: _tensor(a, model_lib.cache_dtype(cfg, name), dev)
+             for name, a in layer.items()}
             for layer in _layer_trees(tree, cfg)]
 
 
 def lm_cache_to_numpy(caches, cfg: ModelConfig) -> Dict:
-    """The port's per-layer caches as the JAX ``{"groups", "rem"}`` layout,
-    float32 numpy arrays (bfloat16 widens exactly)."""
+    """The port's per-layer caches as the JAX ``{"groups", "rem"}`` layout:
+    float32 leaves as float32 numpy arrays, bfloat16 leaves widened
+    (exactly) to float32; :func:`lm_cache_from_numpy` restores each leaf's
+    dtype."""
     def arr(t):
         return t.detach().float().cpu().numpy()
 
     p_len, n_groups = cfg.pattern_len, cfg.n_groups
     groups = [{name: np.stack([arr(caches[g * p_len + pos][name])
                                for g in range(n_groups)])
-               for name in ("k", "v")} for pos in range(p_len)]
-    rem = [{name: arr(caches[n_groups * p_len + i][name])
-            for name in ("k", "v")} for i in range(cfg.n_rem)]
+               for name in caches[pos]} for pos in range(p_len)]
+    rem = [{name: arr(t) for name, t in caches[n_groups * p_len + i].items()}
+           for i in range(cfg.n_rem)]
     return {"groups": groups, "rem": rem}

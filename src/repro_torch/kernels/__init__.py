@@ -11,4 +11,7 @@ kernel (``csrc/<name>.cu``, built by :mod:`._build`) for CUDA tensors.
   block per (query tile, head, batch row).
 * ``decode_attention`` — the flash-decode partial of one query token,
   one block per (KV head, batch row).
+* ``rwkv6`` — the WKV6 recurrence, one block per (batch row, head) with
+  the state in registers.
+* ``rglru`` — the RG-LRU recurrence, one thread per (batch row, channel).
 """

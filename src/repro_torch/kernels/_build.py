@@ -20,12 +20,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chain_vm", "hopscotch", "flash_attention", "decode_attention")
+SOURCES = ("chain_vm", "hopscotch", "flash_attention", "decode_attention",
+           "wkv6", "rglru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# what the attention kernels take: element types (their codes in the C
-# interface) and head dims
+# what the float kernels take: element types (their codes in the C
+# interface); and the attention kernels' head dims
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
 

@@ -38,6 +38,22 @@ def init_dense(w: torch.Tensor, gen: torch.Generator,
     w.copy_(x * scale)
 
 
+def init_normal(w: torch.Tensor, gen: torch.Generator, std: float,
+                mean: float = 0.0) -> None:
+    """Fill ``w`` with N(mean, std^2), drawn in float32 and cast."""
+    x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
+                    device=w.device)
+    w.copy_(x * std + mean)
+
+
+def init_uniform(w: torch.Tensor, gen: torch.Generator, lo: float,
+                 hi: float) -> None:
+    """Fill ``w`` with U(lo, hi), drawn in float32 and cast."""
+    x = torch.rand(w.shape, generator=gen, dtype=torch.float32,
+                   device=w.device)
+    w.copy_(x * (hi - lo) + lo)
+
+
 def rms_norm(x, gamma, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

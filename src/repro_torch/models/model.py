@@ -89,13 +89,40 @@ def decode_step(params: Model, token, caches: List[Dict], lengths,
     return layers.logits_fn(params.embed, x, cfg)[:, 0], caches
 
 
+# cache leaves kept in float32 whatever the model dtype (the recurrent
+# states); every other leaf is in the model dtype
+FLOAT32_CACHE = ("state", "h")
+
+
+def cache_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    return torch.float32 if name in FLOAT32_CACHE else layers.dtype_of(cfg)
+
+
+def cache_shapes(cfg: ModelConfig, kind: str, batch: int,
+                 s_max: int) -> Dict[str, tuple]:
+    """A layer's decode cache, leaf by leaf, as the JAX package's
+    ``abstract_cache`` lays it out."""
+    d = cfg.d_model
+    if kind in transformer.ATTN_KINDS:
+        shape = (batch, cfg.num_kv_heads, s_max, cfg.head_dim)
+        return {"k": shape, "v": shape}
+    if kind == "rwkv":
+        n = cfg.rwkv_head_dim
+        return {"state": (batch, d // n, n, n), "xtm": (batch, 1, d),
+                "xcm": (batch, 1, d)}
+    w = cfg.lru_width or d
+    return {"conv": (batch, 3, w), "h": (batch, w)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device=None) -> List[Dict]:
-    """The zero KV cache of a batch: one {'k','v'} (B, KH, s_max, hd) per
-    layer, in the model's dtype."""
+    """The zero decode cache of a batch: one dict per layer, by layer kind
+    (attention {'k','v'} (B, KH, s_max, hd); rwkv {'state' (B, H, N, N),
+    'xtm', 'xcm' (B, 1, D)}; recurrent {'conv' (B, 3, W), 'h' (B, W)}),
+    'state' and 'h' in float32, the rest in the model's dtype."""
     dev = device_mod.resolve(device)
-    shape = (batch, cfg.num_kv_heads, s_max, cfg.head_dim)
-    dt = layers.dtype_of(cfg)
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in range(cfg.num_layers)]
+    return [{name: torch.zeros(shape, dtype=cache_dtype(cfg, name),
+                               device=dev)
+             for name, shape in cache_shapes(cfg, cfg.layer_type(i), batch,
+                                             s_max).items()}
+            for i in range(cfg.num_layers)]

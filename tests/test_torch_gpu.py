@@ -1,8 +1,10 @@
 """Card-only tests: each hand-written CUDA kernel against its plain PyTorch
 version on the same inputs (exact for the int32 kernels; the flash kernel
 at test_kernels.py's tolerances, 2e-5 in float32 and 2e-2 in bfloat16; the
-decode partial at 2e-5 in both types), and the interpreter on the card against the interpreter on the
-CPU.  They skip without a card.  On the card (which has no JAX, so nothing
+decode partial at 2e-5 in both types; the WKV6 and RG-LRU recurrences at
+5e-5 in float32 and 5e-2 on bfloat16 outputs, their float32 final states
+at 5e-5, and also against a float64 scan), and the interpreter on the card
+against the interpreter on the CPU.  They skip without a card.  On the card (which has no JAX, so nothing
 here imports it):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -19,6 +21,10 @@ from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.hopscotch import ops as hop_ops
+from repro_torch.kernels.rglru import ops as rg_ops
+from repro_torch.kernels.rglru import ref as rg_ref
+from repro_torch.kernels.rwkv6 import ops as wkv_ops
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kvstore import hopscotch
 
 pytestmark = pytest.mark.gpu
@@ -248,3 +254,95 @@ def test_attention_kernels_reject_and_raise(cuda):
         dec_ops.decode_partial(q, k, v, lengths)
     assert (fa_ops.launches["flash_attention"],
             dec_ops.launches["decode_partial"]) == before
+
+
+# --- recurrences -------------------------------------------------------------
+
+REC_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}   # test_kernels.py's
+STATE_TOL = 5e-5          # float32 final states, in either input type
+
+
+def _close_rec(got, want, tol, what):
+    torch.testing.assert_close(got.double(), want.double(), atol=tol,
+                               rtol=tol, msg=what)
+
+
+def _wkv_inputs(cuda, seed, dtype, b, h, t, n, w_lo):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+    r, k, v = (rnd(b, h, t, n).to(dtype) for _ in range(3))
+    w = w_lo + (0.999 - w_lo) * torch.rand((b, h, t, n), generator=gen,
+                                           device=cuda)
+    u = 0.3 * rnd(h, n)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [32, 64])
+def test_wkv6_kernel_matches_scans(cuda, dtype, n):
+    # decays down to 0.01: far below the chunked form's range (w > ~0.115)
+    for i, (b, h, t) in enumerate(((1, 1, 1), (2, 3, 33), (1, 1, 2048),
+                                   (2, 2, 2048))):
+        r, k, v, w, u = _wkv_inputs(cuda, i, dtype, b, h, t, n, 0.01)
+        before = wkv_ops.launches["wkv6"]
+        o, s = wkv_ops.wkv6(r, k, v, w, u)
+        torch.cuda.synchronize()
+        assert wkv_ops.launches["wkv6"] == before + 1
+        assert o.dtype == dtype and o.shape == v.shape
+        assert s.dtype == torch.float32 and s.shape == (b, h, n, n)
+        po, ps = wkv_ref.wkv6_reference(r, k, v, w, u)
+        _close_rec(o, po, REC_TOL[dtype], f"o vs plain, T={t}")
+        _close_rec(s, ps, STATE_TOL, f"S vs plain, T={t}")
+        do, ds = wkv_ref.wkv6_reference(*(x.double() for x in (r, k, v, w,
+                                                               u)))
+        _close_rec(o, do, REC_TOL[dtype], f"o vs float64, T={t}")
+        _close_rec(s, ds, STATE_TOL, f"S vs float64, T={t}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_scans(cuda, dtype):
+    for i, (b, t, d) in enumerate(((1, 1, 1), (3, 1, 7), (2, 37, 4099),
+                                   (4, 300, 130))):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        a = (0.5 + 0.5 * torch.rand((b, t, d), generator=gen,
+                                    device=cuda)).to(dtype)
+        u = torch.randn((b, t, d), generator=gen, device=cuda).to(dtype)
+        before = rg_ops.launches["rglru"]
+        h, h_last = rg_ops.rglru(a, u)
+        torch.cuda.synchronize()
+        assert rg_ops.launches["rglru"] == before + 1
+        assert h.dtype == dtype and h.shape == a.shape
+        assert h_last.dtype == torch.float32 and h_last.shape == (b, d)
+        ph, plast = rg_ref.rglru_reference(a, u)
+        if dtype == torch.float32:
+            # the kernel rounds each multiply and add as the scan does
+            assert torch.equal(h, ph) and torch.equal(h_last, plast)
+        _close_rec(h, ph, REC_TOL[dtype], f"h vs plain, {(b, t, d)}")
+        _close_rec(h_last, plast, STATE_TOL, f"final h, {(b, t, d)}")
+        dh, dlast = rg_ref.rglru_reference(a.double(), u.double())
+        _close_rec(h, dh, REC_TOL[dtype], f"h vs float64, {(b, t, d)}")
+        _close_rec(h_last, dlast, STATE_TOL, f"final vs float64, {(b, t, d)}")
+
+
+def test_recurrence_kernels_refuse_bad_inputs(cuda):
+    r, k, v, w, u = _wkv_inputs(cuda, 0, torch.float32, 1, 2, 8, 32, 0.5)
+    before = (wkv_ops.launches["wkv6"], rg_ops.launches["rglru"])
+    with pytest.raises(ValueError, match="float32 w and u"):
+        wkv_ops.wkv6(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="one type"):
+        wkv_ops.wkv6(r, k.bfloat16(), v, w, u)
+    with pytest.raises(ValueError, match="head dim 48"):
+        wkv_ops.wkv6(*_wkv_inputs(cuda, 0, torch.float32, 1, 2, 8, 48, 0.5))
+    with pytest.raises(ValueError, match="M = N"):
+        wkv_ops.wkv6(r, k, v[..., :16], w, u)
+    a = torch.rand((2, 5, 9), device=cuda)
+    with pytest.raises(ValueError, match="one type"):
+        rg_ops.rglru(a, a.double())
+    with pytest.raises(ValueError, match=r"\(B, T, D\)"):
+        rg_ops.rglru(a, a[:, :4])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rg_ops.rglru(a.to("meta"), a.to("meta"))
+    # no launch was made or counted
+    assert (wkv_ops.launches["wkv6"], rg_ops.launches["rglru"]) == before

@@ -34,10 +34,11 @@ def test_card_side_imports_no_jax(path):
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert device_mod.resolve("cpu").type == "cpu"
-    cfg = registry.smoke_config("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device_mod.resolve()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        model_lib.init_params(cfg)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        model_lib.init_cache(cfg, 2, 16)
+    for arch in ("qwen3-1.7b", "rwkv6-7b", "recurrentgemma-9b"):
+        cfg = registry.smoke_config(arch)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model_lib.init_params(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model_lib.init_cache(cfg, 2, 16)

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s phases run on the CPU at a tiny size (the kernels'
 plain versions stand in, since CPU tensors take the plain path), and its
 ``main()`` refuses to run without a CUDA card."""
+import dataclasses
 import importlib.util
 import re
 from pathlib import Path
@@ -102,6 +103,113 @@ def test_phase_decode_kernel_cpu(smoke):
     assert r["visible_rows"] > 0 and r["bound_ms"] > 0
 
 
+def bf16_smoke(arch):
+    cfg = dataclasses.replace(registry.smoke_config(arch), dtype="bfloat16")
+    return cfg, model_lib.init_params(cfg, seed=0, device="cpu")
+
+
+def test_phase_lm_float32_cpu(smoke):
+    """qwen3's witness: the bf16 drive, then the float32 one."""
+    cfg, params = bf16_smoke("qwen3-1.7b")
+    pre = smoke.phase_lm_prefill("cpu", cfg, params, batch=2, prompt=12,
+                                 extra=3, time_it=False)
+    assert pre["max_abs_err_decode"] <= pre["logit_tol"] == 0.125
+    r = smoke.phase_lm_float32("cpu", cfg, params, pre.pop("rows"), {},
+                               batch=2, prompt=12, extra=3)
+    assert params.embed.embedding.dtype == torch.float32
+    assert r["max_abs_err_decode"] <= r["logit_tol"] == 2e-3
+    w = r["bf16_decode_witness"]
+    assert 0 < w["floor"] and w["err"] <= w["limit"] == smoke.WITNESS_K * \
+        w["floor"] and w["controls"] == {}
+
+
+def test_decode_witness_rejects_a_far_decode_and_a_close_control(smoke):
+    gen = torch.Generator().manual_seed(0)
+    truth = torch.randn((2, 3, 50), generator=gen)
+    rows = dict(forward=truth + 0.01, decoded=truth - 0.015)
+    w = smoke.decode_witness(rows, truth, {"far": truth + 1.0})
+    assert w["ratio"] == pytest.approx(1.5, rel=1e-4) and w["controls"]["far"] > 0.99
+    with pytest.raises(AssertionError, match="control 'near'"):
+        smoke.decode_witness(rows, truth, {"near": truth + 0.02})
+    with pytest.raises(AssertionError, match="from float32 forward"):
+        smoke.decode_witness(dict(rows, decoded=truth + 0.03), truth, {})
+    with pytest.raises(AssertionError, match="needs a bf16 model"):
+        smoke.decode_witness(dict(rows, forward=truth), truth, {})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_phase_lm_recurrent_cpu(smoke, arch):
+    cfg, params = bf16_smoke(arch)
+    r = smoke.phase_lm_recurrent("cpu", cfg, params, batch=2, prompt=40,
+                                 extra=3, s_max=48, n_slots=8, ticks=6,
+                                 crash_at=3, time_it=False)
+    pre, serve = r["prefill"], r["serve"]
+    # plain path: no launch, but the launches the card would make
+    assert pre["prefill_launches"] == {"flash_attention": 0, "wkv6": 0,
+                                       "rglru": 0}
+    kinds = [cfg.layer_type(i) for i in range(cfg.num_layers)]
+    want, step = smoke.path_launches(cfg, "cuda")
+    assert want == {"flash_attention": kinds.count("local"),
+                    "wkv6": kinds.count("rwkv"),
+                    "rglru": kinds.count("recurrent")}
+    assert step == {"decode_partial": kinds.count("local")}
+    assert pre["max_abs_err_prefill"] <= pre["logit_tol"] == 0.125
+    assert serve["stats"] == dict(steps=6, tokens=36, throttled=2)
+    f32 = r["lm_float32"]           # the float32 drive, gated at 2e-3
+    assert f32["max_abs_err_decode"] <= f32["logit_tol"] == 2e-3
+    w = f32["bf16_decode_witness"]  # the witness of the bf16 decode
+    assert 0 < w["floor"] and w["err"] <= w["limit"]
+    assert set(w["controls"]) == set(smoke.STATE_FAULTS)
+    assert min(w["controls"].values()) > w["limit"]
+    if arch == "rwkv6-7b":
+        assert pre["cache_decode_errs"] is None     # no attention layer
+        w0 = r["layer0_wkv6"]
+        assert w0["shape"] == (2, 4, 40, 32) and w0["dtype"] == "bfloat16"
+        assert w0["o_vs_plain"] == 0 and w0["s_vs_f64"] < smoke.STATE_TOL
+        assert 0 <= w0["small_decay_channel_share"] <= 1
+    else:
+        assert "layer0_wkv6" not in r
+        # the smoke window (16) binds at these lengths, on an idle-free
+        # prefill cache and on the serving cache's idle rows
+        assert pre["cache_decode_errs"]["window"] == 16
+        assert serve["cache_decode_errs"]["idle_rows"] == 2
+
+
+def test_layer0_wkv6_inputs_are_the_prefills(smoke, monkeypatch):
+    """What the layer-0 check reads is what layer 0 of a prefill hands the
+    WKV6 recurrence."""
+    cfg, params = bf16_smoke("rwkv6-7b")
+    calls = []
+    wkv6 = smoke.wkv_ops.wkv6
+
+    def tap(*args):
+        calls.append(args)
+        return wkv6(*args)
+    monkeypatch.setattr(smoke.wkv_ops, "wkv6", tap)
+    toks = torch.randint(1, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    model_lib.prefill(params, {"tokens": toks}, cfg, s_max=24)
+    assert len(calls) == cfg.num_layers
+    for got, want in zip(smoke.layer0_wkv6_inputs(cfg, params, toks),
+                         calls[0], strict=True):
+        assert torch.equal(got, want)
+
+
+def test_phase_wkv6_kernel_cpu(smoke):
+    r = smoke.phase_wkv6_kernel("cpu", b=1, h=2, t=40, n=32, time_it=False)
+    assert set(r["errs"]) == {f"{p}/T{t}/{d}" for p in ("o", "S")
+                              for t in (40, 21, 1)
+                              for d in ("bfloat16", "float32")}
+    assert r["max_abs_err"] == 0          # the CPU compares plain to plain
+    assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+
+
+def test_phase_rglru_kernel_cpu(smoke):
+    r = smoke.phase_rglru_kernel("cpu", b=2, t=40, d=20, time_it=False)
+    assert len(r["errs"]) == 12 and r["max_abs_err"] == 0
+    assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+
+
 def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
@@ -111,7 +219,7 @@ def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    assert len(smoke.KERNELS) == 5
+    assert len(smoke.KERNELS) == 7
     for name, _, source, replaces in smoke.KERNELS:
         assert (ROOT / source).is_file(), source
         path, line = replaces.split(":")

@@ -10,7 +10,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, all started together), then runs thirteen phases and
 raises on any mismatch:
 
-1. ``card``            — the card's name and power limit, the kernel build.
+1. ``card``            — the card's name and power limit, the kernel build;
+                         the flash library's SASS must hold HGMMA
+                         (tensor-core) instructions.
 2. ``kv_get``          — the GET path at a real size: a 4-shard hopscotch
                          store (4 x 65,536 buckets, 157,286 keys, 60% load)
                          answers zipf GET batches through ``sharded_get`` on
@@ -42,9 +44,16 @@ raises on any mismatch:
                          to float32, the ``lm_prefill`` drive again at
                          2e-3, its ``forward`` the witness of the bf16
                          decode (``decode_witness``).
-8. ``flash_kernel``    — the flash-attention kernel against its plain
-                         version at the prefill shape (causal), windowed
-                         and in length mode, float32 and bfloat16.
+8. ``flash_kernel``    — the flash-attention kernels against their plain
+                         version at the qwen3-1.7b prefill shape (causal),
+                         windowed and in length mode, and at the
+                         recurrentgemma-9b one (head dim 256, GQA 16,
+                         window 2,048), float32 and bfloat16; ragged bf16
+                         cases (Sq = Sk = 1,025; Sq 77, Sk 333, q_offset
+                         256) at both.  Both shapes timed beside SDPA.
+                         The drives' flash launches by kernel must be 28
+                         tensor-core (lm_prefill), 12 tensor-core
+                         (lm_griffin) and 28 CUDA-core (lm_float32).
 9. ``decode_kernel``   — the decode kernel against its plain version over a
                          32,768-long bf16 cache (B 16), lengths spread over
                          [1, S], whole and as two ``kpos_offset`` shards;
@@ -611,6 +620,17 @@ def path_launches(cfg, device):
     return prefill, {"decode_partial": on * n_attn}
 
 
+def flash_variant_launches(cfg, device) -> dict:
+    """The flash-attention launches of one prefill of ``cfg``'s model by
+    kernel: every one of the kernel that ``variant`` picks for the model's
+    type and head dim (none on the CPU)."""
+    n = path_launches(cfg, device)[0]["flash_attention"]
+    kind = fa_ops.variant(getattr(torch, cfg.dtype), cfg.head_dim) if n \
+        else None
+    return {f"flash_attention.{v}": n if v == kind else 0
+            for v in ("wgmma", "fma")}
+
+
 def require_launches(want: dict, what: str) -> dict:
     got = read_launches()
     got = {k: got[k] for k in want}
@@ -637,6 +657,7 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     (the result, {"tokens", "decoded" (B, extra, V), "forward" (the same
     rows of ``forward``)}, both float32)."""
     want_prefill, want_step = path_launches(cfg, device)
+    want_variants = flash_variant_launches(cfg, device)
     dt = params.embed.embedding.dtype
     rng = np.random.RandomState(0)
     toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (
@@ -653,6 +674,8 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     sync(device)
     first_s = time.perf_counter() - t0
     prefill_launches = require_launches(want_prefill, "the prefill")
+    flash_variants = require_launches(want_variants,
+                                      "the prefill's flash kernels")
     step_ms, decoded = [], []
     reset_launches()
     for i in range(extra):
@@ -681,6 +704,7 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     result = dict(batch=batch, prompt=prompt, decode_steps=extra,
                   prefill_launches=prefill_launches,
                   flash_launches=prefill_launches["flash_attention"],
+                  flash_variant_launches=flash_variants,
                   decode_launches=decode_launches,
                   max_abs_err_prefill=err_prefill, logit_tol=LOGIT_TOL[dt],
                   cache_decode_errs=cache_errs, first_prefill_s=first_s,
@@ -856,45 +880,83 @@ def random_qkv(device, seed, dtype, b, h, kh, sq, sk, d):
     return rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d)
 
 
-def phase_flash_kernel(device, b=4, h=16, kh=8, s=2048, d=128,
-                       time_it=True):
-    rng = np.random.RandomState(3)
-    lengths = torch.from_numpy(np.sort(rng.randint(1, s + 1, b)).astype(
-        np.int32)).to(device)
-    cases = [  # name, (b, sq), kwargs
-        ("causal", (b, s), dict(mode="causal")),
-        ("window", (1, s), dict(mode="causal", window=s // 4)),
-        ("length", (b, 16), dict(mode="length", lengths=lengths)),
-    ]
-    errs = {}
-    for i, (name, (bb, sq), kw) in enumerate(cases):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = random_qkv(device, i, dtype, bb, h, kh, sq, s, d)
-            if "lengths" in kw:
-                kw = dict(kw, lengths=lengths[:bb])
-            got = fa_ops.flash_attention(q, k, v, **kw)
-            want = fa_ref.attention_reference(q, k, v, **kw)
-            errs[f"{name}/{str(dtype)[6:]}"] = require_close(
-                got, want, TOL[dtype], f"flash {name} {dtype}")
-            del got, want
-    result = dict(max_abs_err=errs["causal/bfloat16"], errs=errs,
-                  shape=(b, h, kh, s, s, d), bound_by="operations")
+# The flash kernel's timed shapes: the prefill attention of the two models
+# whose prefill runs it, B 4 x 2,048 prompt tokens: (name, b, h, kh, s, d,
+# window).  At S = 2,048 griffin's window of 2,048 binds nothing, so SDPA
+# with is_causal=True, enable_gqa=True computes the same function.
+FLASH_SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, 0),
+                ("recurrentgemma-9b", 4, 16, 1, 2048, 256, 2048))
+# ragged bf16 causal cases at each shape's heads: (sq, sk, q_offset)
+FLASH_RAGGED = ((1025, 1025, 0), (77, 333, 256))
+BOTH_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def flash_timing(device, b, h, kh, s, d, window, time_it=True) -> dict:
+    """The bound of one causal (windowed) prefill attention at this shape
+    and, with ``time_it``, the bf16 and float32 kernels' times beside the
+    plain version's and SDPA's."""
     q, k, v = random_qkv(device, 0, torch.bfloat16, b, h, kh, s, s, d)
-    flops = 4.0 * b * h * d * s * (s + 1) / 2    # the causal (q, k) pairs
-    nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())     # q, k, v, out
-    result["bound_ms"] = max(flops / BF16_FLOP_PER_S,
-                             nbytes / HBM_BYTES_PER_S) * 1e3
-    if flops / BF16_FLOP_PER_S < nbytes / HBM_BYTES_PER_S:
-        result["bound_by"] = "bytes"
+    pairs = int(fa_ref.visible_mask(s, s, "cpu", window=window).sum())
+    flops = 4.0 * b * h * d * pairs                  # the visible (q, k)
+    nbytes = 2.0 * (2 * q.numel() + 2 * k.numel())   # q, k, v, out
+    result = dict(shape=(b, h, kh, s, s, d, window), flops=flops,
+                  bound_ms=max(flops / BF16_FLOP_PER_S,
+                               nbytes / HBM_BYTES_PER_S) * 1e3,
+                  bound_by=("operations" if flops / BF16_FLOP_PER_S
+                            >= nbytes / HBM_BYTES_PER_S else "bytes"))
     if time_it:
-        result["ms"] = cuda_ms(lambda: fa_ops.flash_attention(q, k, v))
+        kw = dict(window=window)
+        result["ms"] = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                               reps=10)
+        result["tflop_per_s"] = flops / (result["ms"] * 1e-3) / 1e12
         result["plain_ms"] = cuda_ms(
-            lambda: fa_ref.attention_reference(q, k, v), reps=2)
+            lambda: fa_ref.attention_reference(q, k, v, **kw), reps=2)
         result["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-        result["tflop_per_s"] = flops / (result["ms"] * 1e-3) / 1e12
+                q, k, v, is_causal=True, enable_gqa=True),
+            reps=10) if window == 0 or window >= s else None
+        q, k, v = (t.float() for t in (q, k, v))
+        result["float32_ms"] = cuda_ms(
+            lambda: fa_ops.flash_attention(q, k, v, **kw), reps=2)
     return result
+
+
+def phase_flash_kernel(device, shapes=FLASH_SHAPES, time_it=True):
+    """The flash kernel against its plain version at each of ``shapes``:
+    causal with the shape's window in bf16 and float32, at the first shape
+    also windowed (S / 4) and in length mode, and the FLASH_RAGGED cases in
+    bf16; then ``flash_timing`` at each.  The first shape's numbers are the
+    kernel's row."""
+    errs, timed = {}, {}
+    for si, (name, b, h, kh, s, d, window) in enumerate(shapes):
+        rng = np.random.RandomState(3)
+        lengths = torch.from_numpy(np.sort(rng.randint(1, s + 1, b)).astype(
+            np.int32)).to(device)
+        cases = [  # case, (b, sq, sk), kwargs, types
+            ("causal", (b, s, s), dict(mode="causal", window=window),
+             BOTH_DTYPES)]
+        if si == 0:
+            cases += [
+                ("window", (1, s, s), dict(mode="causal", window=s // 4),
+                 BOTH_DTYPES),
+                ("length", (b, 16, s), dict(mode="length", lengths=lengths),
+                 BOTH_DTYPES)]
+        cases += [(f"ragged{sq}x{sk}+{off}", (b, sq, sk),
+                   dict(mode="causal", q_offset=off), (torch.bfloat16,))
+                  for sq, sk, off in FLASH_RAGGED]
+        for i, (case, (bb, sq, sk), kw, dtypes) in enumerate(cases):
+            for dtype in dtypes:
+                q, k, v = random_qkv(device, i, dtype, bb, h, kh, sq, sk, d)
+                got = fa_ops.flash_attention(q, k, v, **kw)
+                want = fa_ref.attention_reference(q, k, v, **kw)
+                key = f"{name}/{case}/{str(dtype)[6:]}"
+                errs[key] = require_close(got, want, TOL[dtype],
+                                          f"flash {key}")
+                del got, want
+        timed[name] = flash_timing(device, b, h, kh, s, d, window, time_it)
+    first = shapes[0][0]
+    return dict(timed[first], max_abs_err=errs[f"{first}/causal/bfloat16"],
+                errs=errs, shapes=timed)
 
 
 def require_partial_close(got, want, tol: float, what: str) -> dict:
@@ -1202,7 +1264,8 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
-KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
+KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
+                                      "flash_wgmma_kernel")),
                  ("decode_attention", ("decode_kernel",)),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel",)),
@@ -1264,6 +1327,10 @@ KERNELS = (
      "src/repro/kernels/rglru/kernel.py:32"),
 )
 LM_ARCH = "qwen3-1.7b"
+# each drive's flash launches per prefill: (kernel, one per attention layer)
+FLASH_DRIVE_LAUNCHES = {"lm_prefill": ("wgmma", 28),
+                        "lm_griffin": ("wgmma", 12),
+                        "lm_float32": ("fma", 28)}
 RECURRENT_ARCHS = (("lm_rwkv", "rwkv6-7b"), ("lm_griffin", "recurrentgemma-9b"))
 
 
@@ -1292,7 +1359,14 @@ def main() -> int:
     for src, log in logs.items():
         print(f"[build {src}] " + " | ".join(
             line.strip() for line in log.splitlines() if "registers" in line
-            or "spill" in line), flush=True)
+            or "spill" in line or "arning" in line), flush=True)
+    hgmma = sum("HGMMA" in line
+                for line in _build.sass("flash_attention").splitlines())
+    print(f"[card] flash_attention: {hgmma} HGMMA instructions in its SASS",
+          flush=True)
+    if hgmma == 0:
+        raise AssertionError("the flash library holds no HGMMA instruction:"
+                             " its bf16 kernel is not on the tensor cores")
 
     phases = {}
     t0 = time.perf_counter()
@@ -1337,9 +1411,24 @@ def main() -> int:
     run_phase(phases, "wkv6_kernel", lambda: phase_wkv6_kernel(device))
     torch.cuda.empty_cache()
     run_phase(phases, "rglru_kernel", lambda: phase_rglru_kernel(device))
-    # the attention kernels' launches are those of the LM path's drives
+    # the attention kernels' launches are those of the LM path's drives;
+    # the flash launches by kernel: bf16 prefills on the tensor cores, the
+    # float32 drive on the CUDA cores
     phases["flash_kernel"]["launches"] = phases["lm_prefill"][
         "flash_launches"]
+    variants = dict(
+        lm_prefill=phases["lm_prefill"]["flash_variant_launches"],
+        lm_griffin=phases["lm_griffin"]["prefill"][
+            "flash_variant_launches"],
+        lm_float32=phases["lm_float32"]["flash_variant_launches"])
+    for drive, (kind, n) in FLASH_DRIVE_LAUNCHES.items():
+        want = {f"flash_attention.{v}": n if v == kind else 0
+                for v in ("wgmma", "fma")}
+        if variants[drive] != want:
+            raise AssertionError(f"{drive}: flash launches {variants[drive]}"
+                                 f", expected {want}")
+    phases["flash_kernel"]["variant_launches"] = variants
+    print(f"[flash_kernel] launches by kernel: {variants}", flush=True)
     phases["decode_kernel"]["launches"] = phases["lm_serve"][
         "decode_launches"]
     # the recurrences' launches are those of their paths' prefill drives
@@ -1359,10 +1448,11 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r.get("bound_by", "bytes"),
             library_ms=r.get("library_ms")))
-        print(f"[times] {kname} ({card}): {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r.get('library_ms')}, shape {r['shape']}",
-              flush=True)
+        for t in r.get("shapes", {}).values() or (r,):
+            print(f"[times] {kname} ({card}): {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"library {t.get('library_ms')}, shape {t['shape']}",
+                  flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -87,6 +87,14 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """The built library ``name``'s machine code as ``cuobjdump -sass``
+    (from beside ``nvcc``) prints it."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:

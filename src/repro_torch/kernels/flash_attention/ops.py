@@ -1,6 +1,7 @@
 """Flash-attention forward wrapper: the plain PyTorch version for tensors
-on the CPU, the CUDA kernel (``csrc/flash_attention.cu``) for tensors on
-the card.  ``launches`` counts kernel launches."""
+on the CPU, a CUDA kernel (``csrc/flash_attention.cu``) for tensors on the
+card — the tensor-core kernel or the CUDA-core one, as ``variant`` says.
+``launches`` counts kernel launches, in all and by kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -11,9 +12,31 @@ import torch
 from .. import _build
 from .ref import attention_reference
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention.wgmma": 0,
+            "flash_attention.fma": 0}
 
 MODES = {"causal": 0, "length": 1, "full": 2}
+
+# The kernel for each (type, head dim) the wrapper takes: "wgmma" (the
+# tensor cores, bf16 operands, float32 accumulation) for bfloat16 at head
+# dims 64-256; "fma" (CUDA-core float32) for float32, which TF32 would
+# round past its 2e-5 tolerance, and for head dim 32.
+VARIANTS = {
+    (torch.bfloat16, 32): "fma", (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 256): "wgmma",
+    (torch.float32, 32): "fma", (torch.float32, 64): "fma",
+    (torch.float32, 128): "fma", (torch.float32, 256): "fma",
+}
+
+
+def variant(dtype: torch.dtype, d: int) -> str:
+    """"wgmma" or "fma": the kernel that computes q of ``dtype`` at head dim
+    ``d`` on the card."""
+    try:
+        return VARIANTS[(dtype, d)]
+    except KeyError:
+        raise ValueError(f"no flash-attention kernel for {dtype} at head "
+                         f"dim {d}") from None
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -21,6 +44,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                         i, i, i, ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_wgmma_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                              i, i, i, i, ctypes.c_float, p]
+    lib.flash_attention_wgmma_fwd.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -50,12 +76,16 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    kind = variant(q.dtype, d)
     lib = _build.load("flash_attention", _declare)
-    _build.check(lib, lib.flash_attention_fwd(
-        _build.pointer(q), _build.pointer(k), _build.pointer(v),
-        _build.pointer(lengths), _build.pointer(out), _build.DTYPES[q.dtype],
-        b, h, kh, sq, sk, d, MODES[mode], window, q_offset,
-        d ** -0.5 if scale is None else scale, _build.stream()),
-        "flash_attention")
+    ptrs = [_build.pointer(t) for t in (q, k, v, lengths, out)]
+    dims = (b, h, kh, sq, sk, d, MODES[mode], window, q_offset,
+            d ** -0.5 if scale is None else scale, _build.stream())
+    if kind == "wgmma":
+        code = lib.flash_attention_wgmma_fwd(*ptrs, *dims)
+    else:
+        code = lib.flash_attention_fwd(*ptrs, _build.DTYPES[q.dtype], *dims)
+    _build.check(lib, code, "flash_attention")
     launches["flash_attention"] += 1
+    launches[f"flash_attention.{kind}"] += 1
     return out

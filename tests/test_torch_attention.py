@@ -13,6 +13,7 @@ from repro.kernels.flash_attention import ref as jfa_ref
 from repro_torch.kernels.decode_attention import ops as tdec
 from repro_torch.kernels.decode_attention import ref as tdec_ref
 from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention import ref as tfa_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -38,13 +39,17 @@ def close(got, want, dtype, what=""):
 
 # --- flash attention --------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,b,h,kh,sq,sk,d,mode,window,q_offset", [
+FLASH_CASES = [
     ("float32", 1, 2, 2, 128, 128, 64, "causal", 0, 0),      # GQA 1
     ("bfloat16", 2, 4, 2, 256, 256, 64, "causal", 64, 0),    # GQA 2, window
     ("float32", 1, 8, 2, 128, 384, 32, "causal", 0, 256),    # GQA 4, offset
     ("bfloat16", 1, 4, 1, 384, 384, 128, "full", 0, 0),      # tail (384)
     ("float32", 1, 4, 2, 384, 384, 32, "causal", 100, 0),    # tail + window
-])
+]
+
+
+@pytest.mark.parametrize("dtype,b,h,kh,sq,sk,d,mode,window,q_offset",
+                         FLASH_CASES)
 def test_flash_attention_matches_jax(dtype, b, h, kh, sq, sk, d, mode,
                                      window, q_offset):
     (q, k, v), (tq, tk, tv) = inputs(
@@ -76,6 +81,55 @@ def test_flash_attention_length_mode_matches_jax(dtype, window):
                                    **kw), dtype, "vs pallas interpret")
     close(got, jfa_ref.attention_reference(q, k, v, lengths=jl, **kw),
           dtype, "vs ref")
+
+
+def test_flash_variant_table():
+    for d in (64, 128, 256):
+        assert tfa.variant(torch.bfloat16, d) == "wgmma"
+        assert tfa.variant(torch.float32, d) == "fma"
+    assert tfa.variant(torch.bfloat16, 32) == tfa.variant(
+        torch.float32, 32) == "fma"
+    for dtype, d in ((torch.float16, 128), (torch.bfloat16, 48)):
+        with pytest.raises(ValueError, match="no flash-attention kernel"):
+            tfa.variant(dtype, d)
+
+
+# The tensor-core kernel's arithmetic (P rounded to bf16 before P @ V, l
+# from the float32 p, BK-key tiles) in bf16 on every case above: within
+# bf16's tolerance of the Pallas kernel and of the oracle.
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,mode,window,q_offset",
+                         [c[1:] for c in FLASH_CASES])
+def test_tensor_core_arithmetic_matches_jax(b, h, kh, sq, sk, d, mode,
+                                            window, q_offset):
+    (q, k, v), (tq, tk, tv) = inputs(
+        b * 100 + sq, [(b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)],
+        "bfloat16")
+    kw = dict(mode=mode, window=window, q_offset=q_offset)
+    got = tfa_ref.tensor_core_emulation(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, sq, d)
+    close(got, jfa.flash_attention(q, k, v, impl="interpret", block_q=128,
+                                   block_k=128, **kw), "bfloat16",
+          "vs pallas interpret")
+    close(got, jfa_ref.attention_reference(q, k, v, **kw), "bfloat16",
+          "vs ref")
+
+
+@pytest.mark.parametrize("window", [0, 32])
+def test_tensor_core_arithmetic_length_mode_matches_jax(window):
+    b, h, kh, sk, d = 4, 4, 2, 256, 64
+    (q, k, v), (tq, tk, tv) = inputs(
+        7, [(b, h, 1, d), (b, kh, sk, d), (b, kh, sk, d)], "bfloat16")
+    lengths = np.asarray([1, 100, 256, 0], np.int32)
+    kw = dict(mode="length", window=window)
+    got = tfa_ref.tensor_core_emulation(tq, tk, tv, block_k=64,
+                                        lengths=torch.from_numpy(lengths),
+                                        **kw)
+    jl = jnp.asarray(lengths)
+    want = jfa.flash_attention(q, k, v, lengths=jl, impl="interpret", **kw)
+    close(got, want, "bfloat16", "vs pallas interpret")   # length 0 too
+    assert torch.all(got[3] == 0)
+    close(got[:3], jfa_ref.attention_reference(q, k, v, lengths=jl, **kw)[
+        :3], "bfloat16", "vs ref")
 
 
 # --- decode attention --------------------------------------------------------

@@ -157,11 +157,29 @@ def _close(got, want, dtype, what):
                                rtol=TOL[dtype], msg=what)
 
 
+def _flash_checked(q, k, v, kind, **kw):
+    """The wrapper's output, with its launch counted once in all and once
+    under ``kind``'s kernel."""
+    before = (fa_ops.launches["flash_attention"],
+              fa_ops.launches[f"flash_attention.{kind}"])
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.launches["flash_attention"],
+            fa_ops.launches[f"flash_attention.{kind}"]) == (before[0] + 1,
+                                                            before[1] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_kernel_matches_plain(cuda, dtype, d):
-    # tails: 200 and 333 are not multiples of the 64- or 32-row tiles
+    # tails: 200, 333, 130, 77 and 1,025 are not multiples of the 32- to
+    # 128-row tiles; bf16 at D >= 64 takes the tensor-core kernel
     b, h, kh = 2, 4, 2
+    kind = fa_ops.variant(dtype, d)
+    assert kind == ("wgmma" if dtype == torch.bfloat16 and d >= 64
+                    else "fma")
     lengths = torch.tensor([1, 150], dtype=torch.int32, device=cuda)
     cases = [  # (sq, sk, kwargs)
         (200, 200, dict(mode="causal")),
@@ -171,15 +189,13 @@ def test_flash_kernel_matches_plain(cuda, dtype, d):
         (3, 200, dict(mode="length", lengths=lengths)),
         (3, 200, dict(mode="length", lengths=lengths, window=50)),
         (130, 333, dict(mode="full")),
+        (1025, 1025, dict(mode="causal")),
+        (191, 129, dict(mode="full")),
     ]
     for i, (sq, sk, kw) in enumerate(cases):
         q, k, v = _qkv(cuda, i, dtype, b, h, kh, sq, sk, d)
-        before = fa_ops.launches["flash_attention"]
-        got = fa_ops.flash_attention(q, k, v, **kw)
+        got = _flash_checked(q, k, v, kind, **kw)
         want = fa_ref.attention_reference(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert fa_ops.launches["flash_attention"] == before + 1
-        assert got.dtype == dtype and got.shape == q.shape
         _close(got, want, dtype, f"{kw}")
 
 
@@ -189,6 +205,35 @@ def test_flash_kernel_gqa_groups_and_scale(cuda):
         got = fa_ops.flash_attention(q, k, v, scale=0.05)
         want = fa_ref.attention_reference(q, k, v, scale=0.05)
         _close(got, want, torch.bfloat16, f"KH={kh}")
+
+
+@pytest.mark.parametrize("kh", [16, 8, 1])
+def test_flash_tensor_core_gqa_groups_at_head_dim_256(cuda, kh):
+    # GQA groups 1, 2 and 16 (recurrentgemma-9b's) over 16 query heads,
+    # windowed as its local layers are, on ragged lengths
+    for i, (sq, sk, kw) in enumerate((
+            (300, 300, dict(mode="causal", window=100)),
+            (65, 321, dict(mode="causal", q_offset=256)),
+            (130, 190, dict(mode="full")))):
+        q, k, v = _qkv(cuda, 10 * kh + i, torch.bfloat16, 2, 16, kh, sq, sk,
+                       256)
+        got = _flash_checked(q, k, v, "wgmma", **kw)
+        want = fa_ref.attention_reference(q, k, v, **kw)
+        _close(got, want, torch.bfloat16, f"KH={kh} {kw}")
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_tensor_core_empty_row_gives_zeros(cuda, d):
+    # length 0 sees no key: exactly 0 (the reference's uniform row over the
+    # -1e30 logits is not the kernel's function there); the others as plain
+    lengths = torch.tensor([0, 77, 200], dtype=torch.int32, device=cuda)
+    for window in (0, 50):
+        q, k, v = _qkv(cuda, d + window, torch.bfloat16, 3, 4, 2, 5, 200, d)
+        kw = dict(mode="length", lengths=lengths, window=window)
+        got = _flash_checked(q, k, v, "wgmma", **kw)
+        assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+        want = fa_ref.attention_reference(q, k, v, **kw)
+        _close(got[1:], want[1:], torch.bfloat16, f"window={window}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -86,13 +86,36 @@ def test_phase_lm_serve_cpu(smoke, smoke_lm):
 
 
 def test_phase_flash_kernel_cpu(smoke):
-    r = smoke.phase_flash_kernel("cpu", b=2, h=4, kh=2, s=96, d=32,
-                                 time_it=False)
-    assert set(r["errs"]) == {f"{c}/{t}" for c in ("causal", "window",
-                                                    "length")
-                              for t in ("bfloat16", "float32")}
+    shapes = (("a", 2, 4, 2, 96, 32, 0), ("b", 1, 4, 1, 80, 64, 80))
+    r = smoke.phase_flash_kernel("cpu", shapes, time_it=False)
+    ragged = {f"ragged{sq}x{sk}+{off}/bfloat16"
+              for sq, sk, off in smoke.FLASH_RAGGED}
+    assert set(r["errs"]) == {f"a/{c}/{t}" for c in ("causal", "window",
+                                                      "length")
+                              for t in ("bfloat16", "float32")} | {
+        "b/causal/bfloat16", "b/causal/float32"} | {
+        f"{s}/{c}" for s in "ab" for c in ragged}
     assert r["max_abs_err"] == 0          # the CPU compares plain to plain
-    assert r["bound_ms"] > 0
+    assert r["bound_ms"] > 0 and set(r["shapes"]) == {"a", "b"}
+    # the window of 80 binds nothing at S = 80: all causal pairs count
+    assert r["shapes"]["b"]["flops"] == 4.0 * 4 * 64 * 80 * 81 / 2
+
+
+def test_flash_launches_by_kernel_follow_the_dispatch(smoke):
+    """The drives' gate: bf16 prefills launch only the tensor-core kernel,
+    float32 ones only the CUDA-core kernel, one per attention layer."""
+    for drive, arch, dtype in (("lm_prefill", "qwen3-1.7b", "bfloat16"),
+                               ("lm_griffin", "recurrentgemma-9b",
+                                "bfloat16"),
+                               ("lm_float32", "qwen3-1.7b", "float32")):
+        cfg = dataclasses.replace(registry.get_config(arch), dtype=dtype)
+        kind, n = smoke.FLASH_DRIVE_LAUNCHES[drive]
+        assert smoke.flash_variant_launches(cfg, "cuda") == {
+            f"flash_attention.{v}": n if v == kind else 0
+            for v in ("wgmma", "fma")}
+        assert set(smoke.flash_variant_launches(cfg, "cpu").values()) == {0}
+    rwkv = registry.get_config("rwkv6-7b")          # no attention layer
+    assert set(smoke.flash_variant_launches(rwkv, "cuda").values()) == {0}
 
 
 def test_phase_decode_kernel_cpu(smoke):

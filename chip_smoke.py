@@ -34,8 +34,9 @@ raises on any mismatch:
                          2,056 tokens.
 7. ``lm_serve``        — ``ServeEngine`` (8 slots, s_max 4,096): token-bucket
                          admission of a client mix, 32 ticks with the host
-                         driver crashed at tick 16 (one decode-attention
-                         launch per layer per tick), every tick finite and
+                         driver crashed at tick 16 (one launch of each
+                         decode-attention kernel, split and combine, per
+                         layer per tick), every tick finite and
                          in the vocab.  Here and in ``lm_prefill`` the
                          decode kernel is then held against its plain
                          version on a layer's cache as the drive left it,
@@ -54,11 +55,16 @@ raises on any mismatch:
                          The drives' flash launches by kernel must be 28
                          tensor-core (lm_prefill), 12 tensor-core
                          (lm_griffin) and 28 CUDA-core (lm_float32).
-9. ``decode_kernel``   — the decode kernel against its plain version over a
-                         32,768-long bf16 cache (B 16), lengths spread over
-                         [1, S], whole and as two ``kpos_offset`` shards;
-                         and in float32.  A planted fault (half of each
-                         sequence's rows dropped) must fail the check.
+9. ``decode_kernel``   — the decode kernels against their plain version
+                         over a 32,768-long cache (B 16), lengths spread
+                         over [1, S], and at recurrentgemma-9b's decode
+                         shape (B 4, 16 query heads on 1 KV head of 256,
+                         S 4,096, window 2,048, lengths 2,049-2,056), each
+                         whole and as two ``kpos_offset`` shards, bf16 and
+                         float32.  A planted fault (half of each sequence's
+                         rows dropped) must fail the check.  Both shapes
+                         timed (device time from a trace) beside the plain
+                         version and SDPA.
 10. ``lm_rwkv``        — rwkv6-7b at full width and depth (32 RWKV6 layers,
                          d 4,096, bf16, seeded random weights): the
                          ``lm_prefill`` drive (one WKV6 launch per layer),
@@ -631,6 +637,14 @@ def flash_variant_launches(cfg, device) -> dict:
             for v in ("wgmma", "fma")}
 
 
+def decode_kernel_launches(cfg, device) -> dict:
+    """The decode-attention launches of one decode step of ``cfg``'s model
+    by kernel: one split and one combine launch per attention layer (none
+    on the CPU)."""
+    n = path_launches(cfg, device)[1]["decode_partial"]
+    return {"decode_partial.split": n, "decode_partial.combine": n}
+
+
 def require_launches(want: dict, what: str) -> dict:
     got = read_launches()
     got = {k: got[k] for k in want}
@@ -687,8 +701,8 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         decoded.append(logits.float())
     decode_launches = require_launches(
-        {k: n * extra for k, n in want_step.items()},
-        f"{extra} decode steps")["decode_partial"]
+        {k: n * extra for k, n in {**want_step, **decode_kernel_launches(
+            cfg, device)}.items()}, f"{extra} decode steps")["decode_partial"]
     if logits.shape != (batch, cfg.padded_vocab):
         raise AssertionError(f"decode logits {tuple(logits.shape)}")
     cache, window = last_attention_cache(cfg, caches)
@@ -728,6 +742,8 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
         prof["idle_share"] = 1 - (prof["device_ms"]
                                   / result["decode_ms_per_step_median"])
         result["decode_profile"] = prof
+        result["decode_kernel_ms_per_step"] = prof["by_group_ms"][
+            "decode_attention"]
     return result, rows
 
 
@@ -795,6 +811,7 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
     idle at length 0), ``ticks`` decode ticks with the host driver crashed
     at ``crash_at``."""
     layers = path_launches(cfg, device)[1]["decode_partial"]
+    pair = decode_kernel_launches(cfg, device)
     if time_it:
         torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, s_max=s_max, n_slots=n_slots, burst=4.0,
@@ -837,6 +854,8 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
     if launches != [layers] * ticks:
         raise AssertionError(f"decode_partial launches per tick {launches}, "
                              f"expected {layers}")
+    pair = require_launches({k: n * ticks for k, n in pair.items()},
+                            f"{ticks} serving ticks")
     if not all(bool(f) for f in finite):
         raise AssertionError("non-finite logits in a serving tick")
     if tokens.min() < 0 or tokens.max() >= cfg.padded_vocab:
@@ -854,7 +873,8 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
         window=window)
     result = dict(slots=n_slots, active=slots, s_max=s_max, ticks=ticks,
                   crash_at=crash_at, admitted=admitted,
-                  decode_launches=per_tick[-1], stats=dict(eng.stats),
+                  decode_launches=per_tick[-1],
+                  decode_kernel_launches=pair, stats=dict(eng.stats),
                   cache_decode_errs=cache_errs)
     if time_it:
         result["tokens_per_s"] = slots * ticks / wall
@@ -1012,54 +1032,111 @@ def planted_fault_err(q, k, v, lengths, want, tol: float) -> float:
                          "half of each sequence's rows")
 
 
-def phase_decode_kernel(device, b=16, h=16, kh=8, s=32768, d=128,
-                        time_it=True):
+# The decode kernel's shapes: (name, b, h, kh, s, d, window, lengths):
+# a 32,768-long cache (B 16, 16 / 8 heads of 128) with lengths spread over
+# [1, S], and recurrentgemma-9b's decode step as the lm_griffin drive runs
+# it (B 4, 16 query heads on 1 KV head of 256, s_max 4,096, window 2,048,
+# lengths 2,049-2,056, past the window).
+DECODE_SHAPES = (("32k", 16, 16, 8, 32768, 128, 0, (1, 32768)),
+                 ("recurrentgemma-9b", 4, 16, 1, 4096, 256, 2048,
+                  (2049, 2056)))
+
+
+def decode_lengths(device, b: int, span) -> torch.Tensor:
+    """Seeded lengths in [lo, hi], the first lo and the last hi."""
+    lo, hi = span
     rng = np.random.RandomState(4)
-    ln = rng.randint(1, s + 1, b)
-    ln[0], ln[-1] = 1, s
-    lengths = torch.from_numpy(ln.astype(np.int32)).to(device)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        t = str(dtype)[6:]
-        q, k, v = random_qkv(device, 5, dtype, b, h, kh, 1, s, d)
-        want = dec_ref.decode_partial_reference(q, k, v, lengths)
-        got = dec_ops.decode_partial(q, k, v, lengths)
-        for part, err in require_partial_close(got, want, DECODE_TOL,
-                                               f"decode {dtype}").items():
-            errs[f"{part}/{t}"] = err
-        # two shards of the cache, each with its kpos_offset, combined
-        half = s // 2
-        parts = [dec_ops.decode_partial(
-            q, k[:, :, i * half:(i + 1) * half],
-            v[:, :, i * half:(i + 1) * half], lengths,
-            kpos_offset=i * half) for i in range(2)]
-        errs[f"shards/{t}"] = require_close(
-            dec_ops.combine_partials(parts),
-            want[0] / want[2].clamp(min=1e-30), DECODE_TOL,
-            f"decode 2 shards {dtype}")
-        if dtype == torch.bfloat16:
-            fault_err = planted_fault_err(q, k, v, lengths, want, DECODE_TOL)
-        del got, want, parts
-    visible = int(lengths.clamp(max=s).sum())
-    nbytes = (2.0 * visible * kh * d * k.element_size()   # visible K, V rows
+    ln = rng.randint(lo, hi + 1, b)
+    ln[0], ln[-1] = lo, hi
+    return torch.from_numpy(ln.astype(np.int32)).to(device)
+
+
+def device_time(fn, reps: int, kernels=()) -> dict:
+    """``device_profile`` of ``fn`` after one warm-up call: the device time
+    per call (all its kernels) from a torch.profiler trace, where CUDA
+    events around a kernel shorter than its wrapper's host work would time
+    the host."""
+    fn()
+    return device_profile(fn, reps, kernels)
+
+
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+
+
+def decode_timing(device, q, k, v, lengths, window, time_it=True) -> dict:
+    """The bytes bound of one decode partial (the visible K and V rows, q
+    and the outputs) and, with ``time_it``, the kernel pair's, the plain
+    version's and SDPA's device times per call."""
+    b, h, _, d = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    ln = lengths.long()
+    lo = (ln - window).clamp(min=0) if window > 0 else torch.zeros_like(ln)
+    visible = int((ln.clamp(max=s) - lo).clamp(min=0).sum())
+    nbytes = (2.0 * visible * kh * d * k.element_size()  # visible K, V rows
               + q.numel() * q.element_size() + b * h * (d + 2) * 4)
-    result = dict(max_abs_err=errs["acc/bfloat16"], errs=errs, tol=DECODE_TOL,
-                  planted_fault_err=fault_err, shape=(b, h, kh, s, d),
-                  visible_rows=visible,
+    result = dict(shape=(b, h, kh, s, d, window), visible_rows=visible,
+                  splits=dec_ops.plan_splits(b, kh, s),
                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     if time_it:
-        result["ms"] = cuda_ms(lambda: dec_ops.decode_partial(q, k, v,
-                                                              lengths))
-        result["plain_ms"] = cuda_ms(
-            lambda: dec_ref.decode_partial_reference(q, k, v, lengths),
-            reps=2)
-        mask = (torch.arange(s, device=device)[None, None, None, :]
-                < lengths[:, None, None, None])
-        result["library_ms"] = cuda_ms(
+        kw = dict(window=window)
+        prof = device_time(
+            lambda: dec_ops.decode_partial(q, k, v, lengths, **kw), 20,
+            DECODE_KERNELS)
+        result["ms"] = prof["device_ms"]
+        result["by_kernel_ms"] = prof["by_kernel_ms"]
+        result["plain_ms"] = device_time(
+            lambda: dec_ref.decode_partial_reference(q, k, v, lengths, **kw),
+            2)["device_ms"]
+        pos = torch.arange(s, device=device)[None, None, None, :]
+        ln4 = lengths[:, None, None, None]
+        mask = (pos < ln4) & (pos >= ln4 - window) if window > 0 \
+            else pos < ln4
+        result["library_ms"] = device_time(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True))
+                q, k, v, attn_mask=mask, enable_gqa=True), 20)["device_ms"]
         result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
     return result
+
+
+def phase_decode_kernel(device, shapes=DECODE_SHAPES, time_it=True):
+    """The decode kernel against its plain version at each of ``shapes``,
+    float32 and bf16, whole and as two ``kpos_offset`` shards; at the
+    first shape also a planted fault (half of each sequence's rows
+    dropped) that the check must reject.  Then ``decode_timing`` of the
+    bf16 cache at each.  The first shape's numbers are the kernel's row."""
+    errs, timed = {}, {}
+    for si, (name, b, h, kh, s, d, window, span) in enumerate(shapes):
+        lengths = decode_lengths(device, b, span)
+        for dtype in (torch.float32, torch.bfloat16):
+            t = f"{name}/{str(dtype)[6:]}"
+            q, k, v = random_qkv(device, 5, dtype, b, h, kh, 1, s, d)
+            want = dec_ref.decode_partial_reference(q, k, v, lengths,
+                                                    window=window)
+            got = dec_ops.decode_partial(q, k, v, lengths, window=window)
+            for part, err in require_partial_close(
+                    got, want, DECODE_TOL, f"decode {t}").items():
+                errs[f"{t}/{part}"] = err
+            # two shards of the cache, each with its kpos_offset, combined
+            half = s // 2
+            parts = [dec_ops.decode_partial(
+                q, k[:, :, i * half:(i + 1) * half],
+                v[:, :, i * half:(i + 1) * half], lengths, window=window,
+                kpos_offset=i * half) for i in range(2)]
+            errs[f"{t}/shards"] = require_close(
+                dec_ops.combine_partials(parts),
+                want[0] / want[2].clamp(min=1e-30), DECODE_TOL,
+                f"decode 2 shards {t}")
+            if si == 0 and dtype == torch.bfloat16:
+                fault_err = planted_fault_err(q, k, v, lengths, want,
+                                              DECODE_TOL)
+            del got, want, parts
+        timed[name] = decode_timing(device, q, k, v, lengths, window,
+                                    time_it)
+        del q, k, v
+    first = shapes[0][0]
+    return dict(timed[first], max_abs_err=errs[f"{first}/bfloat16/acc"],
+                errs=errs, tol=DECODE_TOL, planted_fault_err=fault_err,
+                shapes=timed)
 
 
 # ---------------------------------------------------------------------------
@@ -1266,16 +1343,17 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
 
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
-                 ("decode_attention", ("decode_kernel",)),
+                 ("decode_attention", DECODE_KERNELS),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel",)),
                  ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
-def device_profile(fn, steps: int) -> dict:
+def device_profile(fn, steps: int, kernels=()) -> dict:
     """Device time by kernel group over ``steps`` calls of ``fn`` (a
     torch.profiler trace of the card), per call, and the number of device
-    kernels per call."""
+    kernels per call; with ``kernels``, also the time of the kernels whose
+    names hold each of them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1285,19 +1363,25 @@ def device_profile(fn, steps: int) -> dict:
         torch.cuda.synchronize()
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
-    kernels = 0
+    named = {k: 0.0 for k in kernels}
+    count = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels += e.count
+        count += e.count
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in e.key for k in keys)), "other")
         groups[group] += us / 1e3 / steps
-    return dict(device_ms=sum(groups.values()), by_group_ms=groups,
-                device_ops=kernels / steps)
+        for k in named:
+            named[k] += us / 1e3 / steps if k in e.key else 0.0
+    out = dict(device_ms=sum(groups.values()), by_group_ms=groups,
+               device_ops=count / steps)
+    if kernels:
+        out["by_kernel_ms"] = named
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1431,6 +1515,15 @@ def main() -> int:
     print(f"[flash_kernel] launches by kernel: {variants}", flush=True)
     phases["decode_kernel"]["launches"] = phases["lm_serve"][
         "decode_launches"]
+    phases["decode_kernel"]["kernel_launches"] = phases["lm_serve"][
+        "decode_kernel_launches"]
+    print(f"[decode_kernel] launches by kernel over the lm_serve ticks: "
+          f"{phases['decode_kernel']['kernel_launches']}; decode-kernel "
+          f"device ms per decode step: qwen3-1.7b "
+          f"{phases['lm_prefill']['decode_kernel_ms_per_step']}, "
+          f"recurrentgemma-9b "
+          f"{phases['lm_griffin']['prefill']['decode_kernel_ms_per_step']}",
+          flush=True)
     # the recurrences' launches are those of their paths' prefill drives
     phases["wkv6_kernel"]["launches"] = phases["lm_rwkv"]["prefill"][
         "prefill_launches"]["wkv6"]
@@ -1448,6 +1541,12 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r.get("bound_by", "bytes"),
             library_ms=r.get("library_ms")))
+        if "kernel_launches" in r:
+            rows[-1]["kernel_launches"] = r["kernel_launches"]
+        if "shapes" in r:
+            rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                for n, t in r["shapes"].items()}
         for t in r.get("shapes", {}).values() or (r,):
             print(f"[times] {kname} ({card}): {t['ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "

@@ -1,26 +1,53 @@
 """Decode-attention wrappers: ``decode_partial`` takes the plain PyTorch
-version for tensors on the CPU and launches the CUDA kernel
-(``csrc/decode_attention.cu``) for tensors on the card; ``launches``
-counts kernel launches.  ``decode_attention`` normalises the partial, and
-``combine_partials`` merges shards' partials (plain torch, not a kernel)."""
+version for tensors on the CPU and, for tensors on the card, launches the
+CUDA kernels of ``csrc/decode_attention.cu``: a split pass over blocks of
+cache rows, then a combine pass.  ``launches`` counts kernel launches, in
+all (one per call) and by kernel.  ``decode_attention`` normalises the
+partial, and ``combine_partials`` merges shards' partials (plain torch,
+not a kernel)."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
 from .ref import combine_partials_reference, decode_partial_reference
 
-launches = {"decode_partial": 0}
+launches = {"decode_partial": 0, "decode_partial.split": 0,
+            "decode_partial.combine": 0}
+
+# The split rule.  Rows per split are a multiple of SPLIT_QUANTUM (32,
+# which every shared-memory tile of the kernel divides) and at most
+# SPLIT_ROWS_MAX; within that, as few as give SPLIT_BLOCKS blocks (four per
+# SM of an H100's 132) over the whole cache.  A 32,768-long cache at B 16,
+# KH 8 gets 512 rows (8,192 blocks, several waves of those with visible
+# rows); recurrentgemma-9b's decode (B 4, KH 1, S 4,096) gets 32 (128
+# splits, of which its window of 2,048 reaches 65: the kernel launches
+# only those, 260 blocks).
+SPLIT_QUANTUM = 32
+SPLIT_ROWS_MAX = 512
+SPLIT_BLOCKS = 4 * 132
+
+
+def plan_splits(b: int, kh: int, s: int) -> Tuple[int, int]:
+    """(rows per split, number of splits) for a (B, KH, S) cache, from the
+    shapes alone: the rule never reads ``lengths``, which would sync the
+    serving loop.  The splits tile [0, S); an empty cache has one."""
+    want = -(-s * b * kh // SPLIT_BLOCKS)
+    rows = -(-want // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    rows = min(SPLIT_ROWS_MAX, max(SPLIT_QUANTUM, rows))
+    return rows, max(1, -(-s // rows))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_partial.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   i, ctypes.c_float, p]
-    lib.decode_partial.restype = i
+    lib.decode_split.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+                                 ctypes.c_float, p]
+    lib.decode_split.restype = i
+    lib.decode_combine.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.decode_combine.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -46,13 +73,25 @@ def decode_partial(q, k, v, lengths, *, window: int = 0,
     l = torch.empty_like(m)
     if acc.numel() == 0:
         return acc, m, l
+    rows, n_split = plan_splits(b, kh, s)
+    # each split's (acc, m, l); only the splits with visible rows are
+    # written, and only those are read
+    part = torch.empty((b, h, n_split, d + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _build.load("decode_attention", _declare)
-    _build.check(lib, lib.decode_partial(
+    stream = _build.stream()
+    _build.check(lib, lib.decode_split(
         _build.pointer(q), _build.pointer(k), _build.pointer(v),
-        _build.pointer(lengths), _build.pointer(acc), _build.pointer(m),
-        _build.pointer(l), _build.DTYPES[q.dtype], b, h, kh, s, d, window,
-        kpos_offset, d ** -0.5 if scale is None else scale, _build.stream()),
+        _build.pointer(lengths), _build.pointer(part),
+        _build.DTYPES[q.dtype], b, h, kh, s, d, rows, n_split, window,
+        kpos_offset, d ** -0.5 if scale is None else scale, stream),
         "decode_partial")
+    launches["decode_partial.split"] += 1
+    _build.check(lib, lib.decode_combine(
+        _build.pointer(part), _build.pointer(lengths), _build.pointer(acc),
+        _build.pointer(m), _build.pointer(l), b, h, s, d, rows, n_split,
+        window, kpos_offset, stream), "decode_partial")
+    launches["decode_partial.combine"] += 1
     launches["decode_partial"] += 1
     return acc, m, l
 

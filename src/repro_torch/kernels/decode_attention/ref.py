@@ -55,6 +55,44 @@ def combine_partials_reference(parts):
     return acc_star / torch.clamp(l_star, min=1e-30)
 
 
+def split_partial_emulation(q, k, v, lengths, *, window: int = 0,
+                            kpos_offset: int = 0,
+                            scale: Optional[float] = None,
+                            rows: Optional[int] = None):
+    """The decode kernel's split and combine passes in plain PyTorch: the
+    shard cut into splits of ``rows`` rows (the wrapper's ``plan_splits``
+    by default), ``decode_partial_reference`` on each split at its own
+    kpos_offset, and the splits that hold visible rows merged as the
+    combine kernel merges them (the kernel evaluates the same sums in base
+    2); a row with no visible row gives acc 0, l 0, m -1e30.  Returns
+    (acc, m, l) as ``decode_partial_reference`` does."""
+    from .ops import plan_splits
+    b, _, _, d = q.shape
+    kh, s = k.shape[1], k.shape[2]
+    if rows is None:
+        rows = plan_splits(b, kh, s)[0]
+    n = max(1, -(-s // rows))
+    ln = lengths.to(device=q.device, dtype=torch.int64)
+    lo = ln - window if window > 0 else torch.zeros_like(ln)
+    j_lo = (lo - kpos_offset).clamp(min=0)
+    j_hi = (ln - kpos_offset).clamp(max=s)
+    visible = j_hi > j_lo
+    idx = torch.arange(n, device=q.device)[:, None]
+    used = visible & (idx >= j_lo // rows) & (idx <= (j_hi - 1) // rows)
+    used = used[:, :, None, None, None]                   # (n, B, 1, 1, 1)
+    parts = [decode_partial_reference(
+        q, k[:, :, i * rows:(i + 1) * rows], v[:, :, i * rows:(i + 1) * rows],
+        lengths, window=window, kpos_offset=kpos_offset + i * rows,
+        scale=scale) for i in range(n)]
+    accs, ms, ls = (torch.stack(x) for x in zip(*parts))
+    m = torch.where(used, ms, -torch.inf).amax(0)
+    f = torch.where(used, torch.exp(ms - m), 0.0)
+    acc, l = (f * accs).sum(0), (f * ls).sum(0)
+    vis = visible[:, None, None, None]
+    return (torch.where(vis, acc, 0.0), torch.where(vis, m, NEG_INF),
+            torch.where(vis, l, 0.0))
+
+
 def decode_reference(q, k, v, lengths, *, window: int = 0,
                      scale: Optional[float] = None):
     acc, m, l = decode_partial_reference(q, k, v, lengths, window=window,

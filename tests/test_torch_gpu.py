@@ -236,6 +236,26 @@ def test_flash_tensor_core_empty_row_gives_zeros(cuda, d):
         _close(got[1:], want[1:], torch.bfloat16, f"window={window}")
 
 
+def _decode_checked(q, k, v, lengths, **kw):
+    """The wrapper's partial, with one launch of each kernel of the pair
+    (and one call) counted; every part float32."""
+    before = dict(dec_ops.launches)
+    got = dec_ops.decode_partial(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in dec_ops.launches.items()} == {
+        "decode_partial": 1, "decode_partial.split": 1,
+        "decode_partial.combine": 1}
+    assert all(g.dtype == torch.float32 for g in got)
+    return got
+
+
+def _decode_close(got, want, what):
+    # both sides read the same inputs and accumulate in float32, so bf16 is
+    # held at the float32 limit too
+    for g, w, name in zip(got, want, ("acc", "m", "l")):
+        _close(g, w, torch.float32, f"{what} {name}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_decode_kernel_matches_plain(cuda, dtype, d):
@@ -243,26 +263,47 @@ def test_decode_kernel_matches_plain(cuda, dtype, d):
     # an idle row (0), rows before, inside and past the shard at offset 128
     lengths = torch.tensor([0, 1, 129, 600, 828], dtype=torch.int32,
                            device=cuda)
-    for h, kh in ((8, 8), (8, 4), (8, 2), (12, 4), (16, 1)):
+    # G 1, 2, 4, 3, 16, and 20 (two blocks of query heads per KV head)
+    for h, kh in ((8, 8), (8, 4), (8, 2), (12, 4), (16, 1), (20, 1)):
         q, k, v = _qkv(cuda, h + kh, dtype, b, h, kh, 1, s, d)
         for kw in (dict(), dict(window=100), dict(kpos_offset=128),
                    dict(window=300, kpos_offset=128)):
-            before = dec_ops.launches["decode_partial"]
-            got = dec_ops.decode_partial(q, k, v, lengths, **kw)
+            got = _decode_checked(q, k, v, lengths, **kw)
             want = dec_ref.decode_partial_reference(q, k, v, lengths, **kw)
-            torch.cuda.synchronize()
-            assert dec_ops.launches["decode_partial"] == before + 1
-            # both sides read the same inputs and accumulate in float32, so
-            # bf16 is held at the float32 limit too
-            for g, w, name in zip(got, want, ("acc", "m", "l")):
-                assert g.dtype == torch.float32
-                _close(g, w, torch.float32, f"H={h} KH={kh} {kw} {name}")
+            _decode_close(got, want, f"H={h} KH={kh} {kw}")
             acc, m, l = got
             if not kw:      # the idle row: zeros, -1e30, no NaN
                 assert torch.all(acc[0] == 0) and torch.all(l[0] == 0)
                 assert torch.all(m[0] == dec_ref.NEG_INF)
                 out = dec_ops.decode_attention(q, k, v, lengths)
                 assert torch.isfinite(out).all() and torch.all(out[0] == 0)
+    # a cache of many splits: an idle row, a length on a split boundary,
+    # one just past and one just short of one, the whole cache; windows and
+    # shard offsets that cross split boundaries
+    s = 5000
+    for h, kh in ((8, 2), (16, 1)):
+        rows, n_split = dec_ops.plan_splits(b, kh, s)
+        assert n_split > 8
+        lengths = torch.tensor([0, rows, 2 * rows + 1, 3 * rows - 1, s],
+                               dtype=torch.int32, device=cuda)
+        q, k, v = _qkv(cuda, h, dtype, b, h, kh, 1, s, d)
+        for kw in (dict(), dict(window=rows + 7), dict(kpos_offset=rows),
+                   dict(window=2 * rows, kpos_offset=rows // 2 + 3),
+                   dict(window=s + 100)):
+            got = _decode_checked(q, k, v, lengths, **kw)
+            want = dec_ref.decode_partial_reference(q, k, v, lengths, **kw)
+            _decode_close(got, want, f"S={s} H={h} KH={kh} {kw}")
+            assert torch.all(got[0][0] == 0) and torch.all(got[2][0] == 0)
+    if d == 256:
+        # recurrentgemma-9b's decode: 16 query heads on one KV head, window
+        # 2,048 over a 4,096-row cache, lengths past the window
+        lengths = torch.tensor([2049, 2056, 3001, 4096], dtype=torch.int32,
+                               device=cuda)
+        q, k, v = _qkv(cuda, 16, dtype, 4, 16, 1, 1, 4096, d)
+        got = _decode_checked(q, k, v, lengths, window=2048)
+        want = dec_ref.decode_partial_reference(q, k, v, lengths,
+                                                window=2048)
+        _decode_close(got, want, "griffin decode shape")
 
 
 def test_decode_shards_combine_on_the_card(cuda):
@@ -291,14 +332,13 @@ def test_attention_kernels_reject_and_raise(cuda):
     # is not counted: there is no fallback to the plain version
     q, k, v = _qkv(cuda, 0, torch.float32, 65536, 1, 1, 1, 1, 32)
     lengths = torch.ones(65536, dtype=torch.int32, device=cuda)
-    before = (fa_ops.launches["flash_attention"],
-              dec_ops.launches["decode_partial"])
+    before = (fa_ops.launches["flash_attention"], dict(dec_ops.launches))
     with pytest.raises(RuntimeError, match="flash_attention launch failed"):
         fa_ops.flash_attention(q, k, v)
     with pytest.raises(RuntimeError, match="decode_partial launch failed"):
         dec_ops.decode_partial(q, k, v, lengths)
     assert (fa_ops.launches["flash_attention"],
-            dec_ops.launches["decode_partial"]) == before
+            dict(dec_ops.launches)) == before
 
 
 # --- recurrences -------------------------------------------------------------
@@ -327,9 +367,10 @@ def _wkv_inputs(cuda, seed, dtype, b, h, t, n, w_lo):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [32, 64])
 def test_wkv6_kernel_matches_scans(cuda, dtype, n):
-    # decays down to 0.01: far below the chunked form's range (w > ~0.115)
+    # decays down to 0.01: far below the chunked form's range (w > ~0.115);
+    # T 31, 33 and 65 end in a part of the kernel's 32-step chunk
     for i, (b, h, t) in enumerate(((1, 1, 1), (2, 3, 33), (1, 1, 2048),
-                                   (2, 2, 2048))):
+                                   (2, 2, 2048), (2, 3, 31), (1, 2, 65))):
         r, k, v, w, u = _wkv_inputs(cuda, i, dtype, b, h, t, n, 0.01)
         before = wkv_ops.launches["wkv6"]
         o, s = wkv_ops.wkv6(r, k, v, w, u)

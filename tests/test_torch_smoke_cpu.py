@@ -119,11 +119,36 @@ def test_flash_launches_by_kernel_follow_the_dispatch(smoke):
 
 
 def test_phase_decode_kernel_cpu(smoke):
-    r = smoke.phase_decode_kernel("cpu", b=3, h=4, kh=2, s=64, d=32,
-                                  time_it=False)
-    assert r["errs"]["shards/float32"] < r["tol"]
+    # the 32k case and the recurrentgemma-9b decode case at a small size:
+    # 16 query heads on one KV head, a window the lengths are past
+    shapes = (("a", 3, 4, 2, 64, 32, 0, (1, 64)),
+              ("b", 4, 16, 1, 96, 64, 32, (33, 40)))
+    r = smoke.phase_decode_kernel("cpu", shapes, time_it=False)
+    assert set(r["errs"]) == {f"{n}/{t}/{p}" for n in "ab"
+                              for t in ("float32", "bfloat16")
+                              for p in ("acc", "l", "m", "shards")}
+    assert r["errs"]["a/float32/shards"] < r["tol"]
+    assert r["max_abs_err"] == 0          # the CPU compares plain to plain
     assert r["planted_fault_err"] > 100 * r["tol"]    # the check rejects it
     assert r["visible_rows"] > 0 and r["bound_ms"] > 0
+    assert set(r["shapes"]) == {"a", "b"}
+    b = r["shapes"]["b"]               # each row sees its window's 32 rows
+    assert b["visible_rows"] == 4 * 32 and b["shape"] == (4, 16, 1, 96, 64,
+                                                          32)
+    lengths = smoke.decode_lengths("cpu", 4, (33, 40))
+    assert lengths.tolist()[0] == 33 and lengths.tolist()[-1] == 40
+    assert r["shapes"]["a"]["splits"] == smoke.dec_ops.plan_splits(3, 2, 64)
+
+
+def test_decode_launches_by_kernel(smoke):
+    """The drives' gate on the decode pair: one split and one combine
+    launch per attention layer and step."""
+    for arch, n in (("qwen3-1.7b", 28), ("recurrentgemma-9b", 12),
+                    ("rwkv6-7b", 0)):
+        cfg = registry.get_config(arch)
+        assert smoke.decode_kernel_launches(cfg, "cuda") == {
+            "decode_partial.split": n, "decode_partial.combine": n}
+        assert set(smoke.decode_kernel_launches(cfg, "cpu").values()) == {0}
 
 
 def bf16_smoke(arch):

@@ -23,9 +23,13 @@ raises on any mismatch:
                          against the interpreter and the plain loop; again
                          at the throughput benchmark's size.
 4. ``chain_straight``  — the straight-line chain kernel against its plain
-                         version on 1,024 seeded random programs.
+                         version on 1,024 seeded random programs; timed
+                         by device time from a trace.
 5. ``hopscotch_probe`` — the hopscotch kernel against the plain lookup on
-                         every shard table, and against the redn answers.
+                         every shard table, and against the redn answers;
+                         on shard 0's table also at neighborhoods of 16
+                         and 32 and with one value word.  Timed by device
+                         time from a trace.
 6. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
                          bf16, seeded random weights): ``make_prefill_step``
                          on 4 x 2,048 prompt tokens (one flash-attention
@@ -87,7 +91,13 @@ raises on any mismatch:
 12. ``wkv6_kernel``    — the WKV6 kernel against its plain scan at the
                          prefill shape, at a T that is not a multiple of 32
                          and at T = 1, bfloat16 and float32.
-13. ``rglru_kernel``   — the RG-LRU kernel likewise.
+13. ``rglru_kernel``   — the RG-LRU kernel likewise, and at a D that ends
+                         in a part of the ring kernel's 64-channel tile
+                         and at one whose rows no TMA copy can move (the
+                         direct kernel); each case's launch by kernel as
+                         ``rglru.variant`` picks it.  The recurrentgemma-9b
+                         drives' 26 launches a prefill must all be the
+                         ring kernel's.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
@@ -153,7 +163,11 @@ CHUNK_LOG_RANGE = 69.0
 
 
 def _import_port():
-    """Import the port from this checkout's ``src`` (and nowhere else)."""
+    """Import the port from this checkout's ``src`` (and nowhere else); a
+    copy of this script outside a checkout exits non-zero here."""
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        raise SystemExit(f"chip_smoke: no src/repro_torch beside this script"
+                         f" in {ROOT}: run it from the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
     if Path(repro_torch.__file__).resolve().parents[1] != ROOT / "src":
@@ -522,11 +536,13 @@ def phase_chain_straight(device, n=1024, mem_words=4096, n_wrs=16,
                   shape=tuple(mems.shape),
                   bound_ms=2 * mems.numel() * 4 / HBM_BYTES_PER_S * 1e3)
     if time_it:
+        # device time: CUDA events around a call this short time the host
         kw = dict(wq_base=0, n_wrs=n_wrs, max_steps=max_steps)
-        result["ms"] = cuda_ms(lambda: chain_ops.run_chains(mems, **kw))
-        result["plain_ms"] = cuda_ms(
+        result["ms"] = device_time(lambda: chain_ops.run_chains(mems, **kw),
+                                   20)["device_ms"]
+        result["plain_ms"] = device_time(
             lambda: chain_ref.run_chain_reference(mems, 0, n_wrs, max_steps),
-            reps=2)
+            2)["device_ms"]
     return result
 
 
@@ -562,6 +578,13 @@ def probe_bytes(found, slot_probes, val_words: int) -> float:
                   + b * val_words) + b
 
 
+# The probe's cases beyond the store's own (H 8, V 4) on shard 0's table:
+# (neighborhood, value words); a neighborhood of 16 or 32 fills a group of
+# 16 lanes or a whole warp, one value word leaves all but one lane of a
+# group without a word to copy.
+PROBE_CASES = ((16, 4), (32, 4), (8, 1))
+
+
 def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
                           redn_chunk=64, time_it=True):
     qs = [probe_queries(kv, s, n_queries, n_keys, seed=11)
@@ -577,6 +600,14 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
         require_equal(f, pf, f"shard {s} found")
         err = max(err, require_equal(v, pv, f"shard {s} values"))
         hits += int(f.sum())
+    case_hits = {}
+    for h, v in PROBE_CASES:
+        vals = dv[0][:, :v].contiguous()
+        f, got = hop_ops.hopscotch_lookup(dk[0], vals, q_dev[0], h)
+        pf, pv = hopscotch.lookup(dk[0], vals, q_dev[0], h)
+        require_equal(f, pf, f"H {h}, V {v} found")
+        err = max(err, require_equal(got, pv, f"H {h}, V {v} values"))
+        case_hits[f"H{h}/V{v}"] = int(f.sum())
     # the same queries through the redn path: row s of each call carries
     # shard s's queries (each owned by s, except key 0, a miss everywhere)
     for lo in range(0, n_queries, redn_chunk):
@@ -596,14 +627,19 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
     first = torch.argmax(hit.int(), dim=1) + 1
     probes = torch.where(hit.any(dim=1), first, h) * (q0 != 0)
     result = dict(launches=launches, max_abs_err=err, hits=hits,
-                  wrap_queries=[w for _, w in qs], shape=(n, n_queries),
+                  case_hits=case_hits, wrap_queries=[w for _, w in qs],
+                  shape=(n, n_queries),
                   bound_ms=probe_bytes(outs[0][0], probes, dv.shape[2])
                   / HBM_BYTES_PER_S * 1e3)
     if time_it:
+        # device time: CUDA events around a ~20 us call time the host
         args = (dk[0], dv[0], q0, h)
-        result["ms"] = cuda_ms(lambda: hop_ops.hopscotch_lookup(*args),
-                               reps=20)
-        result["plain_ms"] = cuda_ms(lambda: hopscotch.lookup(*args), reps=20)
+        result["ms"] = device_time(lambda: hop_ops.hopscotch_lookup(*args),
+                                   50)["device_ms"]
+        result["plain_ms"] = device_time(lambda: hopscotch.lookup(*args),
+                                         20)["device_ms"]
+        result["event_ms"] = cuda_ms(lambda: hop_ops.hopscotch_lookup(*args),
+                                     reps=20)
     return result
 
 
@@ -635,6 +671,16 @@ def flash_variant_launches(cfg, device) -> dict:
         else None
     return {f"flash_attention.{v}": n if v == kind else 0
             for v in ("wgmma", "fma")}
+
+
+def rglru_variant_launches(cfg, device) -> dict:
+    """The RG-LRU launches of one prefill of ``cfg``'s model by kernel:
+    every one of the kernel that ``variant`` picks for the float32 a and u
+    that the recurrent layers pass at the LRU width (none on the CPU)."""
+    n = path_launches(cfg, device)[0]["rglru"]
+    kind = rg_ops.variant(torch.float32, cfg.lru_width or cfg.d_model) \
+        if n else None
+    return {f"rglru.{v}": n if v == kind else 0 for v in ("ring", "direct")}
 
 
 def decode_kernel_launches(cfg, device) -> dict:
@@ -672,6 +718,7 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     rows of ``forward``)}, both float32)."""
     want_prefill, want_step = path_launches(cfg, device)
     want_variants = flash_variant_launches(cfg, device)
+    want_rglru = rglru_variant_launches(cfg, device)
     dt = params.embed.embedding.dtype
     rng = np.random.RandomState(0)
     toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (
@@ -690,6 +737,8 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     prefill_launches = require_launches(want_prefill, "the prefill")
     flash_variants = require_launches(want_variants,
                                       "the prefill's flash kernels")
+    rglru_variants = require_launches(want_rglru,
+                                      "the prefill's RG-LRU kernels")
     step_ms, decoded = [], []
     reset_launches()
     for i in range(extra):
@@ -719,6 +768,7 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
                   prefill_launches=prefill_launches,
                   flash_launches=prefill_launches["flash_attention"],
                   flash_variant_launches=flash_variants,
+                  rglru_variant_launches=rglru_variants,
                   decode_launches=decode_launches,
                   max_abs_err_prefill=err_prefill, logit_tol=LOGIT_TOL[dt],
                   cache_decode_errs=cache_errs, first_prefill_s=first_s,
@@ -1303,37 +1353,66 @@ def phase_wkv6_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
     return result
 
 
+def rglru_cases(b: int, t: int, d: int):
+    """The RG-LRU kernel's checked shapes: the prefill's (b, t, d); at its D
+    a T that ends in a part of the ring kernel's 32-step chunk and T 1; a
+    D that ends in a part of its 64-channel tile (d + 4; the direct kernel
+    in bf16, whose rows are then not whole 16-byte units) and one whose
+    rows no TMA copy can move in either type (d + 3, the direct kernel)."""
+    return ((b, t, d), (b, t // 2 + 1, d), (b, 1, d), (b, 97, d + 4),
+            (b, 33, d + 3))
+
+
 def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
-    def inputs(seed, dtype, tt):
+    def inputs(seed, dtype, bb, tt, dd):
         gen = torch.Generator(device=device).manual_seed(seed)
         # the path's decays: a = exp(-8 softplus(lam) r) >= ~0.86
-        a = 0.86 + 0.14 * torch.rand((b, tt, d), generator=gen,
+        a = 0.86 + 0.14 * torch.rand((bb, tt, dd), generator=gen,
                                      device=device)
-        u = torch.randn((b, tt, d), generator=gen, device=device)
+        u = torch.randn((bb, tt, dd), generator=gen, device=device)
         return a.to(dtype), u.to(dtype)
 
-    errs = {}
+    on = int(torch.device(device).type == "cuda")
+    errs, kinds = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for tt in (t, t // 2 + 1, 1):
-            a, u = inputs(tt, dtype, tt)
+        for bb, tt, dd in rglru_cases(b, t, d):
+            key = f"{bb}x{tt}x{dd}/{str(dtype)[6:]}"
+            a, u = inputs(tt + dd, dtype, bb, tt, dd)
+            kind = rg_ops.variant(dtype, dd)
+            before = read_launches()
             h, last = rg_ops.rglru(a, u)
+            got = {k: n - before[k] for k, n in read_launches().items()
+                   if k.startswith("rglru.")}
+            want = {f"rglru.{v}": on * (v == kind)
+                    for v in ("ring", "direct")}
+            if got != want:
+                raise AssertionError(f"rglru {key} launched {got}, expected "
+                                     f"{want}")
+            kinds[key] = kind
             ph, plast = rg_ref.rglru_reference(a, u)
-            key = f"T{tt}/{str(dtype)[6:]}"
+            if dtype == torch.float32 and not (torch.equal(h, ph) and
+                                               torch.equal(last, plast)):
+                raise AssertionError(f"rglru {key}: float32 h or final h "
+                                     f"not bit-equal to the plain scan")
             errs[f"h/{key}"] = require_close(h, ph, REC_TOL[dtype],
                                              f"rglru h {key}")
             errs[f"last/{key}"] = require_close(last, plast, STATE_TOL,
                                                 f"rglru final h {key}")
             del a, u, h, last, ph, plast
-    a, u = inputs(0, torch.float32, t)
+    a, u = inputs(0, torch.float32, b, t, d)
     nbytes = 3 * a.numel() * 4 + b * d * 4      # a, u in; h, final h out
-    result = dict(max_abs_err=errs[f"h/T{t}/float32"], errs=errs,
-                  shape=(b, t, d), bytes=nbytes,
+    result = dict(max_abs_err=errs[f"h/{b}x{t}x{d}/float32"], errs=errs,
+                  variants=kinds, shape=(b, t, d), bytes=nbytes,
                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     if time_it:
         result["ms"] = cuda_ms(lambda: rg_ops.rglru(a, u), reps=10)
         result["plain_ms"] = cuda_ms(lambda: rg_ref.rglru_reference(a, u),
                                      reps=1)
         result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
+        a, u = a.bfloat16(), u.bfloat16()
+        result["bf16_ms"] = cuda_ms(lambda: rg_ops.rglru(a, u), reps=10)
+        result["bf16_bound_ms"] = (3 * a.numel() * 2 + b * d * 4) \
+            / HBM_BYTES_PER_S * 1e3
     return result
 
 
@@ -1345,7 +1424,7 @@ KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
                  ("decode_attention", DECODE_KERNELS),
                  ("wkv6", ("wkv6_kernel",)),
-                 ("rglru", ("rglru_kernel",)),
+                 ("rglru", ("rglru_kernel", "rglru_ring_kernel")),
                  ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
 
 
@@ -1524,11 +1603,18 @@ def main() -> int:
           f"recurrentgemma-9b "
           f"{phases['lm_griffin']['prefill']['decode_kernel_ms_per_step']}",
           flush=True)
-    # the recurrences' launches are those of their paths' prefill drives
+    # the recurrences' launches are those of their paths' prefill drives;
+    # the RG-LRU launches by kernel, which lm_drive has gated
     phases["wkv6_kernel"]["launches"] = phases["lm_rwkv"]["prefill"][
         "prefill_launches"]["wkv6"]
     phases["rglru_kernel"]["launches"] = phases["lm_griffin"]["prefill"][
         "prefill_launches"]["rglru"]
+    rg_variants = dict(
+        bf16=phases["lm_griffin"]["prefill"]["rglru_variant_launches"],
+        float32=phases["lm_griffin"]["lm_float32"]["rglru_variant_launches"])
+    phases["rglru_kernel"]["kernel_launches"] = rg_variants["bf16"]
+    print(f"[rglru_kernel] launches by kernel per recurrentgemma-9b prefill:"
+          f" {rg_variants}", flush=True)
 
     rows = []
     for kname, phase, source, replaces in KERNELS:

@@ -122,6 +122,47 @@ def test_hopscotch_kernel_matches_plain(cuda):
     assert empty[1].shape == (0, v)
 
 
+@pytest.mark.parametrize("h", [1, 8, 16, 32, 40])
+@pytest.mark.parametrize("v", [1, 4, 16])
+def test_hopscotch_kernel_neighborhoods_and_row_widths(cuda, h, v):
+    """Neighborhoods that fill a group of 1 to 32 lanes or walk two
+    32-bucket windows, rows of 1 to 16 words: exact against the plain
+    lookup, with a neighborhood that wraps the table end, a key stored
+    twice (the first bucket wins), key 0 and values at +-(2^31 - 1)."""
+    n, big = 2048, 2 ** 31 - 1
+    rng = np.random.RandomState(100 * h + v)
+    t = hopscotch.make_table(n, v, neighborhood=h)
+    keys = rng.choice(np.arange(1, 1 << 24), 800, replace=False)
+    for k in keys.tolist():
+        row = rng.randint(-big, big + 1, v, dtype=np.int64)
+        row[0] = big if k % 2 else -big
+        t.insert(k, row.tolist())
+    # a key homed on the last bucket, stored in its neighborhood's last
+    # bucket: past the table end for h > 1
+    wrap = next(k for k in range(1 << 24, 1 << 25)
+                if hopscotch.bucket_of(k, n) == n - 1)
+    t.keys[(n + h - 2) % n], t.values[(n + h - 2) % n] = wrap, -big
+    # key 77 twice, the second copy h // 2 buckets on (past it for h 1)
+    b77 = hopscotch.bucket_of(77, n)
+    t.keys[b77], t.values[b77] = 77, big
+    t.keys[(b77 + max(1, h // 2)) % n] = 77
+    t.values[(b77 + max(1, h // 2)) % n] = 5
+    q = np.concatenate([rng.choice(keys, 1500), rng.randint(1 << 25, 1 << 26,
+                                                            500),
+                        [0, 77, wrap, 0]])
+    dk, dv = t.as_device(cuda)
+    qd = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    before = hop_ops.launches["hopscotch_lookup"]
+    got = hop_ops.hopscotch_lookup(dk, dv, qd, h)
+    want = hopscotch.lookup(dk, dv, qd, h)
+    torch.cuda.synchronize()
+    assert hop_ops.launches["hopscotch_lookup"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0][-3:-1].tolist() == [True, True] and not bool(got[0][-1])
+    assert got[1][-3].tolist() == [big] * v and got[1][-1].abs().sum() == 0
+    assert int(got[0].sum()) > 1000          # most stored keys are hits
+
+
 def test_interpreter_on_the_card_matches_the_cpu(cuda):
     spec = machine.MachineSpec(512, (0, 48, 96), (6, 6, 6), (0, 2, 1),
                                (False, True, True), 4)
@@ -387,18 +428,29 @@ def test_wkv6_kernel_matches_scans(cuda, dtype, n):
         _close_rec(s, ds, STATE_TOL, f"S vs float64, T={t}")
 
 
+def _rglru_case(cuda, seed, dtype, b, t, d):
+    """The RG-LRU kernel on seeded a in [0.5, 1) and u: (a, u, h, final h),
+    after checking that it launched the kernel ``variant`` picks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = (0.5 + 0.5 * torch.rand((b, t, d), generator=gen,
+                                device=cuda)).to(dtype)
+    u = torch.randn((b, t, d), generator=gen, device=cuda).to(dtype)
+    kind = rg_ops.variant(dtype, d)
+    before = dict(rg_ops.launches)
+    h, h_last = rg_ops.rglru(a, u)
+    torch.cuda.synchronize()
+    assert rg_ops.launches["rglru"] == before["rglru"] + 1
+    assert {v: rg_ops.launches[f"rglru.{v}"] - before[f"rglru.{v}"]
+            for v in ("ring", "direct")} == {
+        v: int(v == kind) for v in ("ring", "direct")}
+    return a, u, h, h_last
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_kernel_matches_scans(cuda, dtype):
     for i, (b, t, d) in enumerate(((1, 1, 1), (3, 1, 7), (2, 37, 4099),
                                    (4, 300, 130))):
-        gen = torch.Generator(device=cuda).manual_seed(i)
-        a = (0.5 + 0.5 * torch.rand((b, t, d), generator=gen,
-                                    device=cuda)).to(dtype)
-        u = torch.randn((b, t, d), generator=gen, device=cuda).to(dtype)
-        before = rg_ops.launches["rglru"]
-        h, h_last = rg_ops.rglru(a, u)
-        torch.cuda.synchronize()
-        assert rg_ops.launches["rglru"] == before + 1
+        a, u, h, h_last = _rglru_case(cuda, i, dtype, b, t, d)
         assert h.dtype == dtype and h.shape == a.shape
         assert h_last.dtype == torch.float32 and h_last.shape == (b, d)
         ph, plast = rg_ref.rglru_reference(a, u)
@@ -410,6 +462,27 @@ def test_rglru_kernel_matches_scans(cuda, dtype):
         dh, dlast = rg_ref.rglru_reference(a.double(), u.double())
         _close_rec(h, dh, REC_TOL[dtype], f"h vs float64, {(b, t, d)}")
         _close_rec(h_last, dlast, STATE_TOL, f"final vs float64, {(b, t, d)}")
+
+
+# the ring kernel's shapes: the recurrentgemma-9b prefill; a T shorter
+# than its 32-step chunk on one tile; a T that ends in a part of a chunk at
+# a D that ends in a part of a 64-channel tile (bf16: not whole 16-byte
+# rows, the direct kernel); T 1 on a tile of 8 channels
+RING_SHAPES = ((4, 2048, 4096), (1, 31, 64), (2, 97, 4100), (3, 1, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RING_SHAPES)
+def test_rglru_ring_kernel_matches_scan(cuda, dtype, shape):
+    a, u, h, h_last = _rglru_case(cuda, sum(shape), dtype, *shape)
+    assert rg_ops.variant(dtype, shape[2]) == (
+        "direct" if (dtype, shape[2]) == (torch.bfloat16, 4100) else "ring")
+    assert h.dtype == dtype and h.shape == a.shape
+    ph, plast = rg_ref.rglru_reference(a, u)
+    if dtype == torch.float32:
+        assert torch.equal(h, ph) and torch.equal(h_last, plast)
+    _close_rec(h, ph, REC_TOL[dtype], f"h vs plain, {shape}")
+    _close_rec(h_last, plast, STATE_TOL, f"final h, {shape}")
 
 
 def test_recurrence_kernels_refuse_bad_inputs(cuda):

@@ -3,7 +3,8 @@ wrappers (their plain scans on the CPU) against the JAX reference scans,
 its Pallas kernels in interpret mode and its chunked forms, the one-token
 decode steps chained over T, and the RWKV6 and Griffin layers module by
 module at ``smoke_config`` of rwkv6-7b and recurrentgemma-9b (float32,
-the JAX parameters carried across by ``convert``).
+the JAX parameters carried across by ``convert``); Griffin's gates also in
+bf16, against JAX and against an emulation of the port's roundings.
 
 Tolerances: the recurrences at test_kernels.py's 5e-5 (float32), the
 chained decode steps at its 1e-5, the modules at 2e-5 (test_torch_lm.py's
@@ -176,6 +177,26 @@ def test_rglru_matches_jax_scan_kernel_chunked_and_assoc(b, tt, d):
         close(h_last, jl, REC_TOL, f"final h vs {impl}")
 
 
+def test_rglru_variant_table():
+    # a row of D elements in whole 16-byte units goes to the ring kernel
+    for d in (4, 64, 4096, 4100):
+        assert trg_ops.variant(torch.float32, d) == "ring"
+    for d in (8, 64, 4096):
+        assert trg_ops.variant(torch.bfloat16, d) == "ring"
+    for dtype, d in ((torch.float32, 1), (torch.float32, 4099),
+                     (torch.bfloat16, 4100), (torch.bfloat16, 7)):
+        assert trg_ops.variant(dtype, d) == "direct"
+    # the recurrentgemma-9b prefill: float32 a and u at D 4,096
+    cfg = treg.get_config("recurrentgemma-9b")
+    assert trg_ops.variant(torch.float32, cfg.lru_width) == "ring"
+    with pytest.raises(ValueError, match="no RG-LRU kernel"):
+        trg_ops.variant(torch.float16, 64)
+    # a CPU tensor takes the plain scan and counts no launch
+    before = dict(trg_ops.launches)
+    trg_ops.rglru(torch.rand(1, 3, 8), torch.rand(1, 3, 8))
+    assert trg_ops.launches == before
+
+
 def test_rglru_h0_and_decode_steps_continue_the_scan():
     rng = np.random.RandomState(5)
     a = t(rng.uniform(0.4, 0.999, (2, 16, 24)).astype(np.float32))
@@ -322,6 +343,133 @@ def test_gates(griffin_setup):
     close(ta, ja, TOL, "a")
     close(tu, ju, TOL, "u")
     assert float(ta.min()) > 0.86         # lam ~ U(-6, -4)
+
+
+# --- Griffin's gates in bf16 -------------------------------------------------
+#
+# In a bf16 model the gates round twice: i and r, the sigmoids of the bf16
+# matmuls, are bf16; log_a, a, mult and u are float32.  JAX evaluates the
+# bf16 sigmoid with roundings of its own, so its i and r lie up to
+# GATE_STEPS representable bf16 numbers from the port's (2 on these inputs);
+# its a and u must then lie where the port's float32 formulas take i and r
+# moved that far, give or take GATE_F32_SLACK for the float32 evaluation
+# (exp, softplus, products: a few float32 ulps).  A fault of one more bf16
+# rounding of log_a or of mult stays inside that band, so the port is also
+# held, bit for bit, to an emulation of the roundings it means to make.
+
+GATE_STEPS = 2
+GATE_F32_SLACK = 4 * 2.0 ** -23
+
+
+@dataclasses.dataclass
+class _GateParams:
+    """What ``_gates`` reads of a recurrent layer."""
+    w_i: torch.Tensor
+    w_r: torch.Tensor
+    lam: torch.Tensor
+
+
+def _bf16_gate_inputs(griffin_setup):
+    """(JAX params, port params, JAX xc, port xc): layer 0's w_i and w_r
+    cast to bf16 as a bf16 model holds them, lam float32, xc bf16."""
+    jcfg, tcfg, jp, tp, x, rng = griffin_setup
+    jl, tl = layer(jp)["rec"], tp.decoder[0].rec
+    xc = rng.randn(3, 17, tcfg.lru_width).astype(np.float32)
+    jparams = {"w_i": jl["w_i"].astype(jnp.bfloat16),
+               "w_r": jl["w_r"].astype(jnp.bfloat16), "lam": jl["lam"]}
+    tparams = _GateParams(w_i=tl.w_i.bfloat16(), w_r=tl.w_r.bfloat16(),
+                          lam=tl.lam)
+    return jparams, tparams, jnp.asarray(xc, jnp.bfloat16), \
+        t(xc).bfloat16()
+
+
+def _recorded(monkeypatch, module, name):
+    """Calls of ``module.name`` from here on append their results to the
+    returned list."""
+    calls, fn = [], getattr(module, name)
+
+    def record(*args):
+        calls.append(fn(*args))
+        return calls[-1]
+    monkeypatch.setattr(module, name, record)
+    return calls
+
+
+def _bf16_steps(a, b):
+    """How many representable bf16 numbers apart a and b (positive) are."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def _gates_after(p, i, r, xc):
+    """The port's float32 part of the gates from bf16 i and r."""
+    log_a = -8.0 * torch.nn.functional.softplus(p.lam.float()) * r.float()
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return torch.exp(log_a), mult * i.float() * xc.float()
+
+
+def gates_emulation(p, xc):
+    """The bf16 gates with the port's roundings made explicit: the port's
+    own bf16 matmul outputs, their sigmoids evaluated in float32 and each
+    rounded to bf16 once, then float32 arithmetic alone."""
+    i = torch.sigmoid((xc @ p.w_i).float()).bfloat16()
+    r = torch.sigmoid((xc @ p.w_r).float()).bfloat16()
+    return _gates_after(p, i, r, xc)
+
+
+def test_gates_bf16_match_jax_within_steps_of_i_and_r(griffin_setup,
+                                                      monkeypatch):
+    jparams, tparams, jxc, txc = _bf16_gate_inputs(griffin_setup)
+    jsig = _recorded(monkeypatch, jax.nn, "sigmoid")
+    ja, ju = jgriffin._gates(jparams, jxc)
+    tsig = _recorded(monkeypatch, torch, "sigmoid")
+    ta, tu = tgriffin._gates(tparams, txc)
+    assert len(jsig) == len(tsig) == 2
+    assert all(x.dtype == jnp.bfloat16 for x in jsig)
+    assert all(x.dtype == torch.bfloat16 for x in tsig)
+    assert ta.dtype == tu.dtype == torch.float32
+    (ti, tr), (ji, jr) = tsig, (t(np.asarray(x, np.float32)).bfloat16()
+                                for x in jsig)
+    for name, got, want in (("i", ti, ji), ("r", tr, jr)):
+        steps = _bf16_steps(got, want)
+        assert int(steps.max()) <= GATE_STEPS, name
+        assert float((steps > 0).float().mean()) > 0.05, name  # they differ
+    # JAX's a and u inside the port's, evaluated with i and r moved up to
+    # GATE_STEPS bf16 numbers either way (a falls in r; mult rises in r)
+    monkeypatch.undo()
+    corners = [_gates_after(tparams, (ti.view(torch.int16) + di).view(
+        torch.bfloat16), (tr.view(torch.int16) + dr).view(torch.bfloat16),
+        txc) for di in (-GATE_STEPS, GATE_STEPS)
+        for dr in (-GATE_STEPS, GATE_STEPS)]
+    for k, want in ((0, ja), (1, ju)):
+        vals = torch.stack([c[k] for c in corners])
+        lo, hi = vals.amin(0), vals.amax(0)
+        slack = GATE_F32_SLACK * torch.maximum(lo.abs(), hi.abs())
+        want = t(np.array(want))
+        assert bool(((want >= lo - slack) & (want <= hi + slack)).all()), k
+
+
+@pytest.mark.parametrize("fault", [None, "log_a", "mult"])
+def test_gates_bf16_round_only_where_meant(griffin_setup, monkeypatch,
+                                           fault):
+    """The port's bf16 gates equal the emulation bit for bit; with one more
+    bf16 rounding of log_a or of mult planted, the check rejects them."""
+    _, tparams, _, txc = _bf16_gate_inputs(griffin_setup)
+    want = gates_emulation(tparams, txc)
+    exp, sqrt = torch.exp, torch.sqrt
+    if fault == "log_a":      # log_a (and 2 log_a) rounded before exp
+        monkeypatch.setattr(torch, "exp",
+                            lambda x: exp(x.bfloat16().float()))
+    elif fault == "mult":
+        monkeypatch.setattr(torch, "sqrt",
+                            lambda x: sqrt(x).bfloat16().float())
+    got = tgriffin._gates(tparams, txc)
+    monkeypatch.undo()
+    same = [torch.equal(g, w) for g, w in zip(got, want, strict=True)]
+    if fault is None:
+        assert same == [True, True]
+    else:                      # rejected: log_a feeds a and u, mult only u
+        assert same == ([False, False] if fault == "log_a"
+                        else [True, False])
 
 
 def test_apply_recurrent_and_its_decode(griffin_setup):

@@ -3,7 +3,10 @@ plain versions stand in, since CPU tensors take the plain path), and its
 ``main()`` refuses to run without a CUDA card."""
 import dataclasses
 import importlib.util
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -57,6 +60,10 @@ def test_phase_hopscotch_probe_cpu(smoke, small_store):
                                     n_keys=150, redn_chunk=16, time_it=False)
     assert r["max_abs_err"] == 0 and r["hits"] > 0
     assert r["bound_ms"] > 0
+    # the wider neighborhoods and the one-word rows, on shard 0's table
+    assert set(r["case_hits"]) == {"H16/V4", "H32/V4", "H8/V1"}
+    assert min(r["case_hits"].values()) > 0
+    assert r["case_hits"]["H16/V4"] == r["case_hits"]["H32/V4"]
 
 
 @pytest.fixture(scope="module")
@@ -254,8 +261,35 @@ def test_phase_wkv6_kernel_cpu(smoke):
 
 def test_phase_rglru_kernel_cpu(smoke):
     r = smoke.phase_rglru_kernel("cpu", b=2, t=40, d=20, time_it=False)
-    assert len(r["errs"]) == 12 and r["max_abs_err"] == 0
+    cases = [f"2x{t}x{d}" for t, d in ((40, 20), (21, 20), (1, 20), (97, 24),
+                                       (33, 23))]
+    assert set(r["errs"]) == {f"{p}/{c}/{t}" for p in ("h", "last")
+                              for c in cases
+                              for t in ("float32", "bfloat16")}
+    assert r["max_abs_err"] == 0 and max(r["errs"].values()) == 0
     assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+    # the kernel each case takes on the card: rows of 20 or 24 float32
+    # channels, and of 24 bf16 ones, are whole 16-byte units (the ring's);
+    # 20 bf16 channels are not, 23 channels in neither type
+    assert {c: r["variants"][f"{c}/float32"] for c in cases} == dict(
+        zip(cases, ["ring"] * 4 + ["direct"]))
+    assert {c: r["variants"][f"{c}/bfloat16"] for c in cases} == dict(
+        zip(cases, ["direct"] * 3 + ["ring", "direct"]))
+
+
+def test_rglru_launches_by_kernel_follow_the_dispatch(smoke):
+    """The drives' gate: a recurrentgemma-9b prefill launches the ring
+    kernel once per recurrent layer, in a bf16 model and a float32 one;
+    models without recurrent layers launch neither kernel."""
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(registry.get_config("recurrentgemma-9b"),
+                                  dtype=dtype)
+        assert smoke.rglru_variant_launches(cfg, "cuda") == {
+            "rglru.ring": 26, "rglru.direct": 0}
+        assert set(smoke.rglru_variant_launches(cfg, "cpu").values()) == {0}
+    for arch in ("qwen3-1.7b", "rwkv6-7b"):
+        cfg = registry.get_config(arch)
+        assert set(smoke.rglru_variant_launches(cfg, "cuda").values()) == {0}
 
 
 def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
@@ -264,6 +298,19 @@ def test_main_exits_without_cuda(smoke, monkeypatch, capsys):
         smoke.main()
     assert exc.value.code not in (0, None)
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_script_alone_exits_nonzero(tmp_path):
+    """Copied into a directory that holds nothing else of the repository,
+    the script exits non-zero before any phase and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert run.returncode != 0 and '"ok"' not in run.stdout
+    assert "no src/repro_torch beside this script" in run.stderr
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):

@@ -1,13 +1,14 @@
 """Chip smoke test: drive the PyTorch/CUDA port's paths on one card — the
-RedN GET path and the LM serving paths (qwen3-1.7b, rwkv6-7b and
-recurrentgemma-9b prefill, decode and ServeEngine ticks).
+RedN GET path, the store's write path, and the LM serving paths
+(qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
+ServeEngine ticks).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs thirteen phases and
+``nvcc`` per source, all started together), then runs fourteen phases and
 raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -30,13 +31,23 @@ raises on any mismatch:
                          on shard 0's table also at neighborhoods of 16
                          and 32 and with one value word.  Timed by device
                          time from a trace.
-6. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
+6. ``kv_write``        — the write path on the ``kv_get`` store (4 x 65,536
+                         buckets, 60% load): a (4, 32) SET batch of
+                         updates, inserts, keys whose neighborhood is full
+                         (escalated to the displacer chain), a duplicate,
+                         key 0 and dead rows; a (4, 16) DELETE batch; a
+                         TTL SET, TTL gets before and after the deadlines
+                         and a CLOCK sweep.  Every status and array is held
+                         bit for bit to the host oracles, and the touched
+                         keys are read back on all three get paths.  It
+                         runs on the chain interpreter: no kernel.
+7. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
                          bf16, seeded random weights): ``make_prefill_step``
                          on 4 x 2,048 prompt tokens (one flash-attention
                          launch per layer), then 8 ``decode_step``s whose
                          last logits are held against ``forward`` over all
                          2,056 tokens.
-7. ``lm_serve``        — ``ServeEngine`` (8 slots, s_max 4,096): token-bucket
+8. ``lm_serve``        — ``ServeEngine`` (8 slots, s_max 4,096): token-bucket
                          admission of a client mix, 32 ticks with the host
                          driver crashed at tick 16 (one launch of each
                          decode-attention kernel, split and combine, per
@@ -49,7 +60,7 @@ raises on any mismatch:
                          to float32, the ``lm_prefill`` drive again at
                          2e-3, its ``forward`` the witness of the bf16
                          decode (``decode_witness``).
-8. ``flash_kernel``    — the flash-attention kernels against their plain
+9. ``flash_kernel``    — the flash-attention kernels against their plain
                          version at the qwen3-1.7b prefill shape (causal),
                          windowed and in length mode, and at the
                          recurrentgemma-9b one (head dim 256, GQA 16,
@@ -59,7 +70,7 @@ raises on any mismatch:
                          The drives' flash launches by kernel must be 28
                          tensor-core (lm_prefill), 12 tensor-core
                          (lm_griffin) and 28 CUDA-core (lm_float32).
-9. ``decode_kernel``   — the decode kernels against their plain version
+10. ``decode_kernel``  — the decode kernels against their plain version
                          over a 32,768-long cache (B 16), lengths spread
                          over [1, S], and at recurrentgemma-9b's decode
                          shape (B 4, 16 query heads on 1 KV head of 256,
@@ -69,7 +80,7 @@ raises on any mismatch:
                          rows dropped) must fail the check.  Both shapes
                          timed (device time from a trace) beside the plain
                          version and SDPA.
-10. ``lm_rwkv``        — rwkv6-7b at full width and depth (32 RWKV6 layers,
+11. ``lm_rwkv``        — rwkv6-7b at full width and depth (32 RWKV6 layers,
                          d 4,096, bf16, seeded random weights): the
                          ``lm_prefill`` drive (one WKV6 launch per layer),
                          then 16 ``ServeEngine`` ticks (8 slots, crash at
@@ -81,17 +92,17 @@ raises on any mismatch:
                          the decode steps' recurrent state, and
                          ``lm_float32``, whose witness must pass the bf16
                          decode and fail each control.
-11. ``lm_griffin``     — recurrentgemma-9b at full width and depth (26
+12. ``lm_griffin``     — recurrentgemma-9b at full width and depth (26
                          recurrent layers, one RG-LRU launch each, and 12
                          local-attention layers, head dim 256, 16 query
                          heads on 1 KV head, window 2,048), s_max 4,096:
                          the same drives; the window binds on the last
                          rows.  The decode kernel is held on a local
                          layer's cache as the drive left it.
-12. ``wkv6_kernel``    — the WKV6 kernel against its plain scan at the
+13. ``wkv6_kernel``    — the WKV6 kernel against its plain scan at the
                          prefill shape, at a T that is not a multiple of 32
                          and at T = 1, bfloat16 and float32.
-13. ``rglru_kernel``   — the RG-LRU kernel likewise, and at a D that ends
+14. ``rglru_kernel``   — the RG-LRU kernel likewise, and at a D that ends
                          in a part of the ring kernel's 64-channel tile
                          and at one whose rows no TMA copy can move (the
                          direct kernel); each case's launch by kernel as
@@ -228,6 +239,21 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_call(device, fn):
+    """``(fn(), ms)``: CUDA events around the call on the card, the host
+    clock on the CPU."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    value = fn()
+    end.record()
+    end.synchronize()
+    return value, start.elapsed_time(end)
+
+
 LAUNCH_COUNTS = (chain_ops.launches, hop_ops.launches, fa_ops.launches,
                  dec_ops.launches, wkv_ops.launches, rg_ops.launches)
 
@@ -321,13 +347,7 @@ def redn_breakdown(dk, dv, q, neighborhood: int = 8) -> dict:
     out = {}
 
     def timed(name, fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        value = fn()
-        end.record()
-        end.synchronize()
-        out[name + "_ms"] = start.elapsed_time(end)
+        value, out[name + "_ms"] = timed_call(dk.device, fn)
         return value
 
     for _ in range(2):
@@ -644,7 +664,327 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
 
 
 # ---------------------------------------------------------------------------
-# phase 6: LM prefill (and decode continuing it)
+# phase 6: the write path (SET with displacement, DELETE, TTL, the sweeper)
+# ---------------------------------------------------------------------------
+
+def run_traced(device, fn):
+    """``(fn(), ms, stages)`` with the transport's stateful-stage trace on:
+    per stage its ms (CUDA events; None on the CPU), serial depth (window
+    positions run), requests run, and chain steps per request (max and
+    median)."""
+    transport.trace = []
+    try:
+        value, ms = timed_call(device, fn)
+        records = transport.trace
+    finally:
+        transport.trace = None
+    stages = {}
+    for r in records:
+        steps = (torch.cat(r["steps"]).cpu().numpy() if r["steps"]
+                 else np.zeros(1, np.int32))
+        stages[r["stage"]] = dict(
+            ms=r["start"].elapsed_time(r["end"]) if "start" in r else None,
+            depth=r["depth"], runs=r["runs"], steps_max=int(steps.max()),
+            steps_median=float(np.median(steps)))
+    return value, ms, stages
+
+
+def window_oracle(tables, keys, live, fn, values=None):
+    """A batch applied to the host tables the way the store serializes it:
+    per owner shard, its live rows in window order (source-major, then
+    batch order), through ``fn(table, keys[, values])``.  Returns the
+    statuses (0 for rows not run)."""
+    owner = store.shard_of(keys, len(tables))
+    status = np.zeros(keys.shape, np.int32)
+    for o, t in enumerate(tables):
+        rows = [(s, b) for s in range(keys.shape[0])
+                for b in range(keys.shape[1])
+                if owner[s, b] == o and live[s, b] and keys[s, b] != 0]
+        if not rows:
+            continue
+        args = [[values[r] for r in rows]] if values is not None else []
+        for r, x in zip(rows, fn(t, [keys[r] for r in rows], *args)):
+            status[r] = x
+    return status
+
+
+def require_tables(what: str, tables, keys, vals, exp=None, exps=None):
+    require_equal(keys, np.stack([t.keys for t in tables]), f"{what} keys")
+    require_equal(vals, np.stack([t.values for t in tables]), f"{what} vals")
+    if exp is not None:
+        require_equal(exp, np.stack(exps), f"{what} exp")
+
+
+def require_mutation(what: str, res, want, keys, live, terminal):
+    """A SetResult/DeleteResult against its oracle statuses: ok exactly
+    on the live rows, status, applied on the terminal statuses, no drop,
+    the dead rows deferred (key-0 slots neither)."""
+    real = keys != 0
+    require_equal(res.ok, live & real, f"{what} ok")
+    require_equal(res.status, want, f"{what} status")
+    require_equal(res.applied, np.isin(want, terminal), f"{what} applied")
+    require_equal(res.dropped, np.zeros(len(keys), np.int32),
+                  f"{what} dropped")
+    require_equal(res.deferred, (~live & real).sum(1).astype(np.int32),
+                  f"{what} deferred")
+
+
+def exp_oracle(before, exps, after, keys, deadlines, applied):
+    """The deadline column after a SET, from its meaning: a key keeps the
+    deadline it had on its shard, an applied request stamps its own (the
+    last in source-major order wins), an empty bucket has none."""
+    stamped = {}
+    for k, d, a in zip(keys.reshape(-1).tolist(),
+                       deadlines.reshape(-1).tolist(),
+                       applied.reshape(-1).tolist()):
+        if a and k != 0:
+            stamped[k] = d
+    out = []
+    for t0, e0, t1 in zip(before, exps, after):
+        had = {int(k): int(e) for k, e in zip(t0.keys, e0) if k != 0}
+        out.append(np.asarray(
+            [hopscotch.NO_TTL if k == 0 else stamped.get(
+                int(k), had.get(int(k), hopscotch.NO_TTL))
+             for k in t1.keys.tolist()], np.int32))
+    return out
+
+
+def ttl_reference(tables, exps, queries, now):
+    """Host oracle of the TTL get: each query through ``lookup_ttl`` on its
+    owner's table and deadline column."""
+    q = queries.reshape(-1)
+    owner = store.shard_of(q, len(tables))
+    found = np.zeros(len(q), bool)
+    vals = np.zeros((len(q), tables[0].values.shape[1]), np.int32)
+    for o, t in enumerate(tables):
+        sel = np.flatnonzero(owner == o)
+        f, v = hopscotch.lookup_ttl(
+            torch.from_numpy(t.keys), torch.from_numpy(t.values),
+            torch.from_numpy(exps[o]), torch.from_numpy(q[sel]), now,
+            t.neighborhood)
+        found[sel], vals[sel] = f.numpy(), v.numpy()
+    return found, vals
+
+
+def displacement_keys(tables, n_shards: int, start: int, count: int):
+    """New keys whose home neighborhood on their owner is full in the host
+    table and which the bounded host oracle places by displacement."""
+    n, h = tables[0].n_buckets, tables[0].neighborhood
+    full = [np.all(np.stack([np.roll(t.keys != 0, -d) for d in range(h)]),
+                   axis=0) for t in tables]
+    out = []
+    while len(out) < count:
+        if start > 0xFFFFFF:
+            raise RuntimeError(f"found {len(out)}/{count} displacement keys")
+        cand = np.arange(start, start + (1 << 16), dtype=np.int64)
+        start += 1 << 16
+        own = store.shard_of(cand, n_shards)
+        home = hopscotch.bucket_of(cand, n)
+        for k in cand[[full[o][b] for o, b in zip(own, home)]].tolist():
+            t = tables[int(store.shard_of(k, n_shards))]
+            scratch = hopscotch.HopscotchTable(t.keys.copy(),
+                                               t.values.copy(), h)
+            if scratch.set_full(k, [1] * t.values.shape[1]) == \
+                    hopscotch.SET_DISPLACED:
+                out.append(k)
+                if len(out) == count:
+                    break
+    return out
+
+
+def keys_homed_in(n_shards: int, n: int, shard: int, lo: int, span: int,
+                  start: int, count: int):
+    """``count`` keys from ``start`` up owned by ``shard`` whose home bucket
+    lies in ``[lo, lo + span)``."""
+    out = []
+    while len(out) < count:
+        if start > 0xFFFFFF:
+            raise RuntimeError("ran out of 24-bit keys")
+        cand = np.arange(start, start + (1 << 20), dtype=np.int64)
+        start += 1 << 20
+        home = hopscotch.bucket_of(cand, n)
+        sel = ((store.shard_of(cand, n_shards) == shard) & (home >= lo)
+               & (home < lo + span))
+        out.extend(cand[sel][:count - len(out)].tolist())
+    return out
+
+
+def new_values(keys, v: int):
+    """The values a write stores: distinct from the load's [k, 2k, ...]."""
+    k = np.asarray(keys, np.int64)
+    return (np.stack([k ^ 0x5A5A5, 7 * k + 1, 3 * k + 2, k % 1009],
+                     axis=-1)[..., :v] & 0x7FFFFFFF).astype(np.int32)
+
+
+SET_TERMINAL = (hopscotch.SET_UPDATED, hopscotch.SET_INSERTED,
+                hopscotch.SET_DISPLACED)
+
+
+def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
+                   n_delete=(6, 6, 4), n_ttl=4, ttl_span=16, seed=7,
+                   time_it=True):
+    """The store's write path on the ``kv_get`` store, against host copies
+    of its tables: a SET batch (per source row ``n_update`` updates,
+    ``n_insert`` inserts, ``n_disp`` keys whose neighborhood is full, a
+    later duplicate of an insert, key 0 and two dead rows, one holding a
+    sentinel key), a DELETE batch (set keys, loaded keys and misses per
+    row), a TTL SET into a window of ``ttl_span`` home buckets per shard,
+    TTL gets before and after the deadlines, and a CLOCK sweep over the
+    window; every result and array is held bit for bit to the host
+    oracles applied per owner in window order, and the touched keys are
+    read back through all three get paths."""
+    rng = np.random.RandomState(seed)
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+    loaded = np.concatenate([t.keys[t.keys != 0] for t in kv.tables])
+    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in kv.tables]
+    host = store.ShardedKV(tables, s_, v, h)
+    if time_it:
+        torch.cuda.reset_peak_memory_stats()
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    # --- SET -----------------------------------------------------------------
+    fresh = int(loaded.max()) + 1000
+    disp = displacement_keys(tables, s_, fresh + (1 << 20), s_ * n_disp)
+    rows, live, inserted = [], [], []
+    for s in range(s_):
+        upd = rng.choice(loaded, n_update, replace=False)
+        ins = np.arange(fresh, fresh + n_insert)
+        body = rng.permutation(np.concatenate(
+            [upd, ins, disp[s * n_disp:(s + 1) * n_disp]]))
+        rows.append(np.concatenate([body, [ins[0], 0, fresh + n_insert,
+                                           -1]]))
+        live.append([True] * (len(body) + 2) + [False, False])
+        inserted.append(ins)
+        fresh += n_insert + 1
+    sk, live = np.stack(rows).astype(np.int32), np.asarray(live)
+    sv = new_values(sk, v)
+    (res, wk, wv), set_ms, set_stages = run_traced(
+        device, lambda: store.sharded_set(dk, dv, dev(sk), dev(sv),
+                                          live=dev(live), device=device))
+    want = window_oracle(tables, sk, live, hopscotch.insert_many_displaced,
+                         sv)
+    require_mutation("set", res, want, sk, live, SET_TERMINAL)
+    require_tables("set", tables, wk, wv)
+    statuses = {hopscotch.status_name(c): int((want == c).sum())
+                for c in np.unique(want[want > 0])}
+    if statuses.get("SET_DISPLACED", 0) < 1:
+        raise AssertionError(f"no SET_DISPLACED row: {statuses}")
+    n_sets = int((live & (sk != 0)).sum())
+    result = dict(shards=s_, buckets_per_shard=n, set_batch=sk.shape,
+                  set_statuses=statuses, set_ms=set_ms,
+                  sets_per_s=n_sets / (set_ms * 1e-3), set_stages=set_stages)
+
+    # --- DELETE: keys this batch set, loaded keys, misses --------------------
+    n_set, n_old, n_miss = n_delete
+    dk_rows = np.stack([np.concatenate([
+        rng.choice(inserted[s], n_set, replace=False),
+        rng.choice(loaded, n_old, replace=False),
+        fresh + s * n_miss + np.arange(n_miss)]) for s in range(s_)])
+    dk_rows = np.stack([rng.permutation(r) for r in dk_rows]).astype(
+        np.int32)
+    fresh += s_ * n_miss
+    d_live = np.ones(dk_rows.shape, bool)
+    (dres, wk, wv), del_ms, del_stages = run_traced(
+        device, lambda: store.sharded_delete(wk, wv, dev(dk_rows),
+                                             device=device))
+    want = window_oracle(tables, dk_rows, d_live, hopscotch.delete_many)
+    require_mutation("delete", dres, want, dk_rows, d_live,
+                     (hopscotch.DEL_DELETED,))
+    require_tables("delete", tables, wk, wv)
+    result.update(
+        delete_deleted=int((want == hopscotch.DEL_DELETED).sum()),
+        delete_ms=del_ms, delete_stages=del_stages)
+
+    # --- TTL SET: per shard, new keys homed in a window plus a loaded key
+    # in it; half the deadlines lapse between the two clocks
+    lo = min(1000, n // 4)
+    now_before, now_after = 300, 1000
+    exps = [np.full(n, hopscotch.NO_TTL, np.int32) for _ in range(s_)]
+    ttl_rows = []
+    for s in range(s_):
+        new = keys_homed_in(s_, n, s, lo, ttl_span, fresh, n_ttl)
+        fresh = max(new) + 1
+        old = [int(k) for k in tables[s].keys[lo:lo + ttl_span] if k][:1]
+        ttl_rows.append(np.asarray((new + old + [0])[:n_ttl + 1]))
+    tk = np.stack(ttl_rows).astype(np.int32)
+    deadlines = np.where(np.arange(tk.shape[1]) % 2 == 0, 600, 5000)
+    deadlines = np.broadcast_to(deadlines, tk.shape).astype(np.int32)
+    tv = new_values(tk + 3, v)
+    t_live = np.ones(tk.shape, bool)
+    before = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in tables]
+    (tres, wk, wv, we), ttl_ms = timed_call(
+        device, lambda: store.sharded_set(
+            wk, wv, dev(tk), dev(tv), exp=dev(np.stack(exps)),
+            deadlines=dev(deadlines), device=device))
+    want = window_oracle(tables, tk, t_live, hopscotch.insert_many_displaced,
+                         tv)
+    require_mutation("ttl set", tres, want, tk, t_live, SET_TERMINAL)
+    exps = exp_oracle(before, exps, tables, tk, deadlines,
+                      np.isin(want, SET_TERMINAL))
+    require_tables("ttl set", tables, wk, wv, we, exps)
+    result["ttl_set_ms"] = ttl_ms
+
+    # --- TTL gets before and after the deadlines -----------------------------
+    mixed = np.concatenate([tk, sk[:, :8], dk_rows[:, :4]], axis=1)
+    mixed = np.where(mixed < 0, 0, mixed).astype(np.int32)
+    ttl_hits = {}
+    for now in (now_before, now_after):
+        g = store.sharded_get(wk, wv, dev(mixed), exp=we, now=now,
+                              device=device)
+        rf, rv = ttl_reference(tables, exps, mixed, now)
+        require_equal(g.found.reshape(-1), rf, f"ttl get found now={now}")
+        require_equal(g.values.reshape(-1, v), rv,
+                      f"ttl get values now={now}")
+        ttl_hits[now] = int(rf.sum())
+    if not ttl_hits[now_before] > ttl_hits[now_after]:
+        raise AssertionError(f"no deadline lapsed: {ttl_hits}")
+    result["ttl_get_hits"] = ttl_hits
+
+    # --- the CLOCK sweep over the window -------------------------------------
+    count = ttl_span + 2 * h
+    hand = np.full(s_, lo, np.int32)
+    (rep, wk, wv, we), sweep_ms, sweep_stages = run_traced(
+        device, lambda: store.sharded_sweep(wk, wv, we, dev(hand),
+                                            now_after, count, device=device))
+    for s, t in enumerate(tables):
+        st, exps[s] = hopscotch.sweep_expired(t, exps[s], now_after, lo,
+                                              count)
+        require_equal(rep.status[s], st, f"sweep status shard {s}")
+    require_equal(rep.reclaimed, (rep.status == hopscotch.SWEEP_RECLAIMED)
+                  .sum(1), "sweep reclaimed")
+    require_equal(rep.hand, (hand + count) % n, "sweep hand")
+    require_tables("sweep", tables, wk, wv, we, exps)
+    reclaimed = int(rep.reclaimed.sum())
+    if reclaimed < 1:
+        raise AssertionError("the sweeper reclaimed no bucket")
+    result.update(sweep_count=count, sweep_reclaimed=reclaimed,
+                  sweep_ms=sweep_ms, sweep_stages=sweep_stages)
+
+    # --- every get path reads the touched keys back --------------------------
+    rf, rv = store.reference_get(host, mixed)
+    for method in ("redn", "one_sided", "two_sided"):
+        g = store.sharded_get(wk, wv, dev(mixed), method=method,
+                              device=device)
+        require_equal(g.found.reshape(-1), rf, f"{method} found")
+        require_equal(g.values.reshape(-1, v), rv, f"{method} values")
+    g = store.sharded_get(wk, wv, dev(mixed), exp=we, now=now_after,
+                          device=device)
+    tf, tv_ = ttl_reference(tables, exps, mixed, now_after)
+    require_equal(g.found.reshape(-1), tf, "redn ttl found after sweep")
+    require_equal(g.values.reshape(-1, v), tv_, "redn ttl values after sweep")
+    result["readback_hits"] = int(rf.sum())
+    if time_it:
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: LM prefill (and decode continuing it)
 # ---------------------------------------------------------------------------
 
 def path_launches(cfg, device):
@@ -852,7 +1192,7 @@ class planted_state_fault:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: LM serving (ServeEngine decode ticks)
+# phase 8: LM serving (ServeEngine decode ticks)
 # ---------------------------------------------------------------------------
 
 def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
@@ -939,7 +1279,7 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the attention kernels against their plain versions
+# phases 9-10: the attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def random_qkv(device, seed, dtype, b, h, kh, sq, sk, d):
@@ -1190,7 +1530,7 @@ def phase_decode_kernel(device, shapes=DECODE_SHAPES, time_it=True):
 
 
 # ---------------------------------------------------------------------------
-# phases 10-11: the recurrent LM paths (rwkv6-7b, recurrentgemma-9b)
+# phases 11-12: the recurrent LM paths (rwkv6-7b, recurrentgemma-9b)
 # ---------------------------------------------------------------------------
 
 def check_wkv6_layer(r, k, v, w, u) -> dict:
@@ -1303,7 +1643,7 @@ def phase_lm_recurrent(device, cfg, params, batch=4, prompt=2048, extra=8,
 
 
 # ---------------------------------------------------------------------------
-# phases 12-13: the recurrence kernels against their plain versions
+# phases 13-14: the recurrence kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def model_decays(gen, shape, device):
@@ -1539,7 +1879,15 @@ def main() -> int:
     run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
     run_phase(phases, "hopscotch_probe",
               lambda: phase_hopscotch_probe(device, kv, dk, dv))
+    run_phase(phases, "kv_write", lambda: phase_kv_write(device, kv, dk, dv))
+    w = phases["kv_write"]
+    print(f"[times] kv_write ({card}): SET batch {w['set_ms']:.1f} ms "
+          f"({w['sets_per_s']:.1f} SETs/s), stages {w['set_stages']}; "
+          f"DELETE batch {w['delete_ms']:.1f} ms; sweep quantum of "
+          f"{w['sweep_count']} {w['sweep_ms']:.1f} ms; peak device memory "
+          f"{w['max_memory_allocated']} bytes", flush=True)
     del kv, dk, dv
+    torch.cuda.empty_cache()
 
     cfg = registry.get_config(LM_ARCH)
     t0 = time.perf_counter()

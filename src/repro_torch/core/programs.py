@@ -10,13 +10,24 @@
   src]`` fields, and the CAS converts the response NOOP into the
   value-returning WRITE only on a key match.
 * :class:`HopscotchShardServer` — §5.2's sharded-store *get*: Fig. 9
-  generalized to the hopscotch neighborhood, one chain per owner shard.
+  generalized to the hopscotch neighborhood, one chain per owner shard
+  (and its TTL variant, whose deadline compare is a Calc-verb chain).
+* :class:`HopscotchShardWriter` / :class:`HopscotchShardDisplacer` —
+  §3.5's CAS-claiming *set* and the bounded hopscotch displacement bubble.
+* :class:`HopscotchShardDeleter` / :class:`ClockSweeper` — the rest of the
+  Memcached lifecycle: *delete* and the CLOCK expiry sweeper.
 * :class:`RecycledGetServer` — a §3.4 WQ-recycled *get* server on one
   managed WQ (the single-WQ program the chain kernel runs).
 
 Every builder takes ``device`` (default CUDA; see
 :func:`repro_torch.device.resolve`) and builds the same image, word for
 word, as the JAX package's builder of the same name.
+
+The write-side programs' contexts are ephemeral: the authoritative shard
+arrays live outside the image, ``device_state`` scatters them in per
+request and ``commit`` folds a quiesced context back.  Their batched
+methods take a leading dim G of independent requests, each against its
+own table (one owner shard per row).
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from . import isa, machine
+from . import constructs, isa, machine
 from .assembler import Program
 from .engine import ChainEngine
 
@@ -43,8 +54,15 @@ SET_NEEDS_DISPLACEMENT = 3   # neighborhood full: displacer chain required
 SET_DISPLACED = 4            # displacer bubbled a slot home and claimed it
 SET_NEEDS_RESIZE = 5         # bounded search/bubble failed: resize required
 
+# DELETE / sweep outcome codes (disjoint from the SET codes)
+DEL_DELETED = 9              # bucket matched and vacated (key -> EMPTY)
+DEL_MISS = 10                # no probe matched; the pre-set default response
+SWEEP_RECLAIMED = 11         # expired bucket vacated by the CLOCK sweeper
+SWEEP_LIVE = 12              # deadline still ahead; bucket left untouched
+
 # TTL sentinel: a bucket with no deadline carries INT32_MAX in its expiry
-# word
+# word, so the chains' one signed compare — expired <=> deadline - now <= 0
+# — needs no "has a TTL" special case
 NO_TTL = 0x7FFFFFFF
 
 # the hopscotch home-bucket hash — numerically identical to
@@ -228,6 +246,52 @@ def build_hash_lookup(n_buckets: int = 64, val_len: int = 4,
 # §5.2 — the sharded-store get server: hopscotch probes as a chain program
 # ---------------------------------------------------------------------------
 
+def _scatter_rows(state0: machine.VMState, keys: torch.Tensor,
+                  vals: torch.Tensor, *, table_base: int, values_base: int,
+                  pad: Optional[torch.Tensor] = None,
+                  found: bool = False) -> machine.VMState:
+    """``state0`` with a table's rows scattered into the image.
+
+    keys: (..., n) int32 (0 = empty) into the bucket rows' key words;
+    vals: (..., n, V) into the value rows; ``pad`` (..., n), if given,
+    into the bucket rows' pad words; ``found`` prefixes each value row
+    with the flag ``keys != EMPTY`` (the get server's ``[found, v...]``
+    rows).  The val_ptr column is static (baked at build time).  Leading
+    dims stack one machine per table: every field of the result gains
+    them.
+    """
+    lead = tuple(keys.shape[:-1])
+    n, v = keys.shape[-1], vals.shape[-1]
+    dev = state0.mem.device
+    keys = keys.to(device=dev, dtype=torch.int32)
+    vals = vals.to(device=dev, dtype=torch.int32)
+    row_stride = v + 1 if found else v
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    mem = state0.mem.expand(lead + state0.mem.shape).clone()
+    mem[..., table_base + rows * BUCKET_WORDS] = keys
+    if pad is not None:
+        mem[..., table_base + rows * BUCKET_WORDS + 1] = pad.to(
+            device=dev, dtype=torch.int32)
+    first = values_base + rows * row_stride
+    if found:
+        mem[..., first] = (keys != EMPTY_KEY).to(torch.int32)
+        first = first + 1
+    vidx = first[:, None] + torch.arange(v, device=dev)[None, :]
+    mem[..., vidx.reshape(-1)] = vals.reshape(lead + (-1,))
+    return machine.VMState(*(
+        mem if name == "mem" else a.expand(lead + a.shape)
+        for name, a in zip(machine.VMState._fields, state0)))
+
+
+def _probe_addrs(home: torch.Tensor, h: int, n_buckets: int,
+                 table_base: int) -> torch.Tensor:
+    """Bucket-row addresses of the wrapping neighborhood ``[home, home +
+    h)``: (..., h) int32."""
+    offs = torch.arange(h, dtype=torch.int32, device=home.device)
+    rows = torch.remainder(home[..., None].to(torch.int32) + offs, n_buckets)
+    return (table_base + rows * BUCKET_WORDS).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class HopscotchShardServer:
     """Fig. 9's get offload generalized to the hopscotch neighborhood.
@@ -247,6 +311,427 @@ class HopscotchShardServer:
     address 0, reads the all-zero null bucket, and resolves to a harmless
     zero write.  The table contents are dynamic (:meth:`device_state`), so
     one built program serves every shard.
+
+    **TTL variant** (``ttl=True``): each bucket's pad word carries an
+    expiry deadline (:data:`NO_TTL` = never), the client also sends
+    ``-now``, and each probe's conversion WQ computes ``e = min(max(
+    deadline - now, 0), 1)`` over the deadline its READ landed on the
+    response WR's flags field; ``e == 0`` arms a *tester* CAS that turns a
+    matched response WRITE back into a NOOP.  An expired hit quiesces
+    exactly like a miss, bit-exact with
+    :func:`repro_torch.kvstore.hopscotch.lookup_ttl`.
+    """
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_buckets: int
+    val_len: int
+    neighborhood: int
+    table_base: int
+    values_base: int
+    resp_region: int
+    recv_wq: int
+    ttl: bool = False
+
+    @property
+    def resp_words(self) -> int:
+        return self.val_len + 1            # [found, value...]
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    def device_state(self, keys: torch.Tensor, vals: torch.Tensor,
+                     exp: Optional[torch.Tensor] = None) -> machine.VMState:
+        """Image with a shard's hopscotch slice scattered in.
+
+        keys: (..., n_buckets) int32 (0 = empty); vals: (..., n_buckets,
+        val_len); a TTL build also takes the deadline column ``exp``
+        (..., n_buckets), scattered into the bucket pad words.  Leading
+        dims (the store's virtual shards) stack one machine per table.
+        """
+        if self.ttl != (exp is not None):
+            raise ValueError(
+                "exp column required iff the server was built with "
+                f"ttl=True (ttl={self.ttl}, exp given={exp is not None})")
+        return _scatter_rows(self.state0, keys, vals,
+                             table_base=self.table_base,
+                             values_base=self.values_base, pad=exp,
+                             found=True)
+
+    def device_payloads(self, queries: torch.Tensor, home: torch.Tensor,
+                        now=None) -> torch.Tensor:
+        """Client-side request assembly: ``[key x H, probe addrs x H]``
+        (default build) or ``[key, -now, probe addrs x H]`` (TTL build;
+        a padded row, key 0, keeps ``-now`` 0).
+
+        queries: (B,) int32; home: (B,) int32 home buckets (the client
+        computes the hash).  Probes cover the wrapping neighborhood
+        ``[home, home + H)``.
+        """
+        if self.ttl != (now is not None):
+            raise ValueError(
+                "now required iff the server was built with ttl=True "
+                f"(ttl={self.ttl}, now given={now is not None})")
+        addrs = _probe_addrs(home, self.neighborhood, self.n_buckets,
+                             self.table_base)
+        q = queries[..., None].to(torch.int32)
+        if now is not None:
+            negnow = -torch.as_tensor(now, dtype=torch.int32,
+                                      device=queries.device)
+            negnow = negnow * (q != EMPTY_KEY).to(torch.int32)
+            return torch.cat([q, negnow, addrs], dim=-1)
+        return torch.cat([q.expand(addrs.shape), addrs], dim=-1)
+
+    def get_many(self, keys: torch.Tensor, vals: torch.Tensor,
+                 queries: torch.Tensor, home: torch.Tensor,
+                 max_steps: int = 96, exp=None, now=None):
+        """Single-machine batched get.  Returns (found bool (B,), values
+        (B, val_len))."""
+        st = self.device_state(keys, vals, exp)
+        out = self.engine.run_many(
+            st, self.recv_wq, self.device_payloads(queries, home, now),
+            max_steps)
+        resp = out.mem[:, self.resp_region:self.resp_region + self.resp_words]
+        return resp[:, 0] > 0, resp[:, 1:]
+
+
+def build_hopscotch_server(n_buckets: int, val_len: int,
+                           neighborhood: int = 8, ttl: bool = False,
+                           device=None) -> HopscotchShardServer:
+    """Build (and cache per geometry and device) the per-shard hopscotch
+    get chain.  ``2 * neighborhood`` payload words / scatter entries must
+    fit the RECV scatter limit (§5.3: 16 scatters), so ``neighborhood <=
+    8``.  With ``ttl=True`` each probe also evaluates the expiry predicate
+    on the chain (see :class:`HopscotchShardServer`); the request then
+    sends ``[key, -now]`` once plus the probe addresses."""
+    return _build_hopscotch_server(n_buckets, val_len, neighborhood,
+                                   bool(ttl), device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_hopscotch_server(n_buckets: int, val_len: int, neighborhood: int,
+                            ttl: bool, dev: torch.device
+                            ) -> HopscotchShardServer:
+    if not 1 <= neighborhood <= isa.MAX_SCATTER // 2:
+        raise ValueError(
+            f"neighborhood must be in [1, {isa.MAX_SCATTER // 2}] "
+            f"(2 payload words per probe, {isa.MAX_SCATTER}-scatter RECV)")
+    if val_len + 1 > isa.MAX_COPY:
+        raise ValueError(f"val_len {val_len} exceeds one-WRITE response")
+    row_stride = val_len + 1
+    h = neighborhood
+
+    # size the image exactly: code (1 guard + recv + 6 [ttl: 17] slots per
+    # probe) grows up, data grows down
+    code_words = (1 + 2 + (4 + 13 if ttl else 6) * h) * isa.WR_WORDS
+    data_words = (row_stride                      # response region
+                  + n_buckets * row_stride        # value rows [flag, v...]
+                  + n_buckets * BUCKET_WORDS      # table
+                  + (2 + h if ttl else 0)         # key/-now words, e cells
+                  + 1 + (2 + h if ttl else 2 * h))  # scatter table
+    mem_words = -(-(code_words + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    p.add_wq(1)                                   # WQ0: all-zero null bucket
+    resp = p.alloc(row_stride, [MISS_SENTINEL] * row_stride, "resp")
+    # value rows [found, v...]: the found flag is per-row dynamic state
+    # (device_state writes keys != EMPTY), so the static image is zeros
+    values = p.alloc(n_buckets * row_stride,
+                     [0] * (n_buckets * row_stride), "values")
+    # table rows [key=0, pad, val_ptr]: val_ptr column baked statically;
+    # in a TTL build the pad word is the deadline, NO_TTL statically
+    tbl_init = [NO_TTL if ttl else 0] * (n_buckets * BUCKET_WORDS)
+    for b in range(n_buckets):
+        tbl_init[b * BUCKET_WORDS] = 0
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * row_stride
+    table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
+    key_w = p.word(0, "key") if ttl else None
+    negnow_w = p.word(0, "negnow") if ttl else None
+
+    rq = p.add_wq(2)
+    cas_opa_addrs, read_src_addrs = [], []
+    for pi in range(h):
+        if not ttl:
+            wq1 = p.add_wq(2, ordering=isa.ORD_DOORBELL, managed=True)
+            wq2 = p.add_wq(4, ordering=isa.ORD_DOORBELL, managed=True,
+                           initial_enable=3)
+            wq1.wait(rq, 1, tag=f"hs.trig{pi}")
+            wq1.initial_enable = wq1.n_posted + 1
+            rd = wq1.read(src=0, dst=0, ln=BUCKET_WORDS, tag=f"hs.read{pi}")
+
+            wq2.wait(wq1, rd.completion_count, tag=f"hs.sync{pi}")
+            cas = wq2.cas(dst=0, old=isa.pack_ctrl(isa.NOOP, 0),
+                          new=isa.pack_ctrl(isa.WRITE, 0), tag=f"hs.cas{pi}")
+            wq2.enable(wq2, upto=4, tag=f"hs.en{pi}")
+            # the response: NOOP unless the CAS converts it; the bucket row
+            # [key, pad, val_ptr] lands on its [ctrl, flags, src]
+            r4 = wq2.post(isa.NOOP, src=0, dst=resp, ln=row_stride,
+                          tag=f"hs.resp{pi}")
+            wq1.wrs[rd.slot]["dst"] = r4.ctrl_addr
+            wq2.wrs[cas.slot]["dst"] = r4.ctrl_addr
+            cas_opa_addrs.append(cas.addr("opa"))
+            read_src_addrs.append(rd.addr("src"))
+            continue
+
+        # TTL probe: wq1 patches key/-now into wq2's compare verbs, then
+        # the usual 3-word probe READ; wq2 computes e = clamp(deadline -
+        # now) between the match CAS and the response slot and arms the
+        # tester iff expired.  Chained self-enables fence the tester (10)
+        # and the response (12) behind the arithmetic.
+        e_cell = p.word(0, f"e{pi}")
+        wq1 = p.add_wq(4, ordering=isa.ORD_DOORBELL, managed=True)
+        wq2 = p.add_wq(13, ordering=isa.ORD_DOORBELL, managed=True,
+                       initial_enable=10)
+        wq1.wait(rq, 1, tag=f"hs.trig{pi}")
+        wq1.write(src=key_w, dst=wq2.future_wr_addr(1, "opa"),
+                  tag=f"hs.key{pi}")              # match comparand <- key
+        wq1.write(src=negnow_w, dst=wq2.future_wr_addr(4, "opa"),
+                  tag=f"hs.now{pi}")              # ADD operand <- -now
+        rd = wq1.read(src=0, dst=0, ln=BUCKET_WORDS, tag=f"hs.read{pi}")
+        wq1.initial_enable = wq1.n_posted + 1
+
+        wq2.wait(wq1, rd.completion_count, tag=f"hs.sync{pi}")      # [0]
+        cas = wq2.cas(dst=0, old=isa.pack_ctrl(isa.NOOP, 0),
+                      new=isa.pack_ctrl(isa.WRITE, 0),
+                      tag=f"hs.cas{pi}")                            # [1]
+        wq2.write(src=wq2.future_wr_addr(10, "flags"), dst=e_cell,
+                  tag=f"hs.exp{pi}")              # [2] deadline -> e
+        wq2.write_imm(dst=wq2.future_wr_addr(9, "flags"), value=0,
+                      tag=f"hs.fl0{pi}")          # [3] flags hygiene
+        wq2.add(dst=e_cell, addend=0, tag=f"hs.sub{pi}")            # [4]
+        wq2.max_(dst=e_cell, operand=0, tag=f"hs.clm{pi}")          # [5]
+        wq2.min_(dst=e_cell, operand=1, tag=f"hs.cl1{pi}")          # [6]
+        wq2.write(src=e_cell, dst=wq2.future_wr_addr(3, "ctrl"),
+                  tag=f"hs.et{pi}")               # [7] e -> tester ctrl
+        wq2.cas(dst=wq2.future_wr_addr(2, "ctrl"),
+                old=isa.pack_ctrl(isa.NOOP, 0),
+                new=isa.pack_ctrl(isa.CAS, 0),
+                tag=f"hs.arm{pi}")                # [8] arm tester iff e=0
+        wq2.enable(wq2, upto=12, tag=f"hs.en{pi}")                  # [9]
+        # the tester: NOOP unless armed; armed, it CASes the response WR
+        # back WRITE -> NOOP (an expired match answers as a miss)
+        wq2.post(isa.NOOP, src=-1, dst=wq2.future_wr_addr(2, "ctrl"),
+                 opa=isa.pack_ctrl(isa.WRITE, 0),
+                 opb=isa.pack_ctrl(isa.NOOP, 0),
+                 tag=f"hs.tst{pi}")               # [10]
+        wq2.enable(wq2, upto=13, tag=f"hs.en2{pi}")                 # [11]
+        r4 = wq2.post(isa.NOOP, src=0, dst=resp, ln=row_stride,
+                      tag=f"hs.resp{pi}")         # [12]
+        wq1.wrs[rd.slot]["dst"] = r4.ctrl_addr
+        wq2.wrs[cas.slot]["dst"] = r4.ctrl_addr
+        read_src_addrs.append(rd.addr("src"))
+
+    tbl = p.scatter_table(
+        ([key_w, negnow_w] if ttl else cas_opa_addrs) + read_src_addrs)
+    rq.recv(scatter_table=tbl, tag="hs.recv")
+
+    spec, st0 = p.finalize(device=dev)
+    return HopscotchShardServer(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets, val_len=val_len,
+        neighborhood=neighborhood, table_base=table, values_base=values,
+        resp_region=resp, recv_wq=rq.index, ttl=ttl)
+
+
+# ---------------------------------------------------------------------------
+# §3.5 — the sharded-store SET writer: CAS-claimed hopscotch writes
+# ---------------------------------------------------------------------------
+
+def _set_templates(p: Program, val_stage: int, val_len: int, resp: int,
+                   stage_default: int):
+    """16-word Fig.-6 template (over two event WRs): a suppressed value
+    WRITE (dst patched with the bucket's val_ptr at run time) and a
+    suppressed ``[status, bucket_addr]`` response WRITE.  Shared by the
+    writer's match/claim phases and the displacer's match/claim phases."""
+    stage = p.alloc(2, [stage_default, 0])
+    tmpl = p.alloc(2 * isa.WR_WORDS, [
+        isa.pack_ctrl(isa.WRITE, 0), isa.FLAG_SUPPRESS_COMPLETION,
+        val_stage, 0, val_len, 0, 0, -1,
+        isa.pack_ctrl(isa.WRITE, 0), isa.FLAG_SUPPRESS_COMPLETION,
+        stage, resp, 2, 0, 0, -1])
+    return tmpl, stage
+
+
+def _emit_set_match_phase(p: Program, rq, h: int, key_w: int, val_stage: int,
+                          val_len: int, resp: int,
+                          home_w: Optional[int] = None):
+    """The SET programs' shared match phase: H parallel probe pairs.
+
+    Each probe READs its bucket's key onto a conditional WR's control
+    word and CAS-tests it against the query key; a hit converts the
+    conditional into a Fig.-6 template WRITE whose two suppressed event
+    WRITEs rewrite the bucket's value row and land ``[SET_UPDATED,
+    bucket_addr]`` in the response region — and the missing event
+    completions starve everything gated on ``wait(m_mod, 3)`` (the
+    writer's claim phase, the displacer's search phase).
+
+    Probe addresses: with ``home_w=None`` each probe READ's src is left
+    for the RECV scatter (the writer's client sends all H addresses);
+    with ``home_w`` set they are derived in-chain as ``home + d *
+    BUCKET_WORDS`` from the single scattered home address (the
+    displacer's unwrapped frame).  Returns ``(rd1s, m_tmpls, m_mods)``.
+    """
+    rd1s, m_tmpls, m_mods = [], [], []
+    for pi in range(h):
+        tmpl, stage = _set_templates(p, val_stage, val_len, resp,
+                                     SET_UPDATED)
+        mmod = p.add_wq(3, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=0)
+        mdrv = p.add_wq(9 if home_w is not None else 7,
+                        ordering=isa.ORD_DOORBELL, managed=True)
+        mexe = p.add_wq(3, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=3)
+
+        c_i = mmod.post(isa.NOOP, src=tmpl,
+                        dst=mmod.future_wr_addr(1, "ctrl"),
+                        ln=2 * isa.WR_WORDS, tag=f"wr.mc{pi}")
+        mmod.post(isa.NOOP, tag=f"wr.me{pi}")     # event: value WRITE slot
+        mmod.post(isa.NOOP, tag=f"wr.mf{pi}")     # event: response slot
+
+        mdrv.wait(rq, 1, tag=f"wr.trig{pi}")
+        if home_w is not None:
+            mdrv.write(src=home_w, dst=mdrv.future_wr_addr(3, "src"),
+                       tag=f"wr.home{pi}")        # probe addr <- home + d*BW
+            mdrv.add(dst=mdrv.future_wr_addr(2, "src"),
+                     addend=pi * BUCKET_WORDS, tag=f"wr.hoff{pi}")
+        mdrv.write(src=key_w, dst=mexe.future_wr_addr(1, "opa"),
+                   tag=f"wr.key{pi}")             # CAS comparand <- key
+        rd1 = mdrv.read(src=0, dst=c_i.ctrl_addr, ln=1,
+                        tag=f"wr.read{pi}")       # src scatter/self-patched
+        mdrv.write(src=rd1.addr("src"), dst=mdrv.future_wr_addr(2, "src"),
+                   tag=f"wr.vp_patch{pi}")
+        mdrv.add(dst=mdrv.future_wr_addr(1, "src"), addend=2,
+                 tag=f"wr.vp_off{pi}")
+        mdrv.read(src=0, dst=tmpl + isa.F_DST, ln=1,
+                  tag=f"wr.vp{pi}")               # val_ptr -> template dst
+        last = mdrv.write(src=rd1.addr("src"), dst=stage + 1,
+                          tag=f"wr.addr{pi}")     # bucket addr -> response
+        mdrv.initial_enable = mdrv.n_posted + 1
+
+        mexe.wait(mdrv, last.completion_count, tag=f"wr.sync{pi}")
+        mexe.cas(dst=c_i.ctrl_addr, old=isa.pack_ctrl(isa.NOOP, 0),
+                 new=isa.pack_ctrl(isa.WRITE, 0), tag=f"wr.cas{pi}")
+        mexe.enable(mmod, upto=3, tag=f"wr.en{pi}")
+        rd1s.append(rd1)
+        m_tmpls.append(tmpl)
+        m_mods.append(mmod)
+    return rd1s, m_tmpls, m_mods
+
+
+def _emit_set_claim_phase(p: Program, rd1s, m_tmpls, m_mods, h: int,
+                          key_w: int, val_stage: int, val_len: int,
+                          resp: int):
+    """The SET programs' claim phase: sequential CAS-claims over the H
+    probed buckets, gated on an all-miss match phase."""
+    cdrv = p.add_wq(5 * h, ordering=isa.ORD_DOORBELL, managed=True)
+    cexe = p.add_wq(4 * h, ordering=isa.ORD_DOORBELL, managed=True)
+    cmod = p.add_wq(3 * h, ordering=isa.ORD_DOORBELL, managed=True,
+                    initial_enable=0)
+
+    claims = []
+    for pi in range(h):
+        tmpl, stage = _set_templates(p, val_stage, val_len, resp,
+                                     SET_INSERTED)
+        if pi == 0:
+            # every cdrv patch below completed (and, transitively, every
+            # match probe finished without a hit)
+            cexe.wait(cdrv, 5 * h, tag="wr.cgate")
+        else:
+            # previous claim resolved un-claimed (its events completed)
+            cexe.wait(cmod, 3 * pi, tag=f"wr.cseq{pi}")
+        refs = constructs.emit_cas_claim(
+            cexe, cmod, cell=0, expect=EMPTY_KEY, new=0, then_src=tmpl,
+            then_dst=cmod.future_wr_addr(1, "ctrl"),
+            then_len=2 * isa.WR_WORDS)
+        cmod.post(isa.NOOP, tag=f"wr.ce{pi}")     # event: value WRITE slot
+        cmod.post(isa.NOOP, tag=f"wr.cf{pi}")     # event: response slot
+        cexe.enable(cmod, upto=3 * (pi + 1), tag=f"wr.cen{pi}")
+        claims.append((refs, tmpl, stage))
+    cexe.initial_enable = cexe.n_posted + 1
+
+    for pi in range(h):
+        cdrv.wait(m_mods[pi], 3, tag=f"wr.nomatch{pi}")
+    for pi, (refs, tmpl, stage) in enumerate(claims):
+        cdrv.write(src=rd1s[pi].addr("src"), dst=refs.cell_dst_addr,
+                   tag=f"wr.cdst{pi}")            # claim the probed bucket
+        cdrv.write(src=key_w, dst=refs.new_opb_addr,
+                   tag=f"wr.cnew{pi}")            # CAS new <- key
+        cdrv.write(src=m_tmpls[pi] + isa.F_DST, dst=tmpl + isa.F_DST,
+                   tag=f"wr.cvp{pi}")             # reuse probed val_ptr
+        cdrv.write(src=rd1s[pi].addr("src"), dst=stage + 1,
+                   tag=f"wr.caddr{pi}")           # bucket addr -> response
+    cdrv.initial_enable = cdrv.n_posted + 1
+    return cdrv, cexe, cmod
+
+
+def _fuel(state0: machine.VMState) -> int:
+    """An exact safe step budget for one request of a program whose WQs
+    never recycle: every posted WR executes at most once."""
+    return int(state0.tail.sum()) + 1
+
+
+def _run_contexts(prog, state: machine.VMState, payloads: torch.Tensor,
+                  max_steps: int) -> machine.VMState:
+    """Deliver ``payloads[g]`` to machine ``g`` of a state stacked over G
+    machines and run all G to quiescence, batched (the contexts are
+    independent, one owner shard each)."""
+    batch = machine.deliver_many(state, prog.recv_wq,
+                                 payloads.to(torch.int32)[:, None, :])
+    return machine.run_batch_in_place(prog.spec, batch, max_steps)
+
+
+def _bucket_row(addr: torch.Tensor, table_base: int) -> torch.Tensor:
+    """The table row of a bucket address (floor division, int32)."""
+    return torch.div(addr - table_base, BUCKET_WORDS, rounding_mode="floor")
+
+
+def _row_of(row: torch.Tensor, n: int):
+    """A row index under the JAX reference's index rules: a negative row
+    counts from the end once; returns (the row clamped into the table, for
+    a read, and whether a write to it lands — out of range, it drops)."""
+    row = torch.where(row < 0, row + n, row)
+    inb = (row >= 0) & (row < n)
+    return row.clamp(0, n - 1).long(), inb
+
+
+def _put_rows(arr: torch.Tensor, row: torch.Tensor, put: torch.Tensor,
+              value: torch.Tensor) -> torch.Tensor:
+    """A copy of ``arr`` (G, n, ...) with ``arr[g, row[g]] = value[g]``
+    where ``put[g]``."""
+    out = arr.clone()
+    g = torch.arange(arr.shape[0], device=arr.device)
+    cur = out[g, row]
+    mask = put.reshape(put.shape + (1,) * (cur.ndim - 1))
+    out[g, row] = torch.where(mask, value.to(arr.dtype), cur)
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HopscotchShardWriter:
+    """The write-side companion of :class:`HopscotchShardServer`.
+
+    One pre-posted chain per owner shard makes SET an offload (§3.5:
+    chained CAS builds atomics wider than one verb).  The client SEND
+    carries ``[key, value x V, probe-bucket addrs x H]``; the chain then
+    runs two phases:
+
+    * **match** — H parallel probe pairs READ each bucket key onto a
+      conditional WR's control word and CAS-test it against the query key;
+      a hit rewrites the bucket's value row and lands ``[SET_UPDATED,
+      bucket_addr]`` in the response region, and its missing completions
+      starve the claim phase.
+    * **claim** — gated on every match probe completing un-hit, the probes
+      run again **sequentially**, each a
+      :func:`repro_torch.core.constructs.emit_cas_claim` of the bucket's
+      key word ``EMPTY -> key``; the first EMPTY bucket wins and answers
+      ``[SET_INSERTED, bucket_addr]``.
+
+    Neither phase firing leaves the pre-set default response
+    ``[SET_NEEDS_DISPLACEMENT, 0]`` — the cue for the displacer stage
+    (:class:`HopscotchShardDisplacer`).  :meth:`commit` folds a finished
+    context's effects back into the arrays; requests against one shard
+    are serialized, so a batch behaves exactly like the host oracle
+    applied in order.
     """
     prog: Program
     spec: machine.MachineSpec
@@ -259,144 +744,928 @@ class HopscotchShardServer:
     resp_region: int
     recv_wq: int
 
-    @property
-    def resp_words(self) -> int:
-        return self.val_len + 1            # [found, value...]
+    resp_words = 2                     # [status, bucket addr]
 
     @property
     def engine(self) -> ChainEngine:
         return ChainEngine.for_spec(self.spec)
 
+    @property
+    def fuel(self) -> int:
+        """An exact safe step budget for one request (no WQ recycles, so
+        the posted-WR count bounds any run): callers with tunable unroll
+        bounds must use it rather than a fixed guess."""
+        return _fuel(self.state0)
+
     def device_state(self, keys: torch.Tensor,
                      vals: torch.Tensor) -> machine.VMState:
-        """Image with a shard's hopscotch slice scattered in.
+        """Image with a shard's authoritative slice scattered in.
 
         keys: (..., n_buckets) int32 (0 = empty); vals: (..., n_buckets,
-        val_len).  Leading dims (the store's virtual shards) stack one
-        machine per table: every field of the result gains them.
+        val_len); leading dims stack one machine per table.
         """
-        lead = tuple(keys.shape[:-1])
-        dev = self.state0.mem.device
-        keys = keys.to(device=dev, dtype=torch.int32)
-        vals = vals.to(device=dev, dtype=torch.int32)
-        row_stride = self.val_len + 1
-        rows = torch.arange(self.n_buckets, dtype=torch.int64, device=dev)
-        mem = self.state0.mem.expand(lead + self.state0.mem.shape).clone()
-        mem[..., self.table_base + rows * BUCKET_WORDS] = keys
-        mem[..., self.values_base + rows * row_stride] = (
-            keys != EMPTY_KEY).to(torch.int32)
-        vidx = (self.values_base + rows[:, None] * row_stride + 1
-                + torch.arange(self.val_len, device=dev)[None, :])
-        mem[..., vidx.reshape(-1)] = vals.reshape(lead + (-1,))
-        return machine.VMState(*(
-            mem if name == "mem" else a.expand(lead + a.shape)
-            for name, a in zip(machine.VMState._fields, self.state0)))
+        return _scatter_rows(self.state0, keys, vals,
+                             table_base=self.table_base,
+                             values_base=self.values_base)
 
-    def device_payloads(self, queries: torch.Tensor,
-                        home: torch.Tensor) -> torch.Tensor:
-        """Client-side request assembly: ``[key x H, probe addrs x H]``.
+    def device_payloads(self, queries: torch.Tensor, home: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+        """Client-side request assembly: ``[key, value x V, addrs x H]``.
 
-        queries: (B,) int32; home: (B,) int32 home buckets (the client
-        computes the hash).  Probes cover the wrapping neighborhood
-        ``[home, home + H)``.
+        queries: (B,) int32 keys; home: (B,) int32 home buckets; values:
+        (B, val_len) int32.
         """
-        h = self.neighborhood
-        offs = torch.arange(h, dtype=torch.int32, device=queries.device)
-        rows = torch.remainder(home[..., None] + offs, self.n_buckets)
-        addrs = (self.table_base + rows * BUCKET_WORDS).to(torch.int32)
-        keys_rep = queries[..., None].to(torch.int32).expand(rows.shape)
-        return torch.cat([keys_rep, addrs], dim=-1)
+        addrs = _probe_addrs(home, self.neighborhood, self.n_buckets,
+                             self.table_base)
+        return torch.cat([queries[:, None].to(torch.int32),
+                          values.to(torch.int32).reshape(-1, self.val_len),
+                          addrs], dim=1)
 
-    def get_many(self, keys: torch.Tensor, vals: torch.Tensor,
+    def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
+               keys: torch.Tensor, vals: torch.Tensor):
+        """Fold G quiesced contexts' effects into their shards' arrays.
+
+        out_mem (G, L), payload (G, W), keys (G, n), vals (G, n, V).
+        Returns ``(status (G,), keys, vals)``.  Only UPDATED/INSERTED
+        commit; the committed value row is read back from where the chain
+        wrote it (placed by :func:`machine.block_start`, which clamps
+        like the reference's ``dynamic_slice``: a row of nothing applied
+        reads row 0 and writes it back unchanged).  A key-0 request is
+        never committed and reports status 0.
+        """
+        status = out_mem[:, self.resp_region]
+        addr = out_mem[:, self.resp_region + 1]
+        live = payload[:, 0] != EMPTY_KEY
+        applied = live & ((status == SET_UPDATED)
+                          | (status == SET_INSERTED))
+        n, v = keys.shape[1], self.val_len
+        row = torch.where(applied, _bucket_row(addr, self.table_base), 0)
+        start = machine.block_start(self.values_base + row * v,
+                                    out_mem.shape[-1], v)
+        value = out_mem.gather(1, start[:, None] + torch.arange(
+            v, device=out_mem.device))
+        rr, inb = _row_of(row, n)
+        g = torch.arange(keys.shape[0], device=keys.device)
+        new_key = torch.where(status == SET_INSERTED,
+                              payload[:, 0].to(keys.dtype), keys[g, rr])
+        put = applied & inb
+        return (torch.where(live, status, 0),
+                _put_rows(keys, rr, put, new_key),
+                _put_rows(vals, rr, put, value))
+
+    def run_rows(self, keys: torch.Tensor, vals: torch.Tensor,
+                 payloads: torch.Tensor, max_steps: int = 512):
+        """G requests, request ``g`` against table ``g``: build the
+        images, deliver the SENDs, run the chains to quiescence, commit.
+        Returns ``(status (G,), keys, vals, steps (G,))``."""
+        out = _run_contexts(self, self.device_state(keys, vals), payloads,
+                            max_steps)
+        return (*self.commit(out.mem, payloads, keys, vals), out.steps)
+
+    def run_one(self, keys: torch.Tensor, vals: torch.Tensor,
+                payload: torch.Tensor, max_steps: int = 512):
+        """Serve one assembled request against the shard arrays.  Returns
+        ``(status, new_keys, new_vals)``."""
+        out = self.run_rows(keys[None], vals[None], payload[None],
+                            max_steps)
+        return tuple(a[0] for a in out[:3])
+
+    def set_many(self, keys: torch.Tensor, vals: torch.Tensor,
                  queries: torch.Tensor, home: torch.Tensor,
-                 max_steps: int = 96):
-        """Single-machine batched get.  Returns (found bool (B,), values
-        (B, val_len))."""
-        st = self.device_state(keys, vals)
-        out = self.engine.run_many(
-            st, self.recv_wq, self.device_payloads(queries, home), max_steps)
-        resp = out.mem[:, self.resp_region:self.resp_region + self.resp_words]
-        return resp[:, 0] > 0, resp[:, 1:]
+                 values: torch.Tensor, max_steps: int = 512):
+        """Single-machine batched SET: the requests run one at a time,
+        each against the arrays as its predecessors left them — bit-exact
+        with :func:`repro_torch.kvstore.hopscotch.insert_many`.  Returns
+        ``(status (B,), new_keys, new_vals)``."""
+        payloads = self.device_payloads(queries, home, values)
+        statuses = []
+        for pay in payloads:
+            status, keys, vals = self.run_one(keys, vals, pay, max_steps)
+            statuses.append(status)
+        return torch.stack(statuses), keys, vals
 
 
-def build_hopscotch_server(n_buckets: int, val_len: int,
-                           neighborhood: int = 8, ttl: bool = False,
-                           device=None) -> HopscotchShardServer:
+def build_hopscotch_writer(n_buckets: int, val_len: int,
+                           neighborhood: int = 8,
+                           device=None) -> HopscotchShardWriter:
     """Build (and cache per geometry and device) the per-shard hopscotch
-    get chain.  ``2 * neighborhood`` payload words / scatter entries must
-    fit the RECV scatter limit (§5.3: 16 scatters), so ``neighborhood <=
-    8``.  The TTL-aware variant (``ttl=True``) is not ported yet."""
-    if ttl:
-        raise NotImplementedError(
-            "the TTL-aware hopscotch server (ttl=True) is not ported yet")
-    return _build_hopscotch_server(n_buckets, val_len, neighborhood,
+    SET chain.  The request is one SEND: ``1 + val_len + neighborhood``
+    payload words must fit the RECV scatter/message limits (§5.3: 16
+    scatters), so ``val_len <= 15 - neighborhood``."""
+    return _build_hopscotch_writer(n_buckets, val_len, neighborhood,
                                    device_mod.resolve(device))
 
 
 @functools.lru_cache(maxsize=None)
-def _build_hopscotch_server(n_buckets: int, val_len: int, neighborhood: int,
-                            dev: torch.device) -> HopscotchShardServer:
-    if not 1 <= neighborhood <= isa.MAX_SCATTER // 2:
+def _build_hopscotch_writer(n_buckets: int, val_len: int, neighborhood: int,
+                            dev: torch.device) -> HopscotchShardWriter:
+    if not 1 <= neighborhood:
+        raise ValueError("neighborhood must be >= 1")
+    if 1 + val_len + neighborhood > min(isa.MAX_SCATTER, isa.MSG_WORDS):
         raise ValueError(
-            f"neighborhood must be in [1, {isa.MAX_SCATTER // 2}] "
-            f"(2 payload words per probe, {isa.MAX_SCATTER}-scatter RECV)")
-    if val_len + 1 > isa.MAX_COPY:
-        raise ValueError(f"val_len {val_len} exceeds one-WRITE response")
-    row_stride = val_len + 1
+            f"val_len {val_len} + neighborhood {neighborhood} exceeds the "
+            f"one-SEND request budget ({isa.MAX_SCATTER}-scatter RECV)")
     h = neighborhood
 
-    # size the image exactly: code (1 guard + recv + 6 slots per probe)
-    # grows up, data grows down
-    code_words = (1 + 2 + 6 * h) * isa.WR_WORDS
-    data_words = (row_stride                      # response region
-                  + n_buckets * row_stride        # value rows [flag, v...]
-                  + n_buckets * BUCKET_WORDS      # table
-                  + 1 + 2 * h)                    # scatter table
+    # size the image exactly: 1 guard WR + 2 recv slots + per probe
+    # (7 match-driver + 3 match-exec + 3 match-cond) + claim
+    # (5 driver-patch + 4 exec + 3 cond per probe); data grows down
+    code_words = (1 + 2 + h * (7 + 3 + 3) + 5 * h + 4 * h + 3 * h) \
+        * isa.WR_WORDS
+    data_words = (2 + 1 + val_len              # resp, key_w, val_stage
+                  + n_buckets * val_len        # value rows
+                  + n_buckets * BUCKET_WORDS   # table
+                  + h * 2 * (2 * isa.WR_WORDS + 2)   # templates + stages
+                  + 2 + val_len + h)           # scatter table
     mem_words = -(-(code_words + data_words + 32) // 128) * 128
 
     p = Program(mem_words)
-    p.add_wq(1)                                   # WQ0: all-zero null bucket
-    resp = p.alloc(row_stride, [MISS_SENTINEL] * row_stride, "resp")
-    # value rows [found, v...]: the found flag is per-row dynamic state
-    # (device_state writes keys != EMPTY), so the static image is zeros
-    values = p.alloc(n_buckets * row_stride,
-                     [0] * (n_buckets * row_stride), "values")
+    p.add_wq(1)                 # WQ0: all-zero null bucket (padding guard)
+
+    # data: response defaults to the needs-displacement report
+    resp = p.alloc(2, [SET_NEEDS_DISPLACEMENT, 0], "resp")
+    key_w = p.word(0, "key")
+    val_stage = p.alloc(val_len, [0] * val_len, "val_stage")
+    values = p.alloc(n_buckets * val_len, name="values")
     # table rows [key=0, pad, val_ptr]: val_ptr column baked statically
     tbl_init = [0] * (n_buckets * BUCKET_WORDS)
     for b in range(n_buckets):
-        tbl_init[b * BUCKET_WORDS + 2] = values + b * row_stride
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * val_len
     table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
 
     rq = p.add_wq(2)
-    cas_opa_addrs, read_src_addrs = [], []
-    for pi in range(h):
-        wq1 = p.add_wq(2, ordering=isa.ORD_DOORBELL, managed=True)
-        wq2 = p.add_wq(4, ordering=isa.ORD_DOORBELL, managed=True,
-                       initial_enable=3)
-        wq1.wait(rq, 1, tag=f"hs.trig{pi}")
-        wq1.initial_enable = wq1.n_posted + 1
-        rd = wq1.read(src=0, dst=0, ln=BUCKET_WORDS, tag=f"hs.read{pi}")
+    rd1s, m_tmpls, m_mods = _emit_set_match_phase(
+        p, rq, h, key_w, val_stage, val_len, resp)
+    _emit_set_claim_phase(p, rd1s, m_tmpls, m_mods, h, key_w, val_stage,
+                          val_len, resp)
 
-        wq2.wait(wq1, rd.completion_count, tag=f"hs.sync{pi}")
-        cas = wq2.cas(dst=0, old=isa.pack_ctrl(isa.NOOP, 0),
-                      new=isa.pack_ctrl(isa.WRITE, 0), tag=f"hs.cas{pi}")
-        wq2.enable(wq2, upto=4, tag=f"hs.en{pi}")
-        # the response: NOOP unless the CAS converts it; the bucket row
-        # [key, pad, val_ptr] lands on its [ctrl, flags, src]
-        r4 = wq2.post(isa.NOOP, src=0, dst=resp, ln=row_stride,
-                      tag=f"hs.resp{pi}")
-        wq1.wrs[rd.slot]["dst"] = r4.ctrl_addr
-        wq2.wrs[cas.slot]["dst"] = r4.ctrl_addr
-        cas_opa_addrs.append(cas.addr("opa"))
-        read_src_addrs.append(rd.addr("src"))
-
-    tbl = p.scatter_table(cas_opa_addrs + read_src_addrs)
-    rq.recv(scatter_table=tbl, tag="hs.recv")
+    # RECV scatter: key, staged value words, one probe addr per READ
+    tbl = p.scatter_table(
+        [key_w] + [val_stage + j for j in range(val_len)]
+        + [rd.addr("src") for rd in rd1s])
+    rq.recv(scatter_table=tbl, tag="wr.recv")
 
     spec, st0 = p.finalize(device=dev)
-    return HopscotchShardServer(
-        prog=p, spec=spec, state0=st0, n_buckets=n_buckets, val_len=val_len,
-        neighborhood=neighborhood, table_base=table, values_base=values,
+    return HopscotchShardWriter(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
+        val_len=val_len, neighborhood=neighborhood, table_base=table,
+        values_base=values, resp_region=resp, recv_wq=rq.index)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HopscotchShardDisplacer(HopscotchShardWriter):
+    """The displacement escalation of :class:`HopscotchShardWriter`.
+
+    A neighborhood-full insert needs the hopscotch *bubble*: find the
+    first EMPTY bucket past the neighborhood, repeatedly move a bucket
+    from the window ``[free-H+1, free)`` into it, and stop once the free
+    slot lands inside the requester's neighborhood.  This program is that
+    loop, bounded and unrolled (Fig. 5), with
+    :func:`repro_torch.core.constructs.emit_enable_branch` as its exits:
+
+    * **match** — the shared H-probe phase (``SET_UPDATED`` on a hit);
+    * **search** — up to ``max_search`` sequential probes from home; the
+      first EMPTY latches the free slot's address and distance into the
+      ``free``/``dist`` carry words;
+    * **bubble** — up to ``max_moves`` laps: a break-check (``dist <=
+      H-1`` releases the claim), then a scan of ``back = H-1 .. 1`` whose
+      first movable candidate (its home distance, the bucket's pad word,
+      satisfies ``pad + back <= H-1``) runs an
+      :func:`~repro_torch.core.constructs.emit_displace_move`;
+    * **claim** — :func:`~repro_torch.core.constructs.emit_cas_claim` on
+      the final free slot: ``[SET_INSERTED | SET_DISPLACED, addr]``.
+
+    Any dead end quiesces on the pre-set ``[SET_NEEDS_RESIZE, 0]`` and
+    :meth:`commit` discards the image's partial moves, exactly like the
+    bounded host oracle ``hopscotch.HopscotchTable.set_full``.
+
+    **The unwrapped frame.** Verbs add constants; they do not reduce
+    modulo the table.  So the image carries ``n_buckets + max_search``
+    rows where row ``r`` mirrors bucket ``r % n_buckets``, and every
+    address a request touches is the unwrapped position ``home + d``;
+    :meth:`commit` folds the image back by per-word diff against the
+    pre-state (at most one copy of any word changed).
+    """
+    max_search: int = 0
+    max_moves: int = 0
+
+    def device_state(self, keys: torch.Tensor,
+                     vals: torch.Tensor) -> machine.VMState:
+        """Image with the shard slice scattered into the unwrapped frame:
+        each of the ``n + max_search`` rows gets ``[key, pad, val_ptr]``
+        with ``pad`` the resident's home distance ``(row - home(key)) %
+        n``, or ``H`` for an EMPTY row (never movable)."""
+        n = self.n_buckets
+        dev = self.state0.mem.device
+        src = torch.remainder(torch.arange(
+            n + self.max_search, dtype=torch.int64, device=dev), n)
+        k = keys.to(device=dev, dtype=torch.int32)[..., src]
+        home = bucket_home(k, n)
+        pad = torch.where(k != EMPTY_KEY,
+                          torch.remainder(src.to(torch.int32) - home, n),
+                          self.neighborhood).to(torch.int32)
+        return _scatter_rows(self.state0, k,
+                             vals.to(device=dev)[..., src, :],
+                             table_base=self.table_base,
+                             values_base=self.values_base, pad=pad)
+
+    def device_payloads(self, queries: torch.Tensor, home: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+        """``[key, value x V, home_addr]`` — one scattered home address;
+        the chain derives every probe address from it."""
+        addrs = self.table_base + home.to(torch.int32) * BUCKET_WORDS
+        return torch.cat([queries[:, None].to(torch.int32),
+                          values.to(torch.int32).reshape(-1, self.val_len),
+                          addrs[:, None].to(torch.int32)], dim=1)
+
+    def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
+               keys: torch.Tensor, vals: torch.Tensor):
+        """Fold G quiesced contexts back into their arrays by diff.
+
+        Any touched word lives in exactly one copy (primary row ``b`` or
+        mirror ``n + b``, ``b < max_search``), so ``where(img != pre, img,
+        mirror-merged)`` reconstructs the post-state exactly.  Nothing
+        commits unless the status is UPDATED/INSERTED/DISPLACED.
+        """
+        n, s, v = self.n_buckets, self.max_search, self.val_len
+        dev = out_mem.device
+        status = out_mem[:, self.resp_region]
+        live = payload[:, 0] != EMPTY_KEY
+        applied = live & ((status == SET_UPDATED) | (status == SET_INSERTED)
+                          | (status == SET_DISPLACED))
+        rows = torch.arange(n, dtype=torch.int64, device=dev)
+        mir = torch.arange(s, dtype=torch.int64, device=dev)
+
+        base_k = keys.to(torch.int32)
+        img_k = out_mem[:, self.table_base + rows * BUCKET_WORDS]
+        mir_k = out_mem[:, self.table_base + (n + mir) * BUCKET_WORDS]
+        merged_k = base_k.clone()
+        merged_k[:, :s] = torch.where(mir_k != base_k[:, :s], mir_k,
+                                      base_k[:, :s])
+        new_k = torch.where(img_k != base_k, img_k, merged_k)
+
+        base_v = vals.to(torch.int32)
+        cols = torch.arange(v, dtype=torch.int64, device=dev)[None, :]
+        img_v = out_mem[:, self.values_base + rows[:, None] * v + cols]
+        mir_v = out_mem[:, self.values_base + (n + mir)[:, None] * v + cols]
+        merged_v = base_v.clone()
+        merged_v[:, :s] = torch.where(mir_v != base_v[:, :s], mir_v,
+                                      base_v[:, :s])
+        new_v = torch.where(img_v != base_v, img_v, merged_v)
+
+        keys_out = torch.where(applied[:, None], new_k, base_k)
+        vals_out = torch.where(applied[:, None, None], new_v, base_v)
+        return (torch.where(live, status, 0), keys_out.to(keys.dtype),
+                vals_out.to(vals.dtype))
+
+
+def build_hopscotch_displacer(n_buckets: int, val_len: int,
+                              neighborhood: int = 8, max_search: int = 16,
+                              max_moves: int = 8,
+                              device=None) -> HopscotchShardDisplacer:
+    """Build (and cache per geometry and device) the per-shard
+    displacement chain.  ``max_search`` bounds the free-slot probe from
+    the home bucket (and sizes the unwrapped mirror rows); ``max_moves``
+    bounds the bubble.  Both bounds are mirrored by the host oracle
+    ``hopscotch.HopscotchTable.set_full``."""
+    return _build_hopscotch_displacer(n_buckets, val_len, neighborhood,
+                                      max_search, max_moves,
+                                      device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_hopscotch_displacer(n_buckets: int, val_len: int,
+                               neighborhood: int, max_search: int,
+                               max_moves: int, dev: torch.device
+                               ) -> HopscotchShardDisplacer:
+    h, s, m = neighborhood, max_search, max_moves
+    if h < 2:
+        raise ValueError("displacement needs a neighborhood >= 2 "
+                         "(the bubble window [free-H+1, free) is empty)")
+    if not h <= s <= n_buckets:
+        raise ValueError(
+            f"max_search must be in [neighborhood, n_buckets], got {s}")
+    if m < 1:
+        raise ValueError("max_moves must be >= 1")
+    if 1 + val_len + 1 > min(isa.MAX_SCATTER, isa.MSG_WORDS):
+        raise ValueError(
+            f"val_len {val_len} exceeds the one-SEND request budget")
+    ext = n_buckets + s
+
+    # exact image sizing: WQ slots (code) + data
+    SCTL, SMOD, SFND = 9, 2, 4            # per search probe
+    BCTL, BMOD = 7, 2                     # per break-check
+    PCTL, PMOD, PMOVE = 13, 2, 20         # per window probe
+    CLDRV, CLMOD = 9, 3
+    # null-guard sizing: a zero-padded request derives its H probe
+    # addresses from home_w = 0, so the guard's zero words must cover
+    # every derived read — probe pi reads [pi*BW] and [pi*BW + 2] — and
+    # the ghost update's value write of val_len words at val_ptr 0
+    guard_slots = max(2, -(-((h - 1) * BUCKET_WORDS + 3) // isa.WR_WORDS),
+                      -(-val_len // isa.WR_WORDS))
+    wq_slots = (guard_slots + 2 + h * (3 + 9 + 3) + (h + 1)
+                + s * (SCTL + SMOD + SFND) + (m + 1) * (BCTL + BMOD)
+                + m * (h - 1) * (PCTL + PMOD + PMOVE) + CLDRV + CLMOD)
+    data_words = (2 + 5 + 2 * val_len            # resp, carries, stages
+                  + ext * val_len                # value rows (mirrored)
+                  + ext * BUCKET_WORDS           # table (mirrored)
+                  + (h + 1) * 18                 # match + claim templates
+                  + 2 + val_len + 1)             # scatter table
+    mem_words = -(-(wq_slots * isa.WR_WORDS + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    # WQ0: the null region a zero-padded request's match probes hit
+    guard = p.add_wq(guard_slots)
+
+    resp = p.alloc(2, [SET_NEEDS_RESIZE, 0], "resp")
+    key_w = p.word(0, "key")
+    home_w = p.word(0, "home")
+    free_w = p.word(0, "free")     # carry: free slot's (unwrapped) address
+    dist_w = p.word(0, "dist")     # carry: its bucket distance from home
+    cand_w = p.word(0, "cand")     # scratch: current window candidate
+    val_stage = p.alloc(val_len, [0] * val_len, "val_stage")
+    zeros_v = p.alloc(val_len, [0] * val_len, "zeros")
+    values = p.alloc(ext * val_len, name="values")
+    tbl_init = [0] * (ext * BUCKET_WORDS)
+    for b in range(ext):
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * val_len
+    table = p.alloc(ext * BUCKET_WORDS, tbl_init, "table")
+
+    rq = p.add_wq(2)
+
+    # --- match phase (shared emission; probe addrs derived from home) -----
+    _, _, m_mods = _emit_set_match_phase(
+        p, rq, h, key_w, val_stage, val_len, resp, home_w=home_w)
+
+    # --- the control-flow WQs up front (branches name successors) ---------
+    def wqs(size, count):
+        return [p.add_wq(size, ordering=isa.ORD_DOORBELL, managed=True,
+                         initial_enable=0) for _ in range(count)]
+
+    sgate = p.add_wq(h + 1, ordering=isa.ORD_DOORBELL, managed=True)
+    sctl, smod, sfnd = wqs(SCTL, s), wqs(SMOD, s), wqs(SFND, s)
+    bctl, bmod = wqs(BCTL, m + 1), wqs(BMOD, m + 1)
+    pctl = [wqs(PCTL, h - 1) for _ in range(m)]
+    pmod = [wqs(PMOD, h - 1) for _ in range(m)]
+    pmove = [wqs(PMOVE, h - 1) for _ in range(m)]
+    cldrv, clmod = wqs(CLDRV, 1)[0], wqs(CLMOD, 1)[0]
+
+    # --- search phase: gated on every match probe resolving un-hit --------
+    for pi in range(h):
+        sgate.wait(m_mods[pi], 3, tag=f"dp.nomatch{pi}")
+    sgate.enable(sctl[0], upto=SCTL, tag="dp.search")
+    sgate.initial_enable = sgate.n_posted + 1
+
+    for si in range(s):
+        ctl = sctl[si]
+
+        def load_key(a_addr, b_addr, ctl=ctl, si=si):
+            ctl.write(src=home_w, dst=ctl.future_wr_addr(2, "src"),
+                      tag=f"dp.sp{si}")
+            ctl.add(dst=ctl.future_wr_addr(1, "src"),
+                    addend=si * BUCKET_WORDS, tag=f"dp.so{si}")
+            ctl.read(src=0, dst=a_addr, ln=1, tag=f"dp.skey{si}")
+            ctl.write(src=a_addr, dst=b_addr, tag=f"dp.scp{si}")
+
+        nxt = (sctl[si + 1].index, SCTL) if si + 1 < s else (guard.index, 0)
+        constructs.emit_enable_branch(
+            ctl, smod[si], threshold=EMPTY_KEY,
+            then_wq=sfnd[si].index, then_upto=SFND,
+            else_wq=nxt[0], else_upto=nxt[1], load=load_key,
+            tag=f"dp.sbr{si}")
+
+        # found: latch the free slot's unwrapped address + home distance
+        sfnd[si].write(src=home_w, dst=free_w, tag=f"dp.free{si}")
+        sfnd[si].add(dst=free_w, addend=si * BUCKET_WORDS,
+                     tag=f"dp.foff{si}")
+        sfnd[si].write_imm(dst=dist_w, value=si, tag=f"dp.dist{si}")
+        sfnd[si].enable(bctl[0], upto=BCTL, tag=f"dp.go{si}")
+
+    # --- bubble laps: break-check + window scan + one move ----------------
+    for li in range(m + 1):
+        def load_dist(a_addr, b_addr, ctl=bctl[li], li=li):
+            ctl.write(src=dist_w, dst=a_addr, tag=f"dp.bd{li}")
+            ctl.write(src=dist_w, dst=b_addr, tag=f"dp.bd2{li}")
+
+        cont = ((pctl[li][0].index, PCTL) if li < m else (guard.index, 0))
+        constructs.emit_enable_branch(
+            bctl[li], bmod[li], threshold=h - 1,
+            then_wq=cldrv.index, then_upto=CLDRV,
+            else_wq=cont[0], else_upto=cont[1], load=load_dist,
+            tag=f"dp.brk{li}")
+
+    cl_tmpl, cl_stage = _set_templates(p, val_stage, val_len, resp,
+                                       SET_INSERTED)
+
+    for li in range(m):
+        for j in range(h - 1):
+            back = h - 1 - j            # scan order: farthest-back first
+            ctl = pctl[li][j]
+            ctl.write(src=free_w, dst=cand_w, tag=f"dp.c{li}.{j}")
+            ctl.add(dst=cand_w, addend=-back * BUCKET_WORDS,
+                    tag=f"dp.cb{li}.{j}")
+
+            def load_pad(a_addr, b_addr, ctl=ctl, back=back):
+                ctl.write(src=cand_w, dst=ctl.future_wr_addr(2, "src"),
+                          tag="dp.pp")
+                ctl.add(dst=ctl.future_wr_addr(1, "src"), addend=1,
+                        tag="dp.po")
+                ctl.read(src=0, dst=a_addr, ln=1, tag="dp.pad")
+                ctl.write(src=a_addr, dst=b_addr, tag="dp.pcp")
+                ctl.add(dst=a_addr, addend=back, tag="dp.pb1")
+                ctl.add(dst=b_addr, addend=back, tag="dp.pb2")
+
+            nxt = ((pctl[li][j + 1].index, PCTL) if j + 1 < h - 1
+                   else (guard.index, 0))
+            constructs.emit_enable_branch(
+                ctl, pmod[li][j], threshold=h - 1,
+                then_wq=pmove[li][j].index, then_upto=PMOVE,
+                else_wq=nxt[0], else_upto=nxt[1], load=load_pad,
+                tag=f"dp.mv{li}.{j}")
+
+            constructs.emit_displace_move(
+                pmove[li][j], cand_w=cand_w, free_w=free_w, dist_w=dist_w,
+                back=back, val_len=val_len, zeros=zeros_v,
+                status_addr=cl_stage, status_val=SET_DISPLACED,
+                next_wq=bctl[li + 1].index, next_upto=BCTL,
+                empty_key=EMPTY_KEY, tag=f"dp.mv{li}.{j}")
+
+    # --- claim phase: CAS-claim the final free slot -----------------------
+    cldrv.write(src=free_w, dst=cldrv.future_wr_addr(2, "src"),
+                tag="dp.clvp")
+    cldrv.add(dst=cldrv.future_wr_addr(1, "src"), addend=2, tag="dp.clvo")
+    cldrv.read(src=0, dst=cl_tmpl + isa.F_DST, ln=1, tag="dp.clv")
+    cldrv.write(src=free_w, dst=cl_stage + 1, tag="dp.claddr")
+    cldrv.write(src=free_w, dst=cldrv.future_wr_addr(2, "dst"),
+                tag="dp.clcell")
+    cldrv.write(src=key_w, dst=cldrv.future_wr_addr(1, "opb"),
+                tag="dp.clnew")
+    constructs.emit_cas_claim(
+        cldrv, clmod, cell=0, expect=EMPTY_KEY, new=0, then_src=cl_tmpl,
+        then_dst=clmod.future_wr_addr(1, "ctrl"), then_len=2 * isa.WR_WORDS)
+    clmod.post(isa.NOOP, tag="dp.cle")        # event: value WRITE slot
+    clmod.post(isa.NOOP, tag="dp.clf")        # event: response slot
+    cldrv.enable(clmod, upto=3, tag="dp.clen")
+
+    # RECV scatter: key, staged value words, the single home address
+    tbl = p.scatter_table(
+        [key_w] + [val_stage + j for j in range(val_len)] + [home_w])
+    rq.recv(scatter_table=tbl, tag="dp.recv")
+
+    spec, st0 = p.finalize(device=dev)
+    return HopscotchShardDisplacer(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
+        val_len=val_len, neighborhood=neighborhood, table_base=table,
+        values_base=values, resp_region=resp, recv_wq=rq.index,
+        max_search=max_search, max_moves=max_moves)
+
+
+# ---------------------------------------------------------------------------
+# the Memcached lifecycle verbs: DELETE and the CLOCK expiry sweeper
+# ---------------------------------------------------------------------------
+
+def _vacate_templates(p: Program, resp: int, status_default: int,
+                      enable_wq: int, enable_upto: int):
+    """16-word template (two event WRs): a suppressed ``[status,
+    bucket_addr]`` response WRITE and a suppressed **ENABLE** releasing
+    the vacate path, so one Fig.-6 conversion both answers and hands
+    control to the retirement WQ (the JAX package's ``_mig_templates``,
+    which its table-growth migrator shares)."""
+    stage = p.alloc(2, [status_default, 0])
+    tmpl = p.alloc(2 * isa.WR_WORDS, [
+        isa.pack_ctrl(isa.WRITE, 0), isa.FLAG_SUPPRESS_COMPLETION,
+        stage, resp, 2, 0, 0, -1,
+        isa.pack_ctrl(isa.ENABLE, 0), isa.FLAG_SUPPRESS_COMPLETION,
+        -1, -1, 1, enable_upto, enable_wq, -1])
+    return tmpl, stage
+
+
+def _emit_delete_probes(p: Program, rq, h: int, val_len: int, key_w: int,
+                        resp: int, zeros: int):
+    """The DELETE program's match-and-vacate phase: H parallel probes.
+
+    Each probe READs its bucket key onto a conditional WR's control word
+    and CAS-tests it against the query key; a hit converts the
+    conditional into a template copy whose two suppressed events land
+    ``[DEL_DELETED, bucket_addr]`` in the response region and ENABLE the
+    probe's private vacate WQ —
+    :func:`repro_torch.core.constructs.emit_bucket_vacate` on the matched
+    bucket.  An all-miss request quiesces on the pre-set ``[DEL_MISS,
+    0]``.  Returns the probe READs (their ``src`` fields are the RECV
+    scatter targets).
+    """
+    VAC = 8                    # emit_bucket_vacate's exact WR count
+    rd1s = []
+    for pi in range(h):
+        vac = p.add_wq(VAC, ordering=isa.ORD_DOORBELL, managed=True,
+                       initial_enable=0)
+        m_tmpl, m_stage = _vacate_templates(p, resp, DEL_DELETED,
+                                            vac.index, VAC)
+        mmod = p.add_wq(3, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=0)
+        mdrv = p.add_wq(4, ordering=isa.ORD_DOORBELL, managed=True)
+        mexe = p.add_wq(3, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=3)
+
+        c_i = mmod.post(isa.NOOP, src=m_tmpl,
+                        dst=mmod.future_wr_addr(1, "ctrl"),
+                        ln=2 * isa.WR_WORDS, tag=f"dl.mc{pi}")
+        mmod.post(isa.NOOP, tag=f"dl.me{pi}")     # event: response slot
+        mmod.post(isa.NOOP, tag=f"dl.mf{pi}")     # event: ENABLE(vacate)
+
+        mdrv.wait(rq, 1, tag=f"dl.trig{pi}")
+        mdrv.write(src=key_w, dst=mexe.future_wr_addr(1, "opa"),
+                   tag=f"dl.key{pi}")             # CAS comparand <- key
+        rd1 = mdrv.read(src=0, dst=c_i.ctrl_addr, ln=1,
+                        tag=f"dl.read{pi}")       # src RECV-scattered
+        last = mdrv.write(src=rd1.addr("src"), dst=m_stage + 1,
+                          tag=f"dl.addr{pi}")     # bucket addr -> response
+        mdrv.initial_enable = mdrv.n_posted + 1
+
+        mexe.wait(mdrv, last.completion_count, tag=f"dl.sync{pi}")
+        mexe.cas(dst=c_i.ctrl_addr, old=isa.pack_ctrl(isa.NOOP, 0),
+                 new=isa.pack_ctrl(isa.WRITE, 0), tag=f"dl.cas{pi}")
+        mexe.enable(mmod, upto=3, tag=f"dl.en{pi}")
+
+        # the vacate reads its bucket address out of the probe READ's own
+        # src field — the scattered cell itself, no copy needed
+        constructs.emit_bucket_vacate(vac, bucket_w=rd1.addr("src"),
+                                      val_len=val_len, zeros=zeros,
+                                      empty_key=EMPTY_KEY,
+                                      tag=f"dl.vac{pi}")
+        rd1s.append(rd1)
+    return rd1s
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HopscotchShardDeleter:
+    """The delete-side companion of :class:`HopscotchShardWriter`: the
+    client SEND carries ``[key, probe-bucket addrs x H]`` and the chain
+    is a match phase feeding per-probe bucket vacates (see
+    :func:`_emit_delete_probes`), so the transition ``key -> EMPTY`` is a
+    re-read-comparand CAS against the table itself and the value row is
+    zeroed before the response commits.  Bit-exact with
+    :func:`repro_torch.kvstore.hopscotch.delete_many`.
+    """
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_buckets: int
+    val_len: int
+    neighborhood: int
+    table_base: int
+    values_base: int
+    resp_region: int
+    recv_wq: int
+
+    resp_words = 2                     # [status, bucket addr]
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    @property
+    def fuel(self) -> int:
+        """Exact step budget (no WQ recycles; see
+        :attr:`HopscotchShardWriter.fuel`)."""
+        return _fuel(self.state0)
+
+    def device_state(self, keys: torch.Tensor,
+                     vals: torch.Tensor) -> machine.VMState:
+        """Image with a shard's slice scattered in (see
+        :meth:`HopscotchShardWriter.device_state`)."""
+        return _scatter_rows(self.state0, keys, vals,
+                             table_base=self.table_base,
+                             values_base=self.values_base)
+
+    def device_payloads(self, queries: torch.Tensor,
+                        home: torch.Tensor) -> torch.Tensor:
+        """Client-side request assembly: ``[key, probe addrs x H]``."""
+        addrs = _probe_addrs(home, self.neighborhood, self.n_buckets,
+                             self.table_base)
+        return torch.cat([queries[:, None].to(torch.int32), addrs], dim=1)
+
+    def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
+               keys: torch.Tensor, vals: torch.Tensor):
+        """Fold G quiesced contexts into their arrays: a ``DEL_DELETED``
+        response vacates the reported bucket (key -> EMPTY, value row
+        zeroed); a miss commits nothing; key-0 requests report status
+        0.  Returns ``(status (G,), keys, vals)``."""
+        status = out_mem[:, self.resp_region]
+        addr = out_mem[:, self.resp_region + 1]
+        live = payload[:, 0] != EMPTY_KEY
+        applied = live & (status == DEL_DELETED)
+        rr, inb = _row_of(torch.where(
+            applied, _bucket_row(addr, self.table_base), 0), keys.shape[1])
+        put = applied & inb
+        return (torch.where(live, status, 0),
+                _put_rows(keys, rr, put, torch.zeros_like(status)),
+                _put_rows(vals, rr, put, torch.zeros_like(vals[:, 0])))
+
+    def run_rows(self, keys: torch.Tensor, vals: torch.Tensor,
+                 payloads: torch.Tensor, max_steps: int = 512):
+        """G DELETEs, request ``g`` against table ``g``.  Returns
+        ``(status (G,), keys, vals, steps (G,))``."""
+        out = _run_contexts(self, self.device_state(keys, vals), payloads,
+                            max_steps)
+        return (*self.commit(out.mem, payloads, keys, vals), out.steps)
+
+    def run_one(self, keys: torch.Tensor, vals: torch.Tensor,
+                payload: torch.Tensor, max_steps: int = 512):
+        """Serve one assembled DELETE against the shard arrays.  Returns
+        ``(status, new_keys, new_vals)``."""
+        out = self.run_rows(keys[None], vals[None], payload[None],
+                            max_steps)
+        return tuple(a[0] for a in out[:3])
+
+    def delete_many(self, keys: torch.Tensor, vals: torch.Tensor,
+                    queries: torch.Tensor, home: torch.Tensor,
+                    max_steps: int = 512):
+        """Single-machine batched DELETE, one request at a time, each
+        committed before the next — bit-exact with
+        :func:`repro_torch.kvstore.hopscotch.delete_many`.  Returns
+        ``(status (B,), new_keys, new_vals)``."""
+        statuses = []
+        for pay in self.device_payloads(queries, home):
+            status, keys, vals = self.run_one(keys, vals, pay, max_steps)
+            statuses.append(status)
+        return torch.stack(statuses), keys, vals
+
+
+def build_hopscotch_deleter(n_buckets: int, val_len: int,
+                            neighborhood: int = 8,
+                            device=None) -> HopscotchShardDeleter:
+    """Build (and cache per geometry and device) the per-shard hopscotch
+    DELETE chain.  ``1 + neighborhood`` payload words must fit the RECV
+    scatter limit (§5.3: 16 scatters), so ``neighborhood <= 15``."""
+    return _build_hopscotch_deleter(n_buckets, val_len, neighborhood,
+                                    device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_hopscotch_deleter(n_buckets: int, val_len: int, neighborhood: int,
+                             dev: torch.device) -> HopscotchShardDeleter:
+    if not 1 <= neighborhood:
+        raise ValueError("neighborhood must be >= 1")
+    if 1 + neighborhood > min(isa.MAX_SCATTER, isa.MSG_WORDS):
+        raise ValueError(
+            f"neighborhood {neighborhood} exceeds the one-SEND request "
+            f"budget ({isa.MAX_SCATTER}-scatter RECV)")
+    if val_len > isa.MAX_COPY:
+        raise ValueError(
+            f"val_len {val_len} exceeds the one-WRITE row-zero budget")
+    h = neighborhood
+
+    # exact image sizing: guard + recv + per probe (8 vacate + 3 match-
+    # cond + 4 match-driver + 3 match-exec); a ghost probe (padded key 0,
+    # all probe addrs 0) reads bucket words [0..2] and zero-writes
+    # val_len words at value-pointer 0, all inside the guard
+    guard_slots = max(2, -(-val_len // isa.WR_WORDS))
+    code_words = (guard_slots + 2 + h * (8 + 3 + 4 + 3)) * isa.WR_WORDS
+    data_words = (2 + 1 + val_len              # resp, key_w, zeros
+                  + n_buckets * val_len        # value rows
+                  + n_buckets * BUCKET_WORDS   # table
+                  + h * (2 * isa.WR_WORDS + 2)  # templates + stages
+                  + 1 + 1 + h)                 # scatter table
+    mem_words = -(-(code_words + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    p.add_wq(guard_slots)       # WQ0: all-zero null bucket (padding guard)
+
+    resp = p.alloc(2, [DEL_MISS, 0], "resp")
+    key_w = p.word(0, "key")
+    zeros_v = p.alloc(val_len, [0] * val_len, "zeros")
+    values = p.alloc(n_buckets * val_len, name="values")
+    tbl_init = [0] * (n_buckets * BUCKET_WORDS)
+    for b in range(n_buckets):
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * val_len
+    table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
+
+    rq = p.add_wq(2)
+    rd1s = _emit_delete_probes(p, rq, h, val_len, key_w, resp, zeros_v)
+
+    tbl = p.scatter_table([key_w] + [rd.addr("src") for rd in rd1s])
+    rq.recv(scatter_table=tbl, tag="dl.recv")
+
+    spec, st0 = p.finalize(device=dev)
+    return HopscotchShardDeleter(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
+        val_len=val_len, neighborhood=neighborhood, table_base=table,
+        values_base=values, resp_region=resp, recv_wq=rq.index)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClockSweeper:
+    """One CLOCK-hand lap of chain-driven TTL eviction.
+
+    Each request visits ONE bucket: the chain READs the bucket's deadline
+    word, evaluates ``e = min(max(deadline - now, 0), 1)`` in Calc verbs,
+    and an :func:`repro_torch.core.constructs.emit_enable_branch` on ``e``
+    releases either the **vacate** arm —
+    :func:`~repro_torch.core.constructs.emit_bucket_vacate`, the deadline
+    reset to :data:`NO_TTL`, ``SWEEP_RECLAIMED`` reported — or the
+    **live** arm (``SWEEP_LIVE``, bucket untouched).  The deadline column
+    lives in the bucket pad words, as in the TTL get server.  Bit-exact
+    with :func:`repro_torch.kvstore.hopscotch.sweep_expired`.
+    """
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_buckets: int
+    val_len: int
+    table_base: int
+    values_base: int
+    resp_region: int
+    recv_wq: int
+
+    resp_words = 2                     # [status, bucket addr]
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    @property
+    def fuel(self) -> int:
+        """Exact step budget (no WQ recycles; see
+        :attr:`HopscotchShardWriter.fuel`)."""
+        return _fuel(self.state0)
+
+    def device_state(self, keys: torch.Tensor, vals: torch.Tensor,
+                     exp: torch.Tensor) -> machine.VMState:
+        """Image with a shard's ``(keys, vals, exp)`` scattered in —
+        deadlines into the bucket pad words."""
+        return _scatter_rows(self.state0, keys, vals,
+                             table_base=self.table_base,
+                             values_base=self.values_base, pad=exp)
+
+    def device_payloads(self, buckets: torch.Tensor, now) -> torch.Tensor:
+        """Request assembly: ``[bucket_addr, deadline_addr, -now]`` per
+        visited bucket (the driver computes the hand positions; the clock
+        rides the payload)."""
+        addr = self.table_base + buckets.to(torch.int32) * BUCKET_WORDS
+        negnow = -torch.as_tensor(now, dtype=torch.int32,
+                                  device=addr.device)
+        return torch.stack([addr, addr + 1, negnow.expand(addr.shape)],
+                           dim=-1).to(torch.int32)
+
+    def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
+               keys: torch.Tensor, vals: torch.Tensor, exp: torch.Tensor):
+        """Fold G quiesced laps back: ``SWEEP_RECLAIMED`` vacates the
+        visited bucket and resets its deadline to :data:`NO_TTL`; a live
+        lap commits nothing; padded rows (addr 0) report status 0.
+        Returns ``(status (G,), keys, vals, exp)``."""
+        status = out_mem[:, self.resp_region]
+        live = payload[:, 0] != 0
+        applied = live & (status == SWEEP_RECLAIMED)
+        rr, inb = _row_of(torch.where(
+            applied, _bucket_row(payload[:, 0], self.table_base), 0),
+            keys.shape[1])
+        put = applied & inb
+        return (torch.where(live, status, 0),
+                _put_rows(keys, rr, put, torch.zeros_like(status)),
+                _put_rows(vals, rr, put, torch.zeros_like(vals[:, 0])),
+                _put_rows(exp, rr, put, torch.full_like(status, NO_TTL)))
+
+    def run_rows(self, keys: torch.Tensor, vals: torch.Tensor,
+                 exp: torch.Tensor, payloads: torch.Tensor,
+                 max_steps: int = 256):
+        """G laps, lap ``g`` against table ``g``.  Returns ``(status (G,),
+        keys, vals, exp, steps (G,))``."""
+        out = _run_contexts(self, self.device_state(keys, vals, exp),
+                            payloads, max_steps)
+        return (*self.commit(out.mem, payloads, keys, vals, exp), out.steps)
+
+    def run_one(self, keys: torch.Tensor, vals: torch.Tensor,
+                exp: torch.Tensor, payload: torch.Tensor,
+                max_steps: int = 256):
+        """One sweeper lap.  Returns ``(status, keys, vals, exp)``."""
+        out = self.run_rows(keys[None], vals[None], exp[None], payload[None],
+                            max_steps)
+        return tuple(a[0] for a in out[:4])
+
+    def sweep(self, keys: torch.Tensor, vals: torch.Tensor,
+              exp: torch.Tensor, start: int, count: int, now,
+              max_steps: int = 256):
+        """``count`` CLOCK laps from the hand at ``start`` (wrapping), each
+        committed before the next.  Returns ``(status (count,), keys,
+        vals, exp)``."""
+        buckets = torch.remainder(start + torch.arange(
+            count, dtype=torch.int32, device=keys.device), self.n_buckets)
+        statuses = []
+        for pay in self.device_payloads(buckets, now):
+            status, keys, vals, exp = self.run_one(keys, vals, exp, pay,
+                                                   max_steps)
+            statuses.append(status)
+        return torch.stack(statuses), keys, vals, exp
+
+
+#: sweeper lane WQ sizes — (ctl, mod, vacate arm, live arm)
+_SWEEP_WQS = (13, 2, 11, 1)
+
+
+def _emit_sweep_lane(p: Program, rq, val_len: int, resp: int,
+                     bucket_w: int, e_cell: int, no_ttl_w: int,
+                     zeros_v: int):
+    """One CLOCK-lap chain body: the control WQ (expiry predicate in Calc
+    verbs, clamped to ``e in {0, 1}``), the enable-branch modifier, and
+    the vacate / live arms against the caller's cells.  Returns the RECV
+    scatter address list ``[bucket_w, read-src patch, ADD-operand
+    patch]``."""
+    CTL, MOD, VAC, LIVE = _SWEEP_WQS
+    ctl = p.add_wq(CTL, ordering=isa.ORD_DOORBELL, managed=True)
+    mod = p.add_wq(MOD, ordering=isa.ORD_DOORBELL, managed=True,
+                   initial_enable=0)
+    vac = p.add_wq(VAC, ordering=isa.ORD_DOORBELL, managed=True,
+                   initial_enable=0)
+    live = p.add_wq(LIVE, ordering=isa.ORD_DOORBELL, managed=True,
+                    initial_enable=0)
+
+    ctl.wait(rq, 1, tag="sw.trig")
+    ctl.write(src=bucket_w, dst=resp + 1, tag="sw.addr")
+    rd = ctl.read(src=0, dst=e_cell, ln=1, tag="sw.exp")  # src scattered
+    ad = ctl.add(dst=e_cell, addend=0, tag="sw.sub")      # opa scattered
+    ctl.max_(dst=e_cell, operand=0, tag="sw.cl0")
+    ctl.min_(dst=e_cell, operand=1, tag="sw.cl1")         # e in {0, 1}
+
+    def load_e(a_addr, b_addr):
+        ctl.write(src=e_cell, dst=a_addr, tag="sw.e1")
+        ctl.write(src=e_cell, dst=b_addr, tag="sw.e2")
+
+    # e = 0 (expired) <= threshold -> vacate arm; e = 1 -> live arm
+    constructs.emit_enable_branch(
+        ctl, mod, threshold=0, then_wq=vac.index, then_upto=VAC,
+        else_wq=live.index, else_upto=LIVE, load=load_e, tag="sw.br")
+    ctl.initial_enable = ctl.n_posted + 1
+
+    # vacate arm: retire the bucket, reset its deadline, report
+    constructs.emit_bucket_vacate(vac, bucket_w=bucket_w, val_len=val_len,
+                                  zeros=zeros_v, empty_key=EMPTY_KEY,
+                                  tag="sw.vac")
+    vac.write(src=rd.addr("src"), dst=vac.future_wr_addr(1, "dst"),
+              tag="sw.rs_p")            # deadline addr <- scattered cell
+    vac.write(src=no_ttl_w, dst=0, ln=1, tag="sw.rs")
+    vac.write_imm(dst=resp, value=SWEEP_RECLAIMED, tag="sw.rc")
+
+    # live arm: the bucket is untouched; the report is the (idempotent)
+    # pre-set default, re-asserted so the arm completes observably
+    live.write_imm(dst=resp, value=SWEEP_LIVE, tag="sw.lv")
+
+    return [bucket_w, rd.addr("src"), ad.addr("opa")]
+
+
+def build_clock_sweeper(n_buckets: int, val_len: int,
+                        device=None) -> ClockSweeper:
+    """Build (and cache per geometry and device) the per-shard CLOCK
+    sweeper chain."""
+    return _build_clock_sweeper(n_buckets, val_len,
+                                device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_clock_sweeper(n_buckets: int, val_len: int,
+                         dev: torch.device) -> ClockSweeper:
+    if val_len > isa.MAX_COPY:
+        raise ValueError(
+            f"val_len {val_len} exceeds the one-WRITE row-zero budget")
+
+    # exact image sizing: the ghost lap (padded addr 0) reads words
+    # [0..2] and zero-writes val_len at ptr 0 — the guard covers both; a
+    # ghost deadline reset also lands NO_TTL on guard word 0, which is
+    # never executed (WQ0 posts nothing)
+    CTL, MOD, VAC, LIVE = _SWEEP_WQS
+    guard_slots = max(2, -(-val_len // isa.WR_WORDS))
+    code_words = (guard_slots + 2 + CTL + MOD + VAC + LIVE) * isa.WR_WORDS
+    data_words = (2 + 3 + val_len              # resp, cells, zeros
+                  + n_buckets * val_len        # value rows
+                  + n_buckets * BUCKET_WORDS   # table (pad = deadline)
+                  + 1 + 3)                     # scatter table
+    mem_words = -(-(code_words + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    p.add_wq(guard_slots)       # WQ0: all-zero null bucket (padding guard)
+
+    resp = p.alloc(2, [SWEEP_LIVE, 0], "resp")
+    bucket_w = p.word(0, "bucket")     # scattered: visited bucket addr
+    e_cell = p.word(0, "e")
+    no_ttl_w = p.word(NO_TTL, "no_ttl")
+    zeros_v = p.alloc(val_len, [0] * val_len, "zeros")
+    values = p.alloc(n_buckets * val_len, name="values")
+    tbl_init = [0] * (n_buckets * BUCKET_WORDS)
+    for b in range(n_buckets):
+        tbl_init[b * BUCKET_WORDS + 1] = NO_TTL
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * val_len
+    table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
+
+    rq = p.add_wq(2)
+    scatter = _emit_sweep_lane(p, rq, val_len, resp, bucket_w, e_cell,
+                               no_ttl_w, zeros_v)
+    tbl = p.scatter_table(scatter)
+    rq.recv(scatter_table=tbl, tag="sw.recv")
+
+    spec, st0 = p.finalize(device=dev)
+    return ClockSweeper(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
+        val_len=val_len, table_base=table, values_base=values,
         resp_region=resp, recv_wq=rq.index)
 
 

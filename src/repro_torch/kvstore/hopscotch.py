@@ -7,9 +7,14 @@ means empty.  Values are fixed-width word payloads in a parallel array,
 always written full-width (zero-filled past the given words), as the chain
 programs move whole rows.
 
-:class:`HopscotchTable` holds numpy arrays on the host (the oracle and the
+:class:`HopscotchTable` holds numpy arrays on the host (the oracles and the
 bootstrap set path); :func:`lookup` is the plain PyTorch batched get, the
-oracle of the hopscotch kernel and of the chain get server.  A query of key
+oracle of the hopscotch kernel and of the chain get server, and
+:func:`lookup_ttl` its TTL-aware form.  :func:`insert_many`,
+:func:`insert_many_displaced`, :func:`delete_many` and
+:func:`sweep_expired` are the host oracles of the write-side chains
+(writer, writer + displacer, deleter, CLOCK sweeper): the batch applied in
+order.  A query of key
 0 would compare equal to every empty bucket, so every lookup masks
 ``found &= query != EMPTY``.
 """
@@ -189,6 +194,21 @@ class HopscotchTable:
         return self.set_full(key, value, max_search,
                              max_moves) != SET_NEEDS_RESIZE
 
+    def delete(self, key: int) -> int:
+        """The deleter chain's semantics: on a match in the neighborhood
+        vacate the bucket (key -> ``EMPTY``, value row zeroed) and return
+        ``DEL_DELETED``; otherwise ``DEL_MISS``, the table untouched."""
+        assert key != EMPTY
+        n, H = self.n_buckets, self.neighborhood
+        home = int(bucket_of(key, n))
+        for d in range(H):
+            i = (home + d) % n
+            if self.keys[i] == key:
+                self.keys[i] = EMPTY
+                self.values[i] = 0
+                return DEL_DELETED
+        return DEL_MISS
+
     def as_device(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = device_mod.resolve(device)
         return (torch.from_numpy(self.keys).to(dev),
@@ -222,3 +242,89 @@ def lookup(keys: torch.Tensor, values: torch.Tensor, queries: torch.Tensor,
     rows = idx.gather(1, slot[:, None])[:, 0]                      # (B,)
     vals = values[rows.long()] * found[:, None].to(values.dtype)
     return found, vals
+
+
+def _i32(x) -> np.int32:
+    """A python int or int32 as numpy int32 (its 32-bit pattern)."""
+    return np.array(int(x) & 0xFFFFFFFF, np.uint32).astype(np.int32)
+
+
+def lookup_ttl(keys: torch.Tensor, values: torch.Tensor, exp: torch.Tensor,
+               queries: torch.Tensor, now, neighborhood: int,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lookup` with the TTL server chain's semantics: a hit whose
+    deadline has lapsed (``exp[row] - now <= 0``, in wrapping int32, as
+    the chain's Calc verbs compute it) is a miss with a zero value row.
+    Buckets with no deadline carry :data:`NO_TTL`."""
+    n = keys.shape[0]
+    home = bucket_of(queries, n)
+    offs = torch.arange(neighborhood, dtype=torch.int32, device=keys.device)
+    idx = torch.remainder(home[:, None] + offs, n)
+    hit = keys[idx.long()] == queries[:, None].to(keys.dtype)
+    found = hit.any(dim=1) & (queries != EMPTY)
+    slot = torch.argmax(hit.to(torch.int32), dim=1)
+    rows = idx.gather(1, slot[:, None])[:, 0].long()
+    now32 = torch.as_tensor(_i32(now), device=keys.device)
+    found = found & ((exp[rows].to(torch.int32) - now32) > 0)
+    vals = values[rows] * found[:, None].to(values.dtype)
+    return found, vals
+
+
+def insert_many(table: HopscotchTable, keys, values) -> np.ndarray:
+    """Batched host insert oracle with the fast writer chain's semantics:
+    the batch applied *in order* through :meth:`HopscotchTable.set_fast`
+    (needs-displacement rows leave the table untouched); returns the
+    per-request status codes."""
+    return np.asarray(
+        [table.set_fast(int(k), [int(x) for x in np.asarray(v)])
+         for k, v in zip(np.asarray(keys).tolist(), values)], np.int32)
+
+
+def insert_many_displaced(table: HopscotchTable, keys, values,
+                          max_search: int = DEFAULT_MAX_SEARCH,
+                          max_moves: int = DEFAULT_MAX_MOVES) -> np.ndarray:
+    """The two-stage escalation oracle of ``store.sharded_set``: every
+    request through the fast writer in order, then every
+    ``SET_NEEDS_DISPLACEMENT`` row through the bounded displacer
+    (:meth:`HopscotchTable.set_full`) in order; returns the merged
+    statuses."""
+    ks = np.asarray(keys)
+    vals = [np.asarray(v) for v in values]
+    st = insert_many(table, ks, vals)
+    for i in np.where(st == SET_NEEDS_DISPLACEMENT)[0]:
+        st[i] = table.set_full(
+            int(ks[i]), [int(x) for x in vals[i]], max_search, max_moves)
+    return st
+
+
+def delete_many(table: HopscotchTable, keys) -> np.ndarray:
+    """Batched host delete oracle: the batch applied *in order* through
+    :meth:`HopscotchTable.delete`; returns the per-request statuses."""
+    return np.asarray([table.delete(int(k))
+                       for k in np.asarray(keys).tolist()], np.int32)
+
+
+def sweep_expired(table: HopscotchTable, exp: np.ndarray, now: int,
+                  start: int, count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """CLOCK-sweeper oracle: ``count`` buckets from the hand at ``start``
+    (wrapping).  A visited bucket whose deadline has lapsed (``exp[b] -
+    now <= 0`` in wrapping int32, as the sweeper chain's Calc verbs
+    compute it) is vacated — key -> ``EMPTY``, value row zeroed, deadline
+    reset to :data:`NO_TTL`; live buckets are untouched (an EMPTY bucket
+    with a lapsed deadline is reclaimed too).  Returns ``(statuses,
+    exp)``: per-visited-bucket ``SWEEP_RECLAIMED`` / ``SWEEP_LIVE`` and the
+    updated deadline column."""
+    exp = np.array(exp, np.int32, copy=True)
+    st = np.zeros(count, np.int32)
+    n = table.n_buckets
+    with np.errstate(over="ignore"):
+        for j in range(count):
+            b = (start + j) % n
+            if exp[b] - _i32(now) <= 0:
+                table.keys[b] = EMPTY
+                table.values[b] = 0
+                exp[b] = NO_TTL
+                st[j] = SWEEP_RECLAIMED
+            else:
+                st[j] = SWEEP_LIVE
+    return st, exp

@@ -1,5 +1,5 @@
-"""Sharded KV store with the paper's three get paths (the port's
-``repro.kvstore.store``, steady-state gets).
+"""Sharded KV store with the paper's three get paths and the chain-offloaded
+write path (the port's ``repro.kvstore.store``, steady state).
 
 * ``redn``      — §5.2: the request is routed to the owner shard, the
                   *offload chain* — a chain VM program
@@ -20,6 +20,14 @@ shards are a leading tensor dim on one device (see
 :class:`GetResult` whose ``ok`` mask says whether a response is
 authoritative: a request dropped at the transport's capacity limit, or
 deferred by ``live``, has ``ok=False`` and must never be read as a miss.
+
+The write path is chain-offloaded too, against the device arrays as the
+source of truth: :func:`sharded_set` (the writer chain, escalating
+neighborhood-full inserts to the displacer chain), :func:`sharded_delete`
+(the deleter chain) and :func:`sharded_sweep` (the CLOCK sweeper chain
+over a per-bucket deadline column, which TTL-aware gets also read).  The
+requests against one shard are serialized, so a batch equals its host
+oracle applied in order.
 """
 from __future__ import annotations
 
@@ -177,6 +185,25 @@ def _redn_get(keys, vals, queries, live, *, n_shards, capacity,
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
+def _redn_get_ttl(keys, vals, exp, now, queries, live, *, n_shards,
+                  capacity, neighborhood, val_words):
+    """TTL-aware redn path: the server chain built with ``ttl=True`` ADDs
+    the client's negated clock onto each probed deadline and gates the
+    response write on the Calc-verb compare — an expired hit quiesces
+    exactly like a miss (bit-exact with :func:`hopscotch.lookup_ttl`)."""
+    dest = shard_of(queries, n_shards)
+    n_buckets = keys.shape[1]
+    srv = programs.build_hopscotch_server(n_buckets, val_words, neighborhood,
+                                          ttl=True, device=keys.device)
+    state = srv.device_state(keys, vals, exp)
+    payload = srv.device_payloads(
+        queries, hopscotch.bucket_of(queries, n_buckets), now)
+    resp, ok = transport.triggered_chain_engine(
+        srv.engine, state, srv.recv_wq, srv.resp_region, srv.resp_words,
+        payload, dest, n_shards, capacity, live)
+    return resp[..., 0] > 0, resp[..., 1:], ok
+
+
 def _one_sided_get(keys, vals, queries, live, *, n_shards, capacity,
                    neighborhood, val_words):
     """FaRM-style: READ the neighborhood metadata, match locally, READ the
@@ -246,15 +273,25 @@ def sharded_get(keys, vals, queries, method: str = "redn",
     destination; ``capacity=0`` drops every live request.  Runs on
     ``device`` (default CUDA; see :func:`repro_torch.device.resolve`).
 
-    Per-client admission (``isolation=``), TTL-aware gets (``exp``/``now``)
-    and the mid-resize arm (a resize state in place of ``keys``) are not
-    ported yet and raise ``NotImplementedError``.
+    Passing a per-bucket deadline column ``exp`` (S, n) together with the
+    clock ``now`` serves TTL-aware gets (redn path only): an expired hit
+    answers as a miss, the deadline compared by the server chain.
+
+    Per-client admission (``isolation=``) and the mid-resize arm (a
+    resize state in place of ``keys``) are not ported yet and raise
+    ``NotImplementedError``.
     """
     if isolation is not None:
         raise NotImplementedError(
             "admission control (isolation=) is not ported yet")
-    if exp is not None or now is not None:
-        raise NotImplementedError("TTL-aware gets are not ported yet")
+    if (exp is None) != (now is None):
+        raise ValueError("TTL gets need both exp and now (or neither): "
+                         f"exp given={exp is not None}, "
+                         f"now given={now is not None}")
+    if exp is not None and method != "redn":
+        raise ValueError("TTL-aware serving is chain-only: the deadline "
+                         "compare is a Calc verb in the server chain "
+                         f"(method='redn'), got method={method!r}")
     if not isinstance(keys, (torch.Tensor, np.ndarray)):
         raise NotImplementedError(
             "sharded_get serves a steady-state keys array; the mid-resize "
@@ -286,14 +323,385 @@ def sharded_get(keys, vals, queries, method: str = "redn",
             dropped=live.sum(dim=1, dtype=torch.int32),
             deferred=(~live).sum(dim=1, dtype=torch.int32))
 
-    found, v, ok = _PATHS[method](
-        keys, vals, queries, live, n_shards=n_shards, capacity=capacity,
-        neighborhood=neighborhood, val_words=vals.shape[-1])
+    if exp is not None:
+        found, v, ok = _redn_get_ttl(
+            keys, vals, torch.as_tensor(exp, device=dev).to(torch.int32),
+            now, queries, live, n_shards=n_shards, capacity=capacity,
+            neighborhood=neighborhood, val_words=vals.shape[-1])
+    else:
+        found, v, ok = _PATHS[method](
+            keys, vals, queries, live, n_shards=n_shards,
+            capacity=capacity, neighborhood=neighborhood,
+            val_words=vals.shape[-1])
     return GetResult(
         found=found, values=v, ok=ok,
         dropped=(live.sum(dim=1, dtype=torch.int32)
                  - ok.sum(dim=1, dtype=torch.int32)),
         deferred=(~live).sum(dim=1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the chain-offloaded write path: SET (writer + displacer), DELETE, and the
+# CLOCK sweeper over the TTL deadline column
+# ---------------------------------------------------------------------------
+
+def _guarded_step(run_rows, budget):
+    """The serialized stages' step: ``run_rows(*carry rows, requests,
+    budget) -> (status, *new carry rows, steps)`` as a
+    :func:`transport.triggered_chain_stateful` step.  The guard of the
+    JAX reference's step — a key-0 slot (capacity padding, a row not
+    dispatched) skips the chain, status 0, state unchanged — is the
+    transport's: such slots never reach the step."""
+    def step(carry, rows):
+        status, *new, steps = run_rows(*carry, rows, budget)
+        transport.note_steps(steps)
+        return tuple(new), status[:, None]
+    return step
+
+
+def _mutation_repr(name: str, result) -> str:
+    """Summary ``__repr__`` of the mutation results: a status histogram by
+    name (:data:`hopscotch.STATUS_NAMES`) over the served rows."""
+    st = result.status.cpu().numpy()
+    ok = result.ok.cpu().numpy()
+    codes, counts = np.unique(st[ok.astype(bool)], return_counts=True)
+    hist = ", ".join(f"{hopscotch.status_name(c)}={n}"
+                     for c, n in zip(codes.tolist(), counts.tolist()))
+    return (f"{name}({hist or 'no served rows'}, "
+            f"ok {int(ok.sum())}/{ok.size}, "
+            f"applied={int(result.applied.sum())}, "
+            f"dropped={int(result.dropped.sum())}, "
+            f"deferred={int(result.deferred.sum())})")
+
+
+class SetResult(NamedTuple):
+    """Distributed set outcome.  ``status`` is authoritative only where
+    ``ok`` is True (a False row was dropped/deferred, status 0):
+    ``SET_UPDATED`` (1), ``SET_INSERTED`` (2), ``SET_DISPLACED`` (4 — the
+    displacer bubbled a slot into the neighborhood and claimed it) or
+    ``SET_NEEDS_RESIZE`` (5 — nothing committed, the table needs to
+    grow).  ``SET_NEEDS_DISPLACEMENT`` (3) is internal: every such row
+    resolves within the same call.  ``applied`` acks the rows the device
+    arrays absorbed."""
+    status: torch.Tensor     # (S, B) int32 — the path taken per request
+    applied: torch.Tensor    # (S, B) bool — committed to the device arrays
+    ok: torch.Tensor         # (S, B) bool — response authoritative
+    dropped: torch.Tensor    # (S,) int32
+    deferred: torch.Tensor   # (S,) int32
+
+    def __repr__(self):
+        return _mutation_repr("SetResult", self)
+
+
+class DeleteResult(NamedTuple):
+    """Distributed delete outcome: ``DEL_DELETED`` (9 — the deleter
+    chain's vacate CAS retired the bucket) or ``DEL_MISS`` (10 — no
+    resident with that key), authoritative only where ``ok`` is True.
+    ``applied`` acks the rows that vacated a bucket."""
+    status: torch.Tensor     # (S, B) int32
+    applied: torch.Tensor    # (S, B) bool — a bucket was vacated
+    ok: torch.Tensor         # (S, B) bool — response authoritative
+    dropped: torch.Tensor    # (S,) int32
+    deferred: torch.Tensor   # (S,) int32
+
+    def __repr__(self):
+        return _mutation_repr("DeleteResult", self)
+
+
+class SweepReport(NamedTuple):
+    """Outcome of one :func:`sharded_sweep` quantum: per-visited-bucket
+    statuses (``SWEEP_RECLAIMED`` / ``SWEEP_LIVE``), per-shard reclaim
+    counts, and the advanced CLOCK hand."""
+    status: torch.Tensor     # (S, count) int32
+    reclaimed: torch.Tensor  # (S,) int32
+    hand: torch.Tensor       # (S,) int32 — next quantum starts here
+
+    def __repr__(self):
+        return (f"SweepReport(reclaimed={int(self.reclaimed.sum())}"
+                f"/{self.status.numel()}, hand={self.hand.tolist()})")
+
+
+def _write_inputs(device, keys, vals, req_keys, live):
+    """The write paths' arrays as int32 (bool ``live``) tensors on the
+    resolved device; ``live`` defaults to all True."""
+    dev = device_mod.resolve(device)
+    keys = torch.as_tensor(keys, device=dev).to(torch.int32)
+    vals = torch.as_tensor(vals, device=dev).to(torch.int32)
+    req_keys = torch.as_tensor(req_keys, device=dev).to(torch.int32)
+    live = (torch.ones(req_keys.shape, dtype=torch.bool, device=dev)
+            if live is None else torch.as_tensor(live, device=dev).to(
+                torch.bool))
+    return dev, keys, vals, req_keys, live
+
+
+def _counts(live, real, ok):
+    """Per-shard ``(dropped, deferred)``: key-0 (unused) slots count as
+    neither."""
+    deferred = (~live & real).sum(dim=1, dtype=torch.int32)
+    dropped = ((live & real).sum(dim=1, dtype=torch.int32)
+               - ok.sum(dim=1, dtype=torch.int32))
+    return dropped, deferred
+
+
+def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
+                neighborhood, val_words, max_steps, max_search, max_moves):
+    """Owner-side SET serving: the pre-posted writer chain CAS-claims /
+    updates buckets, each owner's requests serialized so each chain
+    observes its predecessors' writes.
+
+    Rows the writer answers ``SET_NEEDS_DISPLACEMENT`` re-run through the
+    *displacer* chain as a second stateful stage at the same capacity:
+    stage-2 live rows are a subset of stage-1's admitted rows and
+    :func:`transport.rank_within_dest` ranks only live rows, so the
+    re-dispatch can never drop.  Returns ``(status, ok, keys, vals)``.
+    """
+    dest = shard_of(qk, n_shards)
+    n_buckets = keys.shape[1]
+    home = hopscotch.bucket_of(qk, n_buckets).reshape(-1)
+    q, v = qk.reshape(-1), qv.reshape(-1, val_words)
+    writer = programs.build_hopscotch_writer(n_buckets, val_words,
+                                             neighborhood, device=keys.device)
+    payload = writer.device_payloads(q, home, v).reshape(qk.shape + (-1,))
+    resp, ok, (nk, nv) = transport.triggered_chain_stateful(
+        _guarded_step(writer.run_rows, max_steps), (keys, vals), payload,
+        dest, n_shards, capacity, 1, live, stage="writer")
+    status = resp[..., 0]
+    live2 = ok & (status == programs.SET_NEEDS_DISPLACEMENT)
+
+    if neighborhood < 2 or max_search < neighborhood:
+        # geometries the displacer cannot be built for (an H=1 bubble
+        # window is empty; a search window below the neighborhood probes
+        # only known-full buckets): an escalated row is unplaceable, the
+        # bounded oracle's SET_NEEDS_RESIZE
+        return (torch.where(live2, programs.SET_NEEDS_RESIZE, status), ok,
+                nk, nv)
+    if not bool(live2.any()):
+        return status, ok, nk, nv
+
+    # --- escalation: the displacement bubble, still on-chain --------------
+    disp = programs.build_hopscotch_displacer(
+        n_buckets, val_words, neighborhood, max_search, max_moves,
+        device=keys.device)
+    payload2 = disp.device_payloads(q, home, v).reshape(qk.shape + (-1,))
+    # the displacer's budget must cover its whole unroll: `fuel` is exact
+    disp_steps = max(max_steps, disp.fuel)
+    resp2, ok2, (nk, nv) = transport.triggered_chain_stateful(
+        _guarded_step(disp.run_rows, disp_steps), (nk, nv), payload2, dest,
+        n_shards, capacity, 1, live2, stage="displacer")
+    return torch.where(live2 & ok2, resp2[..., 0], status), ok, nk, nv
+
+
+def relocate_exp(old_keys, old_exp, new_keys, req_keys=None,
+                 req_deadlines=None, applied=None) -> torch.Tensor:
+    """Re-derive a per-bucket deadline column after keys moved.
+
+    For every bucket of ``new_keys`` (S, m): the deadline its key had in
+    ``(old_keys (S, n), old_exp)`` on the same shard (the first such
+    bucket), else :data:`hopscotch.NO_TTL`.  Rows of ``req_keys`` (S, B)
+    with ``applied`` True then override their key's deadline with
+    ``req_deadlines`` (``None`` = NO_TTL: a set without a TTL clears
+    one); when a batch sets the same key twice the later request, in
+    source-major row order, wins.
+
+    The JAX reference computes this with (S, m, n) and (S, m, S*B) match
+    masks; here each side is a stable sort by key and a binary search,
+    the same function in O((n + m + S*B) log) per call.
+    """
+    empty = hopscotch.EMPTY
+    s, m = new_keys.shape
+    dev = new_keys.device
+    pat = lambda a: a.to(torch.int64) & 0xFFFFFFFF   # noqa: E731
+    shard = torch.arange(s, device=dev)[:, None] << 32
+    nonempty = (new_keys != empty).reshape(-1)
+
+    old = (pat(old_keys) + shard).reshape(-1)
+    order = torch.argsort(old, stable=True)
+    sorted_old = old[order]
+    want = (pat(new_keys) + shard).reshape(-1)
+    i = torch.searchsorted(sorted_old, want).clamp(max=old.numel() - 1)
+    has_old = (sorted_old[i] == want) & nonempty
+    carried = old_exp.to(torch.int32).reshape(-1)[order[i]]
+    out = torch.where(has_old, carried, hopscotch.NO_TTL)
+    if req_keys is None or req_keys.numel() == 0:
+        return out.reshape(s, m)
+
+    rk = req_keys.reshape(-1)
+    ap = rk != empty
+    if applied is not None:
+        ap = ap & applied.reshape(-1)
+    rd = (torch.full_like(rk, hopscotch.NO_TTL, dtype=torch.int32)
+          if req_deadlines is None
+          else torch.as_tensor(req_deadlines, device=dev).reshape(-1).to(
+              torch.int32))
+    cand = torch.where(ap, pat(rk), -1)              # -1 matches no key
+    order = torch.argsort(cand, stable=True)         # ties keep row order
+    sorted_req = cand[order]
+    j = torch.searchsorted(sorted_req, pat(new_keys).reshape(-1),
+                           right=True) - 1           # the last such row
+    jc = j.clamp(min=0)
+    hit = (j >= 0) & (sorted_req[jc] == pat(new_keys).reshape(-1)) \
+        & nonempty
+    return torch.where(hit, rd[order[jc]], out).reshape(s, m)
+
+
+def sharded_set(keys, vals, set_keys, set_vals, neighborhood: int = 8,
+                capacity: Optional[int] = None, live=None,
+                max_steps: int = 512,
+                max_search: int = hopscotch.DEFAULT_MAX_SEARCH,
+                max_moves: int = hopscotch.DEFAULT_MAX_MOVES,
+                faults=None, n_writers: int = 1, exp=None, deadlines=None,
+                *, device=None):
+    """Batched chain-offloaded distributed SET, displacement included.
+
+    keys: (S, n) int32 device keys array; vals: (S, n, V); set_keys:
+    (S, B) int32 keys in 1..2^24-1 (0 marks an unused slot — never
+    dispatched, never committed, ``ok=False``/status 0 and in neither
+    counter; wider or negative live keys raise); set_vals: (S, B, V).
+    Each request is routed to its owner shard, where the pre-posted
+    writer chain (:func:`repro_torch.core.programs.build_hopscotch_writer`)
+    match-updates or CAS-claims a bucket; rows it reports
+    ``SET_NEEDS_DISPLACEMENT`` escalate to the displacer chain
+    (bounded by ``max_search``/``max_moves``) in a second stage, so every
+    outcome is computed by verbs against device state; only
+    ``SET_NEEDS_RESIZE`` leaves a request uncommitted.  Returns
+    ``(SetResult, new_keys, new_vals)``, plus the updated deadline column
+    when ``exp`` (S, n) is given (TTL mode: ``deadlines`` (S, B) stamps
+    each applied request's expiry, omitted means none).  The input
+    arrays are not modified.  Runs on ``device`` (default CUDA).
+
+    Fault injection (``faults=``), racing writers (``n_writers > 1``) and
+    the mid-resize arm (a resize state in place of ``keys``) are not
+    ported yet and raise ``NotImplementedError``.
+    """
+    if not isinstance(keys, (torch.Tensor, np.ndarray)):
+        raise NotImplementedError(
+            "sharded_set serves a steady-state keys array; the mid-resize "
+            f"arm ({type(keys).__name__}) is not ported yet")
+    if n_writers < 1:
+        raise ValueError(f"n_writers must be >= 1, got {n_writers}")
+    if n_writers > 1:
+        raise NotImplementedError(
+            "racing writer lanes (n_writers > 1) are not ported yet")
+    if faults is not None:
+        raise NotImplementedError(
+            "fault injection (faults=) waits for the faults slice of the "
+            "port")
+    if deadlines is not None and exp is None:
+        raise ValueError("deadlines= stamps per-request expiry into the "
+                         "exp column — pass exp= (the store's deadline "
+                         "state) alongside it")
+    dev, keys, vals, set_keys, live = _write_inputs(device, keys, vals,
+                                                    set_keys, live)
+    set_vals = torch.as_tensor(set_vals, device=dev).to(torch.int32)
+    _check_key_batch(set_keys, what="set", allow_zero=True, live=live)
+    n_shards = keys.shape[0]
+    # the displacer's search window cannot exceed the shard's bucket count
+    max_search = min(max_search, int(keys.shape[1]))
+    capacity = set_keys.shape[1] if capacity is None else capacity
+    real = set_keys != hopscotch.EMPTY
+    live = live & real
+    if capacity == 0:
+        status = torch.zeros(set_keys.shape, dtype=torch.int32, device=dev)
+        ok = torch.zeros(set_keys.shape, dtype=torch.bool, device=dev)
+        nk, nv = keys, vals
+    else:
+        status, ok, nk, nv = _writer_set(
+            keys, vals, set_keys, set_vals, live, n_shards=n_shards,
+            capacity=capacity, neighborhood=neighborhood,
+            val_words=vals.shape[-1], max_steps=max_steps,
+            max_search=max_search, max_moves=max_moves)
+    applied = ok & ((status == programs.SET_UPDATED)
+                    | (status == programs.SET_INSERTED)
+                    | (status == programs.SET_DISPLACED))
+    result = SetResult(status, applied, ok, *_counts(live, real, ok))
+    if exp is None:
+        return result, nk, nv
+    # the deadline column is commit-layer state: the chains may have
+    # relocated keys, so re-home it by key and stamp the applied rows'
+    # own deadlines
+    exp = torch.as_tensor(exp, device=dev).to(torch.int32)
+    return result, nk, nv, relocate_exp(keys, exp, nk, set_keys, deadlines,
+                                        applied)
+
+
+def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
+                   capacity: Optional[int] = None, live=None,
+                   max_steps: int = 512, exp=None, *, device=None):
+    """Batched chain-offloaded distributed DELETE.
+
+    del_keys: (S, B) int32 (0 marks an unused slot — never dispatched,
+    status 0).  Each request routes to its owner shard, where the
+    pre-posted deleter chain
+    (:func:`repro_torch.core.programs.build_hopscotch_deleter`) matches
+    the key across its neighborhood and on a hit retires the bucket (a
+    re-read-comparand CAS ``key -> EMPTY`` plus stale-row zeroing).
+    Returns ``(DeleteResult, new_keys, new_vals)``; with a deadline
+    column ``exp`` (S, n), also its update (a vacated bucket's deadline
+    resets to NO_TTL) as a 4th element.  Runs on ``device`` (default
+    CUDA).
+    """
+    dev, keys, vals, del_keys, live = _write_inputs(device, keys, vals,
+                                                    del_keys, live)
+    _check_key_batch(del_keys, what="delete", allow_zero=True, live=live)
+    n_shards, n_buckets = keys.shape
+    capacity = del_keys.shape[1] if capacity is None else capacity
+    real = del_keys != hopscotch.EMPTY
+    live = live & real
+    if capacity == 0:
+        status = torch.zeros(del_keys.shape, dtype=torch.int32, device=dev)
+        ok = torch.zeros(del_keys.shape, dtype=torch.bool, device=dev)
+        nk, nv = keys, vals
+    else:
+        deleter = programs.build_hopscotch_deleter(
+            n_buckets, vals.shape[-1], neighborhood, device=dev)
+        payload = deleter.device_payloads(
+            del_keys.reshape(-1),
+            hopscotch.bucket_of(del_keys, n_buckets).reshape(-1)
+        ).reshape(del_keys.shape + (-1,))
+        resp, ok, (nk, nv) = transport.triggered_chain_stateful(
+            _guarded_step(deleter.run_rows, max_steps), (keys, vals),
+            payload, shard_of(del_keys, n_shards), n_shards, capacity, 1,
+            live, stage="deleter")
+        status = resp[..., 0]
+    applied = ok & (status == programs.DEL_DELETED)
+    result = DeleteResult(status, applied, ok, *_counts(live, real, ok))
+    if exp is None:
+        return result, nk, nv
+    # a vacated bucket carries no deadline; the deleter never relocates
+    exp = torch.as_tensor(exp, device=dev).to(torch.int32)
+    return result, nk, nv, torch.where(nk == hopscotch.EMPTY,
+                                       hopscotch.NO_TTL, exp)
+
+
+def sharded_sweep(keys, vals, exp, hand, now, count: int = 16, *,
+                  device=None):
+    """Advance the CLOCK sweeper by ``count`` buckets per shard.
+
+    Every lap is the sweeper chain
+    (:func:`repro_torch.core.programs.build_clock_sweeper`) run against
+    device state over a loopback QP: it reads the visited bucket's
+    deadline, evaluates the expiry predicate in Calc verbs, and vacates
+    an expired bucket (deadline reset to NO_TTL).  ``hand``: (S,) int32
+    per-shard CLOCK hands; ``now``: the clock.  Returns ``(SweepReport,
+    new_keys, new_vals, new_exp)``.  Runs on ``device`` (default CUDA).
+    """
+    dev = device_mod.resolve(device)
+    keys = torch.as_tensor(keys, device=dev).to(torch.int32)
+    vals = torch.as_tensor(vals, device=dev).to(torch.int32)
+    exp = torch.as_tensor(exp, device=dev).to(torch.int32)
+    hand = torch.as_tensor(hand, device=dev).to(torch.int32)
+    n = keys.shape[1]
+    swp = programs.build_clock_sweeper(n, vals.shape[-1], device=dev)
+    buckets = torch.remainder(hand[:, None] + torch.arange(
+        count, dtype=torch.int32, device=dev), n)
+    resp, (nk, nv, ne) = transport.local_chain_stateful(
+        _guarded_step(swp.run_rows, swp.fuel), (keys, vals, exp),
+        swp.device_payloads(buckets, now), 1, stage="sweeper")
+    status = resp[..., 0]
+    reclaimed = (status == programs.SWEEP_RECLAIMED).sum(
+        dim=1, dtype=torch.int32)
+    new_hand = torch.remainder(hand + count, n).to(torch.int32)
+    return SweepReport(status, reclaimed, new_hand), nk, nv, ne
 
 
 def reference_get(kv: ShardedKV, queries) -> Tuple[np.ndarray, np.ndarray]:

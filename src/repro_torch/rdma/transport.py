@@ -16,12 +16,26 @@ requests to each destination per step, and the rest are dropped and
 reported.  Every entry point returns a per-request ``ok`` mask, so a
 dropped (or admission-deferred) request is distinguishable from a served
 request whose answer happens to be zero.
+
+The read-*write* variants (:func:`triggered_chain_stateful`, the SET and
+DELETE wire pattern, and the loopback :func:`local_chain_stateful` of the
+CLOCK sweeper) serialize each owner's requests: window position by
+window position, the S owners' requests at that position run as one
+batch of independent contexts, each against its own shard's state.
+
+Setting :data:`trace` to a list records each stateful stage's serial
+depth, the chain steps of every request it ran and, on the card, CUDA
+events around it; ``None``, the default, records nothing.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+
+#: None, or a list that each stateful stage appends a record to
+trace: Optional[list] = None
 
 
 def rank_within_dest(dest: torch.Tensor,
@@ -155,3 +169,104 @@ def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
     resp = out.mem[:, resp_region:resp_region + resp_words]
     resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
     return combine(resp, dest, pos, ok), ok
+
+
+def note_steps(steps: torch.Tensor) -> None:
+    """Add the chain steps of the requests a stateful step just ran to
+    the current :data:`trace` record (a no-op when tracing is off)."""
+    if trace:
+        trace[-1]["steps"].append(steps)
+
+
+def _walk(step_fn: Callable, carry, rows: torch.Tensor,
+          run: np.ndarray, resp_words: int, stage: str):
+    """Run an owner-major request window serially per owner.
+
+    rows: (S, P, W); run: (S, P) host bools, the rows that execute.  At
+    each position p the S owners' p-th running rows go to ``step_fn(
+    carry rows (G, ...), requests (G, W)) -> (new carry rows, responses
+    (G, resp_words))`` as one batch: each owner's requests keep their
+    order and see every earlier one's writes, and owners never share
+    state.  Rows that do not run answer zeros.  Returns (responses (S, P,
+    resp_words), the new carry).
+    """
+    carry = tuple(c.clone() for c in carry)
+    s = rows.shape[0]
+    resp = rows.new_zeros(rows.shape[:2] + (resp_words,))
+    order = [np.flatnonzero(run[o]) for o in range(s)]
+    depth = max((len(o) for o in order), default=0)
+    timed = trace is not None and rows.is_cuda
+    if trace is not None:
+        trace.append(dict(stage=stage, depth=depth, runs=int(run.sum()),
+                          steps=[]))
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            trace[-1].update(start=start, end=end)
+            start.record()
+    for p in range(depth):
+        owners = [o for o in range(s) if len(order[o]) > p]
+        o_idx = torch.as_tensor(owners, device=rows.device)
+        p_idx = torch.as_tensor([order[o][p] for o in owners],
+                                device=rows.device)
+        new, r = step_fn(tuple(c[o_idx] for c in carry), rows[o_idx, p_idx])
+        for c, n in zip(carry, new):
+            c[o_idx] = n
+        resp[o_idx, p_idx] = r.to(resp.dtype)
+    if timed:
+        end.record()
+    return resp, carry
+
+
+def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
+                             dest: torch.Tensor, n_shards: int,
+                             capacity: int, resp_words: int,
+                             live: Optional[torch.Tensor] = None,
+                             stage: str = "stateful"):
+    """SEND-triggered chains that *mutate* owner state (the §3.5 read-write
+    offload — the SET and DELETE wire pattern).
+
+    Same dispatch/combine as :func:`triggered_chain_engine`, but each
+    owner's receive window ``(S_src * capacity)`` is streamed through
+    ``step_fn`` in order, so every chain run observes every earlier
+    request's writes (the NIC serializes atomics against local memory).
+    ``carry`` is a tuple of the owners' authoritative state, each with a
+    leading dim S (e.g. the shards' hopscotch arrays); ``step_fn(carry
+    rows (G, ...), requests (G, W)) -> (new carry rows, responses (G,
+    resp_words))`` serves G requests at once, one owner each.  A window
+    slot whose first word (the key) is 0 — a padded slot, or a row no
+    live request landed on — runs no chain and answers 0: the write-side
+    programs are self-guarding on such slots (status 0, state
+    unchanged).  Running only the live slots, in order, also shortens
+    the serial depth to the most live requests any owner received.
+    Returns ``(responses (S, B, resp_words), ok (S, B), final carry)``.
+
+    Stages compose: a caller may re-dispatch a *subset* of one stage's
+    admitted rows through a second stage at the same capacity, threading
+    the carry through both (the SET path's displacement escalation).
+    :func:`rank_within_dest` ranks only live rows, so every row of a
+    ``live2 <= ok1`` subset gets a rank <= its stage-1 rank: the second
+    stage can add no drop.
+    """
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
+    flat = recv.reshape(n_shards, -1, recv.shape[-1])
+    run = (flat[..., 0] != 0).cpu().numpy()
+    resp, carry = _walk(step_fn, carry, flat, run, resp_words, stage)
+    resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
+    return combine(resp, dest, pos, ok), ok, carry
+
+
+def local_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
+                         resp_words: int, stage: str = "local"):
+    """Loopback chains: each owner triggers its *own* pre-posted chain.
+
+    Maintenance offloads (the CLOCK sweeper) originate at the shard that
+    owns the data, so there is no dispatch/combine pair: shard ``s``'s
+    requests ``payload[s]`` (S, B, W) stream through ``step_fn`` in order
+    against its own state, the S shards' b-th requests as one batch (see
+    :func:`triggered_chain_stateful` for ``step_fn`` and ``carry``).
+    Every row runs.  Returns ``(responses (S, B, resp_words), final
+    carry)``.
+    """
+    run = np.ones(payload.shape[:2], bool)
+    return _walk(step_fn, carry, payload, run, resp_words, stage)

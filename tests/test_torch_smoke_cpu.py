@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,6 +65,29 @@ def test_phase_hopscotch_probe_cpu(smoke, small_store):
     assert set(r["case_hits"]) == {"H16/V4", "H32/V4", "H8/V1"}
     assert min(r["case_hits"].values()) > 0
     assert r["case_hits"]["H16/V4"] == r["case_hits"]["H32/V4"]
+
+
+def test_phase_kv_write_cpu(smoke):
+    """The write phase at 2 shards x 256 buckets, 300 random keys (59%
+    load; the sequential keys of ``build_store`` leave no neighborhood
+    full at this size): its gates hold every status and array to the host
+    oracles; here the counts it reports show the phase reached each verb."""
+    kv = smoke.store.ShardedKV.build(2, 256, 4)
+    rng = np.random.RandomState(0)
+    for k in rng.choice(np.arange(1, 1 << 20), 300, replace=False).tolist():
+        assert kv.set(k, [k, 2 * k, 3 * k, 5 * k])
+    dk, dv = kv.device_arrays("cpu")
+    r = smoke.phase_kv_write("cpu", kv, dk, dv, n_update=3, n_insert=3,
+                             n_disp=2, n_delete=(2, 2, 2), n_ttl=2,
+                             ttl_span=8, time_it=False)
+    assert r["set_statuses"]["SET_DISPLACED"] >= 1
+    assert set(r["set_stages"]) == {"writer", "displacer"}
+    assert r["set_stages"]["writer"]["runs"] == 2 * (3 + 3 + 2 + 1)
+    assert r["delete_deleted"] >= 4 and r["sweep_reclaimed"] >= 1
+    assert r["ttl_get_hits"][300] > r["ttl_get_hits"][1000]
+    # the phase worked on copies: the store it was given is unchanged
+    k, v = kv.device_arrays("cpu")
+    assert torch.equal(k, dk) and torch.equal(v, dv)
 
 
 @pytest.fixture(scope="module")

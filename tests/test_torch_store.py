@@ -125,8 +125,8 @@ def test_sharded_get_guards(kv4, monkeypatch):
     q = torch.from_numpy(keys[None, :4].repeat(4, 0).astype(np.int32))
     with pytest.raises(NotImplementedError):
         tstore.sharded_get(tk, tv, q, isolation=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstore.sharded_get(tk, tv, q, exp=tk, now=3, device="cpu")
+    with pytest.raises(ValueError, match="both exp and now"):
+        tstore.sharded_get(tk, tv, q, exp=tk, device="cpu")
     with pytest.raises(NotImplementedError):
         tstore.sharded_get(object(), tv, q, device="cpu")
     with pytest.raises(ValueError, match="24-bit"):

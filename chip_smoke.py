@@ -1,5 +1,6 @@
 """Chip smoke test: drive the PyTorch/CUDA port's paths on one card — the
-RedN GET path, the store's write path, and the LM serving paths
+RedN GET path, the store's write path, its fault recovery and online
+resize, and the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
 ServeEngine ticks).
 
@@ -8,8 +9,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs fourteen phases and
-raises on any mismatch:
+``nvcc`` per source, all started together), then runs seventeen phases
+(``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
                          the flash library's SASS must hold HGMMA
@@ -23,6 +24,15 @@ raises on any mismatch:
                          image) through ``ChainEngine(spec, "kernel")``
                          against the interpreter and the plain loop; again
                          at the throughput benchmark's size.
+3b. ``chain_faults``   — the same server under kill faults: 256 contexts
+                         under a seeded storm of kill rows and 3 keys cut
+                         at every step from 0 to the fuel, through the
+                         kernel backend (kill as per-context fuel) against
+                         the interpreter, every field bit-equal; a suppress
+                         row must be refused; then the storm drill of
+                         ``tests/test_faults.py`` (1 shard, 32 buckets, 12
+                         requests, all four kinds) on the card against
+                         the same drill on the CPU, bit for bit.
 4. ``chain_straight``  — the straight-line chain kernel against its plain
                          version on 1,024 seeded random programs; timed
                          by device time from a trace.
@@ -41,6 +51,25 @@ raises on any mismatch:
                          bit for bit to the host oracles, and the touched
                          keys are read back on all three get paths.  It
                          runs on the chain interpreter: no kernel.
+6b. ``kv_faults``      — the recovery drill on the ``kv_get`` store: a
+                         (4, 8) SET batch of updates, inserts and forced
+                         displacements under a seeded storm of all four
+                         kinds; fsck, repair, a retry of the rows that
+                         did not finish; every SET key read back on the
+                         three get paths, fsck clean.  One tear of each
+                         kind planted in copies of the store (five
+                         repairable kinds and a neighborhood breach): the
+                         report names exactly those, and repair mends the
+                         five.  Times fsck and repair at 262,144 buckets.
+6c. ``kv_resize``      — online growth of the same store: two 16-lap
+                         ``sharded_resize`` quanta against the host oracle;
+                         again with shard 0 killed inside a lap (a torn
+                         claim-to-vacate window), fsck, ``repair_resize``
+                         and the re-driven quanta equal to the fault-free
+                         frames; 256 gets and 8 sets through the
+                         ResizeState arms against the double-frame
+                         oracle; a 4 x 32-bucket store grown to the end
+                         against ``grow``.  On the interpreter: no kernel.
 7. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
                          bf16, seeded random weights): ``make_prefill_step``
                          on 4 x 2,048 prompt tokens (one flash-attention
@@ -188,7 +217,7 @@ def _import_port():
 
 _import_port()
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.core import isa, machine, programs  # noqa: E402
+from repro_torch.core import faults, isa, machine, programs  # noqa: E402
 from repro_torch.core.engine import ChainEngine  # noqa: E402
 from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -203,7 +232,7 @@ from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
-from repro_torch.kvstore import hopscotch, store  # noqa: E402
+from repro_torch.kvstore import fsck, hopscotch, store  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
@@ -511,6 +540,125 @@ def phase_chain_kernel(device, time_it=True, **sizes):
         result["ms"] = cuda_ms(lambda: chain_ops.run_managed(*args, **kw))
         result["plain_ms"] = cuda_ms(
             lambda: chain_ref.managed_chain_loop(*args, **kw), reps=2)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: kill faults on the chain kernel, and the storm drill
+# ---------------------------------------------------------------------------
+
+_FAULT_FIELDS = _CHAIN_FIELDS + ("msg_head",)
+
+
+def storm_drill(device, n_buckets=32, n_req=12, h=4, seed=20260807) -> dict:
+    """``tests/test_faults.py``'s storm drill on ``device``: a (1, 12) SET
+    batch under a seeded storm of all four kinds, fsck, repair, and a
+    retry of the rows that did not reach a terminal status.  Returns
+    every status, array and report as host values, to hold the card's run
+    against the CPU's."""
+    keys = torch.zeros((1, n_buckets), dtype=torch.int32)
+    vals = torch.zeros((1, n_buckets, 2), dtype=torch.int32)
+    sk = torch.arange(1, n_req + 1, dtype=torch.int32)[None] * 17
+    sv = torch.stack([sk[0] % 251 + 1, sk[0] % 97 + 1], dim=1)[None]
+    plan = faults.storm(n_req, p_fault=0.5, max_step=60, seed=seed,
+                        device=device)
+    plan = faults.FaultPlan(*(leaf[None] for leaf in plan))
+    res, keys, vals = store.sharded_set(keys, vals, sk, sv, neighborhood=h,
+                                        faults=plan, device=device)
+    out = dict(status=res.status, torn_keys=keys, torn_vals=vals)
+    rep = fsck.check_invariants(keys, vals, neighborhood=h)
+    if not rep.repairable:
+        raise AssertionError(f"storm drill: unrepairable {rep}")
+    keys, vals, actions = fsck.repair(keys, vals, rep, neighborhood=h)
+    retry = ~torch.isin(res.status, torch.tensor(SET_TERMINAL,
+                                                 device=res.status.device))
+    if not bool(retry.any()):
+        raise AssertionError("storm drill: no chain was interrupted")
+    res2, keys, vals = store.sharded_set(keys, vals, sk, sv, neighborhood=h,
+                                         live=retry, device=device)
+    if not bool(torch.isin(res2.status[retry], torch.tensor(
+            SET_TERMINAL, device=res2.status.device)).all()):
+        raise AssertionError(f"storm drill: retry {res2}")
+    found, got = hopscotch.lookup(keys[0], vals[0], sk[0].to(keys.device), h)
+    require_equal(found, np.ones(n_req, bool), "storm drill found")
+    require_equal(got, sv[0], "storm drill values")
+    if not fsck.check_invariants(keys, vals, neighborhood=h).clean:
+        raise AssertionError("storm drill: fsck not clean at the end")
+    out.update(status2=res2.status, keys=keys, vals=vals)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out.update(report=rep.violations, actions=actions)
+    return out
+
+
+def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
+                       n_keys=40000, batch=256, max_steps=64, cut_keys=3,
+                       seed=20260807, drill=True):
+    """Kill faults through ``ChainEngine(spec, "kernel")`` (fuel truncation
+    per context) against the interpreter under the same rows, on the
+    ``chain_kernel`` phase's recycled server: a batch under a seeded storm
+    of kill rows, and ``cut_keys`` keys cut at every step from 0 to the
+    fuel.  A suppress row must be refused.  Then the storm drill on this
+    device against the same drill on the CPU, bit for bit."""
+    srv = recycled_server(device, n_buckets, mem_words, n_keys)
+    keys = mixed_keys(batch, range(1, n_keys + 1, max(1, n_keys // batch)))
+    storm_plan = faults.storm(batch, p_fault=0.5, max_step=max_steps,
+                              seed=seed, kinds=("kill",), device=device)
+    cut = keys[:cut_keys - 1] + [keys[3]]            # hits and a miss
+    cut_pay = [srv._payload(k) for k in cut for _ in range(max_steps + 1)]
+    cut_plan = faults.FaultPlan.none((len(cut_pay),), device=device)._replace(
+        kill_step=torch.arange(max_steps + 1, dtype=torch.int32,
+                               device=device).repeat(len(cut)))
+    cases = [(np.asarray([srv._payload(k) for k in keys], np.int32),
+              storm_plan),
+             (np.asarray(cut_pay, np.int32), cut_plan)]
+    kernel = ChainEngine(srv.spec, "kernel")
+    reset_launches()
+    outs = [kernel.run_many(srv.state, srv.loop_wq, pay, max_steps, plan)
+            for pay, plan in cases]
+    launches = read_launches()["run_managed"]
+    err, truncated = 0, 0
+    for (pay, plan), out_k in zip(cases, outs):
+        out_i = ChainEngine(srv.spec, "interp").run_many(
+            srv.state, srv.loop_wq, pay, max_steps, plan)
+        for f in _FAULT_FIELDS:
+            err = max(err, require_equal(getattr(out_k, f),
+                                         getattr(out_i, f),
+                                         f"killed kernel vs interp {f}"))
+        kill = plan.kill_step
+        truncated += int(((kill >= 0) & (out_k.steps == kill)
+                          & ~out_k.halted).sum())
+    clean = kernel.run_many(srv.state, srv.loop_wq, cases[1][0], max_steps)
+    full = int(clean.steps.max())
+    if truncated < 1 or full < 2:
+        raise AssertionError(f"no kill truncated a chain ({truncated}, "
+                             f"chains of {full} steps)")
+    try:
+        kernel.run_many(srv.state, srv.loop_wq, cases[0][0][:1], max_steps,
+                        faults.FaultPlan.suppress_at(1, shape=(1,),
+                                                     device=device))
+    except ValueError as exc:
+        if "suppress" not in str(exc) or "truncation" not in str(exc):
+            raise
+    else:
+        raise AssertionError("the kernel backend ran a suppress fault")
+    result = dict(launches=launches, max_abs_err=err,
+                  contexts=[int(p.shape[0]) for p, _ in cases],
+                  storm_armed=int(storm_plan.active().sum()),
+                  truncated=truncated, chain_steps=full)
+    if drill:
+        t0 = time.perf_counter()
+        here = storm_drill(device)
+        result["drill_s"] = time.perf_counter() - t0
+        cpu = storm_drill("cpu")
+        for k, v in cpu.items():
+            if k in ("report", "actions"):
+                if here[k] != v:
+                    raise AssertionError(f"storm drill {k}: {here[k]} vs "
+                                         f"{v}")
+            else:
+                require_equal(here[k], v, f"storm drill {k} vs the CPU")
+        result.update(drill_violations=len(cpu["report"]),
+                      drill_retried=int((cpu["status2"] != 0).sum()))
     return result
 
 
@@ -980,6 +1128,369 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
     result["readback_hits"] = int(rf.sum())
     if time_it:
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the recovery drill at the real store size
+# ---------------------------------------------------------------------------
+
+# report order of the kinds within one bucket (fsck's)
+_TEAR_RANK = {"stale-row": 0, "torn-vacate": 1, "torn-claim": 2,
+              "neighborhood": 3, "dup-key": 4}
+
+
+def plant_tears(keys, vals, h: int):
+    """A copy of a clean store with one tear of each steady-state kind
+    planted at a known bucket: a torn claim and a neighborhood breach (a
+    live key moved H buckets past its home) on shard 0, a half-done move
+    (a live key copied into an EMPTY bucket later in its neighborhood) on
+    shard 1, a stale row on shard 2 and a torn vacate (in the deadline
+    column) on shard 3 (shard numbers modulo S).  Returns ``(keys, vals,
+    exp, expected [(kind, shard, bucket, key)] in report order)``."""
+    k, v = keys.copy(), vals.copy()
+    s_, n = k.shape
+    exp = np.full(k.shape, hopscotch.NO_TTL, np.int32)
+    want = []
+    live0 = np.flatnonzero(k[0] != 0)
+    b = int(live0[0])
+    want.append(("torn-claim", 0, b, int(k[0, b])))
+    v[0, b] = 0
+    for src in live0[1:].tolist():
+        key = int(k[0, src])
+        dst = int(hopscotch.bucket_of(key, n)) + h
+        if src < dst < n and k[0, dst] == 0:
+            break
+    k[0, dst], v[0, dst] = key, v[0, src]
+    k[0, src], v[0, src] = 0, 0
+    want.append(("neighborhood", 0, dst, key))
+    sh = 1 % s_
+    for src in np.flatnonzero(k[sh] != 0).tolist():
+        key = int(k[sh, src])
+        home = int(hopscotch.bucket_of(key, n))
+        cand = [b for b in range(src + 1, min(home + h, n)) if k[sh, b] == 0]
+        if cand:
+            break
+    k[sh, cand[0]], v[sh, cand[0]] = key, v[sh, src]
+    want.append(("dup-key", sh, cand[0], key))
+    sh = 2 % s_
+    b = int(np.flatnonzero(k[sh] == 0)[0])
+    v[sh, b, 0] = 7
+    want.append(("stale-row", sh, b, 0))
+    sh = 3 % s_
+    b = int(np.flatnonzero(k[sh] == 0)[0])
+    exp[sh, b] = 123
+    want.append(("torn-vacate", sh, b, 0))
+    want.sort(key=lambda w: (w[1], w[2], _TEAR_RANK[w[0]]))
+    return k, v, exp, want
+
+
+def phase_kv_faults(device, kv, dk, dv, n_update=3, n_insert=3, n_disp=2,
+                    seed=11):
+    """The recovery drill on the ``kv_get`` store: a (S, 8) SET batch of
+    updates, inserts and keys whose neighborhood is full under a seeded
+    storm of all four kinds (p 0.5, steps below 60); fsck, repair, and a
+    retry of the rows that did not reach a terminal status.  Every SET
+    key must read back its value on the three get paths, untouched keys
+    theirs, and fsck must be clean.  Then one planted tear of each kind
+    on copies of the store, which the report must name exactly."""
+    rng = np.random.RandomState(seed)
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+    loaded = np.concatenate([t.keys[t.keys != 0] for t in kv.tables])
+    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in kv.tables]
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    fresh = int(loaded.max()) + 5000
+    disp = displacement_keys(tables, s_, fresh + (1 << 21), s_ * n_disp)
+    upd = rng.choice(loaded, s_ * n_update, replace=False)
+    rows = []
+    for s in range(s_):
+        rows.append(rng.permutation(np.concatenate([
+            upd[s * n_update:(s + 1) * n_update],
+            np.arange(fresh, fresh + n_insert),
+            disp[s * n_disp:(s + 1) * n_disp]])))
+        fresh += n_insert
+    sk = np.stack(rows).astype(np.int32)
+    sv = new_values(sk, v)
+    plan = faults.storm(sk.size, p_fault=0.5, max_step=60,
+                        seed=faults.storm_seed(), device=device)
+    plan = faults.FaultPlan(*(leaf.reshape(sk.shape) for leaf in plan))
+    (res, wk, wv), set_ms = timed_call(device, lambda: store.sharded_set(
+        dk, dv, dev(sk), dev(sv), faults=plan, device=device))
+    status = res.status.cpu().numpy()
+    retry = ~np.isin(status, SET_TERMINAL)
+    if not retry.any():
+        raise AssertionError("the storm interrupted no chain")
+    rep, fsck_ms = timed_call(device, lambda: fsck.check_invariants(
+        wk, wv, neighborhood=h))
+    if not rep.repairable:
+        raise AssertionError(f"storm left an unrepairable store: {rep}")
+    (wk, wv, actions), repair_ms = timed_call(device, lambda: fsck.repair(
+        wk, wv, rep, neighborhood=h))
+    if not fsck.check_invariants(wk, wv, neighborhood=h).clean:
+        raise AssertionError("fsck not clean after repair")
+    (res2, wk, wv), retry_ms = timed_call(device, lambda: store.sharded_set(
+        wk, wv, dev(sk), dev(sv), live=dev(retry), device=device))
+    if not np.isin(res2.status.cpu().numpy()[retry], SET_TERMINAL).all():
+        raise AssertionError(f"the retry left rows unserved: {res2}")
+    untouched = rng.choice(np.setdiff1d(loaded, sk), s_ * 16,
+                           replace=False).reshape(s_, 16).astype(np.int32)
+    q = np.concatenate([sk, untouched], axis=1)
+    want_v = np.concatenate([sv, np.stack(
+        [untouched, 2 * untouched, 3 * untouched, 5 * untouched],
+        axis=-1)[..., :v]], axis=1)
+    for method in ("redn", "one_sided", "two_sided"):
+        g = store.sharded_get(wk, wv, dev(q), method=method, device=device)
+        require_equal(g.found, np.ones(q.shape, bool), f"{method} found")
+        require_equal(g.values, want_v, f"{method} values")
+    final, final_ms = timed_call(device, lambda: fsck.check_invariants(
+        wk, wv, neighborhood=h))
+    if not final.clean:
+        raise AssertionError(f"fsck not clean at the end: {final}")
+    result = dict(set_batch=sk.shape, armed=int(plan.active().sum()),
+                  interrupted=int(retry.sum()),
+                  statuses={hopscotch.status_name(c): int((status == c).sum())
+                            for c in np.unique(status)},
+                  violations=repr(rep), repairs=len(actions), set_ms=set_ms,
+                  retry_ms=retry_ms, fsck_ms=fsck_ms, repair_ms=repair_ms,
+                  final_fsck_ms=final_ms, buckets=s_ * n)
+
+    # --- planted tears: the report names exactly them ------------------------
+    pk, pv, pe, want = plant_tears(dk.cpu().numpy(), dv.cpu().numpy(), h)
+    got, planted_ms = timed_call(device, lambda: fsck.check_invariants(
+        dev(pk), dev(pv), neighborhood=h, exp=dev(pe)))
+    named = [(x.kind, x.shard, x.bucket, x.key) for x in got.violations]
+    if named != want:
+        raise AssertionError(f"planted tears: report {named}, planted {want}")
+    (rk, rv, re_, acts), planted_repair_ms = timed_call(
+        device, lambda: fsck.repair(dev(pk), dev(pv), got, neighborhood=h,
+                                    exp=dev(pe)))
+    left = fsck.check_invariants(rk, rv, neighborhood=h, exp=re_)
+    breach = [w for w in want if w[0] == "neighborhood"]
+    if [(x.kind, x.shard, x.bucket, x.key) for x in left.violations] != \
+            breach or len(acts) != 4:
+        raise AssertionError(f"planted repair left {left} ({acts})")
+    # the fifth repairable kind needs two frames: a complete copy of a
+    # resident of shard 2 (mod S) planted in the doubled frame
+    rs = store.begin_resize(dk, dv, device=device)
+    sh = 2 % s_
+    b_old = int(np.flatnonzero(pk[sh] != 0)[0])
+    key = int(pk[sh, b_old])
+    b_new = int(hopscotch.bucket_of(key, 2 * n))
+    rs.new_keys[sh, b_new] = key
+    rs.new_vals[sh, b_new] = rs.vals[sh, b_old]
+    got, resize_fsck_ms = timed_call(device, lambda: fsck.check_invariants(
+        resize=rs, neighborhood=h))
+    named = [(x.kind, x.shard, x.bucket, x.key) for x in got.violations]
+    if named != [("cross-frame-dup", sh, b_new, key)]:
+        raise AssertionError(f"cross-frame tear: report {named}")
+    rs, acts = fsck.repair_resize(rs, got, neighborhood=h)
+    if ([a.action for a in acts] != ["vacate-old"]
+            or not fsck.check_invariants(resize=rs, neighborhood=h).clean):
+        raise AssertionError(f"cross-frame repair: {acts}")
+    result.update(planted=[w[0] for w in want] + ["cross-frame-dup"],
+                  planted_fsck_ms=planted_ms,
+                  planted_repair_ms=planted_repair_ms,
+                  resize_fsck_ms=resize_fsck_ms)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: online resize at the real store size
+# ---------------------------------------------------------------------------
+
+def host_quantum(old, new, start: int, step: int, max_search: int,
+                 max_moves: int):
+    """The host oracle of one ``sharded_resize`` quantum on one shard:
+    ``migrate_bucket`` over ``[start, start + step)``, then each
+    ``MIG_NEEDS_DISPLACE`` lap through the bounded ``set_full`` on the new
+    frame (``HopscotchTable.grow``'s inner loop)."""
+    ms = min(max(max_search, old.neighborhood), new.n_buckets)
+    pending = [b for b in range(start, min(start + step, old.n_buckets))
+               if old.migrate_bucket(new, b) == hopscotch.MIG_NEEDS_DISPLACE]
+    for b in pending:
+        if new.set_full(int(old.keys[b]), old.values[b].tolist(), ms,
+                        max_moves) == hopscotch.SET_NEEDS_RESIZE:
+            raise AssertionError(f"host oracle: bucket {b} is stuck")
+        old.keys[b] = 0
+        old.values[b] = 0
+
+
+def require_frames(what: str, rs, olds, news):
+    require_equal(rs.keys, np.stack([t.keys for t in olds]), f"{what} old k")
+    require_equal(rs.vals, np.stack([t.values for t in olds]),
+                  f"{what} old v")
+    require_equal(rs.new_keys, np.stack([t.keys for t in news]),
+                  f"{what} new k")
+    require_equal(rs.new_vals, np.stack([t.values for t in news]),
+                  f"{what} new v")
+
+
+def double_reference(olds, news, queries):
+    """The double-frame get oracle: each query looked up in its owner's new
+    table, else its old one (``reference_get`` on each frame)."""
+    s_, v = len(olds), olds[0].values.shape[1]
+    fn, vn = store.reference_get(store.ShardedKV(news, s_, v,
+                                                 news[0].neighborhood),
+                                 queries)
+    fo, vo = store.reference_get(store.ShardedKV(olds, s_, v,
+                                                 olds[0].neighborhood),
+                                 queries)
+    return fn | fo, np.where(fn[:, None], vn, vo)
+
+
+def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
+                    small_buckets=32, small_keys=20, seed=5):
+    """Online growth of the ``kv_get`` store: ``begin_resize``, then two
+    ``sharded_resize`` quanta of ``step`` laps, fault-free, held to the
+    host oracle replaying the same quanta.  The same two quanta again with
+    shard 0 killed ``before_end`` WRs before the end of a lap of the first
+    (between its new-frame claim and its old-frame vacate, as the
+    fault-free lap's step count from the trace places it): its watermark
+    parks on the fired lap's bucket; fsck must find the tear, and repair,
+    re-driving shard 0's interrupted quantum and the second quantum must
+    land on the fault-free frames and watermarks.  Gets (keys behind, at
+    and ahead of the watermark, and misses) and sets through the
+    ResizeState arms of ``sharded_get``/``sharded_set``, each against the
+    double-frame oracle.  Then a small store grown to the end, against
+    ``grow``."""
+    rng = np.random.RandomState(seed)
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+    ms, mm = hopscotch.DEFAULT_MAX_SEARCH, hopscotch.DEFAULT_MAX_MOVES
+    olds = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+            for t in kv.tables]
+    news = [hopscotch.make_table(2 * n, v, h) for _ in range(s_)]
+    rs0 = store.begin_resize(dk, dv, device=device)
+
+    # --- two fault-free quanta against the host oracle -----------------------
+    clean, reports, quantum_ms = rs0, [], []
+    for q in range(2):
+        transport.trace = [] if q == 0 else None
+        try:
+            (clean, rep), ms_q = timed_call(
+                device, lambda: store.sharded_resize(clean, step, h,
+                                                     device=device))
+            laps = transport.trace
+        finally:
+            transport.trace = None
+        reports.append({k: x.tolist() for k, x in rep._asdict().items()})
+        quantum_ms.append(ms_q)
+        for o, nw in zip(olds, news):
+            host_quantum(o, nw, q * step, step, ms, mm)
+        if q == 0:
+            mig_steps = [r["steps"] for r in laps if r["stage"] == "migrator"]
+    require_frames("clean quanta", clean, olds, news)
+    require_equal(clean.watermark, np.full(s_, 2 * step, np.int32),
+                  "clean watermarks")
+
+    # --- the same quanta with shard 0 killed mid-lap -------------------------
+    # a lap whose source bucket is live, after two earlier laps; shard 0
+    # is the first row of every walk position it runs at
+    live0 = np.flatnonzero(dk[0, :step].cpu().numpy() != 0)
+    at = int(np.flatnonzero(live0 >= 2)[0])
+    lap = int(live0[at])
+    kill_step = int(mig_steps[0][at][0]) - before_end
+    rows = faults.FaultPlan.none((s_, step), device=device).as_rows()
+    rows[0] = faults.FaultPlan.kill_lap(step, lap, kill_step,
+                                        device=device).as_rows()
+    (frs, frep), faulted_ms = timed_call(device, lambda: store.sharded_resize(
+        rs0, step, h, faults=faults.FaultPlan.from_row(rows),
+        device=device))
+    require_equal(frs.watermark, [lap] + [step] * (s_ - 1),
+                  "faulted watermarks")
+    rep, fsck_ms = timed_call(device, lambda: fsck.check_invariants(
+        resize=frs, neighborhood=h))
+    if rep.clean or not rep.repairable:
+        raise AssertionError(f"the killed lap left no repairable tear: "
+                             f"{rep}")
+    (frs, actions), repair_ms = timed_call(device, lambda: fsck.repair_resize(
+        frs, rep, neighborhood=h))
+    if not fsck.check_invariants(resize=frs, neighborhood=h).clean:
+        raise AssertionError("fsck not clean after repair_resize")
+    one, _ = store.sharded_resize(
+        store.ResizeState(*(a[:1] for a in frs)), step - lap, h,
+        device=device)
+    frs = store.ResizeState(*(torch.cat([a, b[1:]]) for a, b in zip(one,
+                                                                     frs)))
+    frs, _ = store.sharded_resize(frs, step, h, device=device)
+    for f in store.ResizeState._fields:
+        require_equal(getattr(frs, f), getattr(clean, f),
+                      f"re-driven vs fault-free {f}")
+    result = dict(step=step, quantum_ms=quantum_ms, reports=reports,
+                  killed_lap=lap, kill_step=kill_step, violations=repr(rep),
+                  repairs=[a.action for a in actions],
+                  faulted_quantum_ms=faulted_ms, fsck_ms=fsck_ms,
+                  repair_ms=repair_ms, buckets=s_ * 3 * n)
+
+    # --- serving from both frames --------------------------------------------
+    w = 2 * step
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    qs = []
+    for s in range(s_):
+        old_k = kv.tables[s].keys
+        at = [int(old_k[w])] if old_k[w] else []
+        behind = [int(k) for k in old_k[:w] if k][:8]
+        ahead = rng.choice(old_k[w + h:][old_k[w + h:] != 0],
+                           n_gets - len(at) - len(behind) - 4,
+                           replace=False).tolist()
+        misses = (10_000_000 + s * 10 + np.arange(3)).tolist()
+        qs.append(at + behind + ahead + misses + [0])
+    q = np.asarray(qs, np.int32)
+    g, get_ms = timed_call(device, lambda: store.sharded_get(
+        clean, dev(q), neighborhood=h, device=device))
+    rf, rv = double_reference(olds, news, q)
+    require_equal(g.found.reshape(-1), rf, "resize get found")
+    require_equal(g.values.reshape(-1, v), rv, "resize get values")
+    if not bool(g.ok.all()):
+        raise AssertionError(f"resize gets dropped: {g}")
+    # two sets per shard: a migrated key (routes to the new frame) and an
+    # unmigrated one (updated in the old frame)
+    sk = np.stack([[r[1], r[-6]] for r in qs]).astype(np.int32)
+    sv = new_values(sk, v)
+    (sres, srs), set_ms = timed_call(device, lambda: store.sharded_set(
+        clean, dev(sk), dev(sv), neighborhood=h, device=device))
+    if not np.isin(sres.status.cpu().numpy(), SET_TERMINAL).all():
+        raise AssertionError(f"resize sets: {sres}")
+    g2 = store.sharded_get(srs, dev(q), neighborhood=h, device=device)
+    want_v = rv.reshape(q.shape + (v,)).copy()
+    for s in range(s_):
+        for j, k in enumerate(sk[s]):
+            want_v[q == k] = sv[s, j]
+    require_equal(g2.values, want_v, "resize get after set")
+    if not fsck.check_invariants(resize=srs, neighborhood=h).clean:
+        raise AssertionError("fsck not clean after the resize sets")
+    result.update(gets=int(q.size), get_hits=int(rf.sum()), get_ms=get_ms,
+                  sets=int(sk.size),
+                  set_statuses=sres.status.cpu().numpy().tolist(),
+                  set_ms=set_ms)
+
+    # --- a small store grown to the end --------------------------------------
+    small = store.ShardedKV.build(s_, small_buckets, v, h)
+    for k in rng.choice(np.arange(1, 1 << 20), s_ * small_keys,
+                        replace=False).tolist():
+        small.set(k, [k, k + 1, k + 2, k + 3][:v])
+    grown = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(),
+                                      h).grow(step=step)
+             for t in small.tables]
+    rs = store.begin_resize(*small.device_arrays(device), device=device)
+    t0 = time.perf_counter()
+    quanta = 0
+    while not store.resize_done(rs):
+        rs, _ = store.sharded_resize(rs, step, h, device=device)
+        quanta += 1
+    nk, nv = store.finish_resize(rs)
+    require_equal(nk, np.stack([t.keys for t in grown]), "grown keys")
+    require_equal(nv, np.stack([t.values for t in grown]), "grown vals")
+    result.update(small_quanta=quanta,
+                  small_grow_s=time.perf_counter() - t0)
     return result
 
 
@@ -1829,6 +2340,12 @@ KERNELS = (
     ("rglru.rglru", "rglru_kernel", "src/repro_torch/csrc/rglru.cu",
      "src/repro/kernels/rglru/kernel.py:32"),
 )
+# the phases in the order main() runs them
+PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
+          "hopscotch_probe", "kv_write", "kv_faults", "kv_resize",
+          "lm_prefill", "lm_serve", "lm_float32", "flash_kernel",
+          "decode_kernel", "lm_rwkv", "lm_griffin", "wkv6_kernel",
+          "rglru_kernel")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention layer)
 FLASH_DRIVE_LAUNCHES = {"lm_prefill": ("wgmma", 28),
@@ -1874,8 +2391,10 @@ def main() -> int:
     phases = {}
     t0 = time.perf_counter()
     kv_res, kv, dk, dv = phase_kv_get(device)
+    phases["kv_get"] = kv_res
     print(f"[kv_get] {time.perf_counter() - t0:.1f} s: {kv_res}", flush=True)
     run_phase(phases, "chain_kernel", lambda: phase_chain_kernel(device))
+    run_phase(phases, "chain_faults", lambda: phase_chain_faults(device))
     run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
     run_phase(phases, "hopscotch_probe",
               lambda: phase_hopscotch_probe(device, kv, dk, dv))
@@ -1886,6 +2405,15 @@ def main() -> int:
           f"DELETE batch {w['delete_ms']:.1f} ms; sweep quantum of "
           f"{w['sweep_count']} {w['sweep_ms']:.1f} ms; peak device memory "
           f"{w['max_memory_allocated']} bytes", flush=True)
+    run_phase(phases, "kv_faults", lambda: phase_kv_faults(device, kv, dk,
+                                                           dv))
+    f = phases["kv_faults"]
+    print(f"[times] kv_faults ({card}): fsck of {f['buckets']} buckets "
+          f"{f['fsck_ms']:.2f} ms (clean store {f['final_fsck_ms']:.2f} ms, "
+          f"planted {f['planted_fsck_ms']:.2f} ms), repair of "
+          f"{f['repairs']} violations {f['repair_ms']:.2f} ms", flush=True)
+    run_phase(phases, "kv_resize", lambda: phase_kv_resize(device, kv, dk,
+                                                           dv))
     del kv, dk, dv
     torch.cuda.empty_cache()
 
@@ -1964,6 +2492,15 @@ def main() -> int:
     print(f"[rglru_kernel] launches by kernel per recurrentgemma-9b prefill:"
           f" {rg_variants}", flush=True)
 
+    if tuple(phases) != PHASES:
+        raise AssertionError(f"phases ran as {tuple(phases)}, not {PHASES}")
+    # kernel #1 also carries the kill faults of chain_faults' drive
+    phases["chain_kernel"]["launches_by_phase"] = dict(
+        chain_kernel=phases["chain_kernel"]["launches"],
+        chain_faults=phases["chain_faults"]["launches"])
+    if phases["chain_faults"]["launches"] < 1:
+        raise AssertionError("chain_faults: no run_managed launch")
+
     rows = []
     for kname, phase, source, replaces in KERNELS:
         r = phases[phase]
@@ -1977,6 +2514,8 @@ def main() -> int:
             library_ms=r.get("library_ms")))
         if "kernel_launches" in r:
             rows[-1]["kernel_launches"] = r["kernel_launches"]
+        if "launches_by_phase" in r:
+            rows[-1]["launches_by_phase"] = r["launches_by_phase"]
         if "shapes" in r:
             rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms")}

@@ -110,16 +110,20 @@ class ChainEngine:
         cls._cache_stats.update(hits=0, misses=0, evictions=0)
 
     # -- single-machine path --------------------------------------------------
-    def run(self, state: machine.VMState,
-            max_steps: int = 4096) -> machine.VMState:
-        return machine.run(self.spec, state, max_steps)
+    def run(self, state: machine.VMState, max_steps: int = 4096,
+            faults=None) -> machine.VMState:
+        return machine.run(self.spec, state, max_steps, faults)
 
-    def run_batch(self, states: machine.VMState,
-                  max_steps: int = 4096) -> machine.VMState:
-        """Run a batched (leading-dim) ``VMState`` on the selected backend."""
+    def run_batch(self, states: machine.VMState, max_steps: int = 4096,
+                  faults=None) -> machine.VMState:
+        """Run a batched (leading-dim) ``VMState`` on the selected backend.
+
+        ``faults`` is a :class:`repro_torch.core.faults.FaultPlan` with
+        one row per context (the interpreter is the authority; the kernel
+        supports the kill fault only and keeps bit-exact parity on it)."""
         if self.backend in _INTERP_BACKENDS:
-            return machine.run_batch(self.spec, states, max_steps)
-        return self._run_batch_kernel(states, max_steps)
+            return machine.run_batch(self.spec, states, max_steps, faults)
+        return self._run_batch_kernel(states, max_steps, faults)
 
     # -- batched request paths ----------------------------------------------
     def deliver_many(self, state: machine.VMState, wq: int,
@@ -128,36 +132,43 @@ class ChainEngine:
             state, wq, _pad_payloads(payloads, state.mem.device))
 
     def run_many(self, state: machine.VMState, wq: int, payloads,
-                 max_steps: int = 4096) -> machine.VMState:
+                 max_steps: int = 4096, faults=None) -> machine.VMState:
         """Deliver N payloads to `wq` and run all N contexts, batched.
 
         Every context gets ``max_steps`` of fresh fuel: the cumulative
         ``steps`` counter of a reused persistent state is reset, exactly as
-        the single-request ``serve()`` path does.
+        the single-request ``serve()`` path does.  ``faults`` rows (leading
+        dim N) inject per-context faults.
         """
         batch = self.deliver_many(state, wq, payloads)
         batch.steps.zero_()
         if self.backend in _INTERP_BACKENDS:
             # the batch is a fresh allocation: run it in place
-            return machine.run_batch_in_place(self.spec, batch, max_steps)
-        return self._run_batch_kernel(batch, max_steps)
+            return machine.run_batch_in_place(self.spec, batch, max_steps,
+                                              faults)
+        return self._run_batch_kernel(batch, max_steps, faults)
 
     def serve_stream(self, state: machine.VMState, wq: int, payloads,
-                     resp_region: int, resp_len: int, max_steps: int = 64):
+                     resp_region: int, resp_len: int, max_steps: int = 64,
+                     faults=None):
         """Stream N requests through *persistent* state (recycled server).
 
         Returns ``(final_state, values)`` with ``values`` of shape
         ``(N, resp_len)`` — the response region after each request, as N
         sequential ``serve()`` calls would observe it.  Always runs on the
         interpreter: one machine chained across requests is not a batch
-        of independent contexts.
+        of independent contexts.  ``faults`` rows (leading dim N) fault
+        individual requests; a killed request's effects stay in the
+        persistent state.
         """
         pays = _pad_payloads(payloads, state.mem.device)
         vals = []
-        for pay in pays:
+        for i, pay in enumerate(pays):
             state = machine.deliver(state, wq, pay)
             state = state._replace(steps=torch.zeros_like(state.steps))
-            state = machine.run(self.spec, state, max_steps)
+            plan = None if faults is None else type(faults)(
+                *(leaf[i] for leaf in faults))
+            state = machine.run(self.spec, state, max_steps, plan)
             vals.append(state.mem[resp_region:resp_region + resp_len])
         if not vals:
             return state, state.mem.new_zeros((0, resp_len))
@@ -186,10 +197,17 @@ class ChainEngine:
                 "single-WQ subset; use the interp backend")
         self._validated_wq_images.add(img_key)
 
-    def _run_batch_kernel(self, states: machine.VMState,
-                          max_steps: int) -> machine.VMState:
+    def _run_batch_kernel(self, states: machine.VMState, max_steps: int,
+                          faults=None) -> machine.VMState:
         from ..kernels.chain_vm import ops as chain_ops
 
+        # the kernel models one fault, fuel truncation, as per-row fuel;
+        # any other needs the interpreter's per-step hooks
+        if faults is not None and not faults.kernel_supported():
+            raise ValueError(
+                "kernel backend supports only kill_step (fuel truncation) "
+                "faults; suppress/CAS/ENABLE faults need the interp "
+                "backend")
         spec = self.spec
         self._check_kernel_subset(states)
         n = states.mem.shape[0]
@@ -198,6 +216,12 @@ class ChainEngine:
         # fuel: the interpreter's run() treats the cumulative steps counter
         # as consumed fuel (cond: steps < max_steps) — mirror it
         fuel = torch.clamp(max_steps - states.steps, 0, max_steps)
+        if faults is not None:
+            # kill_step as fuel: the interpreter stops before executing
+            # step k, so a killed row gets exactly k steps of fuel
+            kill = faults.kill_step.to(device=fuel.device, dtype=torch.int32)
+            fuel = torch.minimum(fuel, torch.where(
+                kill >= 0, torch.clamp(kill, max=max_steps), max_steps))
         inits = torch.stack(
             [states.head[:, 0], states.tail[:, 0],
              states.enable_limit[:, 0], states.completions[:, 0],

@@ -335,7 +335,7 @@ def _needs(opcode, opb):
 
 
 def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
-             need) -> None:
+             need, fault=None) -> None:
     """Apply one scheduling step to the running ``rows`` of ``s``, in place.
 
     Each verb decomposes into micro-effects applied in the reference's
@@ -343,6 +343,12 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
     return-old store, the RECV scatter, the peer SEND, then queue, enable,
     halt and clock bookkeeping.  ``need`` (host bools, one per
     :data:`_NEEDS` class) skips the blocks no running row uses.
+
+    ``fault``, when given, is ``(suppress, spur_cas, zero_enable)`` per
+    running row (see :func:`_fault_masks`): a spurious CAS miss keeps the
+    old value (the return-old store still reports it), a zeroed ENABLE
+    raises no watermark, and a suppressed WR (already rewritten to NOOP)
+    signals no completion.
     """
     mem = s.mem
     L = mem.shape[-1]
@@ -364,8 +370,11 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
         d = dst.clamp_min(0)
         old = mem[rows, read_index(d, L)]
         sval = torch.where(opcode == isa.WRITE_IMM, opa, old)
+        cas_hit = old == opa
+        if fault is not None:
+            cas_hit = cas_hit & ~fault[1]
         sval = torch.where(opcode == isa.CAS,
-                           torch.where(old == opa, opb, old), sval)
+                           torch.where(cas_hit, opb, old), sval)
         sval = torch.where(opcode == isa.ADD, old + opa, sval)
         sval = torch.where(opcode == isa.MAX, torch.maximum(old, opa), sval)
         sval = torch.where(opcode == isa.MIN, torch.minimum(old, opa), sval)
@@ -400,8 +409,11 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
 
     # ENABLE raises the target's monotonic watermark; HALT stops the row
     cur_en = s.enable_limit[rows, tgt]
+    raises = opcode == isa.ENABLE
+    if fault is not None:
+        raises = raises & ~fault[2]
     s.enable_limit[rows, tgt] = torch.where(
-        opcode == isa.ENABLE, torch.maximum(cur_en, opa), cur_en)
+        raises, torch.maximum(cur_en, opa), cur_en)
     s.halted[rows] |= opcode == isa.HALT
 
     # bookkeeping: head, completions, clock, stats.  Pre-posted chains
@@ -415,6 +427,8 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
     t = torch.where(opcode == isa.WAIT,
                     torch.maximum(t, s.last_comp_time[rows, tgt]), t)
     signaled = (flags & isa.FLAG_SUPPRESS_COMPLETION) == 0
+    if fault is not None:
+        signaled = signaled & ~fault[0]
     s.completions[rows, w] += signaled.int()
     s.last_comp_time[rows, w] = torch.where(signaled, t,
                                             s.last_comp_time[rows, w])
@@ -424,17 +438,66 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
     s.verb_counts[rows, opcode.long()] += 1
 
 
+class _Faults(NamedTuple):
+    """A batch's fault rows as int32 columns, indexed by absolute row, and
+    the executed-verb ordinals the CAS and ENABLE faults count."""
+    kill: torch.Tensor
+    suppress: torch.Tensor
+    cas: torch.Tensor
+    enable: torch.Tensor
+    cas_seen: torch.Tensor
+    enable_seen: torch.Tensor
+
+
+def _fault_columns(faults, n: int, dev) -> _Faults:
+    """One fault row per machine of a batch of ``n`` (a plan with scalar
+    leaves applies to every row)."""
+    cols = [torch.as_tensor(leaf, device=dev).to(torch.int32).reshape(-1)
+            .expand(n).contiguous() for leaf in faults]
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    return _Faults(*cols, zero, zero.clone())
+
+
+def _fault_masks(f: _Faults, s: VMState, rows, opcode):
+    """Suppress the WR a row schedules at its ``suppress`` step (its opcode
+    becomes NOOP), then the spurious-CAS and zeroed-ENABLE masks, which
+    index the verbs that execute after suppression.  Returns ``(opcode,
+    (suppress, spur_cas, zero_enable))``."""
+    steps = s.steps[rows]
+    sup = f.suppress[rows]
+    suppress = (sup >= 0) & (steps == sup)
+    opcode = torch.where(suppress, isa.NOOP, opcode)
+    cas, en = f.cas[rows], f.enable[rows]
+    spur = (cas >= 0) & (opcode == isa.CAS) & (f.cas_seen[rows] == cas)
+    zero = (en >= 0) & (opcode == isa.ENABLE) & (f.enable_seen[rows] == en)
+    return opcode, (suppress, spur, zero)
+
+
 def run_batch_in_place(spec: MachineSpec, s: VMState,
-                       max_steps: int = 4096) -> VMState:
+                       max_steps: int = 4096, faults=None) -> VMState:
     """:func:`run_batch` on the caller's tensors: every row of ``s`` runs
-    to its own stop and ``s`` itself is updated (and returned)."""
+    to its own stop and ``s`` itself is updated (and returned).
+
+    ``faults`` (a :class:`repro_torch.core.faults.FaultPlan`, one row per
+    machine) arms each row's faults: ``kill_step`` stops the row before
+    its cumulative ``steps`` counter reaches it, the others apply inside
+    the step (see :func:`_fault_masks`).  A fully disarmed plan is
+    bit-identical to no plan."""
     geo = _geometry(spec, s.mem.device)
     rows = torch.arange(s.mem.shape[0], device=s.mem.device)
+    f = (None if faults is None
+         else _fault_columns(faults, rows.numel(), s.mem.device))
     while rows.numel():
         eligible, addrs = _eligibility(geo, s, rows)
         go = (eligible.any(1) & ~s.halted[rows]
               & (s.steps[rows] < max_steps))
         w, fields, opcode = _schedule(s, rows, eligible, addrs)
+        masks = None
+        if f is not None:
+            kill = f.kill[rows]
+            go = go & ~((kill >= 0) & (s.steps[rows] >= kill))
+            # the rewrite precedes _needs: a suppressed WR needs no block
+            opcode, masks = _fault_masks(f, s, rows, opcode)
         flags = torch.cat([go[:, None],
                            _needs(opcode, fields[:, isa.F_OPB])
                            & go[:, None]], dim=1).cpu().numpy()
@@ -445,8 +508,13 @@ def run_batch_in_place(spec: MachineSpec, s: VMState,
             sel = torch.from_numpy(np.flatnonzero(keep)).to(rows.device)
             rows, w, fields, opcode = rows[sel], w[sel], fields[sel], \
                 opcode[sel]
+            if masks is not None:
+                masks = tuple(m[sel] for m in masks)
         _execute(geo, s, rows, w, fields, opcode,
-                 tuple(bool(x) for x in flags[:, 1:].any(0)))
+                 tuple(bool(x) for x in flags[:, 1:].any(0)), masks)
+        if f is not None:
+            f.cas_seen[rows] += (opcode == isa.CAS).int()
+            f.enable_seen[rows] += (opcode == isa.ENABLE).int()
     return s
 
 
@@ -482,17 +550,21 @@ def quiescent(spec: MachineSpec, s: VMState) -> torch.Tensor:
     return ~eligible.any()
 
 
-def run(spec: MachineSpec, state: VMState, max_steps: int = 4096) -> VMState:
+def run(spec: MachineSpec, state: VMState, max_steps: int = 4096,
+        faults=None) -> VMState:
     """Run until quiescence / HALT / fuel exhaustion (``steps < max_steps``
     is the fuel condition, so a reused state's step count is consumed
-    fuel)."""
-    return _unbatched(run_batch_in_place(spec, _clone(_batched(state)), max_steps))
+    fuel).  ``faults``: a scalar-leaf
+    :class:`repro_torch.core.faults.FaultPlan` armed on this run."""
+    return _unbatched(run_batch_in_place(spec, _clone(_batched(state)),
+                                         max_steps, faults))
 
 
 def run_batch(spec: MachineSpec, states: VMState,
-              max_steps: int = 4096) -> VMState:
-    """A fleet of independent machines (batched clients), one per row."""
-    return run_batch_in_place(spec, _clone(states), max_steps)
+              max_steps: int = 4096, faults=None) -> VMState:
+    """A fleet of independent machines (batched clients), one per row;
+    ``faults`` leaves carry one plan per row."""
+    return run_batch_in_place(spec, _clone(states), max_steps, faults)
 
 
 def total_time_us(state: VMState) -> torch.Tensor:

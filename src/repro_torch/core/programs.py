@@ -14,6 +14,8 @@
   (and its TTL variant, whose deadline compare is a Calc-verb chain).
 * :class:`HopscotchShardWriter` / :class:`HopscotchShardDisplacer` —
   §3.5's CAS-claiming *set* and the bounded hopscotch displacement bubble.
+* :class:`HopscotchShardMigrator` — one lap of online table growth: a
+  source bucket re-homed into the doubled frame.
 * :class:`HopscotchShardDeleter` / :class:`ClockSweeper` — the rest of the
   Memcached lifecycle: *delete* and the CLOCK expiry sweeper.
 * :class:`RecycledGetServer` — a §3.4 WQ-recycled *get* server on one
@@ -53,6 +55,12 @@ SET_INSERTED = 2             # EMPTY bucket CAS-claimed, key + value written
 SET_NEEDS_DISPLACEMENT = 3   # neighborhood full: displacer chain required
 SET_DISPLACED = 4            # displacer bubbled a slot home and claimed it
 SET_NEEDS_RESIZE = 5         # bounded search/bubble failed: resize required
+
+# Migration lap outcomes (table growth; see HopscotchShardMigrator).
+# Disjoint from SET_* so a mixed log stays unambiguous.
+MIG_MOVED = 6                # source bucket re-homed into the new frame
+MIG_DISCARDED = 7            # key already in the new frame: stale copy dropped
+MIG_NEEDS_DISPLACE = 8       # new-frame neighborhood full: displacer needed
 
 # DELETE / sweep outcome codes (disjoint from the SET codes)
 DEL_DELETED = 9              # bucket matched and vacated (key -> EMPTY)
@@ -671,13 +679,75 @@ def _fuel(state0: machine.VMState) -> int:
 
 
 def _run_contexts(prog, state: machine.VMState, payloads: torch.Tensor,
-                  max_steps: int) -> machine.VMState:
+                  max_steps: int, faults=None) -> machine.VMState:
     """Deliver ``payloads[g]`` to machine ``g`` of a state stacked over G
     machines and run all G to quiescence, batched (the contexts are
-    independent, one owner shard each)."""
+    independent, one owner shard each); ``faults`` arms one plan per
+    machine."""
     batch = machine.deliver_many(state, prog.recv_wq,
                                  payloads.to(torch.int32)[:, None, :])
-    return machine.run_batch_in_place(prog.spec, batch, max_steps)
+    return machine.run_batch_in_place(prog.spec, batch, max_steps, faults)
+
+
+def _run_rows_faulted(prog, carry, payloads: torch.Tensor, max_steps: int,
+                      faults):
+    """``prog.run_rows`` under a :class:`repro_torch.core.faults.FaultPlan`
+    with one row per request: each chain runs with its row's faults armed;
+    an **armed** row commits the torn image (``prog.commit_torn`` — the
+    device state a real interrupted chain leaves behind), a disarmed row
+    commits through the ordinary status-gated ``prog.commit``, so a
+    disarmed row is bit-exact with ``run_rows``.  Returns ``(status,
+    *carry, steps)``."""
+    out = _run_contexts(prog, prog.device_state(*carry), payloads,
+                        max_steps, faults)
+    torn = prog.commit_torn(out.mem, payloads, *carry)
+    clean = prog.commit(out.mem, payloads, *carry)
+    act = faults.active().to(out.mem.device)
+    picked = tuple(torch.where(act.reshape(act.shape + (1,) * (t.ndim - 1)),
+                               t, c) for t, c in zip(torn, clean))
+    return (*picked, out.steps)
+
+
+def _one_faulted(prog, carry, payload: torch.Tensor, max_steps: int, faults):
+    """One request through :func:`_run_rows_faulted` under a scalar-leaf
+    plan.  Returns ``(status, *carry)``."""
+    plan = type(faults)(*(torch.as_tensor(leaf).reshape(1) for leaf in faults))
+    out = _run_rows_faulted(prog, tuple(c[None] for c in carry),
+                            payload[None], max_steps, plan)
+    return tuple(a[0] for a in out[:-1])
+
+
+def _image_rows(out_mem: torch.Tensor, table_base: int, values_base: int,
+                rows: torch.Tensor, v: int):
+    """The key words and value rows of table ``rows`` as they stand in G
+    images: ``(keys (G, R), vals (G, R, v))``."""
+    cols = torch.arange(v, dtype=torch.int64, device=out_mem.device)
+    return (out_mem[:, table_base + rows * BUCKET_WORDS],
+            out_mem[:, values_base + rows[:, None] * v + cols[None, :]])
+
+
+def _fold_mirrored(out_mem: torch.Tensor, keys: torch.Tensor,
+                   vals: torch.Tensor, table_base: int, values_base: int,
+                   n_mirror: int):
+    """Fold an unwrapped frame back by per-word diff: rows ``n + b`` (``b <
+    n_mirror``) mirror row ``b``, and any word a run touched lives in
+    exactly one copy, so ``where(img != pre, img, mirror-merged)``
+    reconstructs the post-state.  Returns int32 ``(keys, vals)``."""
+    n, v = keys.shape[-1], vals.shape[-1]
+    dev = out_mem.device
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    mir = torch.arange(n_mirror, dtype=torch.int64, device=dev)
+    img_k, img_v = _image_rows(out_mem, table_base, values_base, rows, v)
+    mir_k, mir_v = _image_rows(out_mem, table_base, values_base, n + mir, v)
+    base_k, base_v = keys.to(torch.int32), vals.to(torch.int32)
+    merged_k, merged_v = base_k.clone(), base_v.clone()
+    s = n_mirror
+    merged_k[:, :s] = torch.where(mir_k != base_k[:, :s], mir_k,
+                                  base_k[:, :s])
+    merged_v[:, :s] = torch.where(mir_v != base_v[:, :s], mir_v,
+                                  base_v[:, :s])
+    return (torch.where(img_k != base_k, img_k, merged_k),
+            torch.where(img_v != base_v, img_v, merged_v))
 
 
 def _bucket_row(addr: torch.Tensor, table_base: int) -> torch.Tensor:
@@ -813,6 +883,24 @@ class HopscotchShardWriter:
                 _put_rows(keys, rr, put, new_key),
                 _put_rows(vals, rr, put, value))
 
+    def commit_torn(self, out_mem: torch.Tensor, payload: torch.Tensor,
+                    keys: torch.Tensor, vals: torch.Tensor):
+        """Fault-mode commit: fold back *whatever the chain wrote*,
+        terminal status or not.  Every WR that executed already landed
+        its write before the fault hit, so the table and value regions
+        are read straight back (an untouched word equals the input arrays
+        by construction): a key claimed but its value row not crossed, a
+        response written but never completed.  Returns ``(status,
+        keys, vals)``; ``status`` may be the pre-set non-terminal
+        default."""
+        rows = torch.arange(self.n_buckets, dtype=torch.int64,
+                            device=out_mem.device)
+        k, v = _image_rows(out_mem, self.table_base, self.values_base, rows,
+                           self.val_len)
+        return (torch.where(payload[:, 0] != EMPTY_KEY,
+                            out_mem[:, self.resp_region], 0),
+                k.to(keys.dtype), v.to(vals.dtype))
+
     def run_rows(self, keys: torch.Tensor, vals: torch.Tensor,
                  payloads: torch.Tensor, max_steps: int = 512):
         """G requests, request ``g`` against table ``g``: build the
@@ -822,6 +910,13 @@ class HopscotchShardWriter:
                             max_steps)
         return (*self.commit(out.mem, payloads, keys, vals), out.steps)
 
+    def run_rows_faulted(self, keys: torch.Tensor, vals: torch.Tensor,
+                         payloads: torch.Tensor, max_steps: int, faults):
+        """:meth:`run_rows` under a fault plan with one row per request
+        (see :func:`_run_rows_faulted`)."""
+        return _run_rows_faulted(self, (keys, vals), payloads, max_steps,
+                                 faults)
+
     def run_one(self, keys: torch.Tensor, vals: torch.Tensor,
                 payload: torch.Tensor, max_steps: int = 512):
         """Serve one assembled request against the shard arrays.  Returns
@@ -829,6 +924,13 @@ class HopscotchShardWriter:
         out = self.run_rows(keys[None], vals[None], payload[None],
                             max_steps)
         return tuple(a[0] for a in out[:3])
+
+    def run_one_faulted(self, keys: torch.Tensor, vals: torch.Tensor,
+                        payload: torch.Tensor, max_steps: int, faults):
+        """:meth:`run_one` under a scalar-leaf fault plan: an armed plan
+        commits the torn image, a disarmed one is bit-exact with
+        :meth:`run_one`.  Returns ``(status, new_keys, new_vals)``."""
+        return _one_faulted(self, (keys, vals), payload, max_steps, faults)
 
     def set_many(self, keys: torch.Tensor, vals: torch.Tensor,
                  queries: torch.Tensor, home: torch.Tensor,
@@ -980,43 +1082,36 @@ class HopscotchShardDisplacer(HopscotchShardWriter):
 
     def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
                keys: torch.Tensor, vals: torch.Tensor):
-        """Fold G quiesced contexts back into their arrays by diff.
-
-        Any touched word lives in exactly one copy (primary row ``b`` or
-        mirror ``n + b``, ``b < max_search``), so ``where(img != pre, img,
-        mirror-merged)`` reconstructs the post-state exactly.  Nothing
-        commits unless the status is UPDATED/INSERTED/DISPLACED.
-        """
-        n, s, v = self.n_buckets, self.max_search, self.val_len
-        dev = out_mem.device
+        """Fold G quiesced contexts back into their arrays by diff (see
+        :func:`_fold_mirrored`).  Nothing commits unless the status is
+        UPDATED/INSERTED/DISPLACED."""
         status = out_mem[:, self.resp_region]
         live = payload[:, 0] != EMPTY_KEY
         applied = live & ((status == SET_UPDATED) | (status == SET_INSERTED)
                           | (status == SET_DISPLACED))
-        rows = torch.arange(n, dtype=torch.int64, device=dev)
-        mir = torch.arange(s, dtype=torch.int64, device=dev)
-
-        base_k = keys.to(torch.int32)
-        img_k = out_mem[:, self.table_base + rows * BUCKET_WORDS]
-        mir_k = out_mem[:, self.table_base + (n + mir) * BUCKET_WORDS]
-        merged_k = base_k.clone()
-        merged_k[:, :s] = torch.where(mir_k != base_k[:, :s], mir_k,
-                                      base_k[:, :s])
-        new_k = torch.where(img_k != base_k, img_k, merged_k)
-
-        base_v = vals.to(torch.int32)
-        cols = torch.arange(v, dtype=torch.int64, device=dev)[None, :]
-        img_v = out_mem[:, self.values_base + rows[:, None] * v + cols]
-        mir_v = out_mem[:, self.values_base + (n + mir)[:, None] * v + cols]
-        merged_v = base_v.clone()
-        merged_v[:, :s] = torch.where(mir_v != base_v[:, :s], mir_v,
-                                      base_v[:, :s])
-        new_v = torch.where(img_v != base_v, img_v, merged_v)
-
-        keys_out = torch.where(applied[:, None], new_k, base_k)
-        vals_out = torch.where(applied[:, None, None], new_v, base_v)
+        new_k, new_v = _fold_mirrored(out_mem, keys, vals, self.table_base,
+                                      self.values_base, self.max_search)
+        keys_out = torch.where(applied[:, None], new_k, keys.to(torch.int32))
+        vals_out = torch.where(applied[:, None, None], new_v,
+                               vals.to(torch.int32))
         return (torch.where(live, status, 0), keys_out.to(keys.dtype),
                 vals_out.to(vals.dtype))
+
+    def commit_torn(self, out_mem: torch.Tensor, payload: torch.Tensor,
+                    keys: torch.Tensor, vals: torch.Tensor):
+        """Fault-mode commit: :meth:`commit`'s fold with the status gate
+        removed.  An interrupted bubble's executed moves have landed (a
+        half-done move leaves a key in two buckets); folding them back
+        ungated is what lets fsck see, and recovery repair, the torn
+        displacement."""
+        live = payload[:, 0] != EMPTY_KEY
+        new_k, new_v = _fold_mirrored(out_mem, keys, vals, self.table_base,
+                                      self.values_base, self.max_search)
+        keys_out = torch.where(live[:, None], new_k, keys.to(torch.int32))
+        vals_out = torch.where(live[:, None, None], new_v,
+                               vals.to(torch.int32))
+        return (torch.where(live, out_mem[:, self.resp_region], 0),
+                keys_out.to(keys.dtype), vals_out.to(vals.dtype))
 
 
 def build_hopscotch_displacer(n_buckets: int, val_len: int,
@@ -1221,6 +1316,419 @@ def _build_hopscotch_displacer(n_buckets: int, val_len: int,
 
 
 # ---------------------------------------------------------------------------
+# online table growth: the migrator chain (one source bucket per lap)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HopscotchShardMigrator:
+    """One lap of online table growth (§5.6 "resize *while* serving").
+
+    The store grows by migrating one **source bucket** per request from
+    the old ``n``-bucket frame into a doubled ``2n``-bucket frame that
+    serves concurrently (the double-frame mode of ``kvstore.store``).
+    The chain per lap:
+
+    * **select** — the new home under the doubled geometry is ``h_old +
+      sel * n``, ``sel`` the next hash bit the wider mask exposes (``n``
+      a power of two).  The client scatters ``sel`` and the lower-half
+      probe base; a Calc-verb branch
+      (:func:`repro_torch.core.constructs.emit_enable_branch` on ``sel``)
+      releases the probes directly or first ADDs ``n`` buckets to the
+      base — the mask recompute, in verbs.
+    * **match** — H parallel probe pairs test the new-frame neighborhood
+      for the key.  A hit (the key was re-written into the new frame
+      while this stale copy sat in the old one) lands ``[MIG_DISCARDED,
+      addr]`` and releases the **vacate** WQ: the newer value wins.
+    * **claim** — gated on an all-miss match, sequential
+      :func:`~repro_torch.core.constructs.emit_cas_claim` probes CAS the
+      first EMPTY new-frame bucket ``EMPTY -> key``; the winner lands
+      ``[MIG_MOVED, addr]`` and releases its **copy** WQ, whose WRITE
+      moves the old value row across frames before releasing the vacate.
+    * **vacate** — :func:`~repro_torch.core.constructs.emit_bucket_vacate`
+      on the source bucket, only after the key is safe in the new frame.
+
+    A full new-frame neighborhood quiesces on the pre-set
+    ``[MIG_NEEDS_DISPLACE, 0]`` with both frames untouched (the caller
+    escalates through the new frame's displacer chain).  The new frame is
+    mirrored unwrapped (``2n + H - 1`` rows), and :meth:`commit` folds it
+    back by per-word diff.
+    """
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_buckets: int             # OLD frame size n; the new frame holds 2n
+    val_len: int
+    neighborhood: int
+    old_table_base: int
+    old_values_base: int
+    new_table_base: int
+    new_values_base: int
+    resp_region: int
+    recv_wq: int
+
+    resp_words = 2             # [status, bucket addr]
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    @property
+    def fuel(self) -> int:
+        """Exact step budget (no WQ recycles; see
+        :attr:`HopscotchShardWriter.fuel`)."""
+        return _fuel(self.state0)
+
+    def device_state(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
+                     new_keys: torch.Tensor,
+                     new_vals: torch.Tensor) -> machine.VMState:
+        """Image with both frames scattered in (new frame unwrapped: rows
+        ``r >= 2n`` mirror ``r - 2n``).  Leading dims of the arrays stack
+        one machine per shard."""
+        n, h = self.n_buckets, self.neighborhood
+        dev = self.state0.mem.device
+        src = torch.remainder(torch.arange(2 * n + h - 1, dtype=torch.int64,
+                                           device=dev), 2 * n)
+        old = _scatter_rows(self.state0, old_keys, old_vals,
+                            table_base=self.old_table_base,
+                            values_base=self.old_values_base)
+        lead = tuple(old_keys.shape[:-1])
+        rows = torch.arange(src.numel(), dtype=torch.int64, device=dev)
+        cols = torch.arange(self.val_len, dtype=torch.int64, device=dev)
+        mem = old.mem
+        mem[..., self.new_table_base + rows * BUCKET_WORDS] = new_keys.to(
+            device=dev, dtype=torch.int32)[..., src]
+        vidx = self.new_values_base + rows[:, None] * self.val_len + cols
+        mem[..., vidx.reshape(-1)] = new_vals.to(
+            device=dev, dtype=torch.int32)[..., src, :].reshape(lead + (-1,))
+        return old
+
+    def device_payloads(self, buckets: torch.Tensor,
+                        old_keys: torch.Tensor) -> torch.Tensor:
+        """Request assembly: ``[key, sel, old_addr, lo_base]`` per source
+        bucket.  ``buckets`` (..., B) int32 source-bucket indices into
+        ``old_keys`` (..., n), the shards' old-frame key columns.  The
+        client computes the hash and sends the *select bit* the doubled
+        mask exposes plus the lower-half probe base; the chain recomputes
+        the home by branching on ``sel``.  Rows whose source bucket is
+        EMPTY are zeroed — inert padding."""
+        n = self.n_buckets
+        shift = n.bit_length() - 1
+        k = old_keys.to(torch.int32).gather(-1, buckets.long())
+        live = k != EMPTY_KEY
+        h_old = bucket_home(k, n)
+        ku = (k.to(torch.int64) & 0xFFFFFFFF) * _HASH_MULT & 0xFFFFFFFF
+        sel = ((ku >> shift) & 1).to(torch.int32)
+        old_addr = self.old_table_base + buckets.to(torch.int32) * BUCKET_WORDS
+        lo = self.new_table_base + h_old * BUCKET_WORDS
+        pay = torch.stack([k, sel, old_addr.to(torch.int32), lo], dim=-1)
+        return (pay * live[..., None]).to(torch.int32)
+
+    def _fold(self, out_mem, old_keys, old_vals, new_keys, new_vals):
+        """Both frames as the G images left them: the old frame read
+        straight off the image (a lap touches only its source bucket),
+        the new frame folded by diff with the mirror merge."""
+        rows = torch.arange(self.n_buckets, dtype=torch.int64,
+                            device=out_mem.device)
+        ko, vo = _image_rows(out_mem, self.old_table_base,
+                             self.old_values_base, rows, self.val_len)
+        kn, vn = _fold_mirrored(out_mem, new_keys, new_vals,
+                                self.new_table_base, self.new_values_base,
+                                self.neighborhood - 1)
+        return ko, vo, kn, vn
+
+    def _select(self, take, folded, old_keys, old_vals, new_keys, new_vals):
+        t = take[:, None]
+        ko, vo, kn, vn = folded
+        return (torch.where(t, ko, old_keys.to(torch.int32)).to(
+                    old_keys.dtype),
+                torch.where(t[..., None], vo, old_vals.to(torch.int32)).to(
+                    old_vals.dtype),
+                torch.where(t, kn, new_keys.to(torch.int32)).to(
+                    new_keys.dtype),
+                torch.where(t[..., None], vn, new_vals.to(torch.int32)).to(
+                    new_vals.dtype))
+
+    def commit(self, out_mem: torch.Tensor, payload: torch.Tensor,
+               old_keys: torch.Tensor, old_vals: torch.Tensor,
+               new_keys: torch.Tensor, new_vals: torch.Tensor):
+        """Fold G quiesced laps back into both frames.  Nothing commits
+        unless the status is MOVED/DISCARDED: a NEEDS_DISPLACE lap (or a
+        zero-padded slot) leaves both frames bit-identical.  Returns
+        ``(status, old_keys, old_vals, new_keys, new_vals)``."""
+        status = out_mem[:, self.resp_region]
+        live = payload[:, 0] != EMPTY_KEY
+        applied = live & ((status == MIG_MOVED) | (status == MIG_DISCARDED))
+        folded = self._fold(out_mem, old_keys, old_vals, new_keys, new_vals)
+        return (torch.where(live, status, 0),
+                *self._select(applied, folded, old_keys, old_vals, new_keys,
+                              new_vals))
+
+    def commit_torn(self, out_mem: torch.Tensor, payload: torch.Tensor,
+                    old_keys: torch.Tensor, old_vals: torch.Tensor,
+                    new_keys: torch.Tensor, new_vals: torch.Tensor):
+        """Fault-mode commit: :meth:`commit`'s fold with the status gate
+        removed.  A lap cut between the new-frame claim and the old-frame
+        vacate has written both or either; folding the torn image back
+        exposes the cross-frame duplicate (or the claimed-but-uncopied
+        row) to fsck."""
+        live = payload[:, 0] != EMPTY_KEY
+        folded = self._fold(out_mem, old_keys, old_vals, new_keys, new_vals)
+        return (torch.where(live, out_mem[:, self.resp_region], 0),
+                *self._select(live, folded, old_keys, old_vals, new_keys,
+                              new_vals))
+
+    def run_rows(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
+                 new_keys: torch.Tensor, new_vals: torch.Tensor,
+                 payloads: torch.Tensor, max_steps: int = 2048):
+        """G laps, lap ``g`` against shard ``g``'s two frames.  Returns
+        ``(status (G,), old_keys, old_vals, new_keys, new_vals, steps
+        (G,))``."""
+        carry = (old_keys, old_vals, new_keys, new_vals)
+        out = _run_contexts(self, self.device_state(*carry), payloads,
+                            max_steps)
+        return (*self.commit(out.mem, payloads, *carry), out.steps)
+
+    def run_rows_faulted(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
+                         new_keys: torch.Tensor, new_vals: torch.Tensor,
+                         payloads: torch.Tensor, max_steps: int, faults):
+        """:meth:`run_rows` under a fault plan with one row per lap (see
+        :func:`_run_rows_faulted`)."""
+        return _run_rows_faulted(self, (old_keys, old_vals, new_keys,
+                                        new_vals), payloads, max_steps,
+                                 faults)
+
+    def run_one(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
+                new_keys: torch.Tensor, new_vals: torch.Tensor,
+                payload: torch.Tensor, max_steps: int = 2048):
+        """One migration lap.  Returns ``(status, old_keys, old_vals,
+        new_keys, new_vals)``."""
+        out = self.run_rows(old_keys[None], old_vals[None], new_keys[None],
+                            new_vals[None], payload[None], max_steps)
+        return tuple(a[0] for a in out[:5])
+
+    def run_one_faulted(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
+                        new_keys: torch.Tensor, new_vals: torch.Tensor,
+                        payload: torch.Tensor, max_steps: int, faults):
+        """:meth:`run_one` under a scalar-leaf fault plan (an armed plan
+        commits the torn image)."""
+        return _one_faulted(self, (old_keys, old_vals, new_keys, new_vals),
+                            payload, max_steps, faults)
+
+
+def build_hopscotch_migrator(n_buckets: int, val_len: int,
+                             neighborhood: int = 8,
+                             device=None) -> HopscotchShardMigrator:
+    """Build (and cache per geometry and device) the per-shard table-growth
+    chain.  ``n_buckets`` is the OLD frame size and must be a power of two
+    — the doubled geometry's home recompute is "one more mask bit", which
+    is what the in-chain select branch implements."""
+    return _build_hopscotch_migrator(n_buckets, val_len, neighborhood,
+                                     device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_hopscotch_migrator(n_buckets: int, val_len: int,
+                              neighborhood: int, dev: torch.device
+                              ) -> HopscotchShardMigrator:
+    h = neighborhood
+    if h < 1:
+        raise ValueError("neighborhood must be >= 1")
+    if n_buckets < 1 or (n_buckets & (n_buckets - 1)):
+        raise ValueError(
+            f"resize needs a power-of-two bucket count (the doubled "
+            f"mask exposes exactly one more hash bit), got {n_buckets}")
+    if val_len > isa.MAX_COPY:
+        raise ValueError(
+            f"val_len {val_len} exceeds the one-WRITE row copy budget")
+    n = n_buckets
+    ext = 2 * n + h - 1
+
+    # exact image sizing (code slots + data words)
+    SELDRV, SELMOD = 11 + h, 2
+    GOLO, GOHI = h, h + 1
+    MDRV, MEXE, MMOD = 5, 3, 3
+    CDRV, CEXE, CMOD = 7 * h, 4 * h, 3 * h
+    VCLAIM, VMATCH = 2, 8
+    # null-guard: a zero-padded slot probes [0, (h-1)*BW + key] and its
+    # ghost vacate reads [0..2] and zero-writes val_len words at ptr 0
+    guard_slots = max(2, -(-((h - 1) * BUCKET_WORDS + 3) // isa.WR_WORDS),
+                      -(-val_len // isa.WR_WORDS))
+    wq_slots = (guard_slots + 2 + SELDRV + SELMOD + GOLO + GOHI
+                + h * (MDRV + MEXE + MMOD) + CDRV + CEXE + CMOD
+                + h * VCLAIM + VMATCH)
+    data_words = (2 + 5 + val_len                    # resp, words, zeros
+                  + n * (val_len + BUCKET_WORDS)     # old frame
+                  + ext * (val_len + BUCKET_WORDS)   # new frame (mirrored)
+                  + 2 * h * 18                       # match+claim templates
+                  + 1 + 4)                           # scatter table
+    mem_words = -(-(wq_slots * isa.WR_WORDS + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    p.add_wq(guard_slots)                  # WQ0: the padding null region
+
+    resp = p.alloc(2, [MIG_NEEDS_DISPLACE, 0], "resp")
+    key_w = p.word(0, "key")
+    sel_w = p.word(0, "sel")               # the doubled mask's new bit
+    old_addr_w = p.word(0, "old_addr")     # source bucket (old frame)
+    base_w = p.word(0, "base")             # probe base (new frame, lo half)
+    vptr_w = p.word(0, "vptr")             # source bucket's value row
+    zeros_v = p.alloc(val_len, [0] * val_len, "zeros")
+
+    values_old = p.alloc(n * val_len, name="values_old")
+    tbl_o = [0] * (n * BUCKET_WORDS)
+    for b in range(n):
+        tbl_o[b * BUCKET_WORDS + 2] = values_old + b * val_len
+    table_old = p.alloc(n * BUCKET_WORDS, tbl_o, "table_old")
+    values_new = p.alloc(ext * val_len, name="values_new")
+    tbl_n = [0] * (ext * BUCKET_WORDS)
+    for b in range(ext):
+        tbl_n[b * BUCKET_WORDS + 2] = values_new + b * val_len
+    table_new = p.alloc(ext * BUCKET_WORDS, tbl_n, "table_new")
+
+    rq = p.add_wq(2)
+
+    # --- control-flow WQs up front (templates/branches name successors) ---
+    seldrv = p.add_wq(SELDRV, ordering=isa.ORD_DOORBELL, managed=True)
+    selmod = p.add_wq(SELMOD, ordering=isa.ORD_DOORBELL, managed=True,
+                      initial_enable=0)
+    golo = p.add_wq(GOLO, ordering=isa.ORD_DOORBELL, managed=True,
+                    initial_enable=0)
+    gohi = p.add_wq(GOHI, ordering=isa.ORD_DOORBELL, managed=True,
+                    initial_enable=0)
+    vmatch = p.add_wq(VMATCH, ordering=isa.ORD_DOORBELL, managed=True,
+                      initial_enable=0)
+    vclaim = [p.add_wq(VCLAIM, ordering=isa.ORD_DOORBELL, managed=True,
+                       initial_enable=0) for _ in range(h)]
+
+    # --- vacate: retire the source bucket once the key is safe -----------
+    constructs.emit_bucket_vacate(vmatch, bucket_w=old_addr_w,
+                                  val_len=val_len, zeros=zeros_v,
+                                  empty_key=EMPTY_KEY, tag="mg.vac")
+
+    # --- per-probe cross-frame value copy (claim path only) --------------
+    vclaim_wrs = []
+    for pi in range(h):
+        vw = vclaim[pi].write(src=0, dst=0, ln=val_len, tag=f"mg.vcp{pi}")
+        vclaim[pi].enable(vmatch, upto=vmatch.n_posted, tag=f"mg.vgo{pi}")
+        vclaim_wrs.append(vw)
+
+    # --- match phase: H parallel probe pairs against the new frame -------
+    rd1s, m_mods, m_drvs = [], [], []
+    for pi in range(h):
+        m_tmpl, m_stage = _vacate_templates(p, resp, MIG_DISCARDED,
+                                            vmatch.index, vmatch.n_posted)
+        mmod = p.add_wq(MMOD, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=0)
+        mdrv = p.add_wq(MDRV, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=0)
+        mexe = p.add_wq(MEXE, ordering=isa.ORD_DOORBELL, managed=True,
+                        initial_enable=3)
+
+        c_i = mmod.post(isa.NOOP, src=m_tmpl,
+                        dst=mmod.future_wr_addr(1, "ctrl"),
+                        ln=2 * isa.WR_WORDS, tag=f"mg.mc{pi}")
+        mmod.post(isa.NOOP, tag=f"mg.me{pi}")     # event: response slot
+        mmod.post(isa.NOOP, tag=f"mg.mf{pi}")     # event: ENABLE(vacate)
+
+        mdrv.write(src=base_w, dst=mdrv.future_wr_addr(2, "src"),
+                   tag=f"mg.mb{pi}")              # probe addr <- base + d*BW
+        mdrv.add(dst=mdrv.future_wr_addr(1, "src"),
+                 addend=pi * BUCKET_WORDS, tag=f"mg.mo{pi}")
+        rd1 = mdrv.read(src=0, dst=c_i.ctrl_addr, ln=1, tag=f"mg.mr{pi}")
+        mdrv.write(src=key_w, dst=mexe.future_wr_addr(1, "opa"),
+                   tag=f"mg.mk{pi}")              # CAS comparand <- key
+        last = mdrv.write(src=rd1.addr("src"), dst=m_stage + 1,
+                          tag=f"mg.ma{pi}")       # match addr -> response
+
+        mexe.wait(mdrv, last.completion_count, tag=f"mg.ms{pi}")
+        mexe.cas(dst=c_i.ctrl_addr, old=isa.pack_ctrl(isa.NOOP, 0),
+                 new=isa.pack_ctrl(isa.WRITE, 0), tag=f"mg.mx{pi}")
+        mexe.enable(mmod, upto=3, tag=f"mg.men{pi}")
+        rd1s.append(rd1)
+        m_mods.append(mmod)
+        m_drvs.append(mdrv)
+
+    # --- claim phase: sequential CAS-claims, gated on an all-miss match --
+    cdrv = p.add_wq(CDRV, ordering=isa.ORD_DOORBELL, managed=True)
+    cexe = p.add_wq(CEXE, ordering=isa.ORD_DOORBELL, managed=True)
+    cmod = p.add_wq(CMOD, ordering=isa.ORD_DOORBELL, managed=True,
+                    initial_enable=0)
+
+    claims = []
+    for pi in range(h):
+        cl_tmpl, cl_stage = _vacate_templates(p, resp, MIG_MOVED,
+                                              vclaim[pi].index, VCLAIM)
+        if pi == 0:
+            cexe.wait(cdrv, CDRV, tag="mg.cgate")
+        else:
+            cexe.wait(cmod, 3 * pi, tag=f"mg.cseq{pi}")
+        refs = constructs.emit_cas_claim(
+            cexe, cmod, cell=0, expect=EMPTY_KEY, new=0, then_src=cl_tmpl,
+            then_dst=cmod.future_wr_addr(1, "ctrl"),
+            then_len=2 * isa.WR_WORDS)
+        cmod.post(isa.NOOP, tag=f"mg.ce{pi}")     # event: response slot
+        cmod.post(isa.NOOP, tag=f"mg.cf{pi}")     # event: ENABLE(copy)
+        cexe.enable(cmod, upto=3 * (pi + 1), tag=f"mg.cen{pi}")
+        claims.append((refs, cl_stage))
+    cexe.initial_enable = cexe.n_posted + 1
+
+    for pi in range(h):
+        cdrv.wait(m_mods[pi], 3, tag=f"mg.nomatch{pi}")
+    for pi, (refs, cl_stage) in enumerate(claims):
+        cdrv.write(src=rd1s[pi].addr("src"), dst=refs.cell_dst_addr,
+                   tag=f"mg.cdst{pi}")            # claim the probed bucket
+        cdrv.write(src=key_w, dst=refs.new_opb_addr,
+                   tag=f"mg.cnew{pi}")            # CAS new <- key
+        cdrv.write(src=rd1s[pi].addr("src"),
+                   dst=cdrv.future_wr_addr(2, "src"), tag=f"mg.cvp{pi}")
+        cdrv.add(dst=cdrv.future_wr_addr(1, "src"), addend=2,
+                 tag=f"mg.cvo{pi}")
+        cdrv.read(src=0, dst=vclaim_wrs[pi].addr("dst"), ln=1,
+                  tag=f"mg.cvr{pi}")              # claimed val_ptr -> copy dst
+        cdrv.write(src=rd1s[pi].addr("src"), dst=cl_stage + 1,
+                   tag=f"mg.caddr{pi}")           # claimed addr -> response
+    cdrv.initial_enable = cdrv.n_posted + 1
+
+    # --- select: the doubled mask's new bit, as a Calc-verb branch -------
+    seldrv.wait(rq, 1, tag="mg.trig")
+    # source value row -> every copy WR's src (the old row READ)
+    seldrv.write(src=old_addr_w, dst=seldrv.future_wr_addr(2, "src"),
+                 tag="mg.vp_p")
+    seldrv.add(dst=seldrv.future_wr_addr(1, "src"), addend=2, tag="mg.vp_o")
+    seldrv.read(src=0, dst=vptr_w, ln=1, tag="mg.vp")
+    for pi in range(h):
+        seldrv.write(src=vptr_w, dst=vclaim_wrs[pi].addr("src"),
+                     tag=f"mg.vsrc{pi}")
+
+    def load_sel(a_addr, b_addr):
+        seldrv.write(src=sel_w, dst=a_addr, tag="mg.s1")
+        seldrv.write(src=sel_w, dst=b_addr, tag="mg.s2")
+
+    constructs.emit_enable_branch(
+        seldrv, selmod, threshold=0,
+        then_wq=golo.index, then_upto=GOLO,
+        else_wq=gohi.index, else_upto=GOHI, load=load_sel, tag="mg.sel")
+    seldrv.initial_enable = seldrv.n_posted + 1
+
+    for pi in range(h):
+        golo.enable(m_drvs[pi], upto=MDRV + 1, tag=f"mg.lo{pi}")
+    gohi.add(dst=base_w, addend=n * BUCKET_WORDS, tag="mg.hi")
+    for pi in range(h):
+        gohi.enable(m_drvs[pi], upto=MDRV + 1, tag=f"mg.hi{pi}")
+
+    # RECV scatter: key, select bit, source bucket, lo probe base
+    tbl = p.scatter_table([key_w, sel_w, old_addr_w, base_w])
+    rq.recv(scatter_table=tbl, tag="mg.recv")
+
+    spec, st0 = p.finalize(device=dev)
+    return HopscotchShardMigrator(
+        prog=p, spec=spec, state0=st0, n_buckets=n, val_len=val_len,
+        neighborhood=h, old_table_base=table_old,
+        old_values_base=values_old, new_table_base=table_new,
+        new_values_base=values_new, resp_region=resp, recv_wq=rq.index)
+
+
+# ---------------------------------------------------------------------------
 # the Memcached lifecycle verbs: DELETE and the CLOCK expiry sweeper
 # ---------------------------------------------------------------------------
 
@@ -1362,6 +1870,10 @@ class HopscotchShardDeleter:
                 _put_rows(keys, rr, put, torch.zeros_like(status)),
                 _put_rows(vals, rr, put, torch.zeros_like(vals[:, 0])))
 
+    # the torn image of an interrupted delete: a vacate CAS that landed
+    # without its row zeroing is what fsck's stale-row classifier finds
+    commit_torn = HopscotchShardWriter.commit_torn
+
     def run_rows(self, keys: torch.Tensor, vals: torch.Tensor,
                  payloads: torch.Tensor, max_steps: int = 512):
         """G DELETEs, request ``g`` against table ``g``.  Returns
@@ -1370,6 +1882,8 @@ class HopscotchShardDeleter:
                             max_steps)
         return (*self.commit(out.mem, payloads, keys, vals), out.steps)
 
+    run_rows_faulted = HopscotchShardWriter.run_rows_faulted
+
     def run_one(self, keys: torch.Tensor, vals: torch.Tensor,
                 payload: torch.Tensor, max_steps: int = 512):
         """Serve one assembled DELETE against the shard arrays.  Returns
@@ -1377,6 +1891,8 @@ class HopscotchShardDeleter:
         out = self.run_rows(keys[None], vals[None], payload[None],
                             max_steps)
         return tuple(a[0] for a in out[:3])
+
+    run_one_faulted = HopscotchShardWriter.run_one_faulted
 
     def delete_many(self, keys: torch.Tensor, vals: torch.Tensor,
                     queries: torch.Tensor, home: torch.Tensor,

@@ -209,6 +209,81 @@ class HopscotchTable:
                 return DEL_DELETED
         return DEL_MISS
 
+    # -- host-side online-resize oracle ---------------------------------------
+    def migrate_bucket(self, new: "HopscotchTable", bucket: int) -> int:
+        """Re-home one source bucket into the doubled frame — the semantics
+        of one migrator-chain lap
+        (``repro_torch.core.programs.build_hopscotch_migrator``).
+
+        A key already in the new frame (re-written there while this stale
+        copy waited) only vacates the source bucket (``MIG_DISCARDED``:
+        the newer value wins); else the first EMPTY bucket of the new
+        neighborhood is claimed and the value row moves across
+        (``MIG_MOVED``).  A full new neighborhood leaves both frames
+        untouched (``MIG_NEEDS_DISPLACE``); an EMPTY source bucket is a
+        no-op (status 0).
+        """
+        k = int(self.keys[bucket])
+        if k == EMPTY:
+            return 0
+        hn = int(bucket_of(k, new.n_buckets))
+        H, nn = new.neighborhood, new.n_buckets
+        for d in range(H):
+            i = (hn + d) % nn
+            if new.keys[i] == k:
+                self.keys[bucket] = EMPTY
+                self.values[bucket] = 0
+                return MIG_DISCARDED
+        for d in range(H):
+            i = (hn + d) % nn
+            if new.keys[i] == EMPTY:
+                new.keys[i] = k
+                new.values[i] = self.values[bucket]
+                self.keys[bucket] = EMPTY
+                self.values[bucket] = 0
+                return MIG_MOVED
+        return MIG_NEEDS_DISPLACE
+
+    def grow(self, max_search: int = DEFAULT_MAX_SEARCH,
+             max_moves: int = DEFAULT_MAX_MOVES,
+             step: int = 1) -> "HopscotchTable":
+        """Full-table growth oracle: drain this table into a doubled one.
+
+        Replays the migration as ``store.sharded_resize`` drives it:
+        source buckets in quanta of ``step``, each through
+        :meth:`migrate_bucket`, and every ``MIG_NEEDS_DISPLACE`` lap of a
+        quantum escalated *after* that quantum's sweep through the bounded
+        :meth:`set_full` on the new frame (a failed escalation raises and
+        commits nothing).  On return this table is empty and the returned
+        doubled table holds every entry.  Needs a power-of-two bucket
+        count.
+        """
+        n = self.n_buckets
+        if n < 1 or (n & (n - 1)):
+            raise ValueError(
+                f"resize needs a power-of-two bucket count, got {n}")
+        new = HopscotchTable(np.zeros(2 * n, np.int32),
+                             np.zeros((2 * n,) + self.values.shape[1:],
+                                      np.int32), self.neighborhood)
+        bounded_search = min(max(max_search, self.neighborhood), 2 * n)
+        for q0 in range(0, n, step):
+            pending = []
+            for b in range(q0, min(q0 + step, n)):
+                if self.migrate_bucket(new, b) == MIG_NEEDS_DISPLACE:
+                    pending.append(b)
+            for b in pending:
+                k = int(self.keys[b])
+                st2 = new.set_full(k, self.values[b].tolist(),
+                                   bounded_search, max_moves)
+                if st2 == SET_NEEDS_RESIZE:
+                    raise RuntimeError(
+                        f"growth escalation dead-ended on key {k} "
+                        f"(bucket {b}) — the doubled frame cannot "
+                        "place it within the bounded bubble")
+                self.keys[b] = EMPTY
+                self.values[b] = 0
+        return new
+
     def as_device(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = device_mod.resolve(device)
         return (torch.from_numpy(self.keys).to(dev),

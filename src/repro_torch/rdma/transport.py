@@ -19,9 +19,10 @@ request whose answer happens to be zero.
 
 The read-*write* variants (:func:`triggered_chain_stateful`, the SET and
 DELETE wire pattern, and the loopback :func:`local_chain_stateful` of the
-CLOCK sweeper) serialize each owner's requests: window position by
-window position, the S owners' requests at that position run as one
-batch of independent contexts, each against its own shard's state.
+CLOCK sweeper and the table-growth migrator) serialize each owner's
+requests: window position by window position, the S owners' requests at
+that position run as one batch of independent contexts, each against its
+own shard's state.
 
 Setting :data:`trace` to a list records each stateful stage's serial
 depth, the chain steps of every request it ran and, on the card, CUDA
@@ -218,11 +219,20 @@ def _walk(step_fn: Callable, carry, rows: torch.Tensor,
     return resp, carry
 
 
+def _with_faults(step_fn: Callable, width: int) -> Callable:
+    """A step over wire rows ``[payload x width, fault row]``: hands
+    ``step_fn`` the ``(payloads, fault rows)`` pair."""
+    def step(carry, rows):
+        return step_fn(carry, (rows[:, :width], rows[:, width:]))
+    return step
+
+
 def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
                              dest: torch.Tensor, n_shards: int,
                              capacity: int, resp_words: int,
                              live: Optional[torch.Tensor] = None,
-                             stage: str = "stateful"):
+                             stage: str = "stateful",
+                             faults: Optional[torch.Tensor] = None):
     """SEND-triggered chains that *mutate* owner state (the §3.5 read-write
     offload — the SET and DELETE wire pattern).
 
@@ -247,7 +257,20 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
     :func:`rank_within_dest` ranks only live rows, so every row of a
     ``live2 <= ok1`` subset gets a rank <= its stage-1 rank: the second
     stage can add no drop.
+
+    ``faults`` (optional): (S, B, ``faults.FIELDS``) int32 packed
+    :class:`repro_torch.core.faults.FaultPlan` rows, one per request.  A
+    request's fault *rides its payload through dispatch* (the columns are
+    concatenated onto the payload and split back off at the window), so
+    it lands wherever the request lands, and ``step_fn`` then receives
+    ``(payloads, fault rows)`` pairs.  A window slot no request landed on
+    carries an all-zero fault row — armed (``0 >= 0``) — but runs no
+    chain, like any key-0 slot.
     """
+    width = payload.shape[-1]
+    if faults is not None:
+        payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
+        step_fn = _with_faults(step_fn, width)
     recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
     flat = recv.reshape(n_shards, -1, recv.shape[-1])
     run = (flat[..., 0] != 0).cpu().numpy()
@@ -257,16 +280,24 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
 
 
 def local_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
-                         resp_words: int, stage: str = "local"):
+                         resp_words: int, stage: str = "local",
+                         faults: Optional[torch.Tensor] = None):
     """Loopback chains: each owner triggers its *own* pre-posted chain.
 
-    Maintenance offloads (the CLOCK sweeper) originate at the shard that
-    owns the data, so there is no dispatch/combine pair: shard ``s``'s
-    requests ``payload[s]`` (S, B, W) stream through ``step_fn`` in order
-    against its own state, the S shards' b-th requests as one batch (see
-    :func:`triggered_chain_stateful` for ``step_fn`` and ``carry``).
-    Every row runs.  Returns ``(responses (S, B, resp_words), final
-    carry)``.
+    Maintenance offloads (the CLOCK sweeper, table growth) originate at
+    the shard that owns the data, so there is no dispatch/combine pair:
+    shard ``s``'s requests ``payload[s]`` (S, B, W) stream through
+    ``step_fn`` in order against its own state, the S shards' b-th
+    requests as one batch (see :func:`triggered_chain_stateful` for
+    ``step_fn`` and ``carry``).  A row whose first word is 0 (an EMPTY
+    migration source, a padded slot) runs no chain and answers zeros.
+    ``faults`` (optional, (S, B, FIELDS)) are scanned alongside the
+    payload: a loopback lap's fault is the shard itself dying mid-lap,
+    and ``step_fn`` then receives ``(payloads, fault rows)`` pairs.
+    Returns ``(responses (S, B, resp_words), final carry)``.
     """
-    run = np.ones(payload.shape[:2], bool)
+    run = (payload[..., 0] != 0).cpu().numpy()
+    if faults is not None:
+        step_fn = _with_faults(step_fn, payload.shape[-1])
+        payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
     return _walk(step_fn, carry, payload, run, resp_words, stage)

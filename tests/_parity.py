@@ -59,3 +59,25 @@ def random_program_state(rng: np.random.RandomState):
 
 def stack(states):
     return jax.tree_util.tree_map(lambda *a: np.stack(a), *states)
+
+
+_JAX_BUILDERS = ("build_hopscotch_server", "build_hopscotch_writer",
+                 "build_multi_writer_group", "build_hopscotch_displacer",
+                 "build_hopscotch_migrator", "build_hopscotch_deleter",
+                 "build_clock_sweeper")
+
+
+def fresh_jax_programs():
+    """A generator fixture body: clear the JAX package's lru-cached program
+    builders before and after a test module.  A program first built
+    inside a ``shard_map`` trace keeps that mesh's axis names, and a later
+    module of the same worker whose mesh names its axis otherwise then
+    fails on it (ROADMAP queue 3); each module builds its own."""
+    from repro.core import programs as jp
+
+    def clear():
+        for name in _JAX_BUILDERS:
+            getattr(jp, name).cache_clear()
+    clear()
+    yield
+    clear()

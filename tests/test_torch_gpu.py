@@ -3,9 +3,11 @@ version on the same inputs (exact for the int32 kernels; the flash kernel
 at test_kernels.py's tolerances, 2e-5 in float32 and 2e-2 in bfloat16; the
 decode partial at 2e-5 in both types; the WKV6 and RG-LRU recurrences at
 5e-5 in float32 and 5e-2 on bfloat16 outputs, their float32 final states
-at 5e-5, and also against a float64 scan), and the interpreter on the card
-against the interpreter on the CPU.  They skip without a card.  On the card (which has no JAX, so nothing
-here imports it):
+at 5e-5, and also against a float64 scan), the interpreter on the card
+against the interpreter on the CPU (plain and under fault plans), the
+chain kernel under kill faults against the interpreter, and fsck on the
+card against fsck on the CPU.  They skip without a card.  On the card
+(which has no JAX, so nothing here imports it):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import isa, machine
+from repro_torch.core import faults, isa, machine, programs
+from repro_torch.core.engine import ChainEngine
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -25,7 +28,7 @@ from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rglru import ref as rg_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
-from repro_torch.kvstore import hopscotch
+from repro_torch.kvstore import fsck, hopscotch
 
 pytestmark = pytest.mark.gpu
 
@@ -181,6 +184,80 @@ def test_interpreter_on_the_card_matches_the_cpu(cuda):
         spec, machine.VMState(*(a.to(cuda) for a in batch)), 200)
     for name, g, w in zip(machine.VMState._fields, got, want):
         assert torch.equal(g.cpu(), w), name
+
+
+def test_faulted_interpreter_on_the_card_matches_the_cpu(cuda):
+    """Random programs under random plans of all four fault kinds: the
+    card's interpreter equals the CPU's on every field."""
+    spec = machine.MachineSpec(512, (0, 48, 96), (6, 6, 6), (0, 2, 1),
+                               (False, True, True), 4)
+    rng = np.random.RandomState(6)
+    states = []
+    for _ in range(24):
+        img = _images(int(rng.randint(1 << 30)), 1, 512, 18)[0]
+        st = machine.init_state(spec, img, rng.randint(0, 8, 3),
+                                rng.randint(0, 8, 3), "cpu")
+        states.append(machine.deliver(st, int(rng.randint(0, 3)),
+                                      rng.randint(-10, 600, 7)))
+    batch = machine.VMState(*(torch.stack(f) for f in zip(*states)))
+    rows = torch.from_numpy(np.stack(
+        [rng.randint(-1, 12, 24), rng.randint(-1, 12, 24),
+         rng.randint(-1, 3, 24), rng.randint(-1, 3, 24)], 1).astype(np.int32))
+    want = machine.run_batch(spec, batch, 60, faults.FaultPlan.from_row(rows))
+    got = machine.run_batch(
+        spec, machine.VMState(*(a.to(cuda) for a in batch)), 60,
+        faults.FaultPlan.from_row(rows.to(cuda)))
+    for name, g, w in zip(machine.VMState._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_kernel_backend_kill_rows_match_interp_on_the_card(cuda):
+    """Per-context kill steps, every cut from 0 to the fuel, through the
+    chain kernel: equal to the interpreter, and counted as launches."""
+    srv = programs.build_recycled_get_server(n_buckets=64, val_len=2,
+                                             mem_words=2048, device=cuda)
+    for k in range(1, 41):
+        srv.insert(k, [k * 11, k * 11 + 1])
+    srv.load()
+    pay = np.asarray([srv._payload(k) for k in (3, 17, 999)
+                      for _ in range(33)], np.int32)
+    plan = faults.FaultPlan.none((len(pay),), device=cuda)._replace(
+        kill_step=torch.arange(33, dtype=torch.int32, device=cuda).repeat(3))
+    before = chain_ops.launches["run_managed"]
+    got = ChainEngine(srv.spec, "kernel").run_many(srv.state, srv.loop_wq,
+                                                   pay, 32, plan)
+    assert chain_ops.launches["run_managed"] == before + 1
+    want = ChainEngine(srv.spec).run_many(srv.state, srv.loop_wq, pay, 32,
+                                          plan)
+    for f in ("mem", "head", "enable_limit", "completions", "msg_head",
+              "halted", "responses", "steps"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_fsck_on_the_card_matches_the_cpu(cuda):
+    """The tensor-op fsck on the card reports exactly what it reports on
+    the CPU, and repairs alike."""
+    rng = np.random.RandomState(3)
+    keys = rng.randint(0, 1 << 20, (4, 4096)).astype(np.int32)
+    keys[rng.rand(4, 4096) < 0.4] = 0
+    vals = rng.randint(1, 99, (4, 4096, 2)).astype(np.int32)
+    vals[rng.rand(4, 4096) < 0.01] = 0
+    keys[:, 7::97] = keys[:, 3::97][:, :keys[:, 7::97].shape[1]]
+    exp = np.where(rng.rand(4, 4096) < 0.01, 5, hopscotch.NO_TTL).astype(
+        np.int32)
+    args = [torch.from_numpy(a) for a in (keys, vals, exp)]
+    want = fsck.check_invariants(args[0], args[1], neighborhood=8,
+                                 exp=args[2])
+    got = fsck.check_invariants(*(a.to(cuda) for a in args[:2]),
+                                neighborhood=8, exp=args[2].to(cuda))
+    assert got == want and len(want.violations) > 100
+    rk, rv, re_, acts = fsck.repair(*(a.to(cuda) for a in args[:2]), got,
+                                    neighborhood=8, exp=args[2].to(cuda))
+    wk, wv, we, wacts = fsck.repair(*args[:2], want, neighborhood=8,
+                                    exp=args[2])
+    assert acts == wacts
+    for g, w in ((rk, wk), (rv, wv), (re_, we)):
+        assert torch.equal(g.cpu(), w)
 
 
 # --- attention kernels -------------------------------------------------------

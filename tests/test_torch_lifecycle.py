@@ -13,7 +13,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from _parity import assert_states_equal
+from _parity import assert_states_equal, fresh_jax_programs
 from repro.core import machine as jm
 from repro.core import programs as jp
 from repro.kvstore import hopscotch as jh
@@ -25,6 +25,10 @@ from repro_torch.kvstore import hopscotch as th
 from repro_torch.kvstore import store as tstore
 
 NO_TTL = th.NO_TTL
+
+
+_fresh_jax_programs = pytest.fixture(scope="module", autouse=True)(
+    fresh_jax_programs)
 
 
 def _t(a):

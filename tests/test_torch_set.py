@@ -12,7 +12,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from _parity import assert_states_equal
+from _parity import assert_states_equal, fresh_jax_programs
 from repro.core import machine as jm
 from repro.core import programs as jp
 from repro.kvstore import hopscotch as jh
@@ -25,6 +25,10 @@ from repro_torch.kvstore import store as tstore
 from repro_torch.rdma import transport
 
 NB, H, S, M, V = 64, 4, 8, 4, 2
+
+
+_fresh_jax_programs = pytest.fixture(scope="module", autouse=True)(
+    fresh_jax_programs)
 
 
 def _homed(bucket, count, n_buckets=NB, start=1, n_shards=None):
@@ -537,12 +541,19 @@ def test_sharded_set_guards(monkeypatch):
     dk, dv = kv.device_arrays("cpu")
     sk = _t(np.asarray([[5, 6], [7, 8]], np.int32))
     sv = torch.zeros((2, 2, V), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="faults"):
-        tstore.sharded_set(dk, dv, sk, sv, faults=object(), device="cpu")
+    # faults= is served now; with racing writers it conflicts, before the
+    # racing writers' own not-ported guard
+    with pytest.raises(tstore.WriterFaultConflict, match="exclusive"):
+        tstore.sharded_set(dk, dv, sk, sv, faults=object(), n_writers=2,
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="n_writers"):
         tstore.sharded_set(dk, dv, sk, sv, n_writers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="resize"):
-        tstore.sharded_set(object(), sk, sv, sv, device="cpu")
+    # a resize state selects the watermark-routed arm
+    res, rs = tstore.sharded_set(tstore.begin_resize(dk, dv, device="cpu"),
+                                 sk, sv + 1, device="cpu")
+    assert isinstance(rs, tstore.ResizeState) and bool(res.applied.all())
+    with pytest.raises(TypeError, match="multiple values"):
+        tstore.sharded_set(dk, dv, sk, sv, vals=dv, device="cpu")
     with pytest.raises(ValueError, match="exp"):
         tstore.sharded_set(dk, dv, sk, sv, deadlines=sk, device="cpu")
     with pytest.raises(ValueError, match="24-bit"):

@@ -344,3 +344,67 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
         path, line = replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         assert re.match(r"def _\w+_kernel\(", text), (replaces, text)
+
+
+def test_phases_run_in_order(smoke):
+    """The three robustness phases sit after the paths they reuse: the
+    kill faults after the chain kernel's own phase, the recovery drill and
+    the resize after the write path, on its store."""
+    p = smoke.PHASES
+    assert len(p) == len(set(p)) == 17
+    assert p.index("chain_kernel") + 1 == p.index("chain_faults")
+    assert p.index("kv_write") + 1 == p.index("kv_faults")
+    assert p.index("kv_faults") + 1 == p.index("kv_resize")
+    assert p.index("kv_resize") < p.index("lm_prefill")
+
+
+def test_phase_chain_faults_cpu(smoke):
+    r = smoke.phase_chain_faults("cpu", n_buckets=64, mem_words=1024,
+                                 n_keys=40, batch=16, max_steps=24)
+    assert r["max_abs_err"] == 0 and r["launches"] == 0   # plain path
+    assert r["contexts"] == [16, 3 * 25]
+    assert r["truncated"] > 0 and r["storm_armed"] > 0
+    assert r["drill_violations"] >= 0 and r["drill_retried"] > 0
+
+
+@pytest.fixture(scope="module")
+def write_store(smoke):
+    """2 shards x 256 buckets, 300 random keys (59% load): the sequential
+    keys of ``build_store`` leave no neighborhood full at this size."""
+    kv = smoke.store.ShardedKV.build(2, 256, 4)
+    rng = np.random.RandomState(0)
+    for k in rng.choice(np.arange(1, 1 << 20), 300, replace=False).tolist():
+        assert kv.set(k, [k, 2 * k, 3 * k, 5 * k])
+    return kv
+
+
+def test_phase_kv_faults_cpu(smoke, write_store):
+    dk, dv = write_store.device_arrays("cpu")
+    r = smoke.phase_kv_faults("cpu", write_store, dk, dv)
+    assert r["interrupted"] > 0 and r["armed"] >= r["interrupted"]
+    assert r["set_batch"] == (2, 8)
+    assert sorted(r["planted"]) == sorted(
+        ("torn-claim", "neighborhood", "dup-key", "stale-row",
+         "torn-vacate", "cross-frame-dup"))
+    k, v = write_store.device_arrays("cpu")
+    assert torch.equal(k, dk) and torch.equal(v, dv)
+
+
+def test_plant_tears_names_each_kind_once(smoke, write_store):
+    dk, dv = write_store.device_arrays("cpu")
+    k, v, e, want = smoke.plant_tears(dk.numpy(), dv.numpy(), 8)
+    rep = smoke.fsck.check_invariants(torch.from_numpy(k),
+                                      torch.from_numpy(v), neighborhood=8,
+                                      exp=torch.from_numpy(e))
+    assert [(x.kind, x.shard, x.bucket, x.key)
+            for x in rep.violations] == want
+    assert len({w[0] for w in want}) == 5
+
+
+def test_phase_kv_resize_cpu(smoke, write_store):
+    dk, dv = write_store.device_arrays("cpu")
+    r = smoke.phase_kv_resize("cpu", write_store, dk, dv, step=8,
+                              small_buckets=16, small_keys=8)
+    assert r["killed_lap"] >= 2 and r["gets"] == 2 * 64
+    assert r["sets"] == 4 and r["small_quanta"] == 2
+    assert r["get_hits"] > 0

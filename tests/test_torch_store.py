@@ -9,6 +9,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from _parity import fresh_jax_programs
 from repro.kvstore import store as jstore
 from repro_torch import convert
 from repro_torch.data.pipeline import kv_request_stream
@@ -16,6 +17,10 @@ from repro_torch.kvstore import store as tstore
 from repro_torch.rdma import transport
 
 METHODS = ["redn", "one_sided", "two_sided"]
+
+
+_fresh_jax_programs = pytest.fixture(scope="module", autouse=True)(
+    fresh_jax_programs)
 
 
 @pytest.fixture(scope="module")
@@ -127,8 +132,16 @@ def test_sharded_get_guards(kv4, monkeypatch):
         tstore.sharded_get(tk, tv, q, isolation=object(), device="cpu")
     with pytest.raises(ValueError, match="both exp and now"):
         tstore.sharded_get(tk, tv, q, exp=tk, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstore.sharded_get(object(), tv, q, device="cpu")
+    # a resize state selects the double-frame arm (at watermark 0 every
+    # key still serves from the old frame)
+    mid = tstore.sharded_get(tstore.begin_resize(tk, tv, device="cpu"), q,
+                             device="cpu")
+    steady = tstore.sharded_get(tk, tv, q, device="cpu")
+    assert torch.equal(mid.found, steady.found)
+    assert torch.equal(mid.values, steady.values)
+    with pytest.raises(TypeError, match="positional"):
+        tstore.sharded_get(tk, tv, q, "redn", 8, None, None, None, 5, 6,
+                           device="cpu")
     with pytest.raises(ValueError, match="24-bit"):
         tstore.sharded_get(tk, tv, q - (1 << 30), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

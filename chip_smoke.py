@@ -1,6 +1,7 @@
 """Chip smoke test: drive the PyTorch/CUDA port's paths on one card — the
 RedN GET path, the store's write path, its fault recovery and online
-resize, and the LM serving paths
+resize, racing writers and isolation, the crash-resilient services, and
+the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
 ServeEngine ticks).
 
@@ -9,7 +10,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs seventeen phases
+``nvcc`` per source, all started together), then runs nineteen phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -70,6 +71,31 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ResizeState arms against the double-frame
                          oracle; a 4 x 32-bucket store grown to the end
                          against ``grow``.  On the interpreter: no kernel.
+6d. ``kv_contend``     — racing writers and isolation (§3.5, §5.5) on the
+                         same store: ``sharded_set`` with 1, 2 and 4
+                         writer lanes on a (4, 8) batch whose homes lie
+                         far apart (all equal, and equal to the host
+                         oracle), and with 2 and 4 lanes on a hot-key
+                         hammer (each owner's 8 keys homed at one bucket):
+                         every row answered, fsck clean, every applied
+                         key read back.  The 2-writer cut sweep of
+                         ``tests/test_faults.py`` (every cut one batch,
+                         each on the AB or BA oracle), and the fairness
+                         hammer under ``fair_quotas([8] * 4, 48)``
+                         (best/worst completion clock <= 2), each bit-equal
+                         to the same run on the CPU, clocks included; the
+                         ``isolation=`` arm of ``sharded_get`` with a
+                         greedy client, its admitted mask and buckets
+                         bit-equal to the CPU's.  On the interpreter.
+6e. ``kv_service``     — the §5.6 services with the host driver crashed:
+                         256 Zipf gets through a ``DeviceResidentService``;
+                         ``ShardedKVService`` over the same store's tensors
+                         serving a get batch, a 2-lane SET batch and a
+                         DELETE batch against the host oracles,
+                         ``set_reliable`` under a kill plan, fsck clean;
+                         a 1-shard, 8-bucket service grown by its own
+                         SETs, and the chained second growth, every key
+                         served throughout.  On the interpreter.
 7. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
                          bf16, seeded random weights): ``make_prefill_step``
                          on 4 x 2,048 prompt tokens (one flash-attention
@@ -237,7 +263,7 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.rdma import transport  # noqa: E402
+from repro_torch.rdma import failure, isolation, transport  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 
@@ -818,8 +844,8 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
 def run_traced(device, fn):
     """``(fn(), ms, stages)`` with the transport's stateful-stage trace on:
     per stage its ms (CUDA events; None on the CPU), serial depth (window
-    positions run), requests run, and chain steps per request (max and
-    median)."""
+    positions or laps run), requests run, and chain steps per request (max
+    and median; None for a group stage)."""
     transport.trace = []
     try:
         value, ms = timed_call(device, fn)
@@ -828,12 +854,13 @@ def run_traced(device, fn):
         transport.trace = None
     stages = {}
     for r in records:
-        steps = (torch.cat(r["steps"]).cpu().numpy() if r["steps"]
-                 else np.zeros(1, np.int32))
+        # a group stage (racing lanes) records no per-request steps
+        steps = torch.cat(r["steps"]).cpu().numpy() if r["steps"] else None
         stages[r["stage"]] = dict(
             ms=r["start"].elapsed_time(r["end"]) if "start" in r else None,
-            depth=r["depth"], runs=r["runs"], steps_max=int(steps.max()),
-            steps_median=float(np.median(steps)))
+            depth=r["depth"], runs=r["runs"],
+            steps_max=None if steps is None else int(steps.max()),
+            steps_median=None if steps is None else float(np.median(steps)))
     return value, ms, stages
 
 
@@ -1491,6 +1518,490 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
     require_equal(nv, np.stack([t.values for t in grown]), "grown vals")
     result.update(small_quanta=quanta,
                   small_grow_s=time.perf_counter() - t0)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: racing writers and isolation (§3.5, §5.5)
+# ---------------------------------------------------------------------------
+
+def spaced_keys(kv, rng, per_owner: int, fresh: int, gap: int = 128):
+    """Per owner shard ``per_owner`` keys whose home buckets lie at least
+    ``gap`` apart: half loaded keys (updates), half fresh keys (inserts).
+    No two of them can touch one neighborhood, or one displacement
+    window, so their writes commute.  Returns {owner: [keys]}."""
+    s_, n = kv.n_shards, kv.tables[0].n_buckets
+    gap = min(gap, n // (2 * per_owner))
+    out = {}
+    for o, t in enumerate(kv.tables):
+        homes, keys = [], []
+
+        def take(cand):
+            for k in cand:
+                hb = int(hopscotch.bucket_of(int(k), n))
+                if all(min((hb - x) % n, (x - hb) % n) >= gap
+                       for x in homes):
+                    homes.append(hb)
+                    keys.append(int(k))
+                    return
+        loaded = t.keys[t.keys != 0]
+        for _ in range(per_owner // 2):
+            take(rng.permutation(loaded)[:256])
+        while len(keys) < per_owner:
+            cand = np.arange(fresh, fresh + (1 << 16), dtype=np.int64)
+            fresh += 1 << 16
+            take(cand[store.shard_of(cand, s_) == o][:256])
+        out[o] = keys
+    return out, fresh
+
+
+def hot_keys(kv, rng, count: int, start: int):
+    """Per owner a bucket with at least two EMPTY slots in its neighborhood
+    and ``count`` fresh keys (from ``start`` up) homed at it: the hot-key
+    hammer.  The home hash keeps a key's low bits, and so does the owner
+    hash's low bits, so at 65,536 buckets every key homed at a bucket has
+    the same owner: the bucket is drawn among those whose homed keys the
+    owner holds.  Returns (keys (S, count), row o owned by shard o; the
+    hot buckets)."""
+    s_, n, h = kv.n_shards, kv.tables[0].n_buckets, kv.neighborhood
+    cand = np.arange(start, min(start + (1 << 22), 0x1000000),
+                     dtype=np.int64)
+    owner = store.shard_of(cand, s_)
+    home = hopscotch.bucket_of(cand, n)
+    rows, buckets = [], []
+    for o, t in enumerate(kv.tables):
+        empty = np.stack([np.roll(t.keys == 0, -d) for d in range(h)]).sum(0)
+        mine = owner == o
+        per = np.bincount(home[mine], minlength=n)
+        b = int(rng.choice(np.flatnonzero((empty >= 2) & (per >= count))))
+        rows.append(cand[mine & (home == b)][:count])
+        buckets.append(b)
+    return np.asarray(rows, np.int32), buckets
+
+
+def require_states(a, b, what: str):
+    """Every field of two machine batches bit-equal (clocks included)."""
+    for f, x, y in zip(machine.VMState._fields, a, b):
+        require_equal(x.cpu().view(torch.int32) if x.dtype == torch.float32
+                      else x, y.cpu().view(torch.int32)
+                      if y.dtype == torch.float32 else y, f"{what} {f}")
+
+
+def cut_sweep(device, n=16, v=2, h=4):
+    """``tests/test_faults.py``'s 2-writer scenario: two keys homed at one
+    bucket race for the last two free slots of a half-full neighborhood.
+    Every cut 0..writer_fuel runs as ONE batch of machines on ``device``;
+    returns (group, final states, per-cut (status, keys, vals), the AB/BA
+    oracles, ms)."""
+    group = programs.build_multi_writer_group(n, v, neighborhood=h,
+                                              n_writers=2, device=device)
+    homed = store.keys_homed_at(3, 4, n)
+    keys0 = np.zeros(n, np.int32)
+    vals0 = np.zeros((n, v), np.int32)
+    for b, k in zip((3, 4), homed[:2]):
+        keys0[b] = k
+        vals0[b] = [k & 0xFF, b]
+    qa, qb = homed[2], homed[3]
+    dev = torch.device(device)
+    q = torch.tensor([qa, qb], dtype=torch.int32, device=dev)
+    qv = torch.tensor([[qa & 0xFF, qa >> 4], [qb & 0xFF, qb >> 4]],
+                      dtype=torch.int32, device=dev)
+    pay = group.device_payloads(q, hopscotch.bucket_of(q, n), qv)
+    writer = programs.build_hopscotch_writer(n, v, neighborhood=h,
+                                             device=device)
+    oracles = {}
+    for name, order in (("AB", (0, 1)), ("BA", (1, 0))):
+        k = torch.from_numpy(keys0).to(dev)
+        vv = torch.from_numpy(vals0).to(dev)
+        for i in order:
+            wp = writer.device_payloads(q[i:i + 1], hopscotch.bucket_of(
+                q[i:i + 1], n), qv[i:i + 1])[0]
+            st, k, vv = writer.run_one(k, vv, wp, writer.fuel)
+            if int(st) not in SET_TERMINAL:
+                raise AssertionError(f"oracle {name}: status {int(st)}")
+        oracles[name] = (k.cpu().numpy(), vv.cpu().numpy())
+    cuts = torch.arange(group.writer_fuel + 1, dtype=torch.int32,
+                        device=dev)
+    g = cuts.numel()
+    kb = torch.from_numpy(keys0).to(dev).expand(g, n)
+    vb = torch.from_numpy(vals0).to(dev).expand(g, n, v)
+    sched = machine.Schedule.cut(cuts)
+    out, ms = timed_call(device, lambda: machine.run_scheduled_in_place(
+        group.spec, group.delivered_state(kb, vb, pay.expand(g, 2, -1)),
+        sched, group.writer_slices, group.fuel))
+    per_cut = group.run_group(kb, vb, pay.expand(g, 2, -1), sched,
+                              group.fuel)
+    return group, out, per_cut, oracles, ms
+
+
+def fairness_run(device, n=32, v=2, h=8, w=4):
+    """``benchmarks/write_contention.py``'s hammer: ``w`` writers insert
+    distinct keys homed at one bucket under ``fair_quotas([8] * w, 48)``.
+    Returns (group, final state, ms)."""
+    group = programs.build_multi_writer_group(n, v, neighborhood=h,
+                                              n_writers=w, device=device)
+    qs = store.keys_homed_at(3, w, n)
+    dev = torch.device(device)
+    q = torch.tensor(qs, dtype=torch.int32, device=dev)
+    pay = group.device_payloads(q, hopscotch.bucket_of(q, n), torch.tensor(
+        [[k & 0xFF, k >> 4] for k in qs], dtype=torch.int32, device=dev))
+    st = group.delivered_state(
+        torch.zeros((1, n), dtype=torch.int32, device=dev),
+        torch.zeros((1, n, v), dtype=torch.int32, device=dev), pay[None])
+    sched = isolation.fair_quotas([8.0] * w, n_rounds=48, device=device)
+    out, ms = timed_call(device, lambda: machine.run_scheduled_in_place(
+        group.spec, st, sched, group.writer_slices, group.fuel))
+    return group, out, ms
+
+
+SET_ANSWERS = SET_TERMINAL + (hopscotch.SET_NEEDS_RESIZE,)
+
+
+def phase_kv_contend(device, kv, dk, dv, per_owner=8, n_gets=64,
+                     burst=64.0, rate=0.5, seed=11):
+    """Racing writers and isolation on the ``kv_get`` store.
+
+    ``sharded_set`` with ``n_writers`` 2 and 4 on a (S, ``per_owner``)
+    SET batch of two traffics: *uniform* (updates and inserts whose home
+    buckets lie far apart) must equal ``n_writers=1`` and the host oracle
+    bit for bit; the *hot-key hammer* (each owner's keys homed at one
+    bucket, sent as one source row, so a lap's claim CASes race) must
+    answer every row (inserted, displaced or needs-resize), stay
+    fsck-clean and read every applied key back.  Then ``tests/
+    test_faults.py``'s 2-writer cut sweep, every cut as one batch, each
+    cut on the AB or BA oracle and bit-equal to the same batch on the CPU;
+    the fairness hammer under ``fair_quotas`` (best/worst completion
+    clock <= 2, clocks bit-equal to the CPU); and ``sharded_get``'s
+    ``isolation=`` arm over (S, ``n_gets``) queries from 4 clients, one
+    greedy, two calls apart in time: the admitted mask and the float32
+    buckets bit-equal to the CPU's, admitted answers equal
+    ``reference_get``."""
+    rng = np.random.RandomState(seed)
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    loaded = np.concatenate([t.keys[t.keys != 0] for t in kv.tables])
+    # fresh keys: the hammer's from just above the loaded ones (a bucket
+    # of a 4 x 65,536 store homes one key in 262,144), the spaced ones
+    # from the top of the 24-bit space
+    hot_start, fresh = int(loaded.max()) + 1, 0xC00000
+    result = dict(shards=s_, buckets_per_shard=n, sets_per_s={},
+                  set_ms={}, set_stages={})
+
+    # --- uniform traffic: the lanes never race, so every writer count
+    # commits what the serialized writer commits ---------------------------
+    spaced, fresh = spaced_keys(kv, rng, per_owner, fresh)
+    flat = np.concatenate([spaced[o] for o in range(s_)])
+    sk = rng.permutation(flat).reshape(s_, per_owner).astype(np.int32)
+    sv = new_values(sk, v)
+    live = np.ones(sk.shape, bool)
+    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in kv.tables]
+    want = window_oracle(tables, sk, live, hopscotch.insert_many_displaced,
+                         sv)
+    runs = {}
+    for w in (1, 2, 4):
+        runs[w], ms, stages = run_traced(device, lambda: store.sharded_set(
+            dk, dv, dev(sk), dev(sv), n_writers=w, device=device))
+        result["set_ms"][f"uniform/{w}"] = ms
+        result["sets_per_s"][f"uniform/{w}"] = sk.size / (ms * 1e-3)
+        result["set_stages"][f"uniform/{w}"] = stages
+        require_mutation(f"uniform n_writers={w}", runs[w][0], want, sk,
+                         live, SET_TERMINAL)
+        require_tables(f"uniform n_writers={w}", tables, *runs[w][1:])
+        for a, b, f in zip(runs[w][0], runs[1][0], store.SetResult._fields):
+            require_equal(a, b, f"uniform n_writers={w} vs 1 {f}")
+    result["uniform_statuses"] = {
+        hopscotch.status_name(c): int((want == c).sum())
+        for c in np.unique(want)}
+
+    # --- the hot-key hammer --------------------------------------------------
+    hk, hot_buckets = hot_keys(kv, rng, per_owner, hot_start)
+    hv = new_values(hk, v)
+    result["hot_statuses"] = {}
+    for w in (2, 4):
+        (res, nk, nv), ms, stages = run_traced(
+            device, lambda: store.sharded_set(dk, dv, dev(hk), dev(hv),
+                                              n_writers=w, device=device))
+        result["set_ms"][f"hot/{w}"] = ms
+        result["sets_per_s"][f"hot/{w}"] = hk.size / (ms * 1e-3)
+        result["set_stages"][f"hot/{w}"] = stages
+        st = res.status.cpu().numpy()
+        if not (bool(res.ok.all()) and np.isin(st, SET_ANSWERS).all()):
+            raise AssertionError(f"hot n_writers={w}: unanswered rows {res}")
+        applied = res.applied.cpu().numpy()
+        if int(applied.sum()) < 2 * s_:
+            raise AssertionError(f"hot n_writers={w}: {res}")
+        rep = fsck.check_invariants(nk, nv, neighborhood=h)
+        if not rep.clean:
+            raise AssertionError(f"hot n_writers={w}: fsck {rep}")
+        g = store.sharded_get(nk, nv, dev(hk), device=device)
+        require_equal(g.found, applied, f"hot n_writers={w} found")
+        require_equal(g.values.cpu().numpy()[applied], hv[applied],
+                      f"hot n_writers={w} values")
+        result["hot_statuses"][w] = {
+            hopscotch.status_name(c): int((st == c).sum())
+            for c in np.unique(st)}
+
+    # --- the 2-writer cut sweep, every cut one batch, card against CPU -------
+    group, out, (cst, ck, cv), oracles, sweep_ms = cut_sweep(device)
+    _, out_cpu, (cst_c, ck_c, cv_c), _, _ = cut_sweep("cpu")
+    require_states(out, out_cpu, "cut sweep card vs cpu")
+    for a, b, f in ((cst, cst_c, "status"), (ck, ck_c, "keys"),
+                    (cv, cv_c, "vals")):
+        require_equal(a, b, f"cut sweep run_group {f}")
+    hits = {}
+    for c in range(ck.shape[0]):
+        if not np.isin(cst[c].cpu().numpy(), SET_TERMINAL).all():
+            raise AssertionError(f"cut {c}: statuses {cst[c]}")
+        name = [nm for nm, (ok, ov) in oracles.items()
+                if np.array_equal(ck[c].cpu().numpy(), ok)
+                and np.array_equal(cv[c].cpu().numpy(), ov)]
+        if not name:
+            raise AssertionError(f"cut {c}: on neither serialized oracle")
+        hits[name[0]] = hits.get(name[0], 0) + 1
+        if not fsck.check_invariants(ck[c][None], cv[c][None],
+                                     neighborhood=4).clean:
+            raise AssertionError(f"cut {c}: fsck not clean")
+    steps = out.steps.cpu().numpy()
+    result.update(cuts=int(ck.shape[0]), cut_oracles=hits,
+                  sweep_ms=sweep_ms, sweep_steps_total=int(steps.sum()),
+                  sweep_steps_max=int(steps.max()),
+                  sweep_steps_per_s=float(steps.sum()) / (sweep_ms * 1e-3))
+
+    # --- fairness under fair_quotas, card against CPU ------------------------
+    fg, fout, fair_ms = fairness_run(device)
+    _, fout_cpu, _ = fairness_run("cpu")
+    require_states(fout, fout_cpu, "fairness card vs cpu")
+    finish = [float(fout.last_comp_time[0, lo:hi].max())
+              for lo, hi in fg.writer_slices]
+    ratio = max(finish) / min(finish)
+    if ratio > 2.0:
+        raise AssertionError(f"fairness ratio {ratio} > 2: {finish}")
+    lane_st = [int(fout.mem[0, r]) for _, r in fg.lanes]
+    if not np.isin(lane_st, SET_TERMINAL).all():
+        raise AssertionError(f"fairness statuses {lane_st}")
+    fsteps = int(fout.steps[0])
+    result.update(fairness_ratio=ratio, finish_us=finish,
+                  fair_ms=fair_ms, fair_steps=fsteps,
+                  fair_steps_per_s=fsteps / (fair_ms * 1e-3),
+                  fair_ms_per_step=fair_ms / fsteps)
+
+    # --- the isolation arm: a greedy client among four -----------------------
+    qs = np.stack([rng.choice(loaded, n_gets) for _ in range(s_)])
+    qs[:, ::8] = fresh + np.arange(qs[:, ::8].size).reshape(s_, -1)  # misses
+    qs = qs.astype(np.int32)
+    clients = np.where(np.arange(n_gets) % 2 == 0, 0,
+                       1 + np.arange(n_gets) % 3)
+    clients = np.broadcast_to(clients, qs.shape).astype(np.int32)
+    buckets = {d: isolation.init(4, burst, device=d)
+               for d in (device, "cpu")}
+    rf, rv = store.reference_get(kv, qs)
+    deferred, admitted = [], []
+    for call, now in enumerate((0.0, 100.0)):
+        adm = {d: store.Admission(dev(clients) if d == device
+                                  else torch.from_numpy(clients), buckets[d],
+                                  now, rate, burst)
+               for d in (device, "cpu")}
+        res, buckets[device] = store.sharded_get(
+            dk, dv, dev(qs), isolation=adm[device], device=device)
+        res_c, buckets["cpu"] = store.sharded_get(
+            dk.cpu(), dv.cpu(), torch.from_numpy(qs), method="two_sided",
+            isolation=adm["cpu"], device="cpu")
+        for f in ("found", "values", "ok", "dropped", "deferred"):
+            require_equal(getattr(res, f), getattr(res_c, f),
+                          f"isolated get {call} {f}")
+        for f, a, b in zip(("tokens", "last_us"), buckets[device],
+                           buckets["cpu"]):
+            require_equal(a.cpu().view(torch.int32), b.view(torch.int32),
+                          f"bucket {call} {f}")
+        ok = res.ok.cpu().numpy().reshape(-1)
+        require_equal(res.found.reshape(-1).cpu().numpy()[ok], rf[ok],
+                      f"isolated get {call} hits")
+        require_equal(res.values.reshape(-1, v).cpu().numpy()[ok], rv[ok],
+                      f"isolated get {call} values")
+        greedy = clients.reshape(-1) == 0
+        if ok[greedy].all() or (call == 0 and not ok[~greedy].all()):
+            raise AssertionError(f"isolated get {call}: the greedy client "
+                                 f"is not the one deferred: {res}")
+        deferred.append(int(res.deferred.sum()))
+        admitted.append(int(ok.sum()))
+    result.update(isolation_deferred=deferred, isolation_admitted=admitted,
+                  isolation_tokens=buckets[device].tokens.tolist())
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the crash-resilient services (§5.6)
+# ---------------------------------------------------------------------------
+
+def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
+                     recycled_words=32768, n_stream=256, per_owner=8,
+                     small_buckets=8, seed=13):
+    """The §5.6 services with the host driver crashed.
+
+    ``DeviceResidentService``: crash, stream ``n_stream`` Zipf gets
+    through ``get_many`` (the recycled chain), restart; every value
+    right.  ``ShardedKVService`` over the ``kv_get`` store's tensors:
+    crash; ``get_many``, a (S, ``per_owner``) ``set_many`` with
+    ``n_writers=2`` and a ``delete_many``, each against the host oracles;
+    restart; ``set_reliable`` under a kill plan recovers and
+    ``fsck_and_repair`` comes back clean.  Then a 1-shard,
+    ``small_buckets``-bucket service grows under ``set_many`` (auto-resize)
+    with every key served through the growth, and the chained second
+    growth of ``tests/test_faults.py`` (a full doubled frame) with the
+    driver dead."""
+    rng = np.random.RandomState(seed)
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+    result = dict(ms={})
+    set_one = [9, 8, 7, 6][:v]
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    def timed(name, fn):
+        value, ms = timed_call(device, fn)
+        result["ms"][name] = ms
+        return value
+
+    # --- the recycled get server through a crash -------------------------
+    items = [(k, [k * 7, k * 11]) for k in range(1, recycled_buckets + 1)]
+    drs = failure.DeviceResidentService.start(
+        items, n_buckets=recycled_buckets, val_len=2,
+        mem_words=recycled_words, device=device)
+    drs.crash_host()
+    _, keys = next(kv_request_stream(recycled_buckets, n_stream, seed=3))
+    got = timed("resident_stream", lambda: drs.get_many(keys))
+    require_equal(got, np.stack([[int(k) * 7, int(k) * 11] for k in keys]),
+                  "resident stream values")
+    if drs.host_alive():
+        raise AssertionError("the driver came back by itself")
+    drs.restart_host()
+    result.update(resident_gets=int(len(keys)),
+                  resident_gets_per_s=len(keys) / (
+                      result["ms"]["resident_stream"] * 1e-3))
+
+    # --- the sharded service over the kv_get store ---------------------------
+    svc = failure.ShardedKVService(kv=kv, axis="kv", keys=dk.clone(),
+                                   vals=dv.clone(),
+                                   driver=failure.HostDriver(), n_writers=2)
+    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in kv.tables]
+    host = store.ShardedKV(tables, s_, v, h)
+    svc.crash_host()
+    q = kv_batches(s_, int(sum((t.keys != 0).sum() for t in tables)), 64,
+                   1)[0]
+    g = timed("service_get", lambda: svc.get_many(dev(q)))
+    rf, rv = store.reference_get(host, q)
+    require_equal(g.found.reshape(-1), rf, "service get found")
+    require_equal(g.values.reshape(-1, v), rv, "service get values")
+    loaded = np.concatenate([t.keys[t.keys != 0] for t in tables])
+    spaced, fresh = spaced_keys(host, rng, per_owner, int(loaded.max()) + 1)
+    sk = rng.permutation(np.concatenate(list(spaced.values()))).reshape(
+        s_, per_owner).astype(np.int32)
+    sv = new_values(sk + 5, v)
+    live = np.ones(sk.shape, bool)
+    want = window_oracle(tables, sk, live, hopscotch.insert_many_displaced,
+                         sv)
+    res = timed("service_set", lambda: svc.set_many(dev(sk), dev(sv)))
+    require_mutation("service set", res, want, sk, live, SET_TERMINAL)
+    require_tables("service set", tables, svc.keys, svc.vals)
+    dkeys = np.concatenate([sk[:, :per_owner // 2],
+                            np.stack([rng.choice(loaded, 2)
+                                      for _ in range(s_)]),
+                            fresh + np.arange(2 * s_).reshape(s_, 2)],
+                           axis=1).astype(np.int32)
+    d_live = np.ones(dkeys.shape, bool)
+    want = window_oracle(tables, dkeys, d_live, hopscotch.delete_many)
+    dres = timed("service_delete", lambda: svc.delete_many(dev(dkeys)))
+    require_mutation("service delete", dres, want, dkeys, d_live,
+                     (hopscotch.DEL_DELETED,))
+    require_tables("service delete", tables, svc.keys, svc.vals)
+    if svc.host_alive():
+        raise AssertionError("the driver came back by itself")
+    svc.restart_host()
+
+    # --- set_reliable under a kill plan --------------------------------------
+    key = fresh + 100
+    owner = int(store.shard_of(key, s_))
+    svc.n_writers = 1          # a fault plan addresses one writer chain
+    (status, attempts) = timed("set_reliable", lambda: svc.set_reliable(
+        key, set_one, faults=faults.FaultPlan.kill_at(10, device=device)))
+    if status not in SET_TERMINAL or attempts < 2:
+        raise AssertionError(f"set_reliable: status {status} after "
+                             f"{attempts} attempts")
+    rep = timed("fsck_and_repair", svc.fsck_and_repair)
+    if not rep.clean:
+        raise AssertionError(f"fsck after set_reliable: {rep}")
+    g = svc.get_many(dev(np.asarray([[key]] + [[0]] * (s_ - 1), np.int32)))
+    if not bool(g.found[0, 0]) or g.values[0, 0].tolist() != set_one:
+        raise AssertionError(f"set_reliable key reads back {g}")
+    if tables[owner].set_full(key, set_one) not in SET_TERMINAL:
+        raise AssertionError("the host oracle could not place the key")
+    require_tables("after set_reliable", tables, svc.keys, svc.vals)
+    result.update(service_set_statuses={
+        hopscotch.status_name(c): int((res.status.cpu().numpy() == c).sum())
+        for c in np.unique(res.status.cpu().numpy())},
+        deleted=int(dres.applied.sum()), reliable_attempts=attempts,
+        repairs=svc.repairs_applied)
+
+    # --- a small service grows under its own traffic -------------------------
+    small = failure.ShardedKVService.start(
+        [(1, [1] * v)], n_shards=1, buckets_per_shard=small_buckets,
+        val_words=v, device=device)
+    small.crash_host()
+    small.resize_quantum = 4
+    stored = {1: [1] * v}
+    t0 = time.perf_counter()
+    for step in range(3):
+        ks = rng.randint(2, 1 << 20, (1, 6)).astype(np.int32)
+        vs = new_values(ks, v)
+        r = small.set_many(dev(ks), dev(vs))
+        for k, val, a in zip(ks[0], vs[0], r.applied[0].cpu().numpy()):
+            if a:
+                stored[int(k)] = val.tolist()
+        gq = np.asarray([list(stored)], np.int32)
+        gg = small.get_many(dev(gq))
+        if not bool(gg.found.all()):
+            raise AssertionError(f"growth step {step}: a key went missing")
+        require_equal(gg.values[0], np.asarray(list(stored.values())),
+                      f"growth step {step} values")
+    small.drive_resize()
+    if small.resizes_completed < 1:
+        raise AssertionError("the small service never grew")
+    result["growth_s"] = time.perf_counter() - t0
+    result.update(small_resizes=small.resizes_completed,
+                  small_buckets_after=int(small.keys.shape[1]))
+
+    # --- the chained second growth (a full doubled frame) --------------------
+    k0 = store.keys_homed_at(0, 1, small_buckets)[0]
+    chain = failure.ShardedKVService.start(
+        [(k0, [5] * v)], n_shards=1, buckets_per_shard=small_buckets,
+        val_words=v, device=device)
+    nk = np.zeros((1, 2 * small_buckets), np.int32)
+    nv = np.zeros((1, 2 * small_buckets, v), np.int32)
+    for b in range(2 * small_buckets):
+        nk[0, b] = store.keys_homed_at(b, 1, 2 * small_buckets,
+                                       start=0x1000)[0]
+        nv[0, b] = b + 1
+    chain.resize = store.ResizeState(
+        chain.keys, chain.vals, dev(nk), dev(nv),
+        torch.zeros(1, dtype=torch.int32, device=device))
+    chain.crash_host()
+    t0 = time.perf_counter()
+    chain._advance_resize()
+    result["chained_growth_s"] = time.perf_counter() - t0
+    if chain.resize is not None or chain.chained_growths != 1:
+        raise AssertionError("the dead end did not chain a second growth")
+    all_keys = np.asarray([[k0] + nk[0].tolist()], np.int32)
+    gg = chain.get_many(dev(all_keys))
+    if not bool(gg.found.all()):
+        raise AssertionError("a key went missing in the chained growth")
+    result["chained_buckets_after"] = int(chain.keys.shape[1])
     return result
 
 
@@ -2343,9 +2854,9 @@ KERNELS = (
 # the phases in the order main() runs them
 PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "hopscotch_probe", "kv_write", "kv_faults", "kv_resize",
-          "lm_prefill", "lm_serve", "lm_float32", "flash_kernel",
-          "decode_kernel", "lm_rwkv", "lm_griffin", "wkv6_kernel",
-          "rglru_kernel")
+          "kv_contend", "kv_service", "lm_prefill", "lm_serve",
+          "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
+          "lm_griffin", "wkv6_kernel", "rglru_kernel")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention layer)
 FLASH_DRIVE_LAUNCHES = {"lm_prefill": ("wgmma", 28),
@@ -2414,6 +2925,28 @@ def main() -> int:
           f"{f['repairs']} violations {f['repair_ms']:.2f} ms", flush=True)
     run_phase(phases, "kv_resize", lambda: phase_kv_resize(device, kv, dk,
                                                            dv))
+    run_phase(phases, "kv_contend", lambda: phase_kv_contend(device, kv, dk,
+                                                             dv))
+    c_ = phases["kv_contend"]
+    print(f"[times] kv_contend ({card}): SETs/s "
+          + ", ".join(f"{k} {x:.1f} ({c_['set_ms'][k]:.1f} ms)"
+                      for k, x in c_["sets_per_s"].items())
+          + f"; cut sweep of {c_['cuts']} cuts in one batch "
+          f"{c_['sweep_ms']:.1f} ms ({c_['sweep_steps_max']} lockstep "
+          f"steps, {c_['sweep_steps_total']} machine steps, "
+          f"{c_['sweep_steps_per_s']:.1f} steps/s); fairness run "
+          f"{c_['fair_steps']} steps in {c_['fair_ms']:.1f} ms "
+          f"({c_['fair_ms_per_step']:.3f} ms a scheduled step, "
+          f"{c_['fair_steps_per_s']:.1f} steps/s), best/worst "
+          f"{c_['fairness_ratio']:.4f}; isolation deferred "
+          f"{c_['isolation_deferred']}", flush=True)
+    run_phase(phases, "kv_service", lambda: phase_kv_service(device, kv, dk,
+                                                             dv))
+    print(f"[times] kv_service ({card}): " + ", ".join(
+        f"{k} {x:.1f} ms" for k, x in phases["kv_service"]["ms"].items())
+        + f"; growth {phases['kv_service']['growth_s']:.1f} s, chained "
+        f"growth {phases['kv_service']['chained_growth_s']:.1f} s",
+        flush=True)
     del kv, dk, dv
     torch.cuda.empty_cache()
 

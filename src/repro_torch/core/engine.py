@@ -7,6 +7,8 @@
 * :meth:`ChainEngine.serve_stream` — requests chained through *persistent*
   state (the §3.4 recycled-WQ server): the same responses and on-chain lap
   counters as N sequential ``serve()`` calls.
+* :meth:`ChainEngine.run_interleaved` — many writers' chains over one
+  shared image under a :class:`machine.Schedule` (interpreter only).
 * ``backend="kernel"`` — single-WQ programs (the recycled get server's lap
   loop, straight-line chains) run as a batch of client contexts through
   the managed chain kernel in :mod:`repro_torch.kernels.chain_vm`, with
@@ -124,6 +126,32 @@ class ChainEngine:
         if self.backend in _INTERP_BACKENDS:
             return machine.run_batch(self.spec, states, max_steps, faults)
         return self._run_batch_kernel(states, max_steps, faults)
+
+    def run_interleaved(self, state: machine.VMState,
+                        schedule: machine.Schedule, writer_slices,
+                        max_steps: int = 4096) -> machine.VMState:
+        """Run many writers' chains over ONE shared memory image under a
+        deterministic :class:`machine.Schedule` (see
+        :func:`machine.run_scheduled`; ``state`` may be a batch).
+
+        The serialized schedule is the bit-exact oracle for the
+        *committed* state under any schedule, for programs whose only
+        cross-writer touch points are CAS claims on shared cells: a CAS
+        is one atomic VM step, so each contended cell is won by exactly
+        one writer, and every loser observes ``old != expect`` and
+        re-probes — what it would have observed running after the winner
+        in some serialized order.
+
+        Interpreter-only: the chain kernel runs a grid of *independent*
+        single-WQ contexts and cannot share a memory image.
+        """
+        if self.backend not in _INTERP_BACKENDS:
+            raise ValueError(
+                "run_interleaved shares one memory image across writers; "
+                "the chain kernel's grid runs independent contexts — use "
+                "the interp backend")
+        return machine.run_scheduled(self.spec, state, schedule,
+                                     tuple(writer_slices), max_steps)
 
     # -- batched request paths ----------------------------------------------
     def deliver_many(self, state: machine.VMState, wq: int,

@@ -32,7 +32,7 @@ is dropped, and a 16-word block's start is wrapped and clamped into
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -473,24 +473,29 @@ def _fault_masks(f: _Faults, s: VMState, rows, opcode):
     return opcode, (suppress, spur, zero)
 
 
-def run_batch_in_place(spec: MachineSpec, s: VMState,
-                       max_steps: int = 4096, faults=None) -> VMState:
-    """:func:`run_batch` on the caller's tensors: every row of ``s`` runs
-    to its own stop and ``s`` itself is updated (and returned).
+def _run_rows(geo: _Geometry, s: VMState, rows: torch.Tensor,
+              max_steps: int, f: Optional[_Faults] = None,
+              mask: Optional[torch.Tensor] = None,
+              quota: Optional[torch.Tensor] = None) -> None:
+    """Step the machines ``rows`` of ``s`` in place until none can run.
 
-    ``faults`` (a :class:`repro_torch.core.faults.FaultPlan`, one row per
-    machine) arms each row's faults: ``kill_step`` stops the row before
-    its cumulative ``steps`` counter reaches it, the others apply inside
-    the step (see :func:`_fault_masks`).  A fully disarmed plan is
-    bit-identical to no plan."""
-    geo = _geometry(spec, s.mem.device)
-    rows = torch.arange(s.mem.shape[0], device=s.mem.device)
-    f = (None if faults is None
-         else _fault_columns(faults, rows.numel(), s.mem.device))
+    A row runs while it has an eligible WQ, is not halted and its
+    ``steps`` odometer is below ``max_steps``; a row whose condition is
+    false is frozen.  ``f`` arms the rows' faults (see
+    :func:`run_batch_in_place`).  ``mask`` (bool[N]) restricts
+    eligibility, and so the scheduler, to one writer's WQs; ``quota``
+    (int32 per absolute row, negative = unlimited) caps the steps each
+    row takes in this call."""
+    k = None if quota is None else torch.zeros_like(quota)
     while rows.numel():
         eligible, addrs = _eligibility(geo, s, rows)
+        if mask is not None:
+            eligible = eligible & mask
         go = (eligible.any(1) & ~s.halted[rows]
               & (s.steps[rows] < max_steps))
+        if quota is not None:
+            q = quota[rows]
+            go = go & ((q < 0) | (k[rows] < q))
         w, fields, opcode = _schedule(s, rows, eligible, addrs)
         masks = None
         if f is not None:
@@ -515,6 +520,25 @@ def run_batch_in_place(spec: MachineSpec, s: VMState,
         if f is not None:
             f.cas_seen[rows] += (opcode == isa.CAS).int()
             f.enable_seen[rows] += (opcode == isa.ENABLE).int()
+        if k is not None:
+            k[rows] += 1
+
+
+def run_batch_in_place(spec: MachineSpec, s: VMState,
+                       max_steps: int = 4096, faults=None) -> VMState:
+    """:func:`run_batch` on the caller's tensors: every row of ``s`` runs
+    to its own stop and ``s`` itself is updated (and returned).
+
+    ``faults`` (a :class:`repro_torch.core.faults.FaultPlan`, one row per
+    machine) arms each row's faults: ``kill_step`` stops the row before
+    its cumulative ``steps`` counter reaches it, the others apply inside
+    the step (see :func:`_fault_masks`).  A fully disarmed plan is
+    bit-identical to no plan."""
+    geo = _geometry(spec, s.mem.device)
+    rows = torch.arange(s.mem.shape[0], device=s.mem.device)
+    f = (None if faults is None
+         else _fault_columns(faults, rows.numel(), s.mem.device))
+    _run_rows(geo, s, rows, max_steps, f)
     return s
 
 
@@ -570,3 +594,162 @@ def run_batch(spec: MachineSpec, states: VMState,
 def total_time_us(state: VMState) -> torch.Tensor:
     """End-to-end chain latency: the latest PU clock."""
     return torch.max(state.clock)
+
+
+# -- multi-writer scheduling --------------------------------------------------
+#
+# Many independent chains share ONE memory image; a Schedule decides, round
+# by round, how many VM steps each writer's WQ group may take.  A Schedule
+# is a NamedTuple of int32 quota rows, and the sentinel ``-1`` means
+# "unlimited" the same way FaultPlan's ``NONE = -1`` means "disarmed".
+
+SCHED_DRAIN = -1  # quota sentinel: run this writer to quiescence this round
+
+
+def _plan_device(device, *tensors):
+    """The device of a plan built from ``tensors``: ``device`` if given,
+    else the first tensor's, else :func:`repro_torch.device.resolve`."""
+    if device is None:
+        for t in tensors:
+            if isinstance(t, torch.Tensor):
+                return t.device
+    return device_mod.resolve(device)
+
+
+class Schedule(NamedTuple):
+    """Deterministic multi-writer interleaving plan.
+
+    ``quota`` is int32 of shape ``(n_rounds, n_writers)``, or ``(B,
+    n_rounds, n_writers)`` for one plan per machine of a batch.  Round
+    ``r`` advances writers in index order ``0..n-1``; writer ``w``
+    executes at most ``quota[r, w]`` VM steps (``SCHED_DRAIN`` = -1: run
+    to quiescence, 0: skip).  A step is one executed WR picked
+    min-clock-first among the writer's *own* eligible WQs (lowest WQ
+    index on a tie) — the scheduler of :func:`run`, masked to the
+    writer's WQ slice.
+    """
+    quota: torch.Tensor
+
+    # -- constructors (FaultPlan's classmethod style) -----------------------
+    @classmethod
+    def serialized(cls, n_writers: int, order: Sequence[int] | None = None,
+                   device=None) -> "Schedule":
+        """One writer per round, each run to quiescence — the serialized
+        oracle order (default 0..n-1)."""
+        order = tuple(range(n_writers)) if order is None else tuple(order)
+        q = np.zeros((len(order), n_writers), np.int32)
+        for r, w in enumerate(order):
+            q[r, w] = SCHED_DRAIN
+        return cls(torch.from_numpy(q).to(device_mod.resolve(device)))
+
+    @classmethod
+    def round_robin(cls, n_writers: int, quantum: int, n_rounds: int,
+                    device=None) -> "Schedule":
+        """``n_rounds`` rounds of ``quantum`` steps each, then a drain round
+        so outstanding work always completes."""
+        q = np.full((n_rounds + 1, n_writers), int(quantum), np.int32)
+        q[n_rounds] = SCHED_DRAIN
+        return cls(torch.from_numpy(q).to(device_mod.resolve(device)))
+
+    @classmethod
+    def cut(cls, c, n_writers: int = 2, device=None) -> "Schedule":
+        """Cut-point schedule (the interleaving analogue of
+        ``FaultPlan.kill_at``): writer 0 runs exactly ``c`` steps, writer 1
+        drains against the half-done state, then everyone drains.  ``c``
+        may be a tensor of cuts: its shape leads the quota's, one plan
+        per cut, so a whole sweep runs as one batch of machines."""
+        dev = _plan_device(device, c)
+        c = torch.as_tensor(c, device=dev).to(torch.int32)
+        q = torch.zeros(c.shape + (4, n_writers), dtype=torch.int32,
+                        device=dev)
+        q[..., 0, 0] = c
+        q[..., 1, 1] = SCHED_DRAIN
+        q[..., 2:, :] = SCHED_DRAIN
+        return cls(q)
+
+    # -- row plumbing (FaultPlan.as_rows/from_row idiom) --------------------
+    def as_rows(self) -> torch.Tensor:
+        return torch.as_tensor(self.quota).to(torch.int32)
+
+    @classmethod
+    def from_rows(cls, rows, device=None) -> "Schedule":
+        rows = (rows if isinstance(rows, torch.Tensor)
+                else torch.from_numpy(np.array(rows, np.int32)))
+        return cls(rows.to(device=_plan_device(device, rows),
+                           dtype=torch.int32))
+
+    @property
+    def n_rounds(self) -> int:
+        return self.quota.shape[-2]
+
+    @property
+    def n_writers(self) -> int:
+        return self.quota.shape[-1]
+
+
+def _writer_masks(spec: MachineSpec, writer_slices, dev) -> list:
+    masks = []
+    for lo, hi in writer_slices:
+        m = torch.zeros(spec.num_wqs, dtype=torch.bool, device=dev)
+        m[lo:hi] = True
+        masks.append(m)
+    return masks
+
+
+def run_scheduled_in_place(spec: MachineSpec, s: VMState,
+                           schedule: Schedule, writer_slices,
+                           max_steps: int = 4096) -> VMState:
+    """:func:`run_scheduled` on a batch of machines, updating ``s`` (and
+    returning it).  The quota is ``(n_rounds, n_writers)`` for every row,
+    or ``(B, n_rounds, n_writers)``: row ``b`` of the batch follows its
+    own plan, so the S shards of a lap, or every cut of a cut sweep, run
+    as one batch.  Rounds and writers advance in lockstep across the
+    batch; within a (round, writer) each row steps until its own quota,
+    quiescence, HALT or fuel stops it."""
+    dev = s.mem.device
+    b = s.mem.shape[0]
+    geo = _geometry(spec, dev)
+    masks = _writer_masks(spec, writer_slices, dev)
+    quota = schedule.as_rows().to(dev)
+    if quota.ndim == 2:
+        quota = quota.expand((b,) + tuple(quota.shape))
+    if tuple(quota.shape[:1]) != (b,) or quota.shape[-1] != len(masks):
+        raise ValueError(
+            f"schedule of shape {tuple(schedule.quota.shape)} does not fit "
+            f"{b} machines of {len(masks)} writers")
+    on_host = quota.cpu().numpy()
+    rows = torch.arange(b, device=dev)
+    for r in range(quota.shape[1]):
+        for w, mask in enumerate(masks):
+            q = on_host[:, r, w]
+            if not q.any():
+                continue                 # nobody may step: skip the sync
+            live = torch.from_numpy(np.flatnonzero(q)).to(dev)
+            _run_rows(geo, s, rows[live] if live.numel() < b else rows,
+                      max_steps, mask=mask,
+                      quota=quota[:, r, w].contiguous())
+    return s
+
+
+def run_scheduled(spec: MachineSpec, state: VMState, schedule: Schedule,
+                  writer_slices, max_steps: int = 4096) -> VMState:
+    """Run many writers' chains over ONE shared memory image under a
+    deterministic :class:`Schedule`.
+
+    ``writer_slices`` is a tuple of ``(lo, hi)`` WQ index ranges, one per
+    writer; writer ``w`` owns WQs ``lo..hi-1``.  Slices must be disjoint
+    (shared *memory* is the point; shared *WQs* are not).  Any WQ outside
+    every slice (e.g. the null guard WQ) never advances.  ``max_steps``
+    bounds the global step count (``steps``) across all rounds.  Fault
+    injection is not supported here (interleaving sweeps and fault sweeps
+    compose at the harness level, not in one run).
+
+    ``state`` is one machine or a batch (a leading dim on every field);
+    see :func:`run_scheduled_in_place` for a batch with one plan a row.
+    Returns a new state."""
+    if state.mem.ndim == 1:
+        return _unbatched(run_scheduled_in_place(
+            spec, _clone(_batched(state)), schedule, writer_slices,
+            max_steps))
+    return run_scheduled_in_place(spec, _clone(state), schedule,
+                                  writer_slices, max_steps)

@@ -14,6 +14,9 @@
   (and its TTL variant, whose deadline compare is a Calc-verb chain).
 * :class:`HopscotchShardWriter` / :class:`HopscotchShardDisplacer` —
   §3.5's CAS-claiming *set* and the bounded hopscotch displacement bubble.
+* :class:`MultiWriterGroup` — §3.5's racing writers: N SET (or DELETE,
+  or CLOCK sweep) lanes over one shared table under a
+  :class:`machine.Schedule`; :class:`CasRetryPair`, the minimal race.
 * :class:`HopscotchShardMigrator` — one lap of online table growth: a
   source bucket re-homed into the doubled frame.
 * :class:`HopscotchShardDeleter` / :class:`ClockSweeper` — the rest of the
@@ -1012,6 +1015,371 @@ def _build_hopscotch_writer(n_buckets: int, val_len: int, neighborhood: int,
         prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
         val_len=val_len, neighborhood=neighborhood, table_base=table,
         values_base=values, resp_region=resp, recv_wq=rq.index)
+
+
+# ---------------------------------------------------------------------------
+# §3.5 multi-writer: N independent SET lanes racing over ONE shared table
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MultiWriterGroup:
+    """N independent hopscotch writer lanes sharing ONE memory image.
+
+    Each *lane* is a full writer pipeline — private recv WQ, match phase,
+    claim phase, response and staging regions — but the table and value
+    rows are allocated once and shared, so the lanes' pre-posted
+    :func:`repro_torch.core.constructs.emit_cas_claim` CASes genuinely
+    race: the claim ``EMPTY -> key`` on the shared bucket word is the
+    arbitration point (§3.5's concurrent writers).  Interleaving is set by
+    a :class:`machine.Schedule` over ``writer_slices`` (each lane's
+    contiguous WQ index range).  A lane may also be a DELETE or a CLOCK
+    SWEEP lane (``lane_kinds``), so the whole Memcached write mix races
+    under one schedule.
+
+    **Linearizability.** A claim CAS is one atomic VM step, so each bucket
+    is won by exactly one lane at one step; a loser observes ``old !=
+    expect``, leaves the cell untouched and re-probes the next bucket —
+    the path it would take running strictly after the winner.  Lanes share
+    nothing else, so for distinct keys the committed state under any
+    schedule equals the serialized order in which the contended claims
+    won.  (Two lanes inserting the *same* key can both claim distinct
+    EMPTY buckets — a duplicate no serial order produces; the store's
+    sharded path never issues that, and fsck flags ``dup-key``.)
+    """
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_buckets: int
+    val_len: int
+    neighborhood: int
+    n_writers: int
+    table_base: int
+    values_base: int
+    lanes: tuple               # per writer: (recv_wq, resp_region)
+    writer_slices: tuple       # per writer: (lo, hi) WQ index range
+    lane_kinds: tuple          # per writer: "set" | "delete" | "sweep"
+
+    resp_words = 2             # [status, bucket addr] per lane
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    @property
+    def fuel(self) -> int:
+        """Safe global step budget: nothing is recycled, so the total
+        posted count bounds any schedule's run."""
+        return _fuel(self.state0)
+
+    @property
+    def writer_fuel(self) -> int:
+        """Steps after which any single lane has certainly quiesced — the
+        cut-point sweep's upper bound (per-lane posted count max)."""
+        tails = self.state0.tail.cpu().numpy()
+        return int(max(tails[lo:hi].sum()
+                       for lo, hi in self.writer_slices)) + 1
+
+    def device_state(self, keys: torch.Tensor, vals: torch.Tensor,
+                     exp: Optional[torch.Tensor] = None) -> machine.VMState:
+        """Image with the shared table scattered in: keys (..., n), vals
+        (..., n, V); leading dims stack one machine per table.  ``exp``
+        (only with a ``"sweep"`` lane): per-bucket TTL deadlines into the
+        pad words."""
+        return _scatter_rows(self.state0, keys, vals,
+                             table_base=self.table_base,
+                             values_base=self.values_base, pad=exp)
+
+    def device_payloads(self, queries: torch.Tensor, home: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+        """``[key, value x V, probe addrs x H]`` — one row per request;
+        row ``w`` of an ``(n_writers, ...)`` lap feeds lane ``w``."""
+        addrs = _probe_addrs(home, self.neighborhood, self.n_buckets,
+                             self.table_base)
+        return torch.cat([queries[:, None].to(torch.int32),
+                          values.to(torch.int32).reshape(-1, self.val_len),
+                          addrs], dim=1)
+
+    def device_delete_payloads(self, queries: torch.Tensor,
+                               home: torch.Tensor) -> torch.Tensor:
+        """``[key, probe addrs x H]`` for a DELETE lane — narrower than a
+        SET row; the caller zero-pads rows to a common width (a lane's
+        RECV scatters exactly its own table, so pad words are never
+        read)."""
+        addrs = _probe_addrs(home, self.neighborhood, self.n_buckets,
+                             self.table_base)
+        return torch.cat([queries[:, None].to(torch.int32), addrs], dim=1)
+
+    def device_sweep_payloads(self, buckets: torch.Tensor,
+                              now) -> torch.Tensor:
+        """``[bucket_addr, deadline_addr, -now]`` for a SWEEP lane (the
+        :meth:`ClockSweeper.device_payloads` row); the caller zero-pads
+        rows to the group's common width."""
+        addr = self.table_base + buckets.to(torch.int32) * BUCKET_WORDS
+        negnow = torch.full_like(addr, -int(now))
+        return torch.stack([addr, addr + 1, negnow], dim=1)
+
+    def delivered_state(self, keys: torch.Tensor, vals: torch.Tensor,
+                        payloads: torch.Tensor,
+                        exp: Optional[torch.Tensor] = None
+                        ) -> machine.VMState:
+        """The batch of machines :meth:`run_group` runs, before it runs:
+        keys (G, n), vals (G, n, V) and ``exp`` scattered in, payload row
+        ``payloads[g, w]`` (G, n_writers, W) delivered to lane ``w`` of
+        machine ``g``.  A fresh allocation the caller may run in place."""
+        st = machine.VMState(*(a.clone() for a in self.device_state(
+            keys, vals, exp)))
+        dev = st.mem.device
+        pays = machine.pad_payload_rows(payloads.to(device=dev,
+                                                    dtype=torch.int32))
+        g = torch.arange(st.mem.shape[0], device=dev)
+        cap = st.msg_buf.shape[-2]
+        for w, (recv_wq, _) in enumerate(self.lanes):
+            slot = torch.remainder(st.msg_tail[:, recv_wq], cap).long()
+            st.msg_buf[g, recv_wq, slot] = pays[:, w]
+            st.msg_tail[:, recv_wq] += 1
+        return st
+
+    def run_group(self, keys: torch.Tensor, vals: torch.Tensor,
+                  payloads: torch.Tensor, schedule: machine.Schedule,
+                  max_steps: int = 4096,
+                  exp: Optional[torch.Tensor] = None):
+        """One concurrent group round: deliver payload row ``w`` to lane
+        ``w``, run all lanes over the shared image under ``schedule``,
+        read the table and value regions straight back (every executed
+        WR's write is already in the image).
+
+        keys (n,) or (G, n), vals (..., n, V), payloads (..., n_writers,
+        W); a leading G runs G independent groups, each against its own
+        table, as one batch (the schedule's quota is then ``(R, W)`` for
+        all or ``(G, R, W)``).  Returns ``(status (..., n_writers),
+        new_keys, new_vals)``.  A zero-padded lane (key 0) probes the
+        null guard region and reports status 0; it never touches the
+        table.
+
+        With ``exp`` (a group that has a ``"sweep"`` lane) the deadline
+        column rides the image too and the return gains ``new_exp``;
+        buckets that came back EMPTY are normalized to :data:`NO_TTL`.
+        """
+        single = keys.ndim == 1
+        if single:
+            keys, vals, payloads = keys[None], vals[None], payloads[None]
+            exp = None if exp is None else exp[None]
+        st = self.delivered_state(keys, vals, payloads, exp)
+        dev = st.mem.device
+        out = machine.run_scheduled_in_place(self.spec, st, schedule,
+                                             self.writer_slices, max_steps)
+        pays = payloads.to(device=dev, dtype=torch.int32)
+        rows = torch.arange(self.n_buckets, dtype=torch.int64, device=dev)
+        keys_out, vals_out = _image_rows(out.mem, self.table_base,
+                                         self.values_base, rows,
+                                         self.val_len)
+        resp = torch.tensor([r for _, r in self.lanes], device=dev)
+        status = torch.where(pays[..., 0] == EMPTY_KEY, 0, out.mem[:, resp])
+        result = (status, keys_out.to(keys.dtype), vals_out.to(vals.dtype))
+        if exp is not None:
+            exp_out = out.mem[:, self.table_base + rows * BUCKET_WORDS + 1]
+            exp_out = torch.where(keys_out == EMPTY_KEY, NO_TTL, exp_out)
+            result += (exp_out.to(exp.dtype),)
+        return tuple(a[0] for a in result) if single else result
+
+
+def build_multi_writer_group(n_buckets: int, val_len: int,
+                             neighborhood: int = 8, n_writers: int = 2,
+                             lane_kinds: Optional[tuple] = None,
+                             device=None) -> MultiWriterGroup:
+    """Build (and cache per geometry and device) the N-writer
+    shared-table group.
+
+    Structurally ``n_writers`` copies of :func:`build_hopscotch_writer`'s
+    lane emitted into one :class:`Program` against one table/values
+    allocation; each lane's WQs form a contiguous index slice for
+    :func:`machine.run_scheduled` masking.  ``lane_kinds`` (default: all
+    ``"set"``) assigns each lane a verb — ``"set"``, ``"delete"`` (payload
+    rows: :meth:`MultiWriterGroup.device_delete_payloads`) or ``"sweep"``
+    (the CLOCK eviction body; payload rows:
+    :meth:`MultiWriterGroup.device_sweep_payloads`, deadlines in the
+    table's pad words)."""
+    return _build_multi_writer_group(
+        n_buckets, val_len, neighborhood, n_writers,
+        None if lane_kinds is None else tuple(lane_kinds),
+        device_mod.resolve(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_multi_writer_group(n_buckets: int, val_len: int,
+                              neighborhood: int, n_writers: int,
+                              lane_kinds: Optional[tuple],
+                              dev: torch.device) -> MultiWriterGroup:
+    if n_writers < 1:
+        raise ValueError("n_writers must be >= 1")
+    if lane_kinds is None:
+        lane_kinds = ("set",) * n_writers
+    if len(lane_kinds) != n_writers:
+        raise ValueError(
+            f"lane_kinds has {len(lane_kinds)} entries for "
+            f"{n_writers} writers")
+    bad = sorted(set(lane_kinds) - {"set", "delete", "sweep"})
+    if bad:
+        raise ValueError(f"unknown lane kinds {bad!r} "
+                         "(expected 'set', 'delete', or 'sweep')")
+    if not 1 <= neighborhood:
+        raise ValueError("neighborhood must be >= 1")
+    if 1 + val_len + neighborhood > min(isa.MAX_SCATTER, isa.MSG_WORDS):
+        raise ValueError(
+            f"val_len {val_len} + neighborhood {neighborhood} exceeds the "
+            f"one-SEND request budget ({isa.MAX_SCATTER}-scatter RECV)")
+    h = neighborhood
+    n_del = lane_kinds.count("delete")
+    n_swp = lane_kinds.count("sweep")
+    n_set = n_writers - n_del - n_swp
+
+    # exact image sizing: guard + per-lane code; shared table/values +
+    # per-lane data.  A delete or sweep lane's ghost lap covers words
+    # [0..2] and a val_len zero-write, so the guard widens when one is
+    # present.
+    lane_code_set = (2 + h * (7 + 3 + 3) + 5 * h + 4 * h + 3 * h)
+    lane_code_del = 2 + h * (8 + 3 + 4 + 3)
+    lane_code_swp = 2 + sum(_SWEEP_WQS)
+    guard_slots = (1 if not (n_del or n_swp)
+                   else max(1, -(-val_len // isa.WR_WORDS)))
+    code_words = (guard_slots + n_set * lane_code_set
+                  + n_del * lane_code_del
+                  + n_swp * lane_code_swp) * isa.WR_WORDS
+    lane_data_set = (2 + 1 + val_len                 # resp, key_w, val_stage
+                     + h * 2 * (2 * isa.WR_WORDS + 2)  # templates + stages
+                     + 2 + val_len + h)              # scatter table
+    lane_data_del = (2 + 1                           # resp, key_w
+                     + h * (2 * isa.WR_WORDS + 2)    # templates + stages
+                     + 2 + h)                        # scatter table
+    lane_data_swp = 2 + 2 + 1 + 3                    # resp, cells, scatter
+    data_words = (n_buckets * val_len + n_buckets * BUCKET_WORDS
+                  + (val_len if (n_del or n_swp) else 0)  # shared zero row
+                  + (1 if n_swp else 0)              # shared NO_TTL word
+                  + n_set * lane_data_set
+                  + n_del * lane_data_del
+                  + n_swp * lane_data_swp)
+    mem_words = -(-(code_words + data_words + 32) // 128) * 128
+
+    p = Program(mem_words)
+    p.add_wq(guard_slots)       # WQ0: all-zero null bucket (padding guard)
+
+    # shared state: ONE value region, ONE table (pad words carry the TTL
+    # deadlines when a sweep lane is present — NO_TTL until scattered)
+    values = p.alloc(n_buckets * val_len, name="values")
+    tbl_init = [0] * (n_buckets * BUCKET_WORDS)
+    for b in range(n_buckets):
+        if n_swp:
+            tbl_init[b * BUCKET_WORDS + 1] = NO_TTL
+        tbl_init[b * BUCKET_WORDS + 2] = values + b * val_len
+    table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
+    zeros_v = (p.alloc(val_len, [0] * val_len, "zeros")
+               if (n_del or n_swp) else None)
+    no_ttl_w = p.word(NO_TTL, "no_ttl") if n_swp else None
+
+    lanes, slices = [], []
+    for w, kind in enumerate(lane_kinds):
+        if kind == "set":
+            resp = p.alloc(2, [SET_NEEDS_DISPLACEMENT, 0], f"resp{w}")
+            key_w = p.word(0, f"key{w}")
+            val_stage = p.alloc(val_len, [0] * val_len, f"val_stage{w}")
+
+            lo = len(p.wqs)
+            rq = p.add_wq(2)
+            rd1s, m_tmpls, m_mods = _emit_set_match_phase(
+                p, rq, h, key_w, val_stage, val_len, resp)
+            _emit_set_claim_phase(p, rd1s, m_tmpls, m_mods, h, key_w,
+                                  val_stage, val_len, resp)
+            tbl = p.scatter_table(
+                [key_w] + [val_stage + j for j in range(val_len)]
+                + [rd.addr("src") for rd in rd1s])
+            rq.recv(scatter_table=tbl, tag="wr.recv")
+        elif kind == "delete":
+            resp = p.alloc(2, [DEL_MISS, 0], f"resp{w}")
+            key_w = p.word(0, f"key{w}")
+
+            lo = len(p.wqs)
+            rq = p.add_wq(2)
+            rd1s = _emit_delete_probes(p, rq, h, val_len, key_w, resp,
+                                       zeros_v)
+            tbl = p.scatter_table(
+                [key_w] + [rd.addr("src") for rd in rd1s])
+            rq.recv(scatter_table=tbl, tag="dl.recv")
+        else:
+            resp = p.alloc(2, [SWEEP_LIVE, 0], f"resp{w}")
+            bucket_w = p.word(0, f"bucket{w}")
+            e_cell = p.word(0, f"e{w}")
+
+            lo = len(p.wqs)
+            rq = p.add_wq(2)
+            scatter = _emit_sweep_lane(p, rq, val_len, resp, bucket_w,
+                                       e_cell, no_ttl_w, zeros_v)
+            tbl = p.scatter_table(scatter)
+            rq.recv(scatter_table=tbl, tag="sw.recv")
+        lanes.append((rq.index, resp))
+        slices.append((lo, len(p.wqs)))
+
+    spec, st0 = p.finalize(device=dev)
+    return MultiWriterGroup(
+        prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
+        val_len=val_len, neighborhood=neighborhood, n_writers=n_writers,
+        table_base=table, values_base=values, lanes=tuple(lanes),
+        writer_slices=tuple(slices), lane_kinds=lane_kinds)
+
+
+# ---------------------------------------------------------------------------
+# bounded CAS-retry demo: two writers racing retry loops on one static cell
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CasRetryPair:
+    """Two chains running :func:`repro_torch.core.constructs.
+    emit_cas_retry_loop` against ONE statically named cell — the minimal
+    genuinely racing program.  The winner's stamped template writes ``w +
+    1`` to its mark word; a loser retries with exponential NOOP backoff
+    until its attempts exhaust, leaving its mark 0."""
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    cell: int
+    marks: tuple               # per writer: mark word address
+    writer_slices: tuple       # per writer: (lo, hi) WQ index range
+    attempts: int
+
+    @property
+    def fuel(self) -> int:
+        return _fuel(self.state0)
+
+
+def build_cas_retry_pair(attempts: int = 2, backoff_base: int = 1,
+                         device=None) -> CasRetryPair:
+    """Build the two-writer CAS-retry race on ``device`` (not memoized:
+    callers may mutate the posted image to engineer broken variants)."""
+    p = Program(1024)
+    cell = p.word(0, "cell")
+    marks, slices = [], []
+    n_ctl = sum(3 + ((1 + (backoff_base << (a - 1))) if a else 0)
+                for a in range(attempts))
+    for w in range(2):
+        mark = p.word(0, f"mark{w}")
+        # 2-WR suppressed result template: WRITE_IMM mark <- w+1, NOOP pad
+        tmpl = p.alloc(2 * isa.WR_WORDS, [
+            isa.pack_ctrl(isa.WRITE_IMM, 0), isa.FLAG_SUPPRESS_COMPLETION,
+            -1, mark, 1, w + 1, 0, -1,
+            isa.pack_ctrl(isa.NOOP, 0), isa.FLAG_SUPPRESS_COMPLETION,
+            0, 0, 1, 0, 0, -1], f"tmpl{w}")
+        lo = len(p.wqs)
+        ctl = p.add_wq(n_ctl, ordering=isa.ORD_DOORBELL)
+        mod = p.add_wq(3 * attempts, ordering=isa.ORD_DOORBELL,
+                       managed=True, initial_enable=0)
+        constructs.emit_cas_retry_loop(
+            ctl, mod, cell=cell, expect=0, new=w + 1, template=tmpl,
+            attempts=attempts, backoff_base=backoff_base, tag=f"w{w}")
+        marks.append(mark)
+        slices.append((lo, len(p.wqs)))
+    spec, st0 = p.finalize(device=device_mod.resolve(device))
+    return CasRetryPair(prog=p, spec=spec, state0=st0, cell=cell,
+                        marks=tuple(marks), writer_slices=tuple(slices),
+                        attempts=attempts)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -29,6 +29,11 @@ over a per-bucket deadline column, which TTL-aware gets also read).  The
 requests against one shard are serialized, so a batch equals its host
 oracle applied in order.
 
+Concurrency and isolation: ``sharded_set(n_writers=N)`` serves each
+owner's window through N racing writer lanes over the shared table, and
+``sharded_get(isolation=Admission(...))`` admits each request against its
+client's token bucket first (§3.5, §5.5).
+
 Robustness: ``sharded_set(faults=)`` arms each request's writer chain with
 a :class:`repro_torch.core.faults.FaultPlan` row (armed rows commit the
 torn image and never escalate), and :func:`repair_bucket` is the primitive
@@ -53,6 +58,8 @@ import torch
 from .. import device as device_mod
 from ..core import faults as faults_mod
 from ..core import programs
+from ..core import machine
+from ..rdma import isolation as isolation_mod
 from ..rdma import transport
 from . import hopscotch
 
@@ -273,6 +280,25 @@ RTTS = dict(redn=1, one_sided=2, two_sided=1)
 HOST_SERVICE = dict(redn=False, one_sided=False, two_sided=True)
 
 
+class Admission(NamedTuple):
+    """Per-client token-bucket admission parameters for
+    :func:`sharded_get` (the §5.5 isolation stage).
+
+    ``clients``: (S, B) int32 global client/QP ids aligned with the
+    queries; ``bucket``: the :class:`repro_torch.rdma.isolation.
+    BucketState` carried across calls.  Passing ``isolation=Admission(
+    ...)`` admits each request against its client's bucket first —
+    deferred rows are never dispatched, surface ``ok=False`` and are
+    counted per shard — and makes the call return ``(GetResult, new
+    BucketState)``.
+    """
+    clients: torch.Tensor
+    bucket: isolation_mod.BucketState
+    now_us: float
+    rate_per_us: float
+    burst: float
+
+
 def _bind_args(fname: str, names: Tuple[str, ...], args, kwargs) -> dict:
     """Map a dispatcher's ``*args`` onto the selected implementation's
     parameter names (the entry points accept both modes' positional
@@ -290,8 +316,9 @@ def _bind_args(fname: str, names: Tuple[str, ...], args, kwargs) -> dict:
     return bound
 
 
-def sharded_get(table_or_resize_state, *args, isolation=None, device=None,
-                **kwargs) -> GetResult:
+def sharded_get(table_or_resize_state, *args,
+                isolation: Optional[Admission] = None, device=None,
+                **kwargs):
     """Batched distributed get over the store's S shards — the one serving
     entry point.  The first argument selects the store's mode:
 
@@ -302,22 +329,58 @@ def sharded_get(table_or_resize_state, *args, isolation=None, device=None,
       neighborhood=8, capacity=None, live=None)``; served from the double
       frame with the watermark-gated second probe (:func:`_get_resize`).
 
-    Runs on ``device`` (default CUDA; see
-    :func:`repro_torch.device.resolve`).  Per-client admission
-    (``isolation=``) is not ported yet and raises ``NotImplementedError``.
+    ``live`` (optional, (S, B) bool) is an admission mask: False requests
+    are never dispatched and come back with ``ok=False`` and a
+    ``deferred`` count.  ``isolation=Admission(...)`` runs the §5.5
+    per-client token-bucket stage to *produce* that mask (composed with
+    any explicit ``live``) and returns ``(GetResult, new BucketState)``
+    instead of a bare :class:`GetResult`.  Runs on ``device`` (default
+    CUDA; see :func:`repro_torch.device.resolve`).
     """
-    if isolation is not None:
-        raise NotImplementedError(
-            "admission control (isolation=) is not ported yet")
     if isinstance(table_or_resize_state, ResizeState):
         bound = _bind_args(
             "sharded_get", ("queries", "neighborhood", "capacity", "live"),
             args, kwargs)
-        return _get_resize(table_or_resize_state, device=device, **bound)
-    bound = _bind_args(
-        "sharded_get", ("vals", "queries", "method", "neighborhood",
-                        "capacity", "live", "exp", "now"), args, kwargs)
-    return _get_table(table_or_resize_state, device=device, **bound)
+        run = _get_resize
+    else:
+        bound = _bind_args(
+            "sharded_get", ("vals", "queries", "method", "neighborhood",
+                            "capacity", "live", "exp", "now"), args, kwargs)
+        run = _get_table
+    if isolation is None:
+        return run(table_or_resize_state, device=device, **bound)
+    adm = isolation
+    dev = device_mod.resolve(device)
+    bucket = isolation_mod.BucketState(*(torch.as_tensor(a, device=dev)
+                                         for a in adm.bucket))
+    bucket, admitted = isolation_mod.admit(
+        bucket, torch.as_tensor(adm.clients, device=dev).reshape(-1),
+        adm.now_us, adm.rate_per_us, adm.burst)
+    live = admitted.reshape(tuple(torch.as_tensor(bound["queries"]).shape))
+    if bound.get("live") is not None:
+        live = live & torch.as_tensor(bound["live"], device=dev).to(
+            torch.bool)
+    bound["live"] = live
+    return run(table_or_resize_state, device=device, **bound), bucket
+
+
+def sharded_get_isolated(keys, vals, queries, clients,
+                         bucket: isolation_mod.BucketState, now_us: float,
+                         rate_per_us: float, burst: float, *, device=None,
+                         **kwargs) -> Tuple[GetResult,
+                                            isolation_mod.BucketState]:
+    """Deprecated spelling of the §5.5 isolated get — now
+    ``sharded_get(..., isolation=Admission(...))``.  Thin shim, bit-exact
+    with the unified path."""
+    warnings.warn(
+        "sharded_get_isolated is deprecated: call sharded_get(keys, vals, "
+        "queries, isolation=Admission(clients, bucket, now_us, "
+        "rate_per_us, burst)) instead",
+        DeprecationWarning, stacklevel=2)
+    return sharded_get(
+        keys, vals, queries,
+        isolation=Admission(clients, bucket, now_us, rate_per_us, burst),
+        device=device, **kwargs)
 
 
 def _get_table(keys, vals, queries, method: str = "redn",
@@ -517,10 +580,18 @@ def _counts(live, real, ok):
 
 def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
                 neighborhood, val_words, max_steps, max_search, max_moves,
-                frows=None):
+                frows=None, n_writers=1):
     """Owner-side SET serving: the pre-posted writer chain CAS-claims /
     updates buckets, each owner's requests serialized so each chain
     observes its predecessors' writes.
+
+    ``n_writers`` > 1 partitions each owner's window into laps of that
+    many **racing writer lanes** over ONE shared table image
+    (:func:`repro_torch.core.programs.build_multi_writer_group`), their
+    claim CASes racing under a round-robin :class:`machine.Schedule`
+    (quantum 16, 8 rounds, then the drain round); laps serialize, so by
+    CAS linearizability each lap equals *some* serialized order of its
+    rows.
 
     Rows the writer answers ``SET_NEEDS_DISPLACEMENT`` re-run through the
     *displacer* chain as a second stateful stage at the same capacity:
@@ -539,14 +610,36 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
     n_buckets = keys.shape[1]
     home = hopscotch.bucket_of(qk, n_buckets).reshape(-1)
     q, v = qk.reshape(-1), qv.reshape(-1, val_words)
-    writer = programs.build_hopscotch_writer(n_buckets, val_words,
-                                             neighborhood, device=keys.device)
-    payload = writer.device_payloads(q, home, v).reshape(qk.shape + (-1,))
-    resp, ok, (nk, nv) = transport.triggered_chain_stateful(
-        _guarded_step(writer.run_rows, max_steps,
-                      None if frows is None else writer.run_rows_faulted),
-        (keys, vals), payload, dest, n_shards, capacity, 1, live,
-        stage="writer", faults=frows)
+    if n_writers > 1:
+        group = programs.build_multi_writer_group(
+            n_buckets, val_words, neighborhood, n_writers,
+            device=keys.device)
+        payload = group.device_payloads(q, home, v).reshape(
+            qk.shape + (-1,))
+        # fair interleave: quantum-16 rounds while lanes are busy, then the
+        # drain round completes stragglers; fuel bounds any schedule's run
+        sched = machine.Schedule.round_robin(n_writers, quantum=16,
+                                             n_rounds=8, device=keys.device)
+        gsteps = max(max_steps, group.fuel)
+
+        def group_fn(carry, laps):
+            status, nk, nv = group.run_group(*carry, laps, sched, gsteps)
+            return (nk, nv), status[..., None]
+
+        resp, ok, (nk, nv) = transport.triggered_chain_group(
+            group_fn, (keys, vals), payload, dest, n_shards, capacity, 1,
+            n_writers, live, stage="writer-group")
+    else:
+        writer = programs.build_hopscotch_writer(
+            n_buckets, val_words, neighborhood, device=keys.device)
+        payload = writer.device_payloads(q, home, v).reshape(
+            qk.shape + (-1,))
+        resp, ok, (nk, nv) = transport.triggered_chain_stateful(
+            _guarded_step(writer.run_rows, max_steps,
+                          None if frows is None
+                          else writer.run_rows_faulted),
+            (keys, vals), payload, dest, n_shards, capacity, 1, live,
+            stage="writer", faults=frows)
     status = resp[..., 0]
     live2 = ok & (status == programs.SET_NEEDS_DISPLACEMENT)
     if frows is not None:
@@ -688,19 +781,20 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
     ``faults`` (optional): a :class:`repro_torch.core.faults.FaultPlan`
     with (S, B) leaves — per-request fault injection into the writer
     stage (armed rows commit torn state and never escalate; recovery is
-    :mod:`repro_torch.kvstore.fsck` plus a retry).  Racing writers
-    (``n_writers > 1``) are not ported yet and raise
-    ``NotImplementedError``; with ``faults`` they raise
-    :class:`WriterFaultConflict` first, as the reference orders its
-    checks.
+    :mod:`repro_torch.kvstore.fsck` plus a retry).
+
+    ``n_writers`` > 1 partitions each owner's receive window into laps of
+    ``n_writers`` racing writer lanes over the shared table (see
+    :func:`_writer_set`) — the serialized path's results up to
+    lap-internal serialization order (CAS linearizability), same
+    ``SetResult`` contract.  Mutually exclusive with ``faults``
+    (:class:`WriterFaultConflict`, raised before any other check): the
+    fault rows address a single chain's WQs.
     """
     if n_writers < 1:
         raise ValueError(f"n_writers must be >= 1, got {n_writers}")
     if n_writers > 1 and faults is not None:
         raise WriterFaultConflict(n_writers)
-    if n_writers > 1:
-        raise NotImplementedError(
-            "racing writer lanes (n_writers > 1) are not ported yet")
     if deadlines is not None and exp is None:
         raise ValueError("deadlines= stamps per-request expiry into the "
                          "exp column — pass exp= (the store's deadline "
@@ -726,7 +820,8 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
             keys, vals, set_keys, set_vals, live, n_shards=n_shards,
             capacity=capacity, neighborhood=neighborhood,
             val_words=vals.shape[-1], max_steps=max_steps,
-            max_search=max_search, max_moves=max_moves, frows=frows)
+            max_search=max_search, max_moves=max_moves, frows=frows,
+            n_writers=n_writers)
     applied = ok & ((status == programs.SET_UPDATED)
                     | (status == programs.SET_INSERTED)
                     | (status == programs.SET_DISPLACED))
@@ -1009,11 +1104,18 @@ def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
         placed = esc & ((st2 == programs.SET_INSERTED)
                         | (st2 == programs.SET_DISPLACED)
                         | (st2 == programs.SET_UPDATED))
-    # vacate the source buckets the displacer placed
+    # vacate the source buckets the displacer placed, scattered as the
+    # JAX package scatters it: every lap writes ``placed ? EMPTY : the
+    # bucket as the quantum left it`` to its clamped bucket, and where
+    # laps past the frame end clamp onto the last bucket the highest lap
+    # wins — it may write back a key a lower lap vacated (ROADMAP queue 3)
     if bool(placed.any()):
-        sh, lap = torch.nonzero(placed, as_tuple=True)
-        tk[sh, b_safe[sh, lap].long()] = hopscotch.EMPTY
-        tv[sh, b_safe[sh, lap].long()] = 0
+        lap = torch.arange(step, device=dev)
+        later = ((b_safe[:, :, None] == b_safe[:, None, :])
+                 & (lap[None, None, :] > lap[None, :, None])).any(-1)
+        sh, j = torch.nonzero(placed & ~later, as_tuple=True)
+        tk[sh, b_safe[sh, j].long()] = hopscotch.EMPTY
+        tv[sh, b_safe[sh, j].long()] = 0
 
     stuck = esc & ~placed
     first_stuck = torch.where(stuck, buckets, n).min(dim=1).values

@@ -22,7 +22,9 @@ DELETE wire pattern, and the loopback :func:`local_chain_stateful` of the
 CLOCK sweeper and the table-growth migrator) serialize each owner's
 requests: window position by window position, the S owners' requests at
 that position run as one batch of independent contexts, each against its
-own shard's state.
+own shard's state.  Their group forms (:func:`triggered_chain_group`,
+:func:`local_chain_group`) hand each owner's window to racing writer
+lanes a lap of ``n_writers`` rows at a time.
 
 Setting :data:`trace` to a list records each stateful stage's serial
 depth, the chain steps of every request it ran and, on the card, CUDA
@@ -301,3 +303,71 @@ def local_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
         step_fn = _with_faults(step_fn, payload.shape[-1])
         payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
     return _walk(step_fn, carry, payload, run, resp_words, stage)
+
+
+def _walk_laps(group_fn: Callable, carry, flat: torch.Tensor, n_lanes: int,
+               resp_words: int, stage: str):
+    """:func:`_walk` over laps: each owner's rows ``flat`` (S, R, W) in
+    laps of ``n_lanes`` consecutive rows (the last zero-padded), a lap
+    running while any of its rows has a nonzero first word.  Returns
+    (responses (S, R, resp_words), carry)."""
+    s, rows, w = flat.shape
+    pad = (-rows) % n_lanes
+    laps = torch.cat([flat, flat.new_zeros((s, pad, w))], dim=1).reshape(
+        s, -1, n_lanes * w)
+    run = (laps.reshape(s, laps.shape[1], n_lanes, w)[..., 0] != 0).any(
+        -1).cpu().numpy()
+
+    def step(c, lap_rows):
+        new, r = group_fn(c, lap_rows.reshape(-1, n_lanes, w))
+        return new, r.reshape(r.shape[0], n_lanes * resp_words)
+
+    resp, carry = _walk(step, carry, laps, run, n_lanes * resp_words, stage)
+    return resp.reshape(s, -1, resp_words)[:, :rows], carry
+
+
+def triggered_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
+                          dest: torch.Tensor, n_shards: int, capacity: int,
+                          resp_words: int, n_writers: int,
+                          live: Optional[torch.Tensor] = None,
+                          stage: str = "group"):
+    """:func:`triggered_chain_stateful` with each owner's receive window
+    partitioned into **racing writer QPs** (the §3.5 multi-writer wire
+    pattern).
+
+    The window's rows are grouped into *laps* of ``n_writers`` consecutive
+    slots (zero-padded to a whole lap); a lap's rows go to ``n_writers``
+    independent pre-posted writer lanes that execute **concurrently**
+    against the owner's shared state (one
+    :meth:`repro_torch.core.programs.MultiWriterGroup.run_group` call),
+    while laps serialize through the carry.  So within a lap the chains
+    race their claim CASes, and across laps a request observes every
+    earlier lap's writes.  At each lap position the S owners' laps run as
+    one batch.  A lap whose rows all have key 0 runs no chain (padded
+    lanes are self-guarding: status 0, state unchanged); a lap with some
+    live rows runs whole, its key-0 lanes included.
+
+    ``group_fn(carry rows (G, ...), laps (G, n_writers, W)) -> (new carry
+    rows, responses (G, n_writers, resp_words))``.  Returns
+    ``(responses (S, B, resp_words), ok (S, B), final carry)``.
+    """
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
+    flat = recv.reshape(n_shards, -1, recv.shape[-1])
+    resp, carry = _walk_laps(group_fn, carry, flat, n_writers, resp_words,
+                             stage)
+    resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
+    return combine(resp, dest, pos, ok), ok, carry
+
+
+def local_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
+                      n_lanes: int, resp_words: int, stage: str = "local"):
+    """Loopback analogue of :func:`triggered_chain_group`: maintenance
+    lanes that originate at the owning shard (the CLOCK sweeper's laps, a
+    local compaction pass) race foreground writer lanes over the same
+    shared state with no dispatch/combine pair.  Shard ``s``'s requests
+    ``payload[s]`` (S, B, W) are partitioned into laps of ``n_lanes``
+    consecutive rows, each lap delivered to the group's lanes in one
+    ``run_group`` call, laps serializing through the carry (see
+    :func:`triggered_chain_group` for ``group_fn`` and the zero-key
+    rule).  Returns ``(responses (S, B, resp_words), final carry)``."""
+    return _walk_laps(group_fn, carry, payload, n_lanes, resp_words, stage)

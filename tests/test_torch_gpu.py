@@ -5,8 +5,10 @@ decode partial at 2e-5 in both types; the WKV6 and RG-LRU recurrences at
 5e-5 in float32 and 5e-2 on bfloat16 outputs, their float32 final states
 at 5e-5, and also against a float64 scan), the interpreter on the card
 against the interpreter on the CPU (plain and under fault plans), the
-chain kernel under kill faults against the interpreter, and fsck on the
-card against fsck on the CPU.  They skip without a card.  On the card
+chain kernel under kill faults against the interpreter, fsck on the
+card against fsck on the CPU, and the scheduled interpreter (a batch of
+cut schedules, the racing-writer SET) on the card against the CPU.  They
+skip without a card.  On the card
 (which has no JAX, so nothing here imports it):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -28,7 +30,7 @@ from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rglru import ref as rg_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
-from repro_torch.kvstore import fsck, hopscotch
+from repro_torch.kvstore import fsck, hopscotch, store
 
 pytestmark = pytest.mark.gpu
 
@@ -582,3 +584,63 @@ def test_recurrence_kernels_refuse_bad_inputs(cuda):
         rg_ops.rglru(a.to("meta"), a.to("meta"))
     # no launch was made or counted
     assert (wkv_ops.launches["wkv6"], rg_ops.launches["rglru"]) == before
+
+
+def _cut_batch(device, n=16, v=2, h=4):
+    """Every cut of the 2-writer insert race as one batch of group machines
+    (keys homed at one bucket racing for a half-full neighborhood)."""
+    group = programs.build_multi_writer_group(n, v, neighborhood=h,
+                                              n_writers=2, device=device)
+    homed = store.keys_homed_at(3, 4, n)
+    keys0 = torch.zeros(n, dtype=torch.int32, device=device)
+    vals0 = torch.zeros((n, v), dtype=torch.int32, device=device)
+    for b, k in zip((3, 4), homed[:2]):
+        keys0[b] = k
+        vals0[b] = torch.tensor([k & 0xFF, b])
+    q = torch.tensor(homed[2:4], dtype=torch.int32, device=device)
+    pay = group.device_payloads(q, hopscotch.bucket_of(q, n),
+                                torch.stack([q & 0xFF, q >> 4], 1))
+    cuts = torch.arange(group.writer_fuel + 1, dtype=torch.int32,
+                        device=device)
+    g = cuts.numel()
+    st = group.delivered_state(keys0.expand(g, n), vals0.expand(g, n, v),
+                               pay.expand(g, 2, -1))
+    return group, st, machine.Schedule.cut(cuts)
+
+
+def test_run_scheduled_on_card_matches_cpu(cuda):
+    """The scheduled interpreter over a batch of cut schedules: every
+    field of every machine (float32 clocks included) equal to the CPU."""
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        group, st, sched = _cut_batch(dev)
+        outs.append(machine.run_scheduled(group.spec, st, sched,
+                                          group.writer_slices, group.fuel))
+    for f, a, b in zip(machine.VMState._fields, *outs):
+        assert torch.equal(a.cpu(), b), f
+
+
+def test_racing_writer_set_on_card_matches_cpu(cuda):
+    """``sharded_set(n_writers=2)`` on a 2-shard store with a hot bucket
+    per owner (racing claims, displacement escalation): statuses and
+    tables equal the CPU's."""
+    kv = store.ShardedKV.build(2, 128, 2, neighborhood=4)
+    rng = np.random.RandomState(3)
+    for k in rng.choice(np.arange(1, 1 << 16), 70, replace=False).tolist():
+        kv.set(k, [k, k + 1])
+    sk = np.stack([store.keys_homed_at(9, 6, 128, start=1 << 17,
+                                       n_shards=2, shard=o)
+                   for o in range(2)]).astype(np.int32)
+    sv = np.stack([sk, sk ^ 0x55], -1).astype(np.int32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        dk, dv = kv.device_arrays(dev)
+        outs.append(store.sharded_set(
+            dk, dv, torch.from_numpy(sk).to(dev),
+            torch.from_numpy(sv).to(dev), neighborhood=4, n_writers=2,
+            device=dev))
+    (res_g, kg, vg), (res_c, kc, vc) = outs
+    for f, a, b in zip(store.SetResult._fields, res_g, res_c):
+        assert torch.equal(a.cpu(), b), f
+    assert torch.equal(kg.cpu(), kc) and torch.equal(vg.cpu(), vc)
+    assert int(res_c.applied.sum()) >= 4

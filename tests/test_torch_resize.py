@@ -536,13 +536,17 @@ def test_set_migrating_escalates_old_to_new_frame(mesh1):
     assert homed[H] in trs.new_keys[0].tolist()
 
 
-def test_escalated_lap_at_the_frame_end_is_vacated():
+def test_escalated_lap_at_the_frame_end_is_vacated(mesh1):
     """A quantum that runs past the frame end (watermark 2, step 8, n 8):
     its laps past bucket 7 clamp onto bucket 7, whose resident escalates
-    through the displacer.  The port vacates that source bucket, as the
-    host oracle does; the reference's scatter of the clamped duplicates
-    writes the old key back last and leaves it behind the watermark
-    (ROADMAP queue 3), so this case is held to the oracle, not to JAX."""
+    through the displacer.  The port scatters the vacate as the JAX
+    package does — every lap writes ``placed ? EMPTY : the bucket`` to its
+    clamped bucket and the highest lap wins — so the clamped laps after
+    the escalated one write its key back: frames, watermark and report
+    equal JAX's.  The host oracle would instead vacate bucket 7 (the key
+    lives only in the new frame); the reference leaves it behind the
+    watermark, and ``finish_resize`` refuses the cutover in both packages
+    (ROADMAP queue 3)."""
     n = 8
     kk = _keys_with_home(7, 1, n)[0]
     t = th.make_table(n, V, neighborhood=H)
@@ -562,15 +566,24 @@ def test_escalated_lap_at_the_frame_end_is_vacated():
                if old_ref.migrate_bucket(new_ref, b) == th.MIG_NEEDS_DISPLACE]
     assert pending == [7]
     assert new_ref.set_full(kk, [3, 4]) == th.SET_DISPLACED
-    old_ref.keys[7], old_ref.values[7] = 0, 0
-    rs = tstore.ResizeState(_t(t.keys[None]), _t(t.values[None]),
-                            _t(new.keys[None]), _t(new.values[None]),
-                            torch.tensor([2], dtype=torch.int32))
-    rs, rep = tstore.sharded_resize(rs, step=8, neighborhood=H,
-                                    device="cpu")
-    assert int(rep.escalated[0]) == 1 and int(rs.watermark[0]) == n
-    np.testing.assert_array_equal(rs.keys[0].numpy(), old_ref.keys)
-    np.testing.assert_array_equal(rs.new_keys[0].numpy(), new_ref.keys)
-    np.testing.assert_array_equal(rs.new_vals[0].numpy(), new_ref.values)
-    nk, _ = tstore.finish_resize(rs)
-    assert kk in nk[0].tolist()
+    old_ref.keys[7], old_ref.values[7] = 0, 0     # the oracle vacates it
+    jrs = jstore.ResizeState(
+        jnp.asarray(t.keys)[None], jnp.asarray(t.values)[None],
+        jnp.asarray(new.keys)[None], jnp.asarray(new.values)[None],
+        jnp.asarray([2], jnp.int32))
+    trs = tstore.ResizeState(_t(t.keys[None]), _t(t.values[None]),
+                             _t(new.keys[None]), _t(new.values[None]),
+                             torch.tensor([2], dtype=torch.int32))
+    jrs, jrep, trs, rep = _resize_both(mesh1, jrs, trs, step=8,
+                                       neighborhood=H)
+    assert int(rep.escalated[0]) == 1 and int(trs.watermark[0]) == n
+    # the new frame is the oracle's; the old frame equals the oracle's
+    # but for bucket 7, which keeps the key the oracle vacated
+    np.testing.assert_array_equal(trs.new_keys[0].numpy(), new_ref.keys)
+    np.testing.assert_array_equal(trs.new_vals[0].numpy(), new_ref.values)
+    np.testing.assert_array_equal(trs.keys[0, :7].numpy(), old_ref.keys[:7])
+    assert int(trs.keys[0, 7]) == kk
+    np.testing.assert_array_equal(trs.vals[0, 7].numpy(), [3, 4])
+    for fin in (jstore.finish_resize, tstore.finish_resize):
+        with pytest.raises(RuntimeError, match="still holds residents"):
+            fin(jrs if fin is jstore.finish_resize else trs)

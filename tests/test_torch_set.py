@@ -541,13 +541,16 @@ def test_sharded_set_guards(monkeypatch):
     dk, dv = kv.device_arrays("cpu")
     sk = _t(np.asarray([[5, 6], [7, 8]], np.int32))
     sv = torch.zeros((2, 2, V), dtype=torch.int32)
-    # faults= is served now; with racing writers it conflicts, before the
-    # racing writers' own not-ported guard
+    # faults= with racing writers conflicts, before any other check; the
+    # racing writers alone serve this batch as the serialized writer does
     with pytest.raises(tstore.WriterFaultConflict, match="exclusive"):
         tstore.sharded_set(dk, dv, sk, sv, faults=object(), n_writers=2,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="n_writers"):
-        tstore.sharded_set(dk, dv, sk, sv, n_writers=2, device="cpu")
+    raced = tstore.sharded_set(dk, dv, sk, sv, n_writers=2, device="cpu")
+    serial = tstore.sharded_set(dk, dv, sk, sv, device="cpu")
+    for a, b in zip(raced[0], serial[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(raced[1], serial[1]) and bool(raced[0].applied.all())
     # a resize state selects the watermark-routed arm
     res, rs = tstore.sharded_set(tstore.begin_resize(dk, dv, device="cpu"),
                                  sk, sv + 1, device="cpu")

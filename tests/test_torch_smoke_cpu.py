@@ -347,15 +347,18 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
 
 
 def test_phases_run_in_order(smoke):
-    """The three robustness phases sit after the paths they reuse: the
-    kill faults after the chain kernel's own phase, the recovery drill and
-    the resize after the write path, on its store."""
+    """The robustness phases sit after the paths they reuse: the kill
+    faults after the chain kernel's own phase, the recovery drill, the
+    resize, the racing writers and the services after the write path, on
+    its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 17
+    assert len(p) == len(set(p)) == 19
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")
-    assert p.index("kv_resize") < p.index("lm_prefill")
+    assert p.index("kv_resize") + 1 == p.index("kv_contend")
+    assert p.index("kv_contend") + 1 == p.index("kv_service")
+    assert p.index("kv_service") < p.index("lm_prefill")
 
 
 def test_phase_chain_faults_cpu(smoke):
@@ -408,3 +411,34 @@ def test_phase_kv_resize_cpu(smoke, write_store):
     assert r["killed_lap"] >= 2 and r["gets"] == 2 * 64
     assert r["sets"] == 4 and r["small_quanta"] == 2
     assert r["get_hits"] > 0
+
+
+def test_phase_kv_contend_cpu(smoke, write_store):
+    """The racing-writer phase at 2 shards x 256 buckets: its gates hold
+    the uniform batch at every writer count to n_writers=1 and the host
+    oracle, the hammer to fsck and read-back, the cut sweep and the
+    fairness run to the oracles, and the isolation arm to the CPU path;
+    here the counts show each part ran."""
+    dk, dv = write_store.device_arrays("cpu")
+    r = smoke.phase_kv_contend("cpu", write_store, dk, dv, per_owner=4,
+                               n_gets=16, burst=8.0)
+    assert set(r["sets_per_s"]) == {"uniform/1", "uniform/2", "uniform/4",
+                                    "hot/2", "hot/4"}
+    assert "writer-group" in r["set_stages"]["hot/2"]
+    assert r["cuts"] > 100 and set(r["cut_oracles"]) == {"AB", "BA"}
+    assert r["fairness_ratio"] <= 2.0 and r["fair_steps"] > 0
+    assert r["isolation_deferred"][0] > 0
+    k, v = write_store.device_arrays("cpu")
+    assert torch.equal(k, dk) and torch.equal(v, dv)
+
+
+def test_phase_kv_service_cpu(smoke, write_store):
+    dk, dv = write_store.device_arrays("cpu")
+    r = smoke.phase_kv_service("cpu", write_store, dk, dv,
+                               recycled_buckets=64, recycled_words=1024,
+                               n_stream=16, per_owner=4)
+    assert r["resident_gets"] == 16 and r["reliable_attempts"] >= 2
+    assert r["deleted"] > 0 and r["small_resizes"] >= 1
+    assert r["chained_buckets_after"] == 32
+    k, v = write_store.device_arrays("cpu")
+    assert torch.equal(k, dk) and torch.equal(v, dv)

@@ -14,6 +14,7 @@ from repro.kvstore import store as jstore
 from repro_torch import convert
 from repro_torch.data.pipeline import kv_request_stream
 from repro_torch.kvstore import store as tstore
+from repro_torch.rdma import isolation as tiso
 from repro_torch.rdma import transport
 
 METHODS = ["redn", "one_sided", "two_sided"]
@@ -128,8 +129,16 @@ def test_sharded_get_guards(kv4, monkeypatch):
     kv, keys = kv4
     tk, tv = kv.device_arrays("cpu")
     q = torch.from_numpy(keys[None, :4].repeat(4, 0).astype(np.int32))
-    with pytest.raises(NotImplementedError):
-        tstore.sharded_get(tk, tv, q, isolation=object(), device="cpu")
+    # the isolation arm answers (GetResult, BucketState); a bucket deep
+    # enough for the batch admits every request, as no admission does
+    res, bucket = tstore.sharded_get(
+        tk, tv, q, isolation=tstore.Admission(
+            torch.zeros_like(q), tiso.init(1, 64.0, device="cpu"), 0.0,
+            1.0, 64.0), device="cpu")
+    plain = tstore.sharded_get(tk, tv, q, device="cpu")
+    for a, b in zip(res, plain):
+        assert torch.equal(a, b)
+    assert float(bucket.tokens[0]) == 64.0 - q.numel()
     with pytest.raises(ValueError, match="both exp and now"):
         tstore.sharded_get(tk, tv, q, exp=tk, device="cpu")
     # a resize state selects the double-frame arm (at watermark 0 every

@@ -1,7 +1,8 @@
 """Chip smoke test: drive the PyTorch/CUDA port's paths on one card — the
 RedN GET path, the store's write path, its fault recovery and online
-resize, racing writers and isolation, the crash-resilient services, and
-the LM serving paths
+resize, racing writers and isolation, the crash-resilient services, the
+chain-program toolchain (verifier, ADDLEQ guests, list walks), the cuckoo
+table, and the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
 ServeEngine ticks).
 
@@ -10,7 +11,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs nineteen phases
+``nvcc`` per source, all started together), then runs twenty-one phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -96,6 +97,28 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          a 1-shard, 8-bucket service grown by its own
                          SETs, and the chained second growth, every key
                          served throughout.  On the interpreter.
+6f. ``chain_programs`` — the chain-program toolchain: the static
+                         verifier's sweep of its 18 registered programs,
+                         built on the card, equal to ``BENCH_chains.json``
+                         ``verification.programs`` in every field; 4,096
+                         ADDLEQ guests (one 4,096-word interpreter image
+                         each: the demo guests at several inputs, one that
+                         never halts, the rest seeded random guests with a
+                         budget of 100 instructions) through
+                         ``ChainEngine(spec, "kernel")``, bit-equal to the
+                         interpreter on the card and to
+                         ``addleq_reference``,
+                         the looping guest stopped at its fuel; Fig. 12's
+                         list walks (8 nodes, with and without break) on
+                         1,024 probes through ``get_many``, values equal to
+                         the host oracle, steps and ``total_time_us`` equal
+                         to the same batch on the CPU, bit for bit.
+6g. ``cuckoo_get``     — a MemC3-layout cuckoo table (2^18 buckets x 4
+                         ways, 4 value words) filled to 90% by the host
+                         insert, moved to the card, and one ``lookup`` of
+                         65,536 queries (half stored, half absent, key 0)
+                         equal to a host dict and to the CPU's lookup.
+                         Plain torch: the reference has no kernel here.
 7. ``lm_prefill``      — qwen3-1.7b at full width and depth (28 layers,
                          bf16, seeded random weights): ``make_prefill_step``
                          on 4 x 2,048 prompt tokens (one flash-attention
@@ -243,6 +266,7 @@ def _import_port():
 
 _import_port()
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core import analysis, turing  # noqa: E402
 from repro_torch.core import faults, isa, machine, programs  # noqa: E402
 from repro_torch.core.engine import ChainEngine  # noqa: E402
 from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
@@ -258,7 +282,7 @@ from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
-from repro_torch.kvstore import fsck, hopscotch, store  # noqa: E402
+from repro_torch.kvstore import cuckoo, fsck, hopscotch, store  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
@@ -486,26 +510,34 @@ def served_value(srv, key: int):
     return entry[1] if entry is not None and entry[0] == key else [0, 0]
 
 
+def kernel_args(spec, states, max_steps: int):
+    """The arguments ``ChainEngine(spec, "kernel").run_batch`` passes to
+    ``run_managed`` for ``states`` (fresh fuel, no faults)."""
+    n, cap = states.mem.shape[0], states.msg_buf.shape[2]
+    fuel = torch.clamp(max_steps - states.steps, 0, max_steps)
+    inits = torch.stack(
+        [states.head[:, 0], states.tail[:, 0], states.enable_limit[:, 0],
+         states.completions[:, 0], states.msg_head[:, 0],
+         states.msg_tail[:, 0], fuel.to(torch.int32),
+         states.halted.to(torch.int32)], dim=1).contiguous()
+    msgs = states.msg_buf[:, 0].reshape(n, cap * isa.MSG_WORDS).contiguous()
+    kw = dict(wq_base=spec.wq_bases[0], n_wrs=spec.wq_sizes[0],
+              managed=bool(spec.managed[0]), max_steps=max_steps)
+    return (states.mem.contiguous(), msgs, inits), kw
+
+
 def plain_run_many(spec, state, wq, payloads, max_steps):
     """The batch ``ChainEngine(spec, "kernel").run_many`` runs, through the
     plain ``managed_chain_loop`` instead of the kernel; fields as the
     engine maps them back."""
     batch = ChainEngine(spec).deliver_many(state, wq, payloads)
     batch.steps.zero_()
-    n, cap = batch.mem.shape[0], batch.msg_buf.shape[2]
-    inits = torch.stack(
-        [batch.head[:, 0], batch.tail[:, 0], batch.enable_limit[:, 0],
-         batch.completions[:, 0], batch.msg_head[:, 0],
-         batch.msg_tail[:, 0], torch.full_like(batch.steps, max_steps),
-         batch.halted.int()], dim=1)
-    mem, stats = chain_ref.managed_chain_loop(
-        batch.mem, batch.msg_buf[:, 0].reshape(n, cap * isa.MSG_WORDS), inits,
-        wq_base=spec.wq_bases[0], n_wrs=spec.wq_sizes[0],
-        managed=bool(spec.managed[0]), max_steps=max_steps)
+    args, kw = kernel_args(spec, batch, max_steps)
+    mem, stats = chain_ref.managed_chain_loop(*args, **kw)
     return dict(mem=mem, head=stats[:, 0:1], enable_limit=stats[:, 1:2],
                 completions=stats[:, 2:3], msg_head=stats[:, 3:4],
                 halted=stats[:, 4] > 0, responses=stats[:, 6],
-                steps=stats[:, 0] - batch.head[:, 0]), (batch, inits)
+                steps=stats[:, 0] - batch.head[:, 0]), (batch, args, kw)
 
 
 _CHAIN_FIELDS = ("mem", "head", "enable_limit", "completions", "msg_head",
@@ -548,13 +580,8 @@ def phase_chain_kernel(device, time_it=True, **sizes):
     result = dict(launches=launches, max_abs_err=err,
                   contexts=[int(p.shape[0]) for _, p in cases])
     srv, pay = cases[0]
-    _, (batch, inits) = plain_run_many(srv.spec, srv.state, srv.loop_wq, pay,
-                                       64)
-    n, cap = batch.mem.shape[0], batch.msg_buf.shape[2]
-    msgs = batch.msg_buf[:, 0].reshape(n, cap * isa.MSG_WORDS).contiguous()
-    args = (batch.mem, msgs, inits.contiguous())
-    kw = dict(wq_base=srv.spec.wq_bases[0], n_wrs=srv.spec.wq_sizes[0],
-              managed=True, max_steps=64)
+    _, (batch, args, kw) = plain_run_many(srv.spec, srv.state, srv.loop_wq,
+                                          pay, 64)
     mem_k, stats_k = chain_ops.run_managed(*args, **kw)
     mem_p, stats_p = chain_ref.managed_chain_loop(*args, **kw)
     err = max(err, require_equal(mem_k, mem_p, "run_managed mem"),
@@ -2006,6 +2033,303 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
 
 
 # ---------------------------------------------------------------------------
+# phase 6f: the chain-program toolchain (verifier, ADDLEQ guests, list walks)
+# ---------------------------------------------------------------------------
+
+# the fields of BENCH_chains.json's verification.programs rows
+SWEEP_FIELDS = ("ok", "errors", "warnings", "waived", "n_wqs", "n_posted",
+                "static_wr_bound", "recycled_wqs", "budget",
+                "serial_latency_us", "fuel")
+# One dependent global access of the chain kernel's walk, for its serial
+# floor: an L2 hit, taken as 260 SM cycles (published microbenchmarks of
+# Hopper's memory hierarchy), at the card's maximum SM clock.
+L2_HIT_CYCLES = 260
+# the fields the kernel backend models (it passes the clocks through)
+GUEST_FIELDS = ("mem", "head", "tail", "enable_limit", "completions",
+                "steps", "halted")
+
+
+def sweep_rows(device) -> dict:
+    """The verifier's sweep of the port's registry, every program built on
+    ``device``, in BENCH_chains.json's fields."""
+    rows = {}
+    for name, rep in analysis.verify_all(device).items():
+        row = dict(ok=rep.ok(), errors=len(rep.errors),
+                   warnings=len(rep.warnings), waived=len(rep.waived))
+        row.update({k: rep.certificates[k] for k in SWEEP_FIELDS[4:]
+                    if k in rep.certificates})
+        rows[name] = row
+    return rows
+
+
+def random_guest(rng, d: int, i0: int):
+    """``tests/test_turing.py``'s random guest: 1-5 instructions over 6
+    cells in [-50, 50], jumps to HALT or a valid instruction, and a trap
+    instruction on a very negative cell."""
+    n_instr = rng.randint(1, 6)
+    trap = d + 6
+    targets = [turing.HALT_PC] + [i0 + k * turing.INSTR_WORDS
+                                  for k in range(n_instr + 1)]
+    instrs = [(d + rng.randint(6), d + rng.randint(6),
+               targets[rng.randint(len(targets))]) for _ in range(n_instr)]
+    instrs.append((trap, trap, turing.HALT_PC))
+    cells = {d + k: int(rng.randint(-50, 51)) for k in range(6)}
+    cells[trap] = -(1 << 20)
+    return turing.AddleqProgram(instrs, cells)
+
+
+LOOP_GUEST = 9      # addleq_guests' index of the guest that never halts
+
+
+def addleq_guests(interp, n: int, seed: int) -> list:
+    """The demo guests at several inputs, one guest that loops forever
+    (index ``LOOP_GUEST``), then seeded random guests up to ``n``."""
+    d, i0 = interp.data_base, interp.instr_base
+    guests = [turing.guest_countdown(interp, c) for c in (1, 5, 40)]
+    guests += [turing.guest_add(interp, x, y)
+               for x, y in ((17, 25), (1000, 2345))]
+    guests += [turing.guest_multiply(interp, x, y)
+               for x, y in ((7, 6), (3, 4), (9, 0), (12, 8))]
+    guests.append(turing.AddleqProgram([(d, d + 1, i0)], {d: 0, d + 1: 0}))
+    rng = np.random.RandomState(seed)
+    while len(guests) < n:
+        guests.append(random_guest(rng, d, i0))
+    return guests[:n]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def require_guests(guests, interp, out, budget: int) -> int:
+    """Every guest the oracle halts within ``budget`` instructions halted on
+    the chain with the oracle's cells; returns how many did."""
+    mem, halted = out.mem.cpu().numpy(), out.halted.cpu().numpy()
+    i0 = interp.instr_base
+    n_halting = 0
+    for i, g in enumerate(guests):
+        ref, n = turing.addleq_reference(g.instrs, g.data, i0, i0,
+                                         max_instrs=budget)
+        if n >= budget:
+            continue
+        n_halting += 1
+        if not halted[i]:
+            raise AssertionError(f"guest {i} did not halt ({n} instrs)")
+        for addr, v in ref.items():
+            if mem[i, addr] != v:
+                raise AssertionError(f"guest {i}: cell {addr} is "
+                                     f"{mem[i, addr]}, the oracle's {v}")
+    return n_halting
+
+
+def guest_drive(device, n_guests: int, budget: int, seed: int,
+                time_it: bool) -> dict:
+    """A batch of ADDLEQ guests, one interpreter image each, through the
+    managed chain kernel (``ChainEngine(spec, "kernel")``) and the
+    interpreter on the card, held to each other, to ``addleq_reference``
+    and to the fuel."""
+    interp = turing.build_interpreter(device=device)
+    host = dataclasses.replace(interp, state0=machine.VMState(
+        *(a.cpu() for a in interp.state0)))
+    guests = addleq_guests(interp, n_guests, seed)
+    states = [host.load(g) for g in guests]
+    batch = machine.VMState(*(torch.stack(f).to(device)
+                              for f in zip(*states)))
+    del states
+    max_steps = interp.lap_words * (budget + 2)
+    reset_launches()
+    out_k, k_ms = timed_call(device, lambda: ChainEngine(
+        interp.spec, "kernel").run_batch(batch, max_steps))
+    launches = read_launches()["run_managed"]
+    out_i, i_ms = timed_call(device, lambda: ChainEngine(
+        interp.spec).run_batch(batch, max_steps))
+    err = 0
+    for f in GUEST_FIELDS:
+        err = max(err, require_equal(getattr(out_k, f), getattr(out_i, f),
+                                     f"guests kernel vs interpreter {f}"))
+    n_halting = require_guests(guests, interp, out_k, budget)
+    steps = out_k.steps.cpu().numpy()
+    if bool(out_k.halted[LOOP_GUEST]) or steps[LOOP_GUEST] != max_steps:
+        raise AssertionError(f"the looping guest stopped after "
+                             f"{steps[LOOP_GUEST]} steps, not its fuel "
+                             f"{max_steps}")
+    # the wrapper against its plain version at the drive's shape
+    args, kw = kernel_args(interp.spec, batch, max_steps)
+    mem_k, stats_k = chain_ops.run_managed(*args, **kw)
+    (mem_p, stats_p), plain_ms = timed_call(
+        device, lambda: chain_ref.managed_chain_loop(*args, **kw))
+    err = max(err, require_equal(mem_k, mem_p, "guests run_managed mem"),
+              require_equal(stats_k, stats_p, "guests run_managed stats"))
+    instrs = steps // interp.lap_words         # one guest instruction a lap
+    result = dict(
+        launches=launches, max_abs_err=err, guests=n_guests,
+        halting=n_halting, halted=int(out_k.halted.sum()),
+        max_steps=max_steps, steps_max=int(steps.max()),
+        steps_total=int(steps.sum()), guest_instrs=int(instrs.sum()),
+        interp_ms=i_ms, interp_ms_per_step=i_ms / max(1, int(steps.max())),
+        engine_ms=k_ms, plain_ms=plain_ms, shape=tuple(batch.mem.shape),
+        bound_ms=(2 * batch.mem.numel() + args[1].numel()
+                  + args[2].numel() + stats_k.numel()) * 4
+        / HBM_BYTES_PER_S * 1e3,
+        interp_guest_instrs_per_s=float(instrs.sum()) / i_ms * 1e3)
+    if time_it:
+        run = lambda: chain_ops.run_managed(*args, **kw)  # noqa: E731
+        result["event_ms"] = cuda_ms(run, reps=3)
+        result["trace_ms"] = device_time(run, 3)["device_ms"]
+        # a full run's trace once held no device time for this kernel (a
+        # run of the phase alone did): CUDA events, over a kernel of ~2 ms,
+        # then stand in
+        result["ms"] = result["trace_ms"] or result["event_ms"]
+        result["serial_floor_ms"] = (result["steps_max"] * L2_HIT_CYCLES
+                                     / max_sm_clock_hz() * 1e3)
+        result["guest_instrs_per_s"] = result["guest_instrs"] / result[
+            "ms"] * 1e3
+    return result
+
+
+def list_walks(device, use_break: bool, items, probes, n_iters: int,
+               val_len: int):
+    off = programs.build_list_traversal(n_iters=n_iters, val_len=val_len,
+                                        use_break=use_break, device=device)
+    off.set_list(items)
+    (vals, out), ms = timed_call(device, lambda: off.get_many(probes))
+    return vals, out, ms
+
+
+def list_drive(device, n_iters: int, val_len: int, n_probes: int,
+               seed: int) -> dict:
+    """Fig. 12's walks with and without break over one seeded list: every
+    position and misses, through ``get_many`` on ``device``; values held to
+    the host oracle, steps and ``total_time_us`` to the same batch on the
+    CPU, bit for bit."""
+    rng = np.random.RandomState(seed)
+    keys = rng.choice(np.arange(1, 1 << 20), n_iters, replace=False)
+    items = [(int(k), [int(k) * 7 + j for j in range(val_len)])
+             for k in keys]
+    hits = np.resize(keys, n_probes - n_probes // 4)
+    misses = rng.choice(np.arange(1 << 20, 1 << 21), n_probes // 4,
+                        replace=False)
+    probes = rng.permutation(np.concatenate([hits, misses])).tolist()
+    oracle = dict(items)
+    want = np.asarray([oracle.get(k, [programs.MISS_SENTINEL] * val_len)
+                       for k in probes], np.int32)
+    result = dict(probes=n_probes, ms={}, steps_max={})
+    steps0 = {}
+    for use_break in (False, True):
+        mode = "break" if use_break else "plain"
+        vals, out, ms = list_walks(device, use_break, items, probes, n_iters,
+                                   val_len)
+        require_equal(vals, want, f"list walk ({mode}) values")
+        cvals, cout, _ = list_walks("cpu", use_break, items, probes,
+                                    n_iters, val_len)
+        require_equal(out.steps, cout.steps, f"list walk ({mode}) steps")
+        require_equal(machine.total_time_us(out).view(torch.int32),
+                      machine.total_time_us(cout).view(torch.int32),
+                      f"list walk ({mode}) total_time_us bits")
+        steps = out.steps.cpu().numpy()
+        at0 = steps[np.asarray(probes) == items[0][0]]
+        steps0[use_break] = int(at0[0])
+        result["ms"][mode] = ms
+        result["steps_max"][mode] = int(steps.max())
+    result["steps_at_0"] = steps0
+    result["break_saves_at_0"] = steps0[False] - steps0[True]
+    if result["break_saves_at_0"] <= 0:
+        raise AssertionError(f"break saved no steps at position 0: {steps0}")
+    return result
+
+
+def phase_chain_programs(device, n_guests=4096, budget=100, n_iters=8,
+                         val_len=2, n_probes=1024, seed=20261017,
+                         time_it=True):
+    t0 = time.perf_counter()
+    result = dict(sweep=sweep_rows(device))
+    result["sweep_s"] = time.perf_counter() - t0
+    want = json.loads((ROOT / "BENCH_chains.json").read_text())[
+        "verification"]["programs"]
+    if result["sweep"] != want:
+        bad = sorted(n for n in set(want) | set(result["sweep"])
+                     if result["sweep"].get(n) != want.get(n))
+        raise AssertionError(f"verifier sweep differs from BENCH_chains.json"
+                             f" on {bad}")
+    result["sweep"] = f"{sum(r['ok'] for r in want.values())}/{len(want)}"
+    result["guests"] = guest_drive(device, n_guests, budget, seed, time_it)
+    result["lists"] = list_drive(device, n_iters, val_len, n_probes, seed)
+    g = result["guests"]
+    result.update(launches=g["launches"], max_abs_err=g["max_abs_err"])
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: the MemC3-style cuckoo table's batched get
+# ---------------------------------------------------------------------------
+
+def cuckoo_values(keys: np.ndarray, val_words: int) -> np.ndarray:
+    k = keys.astype(np.int64)
+    cols = (k, k * 3 + 1, k ^ 0x5A5A5A5A, -k)
+    return np.stack(cols[:val_words], 1).astype(np.int32)
+
+
+def phase_cuckoo_get(device, log2_buckets=18, ways=4, val_words=4,
+                     load=0.9, n_queries=65536, seed=5, time_it=True):
+    """A MemC3-layout table filled to ``load`` by the host insert, moved to
+    ``device`` and probed by one batched ``lookup``: half stored keys, half
+    absent, and key 0, held to a host dict and to the CPU's lookup."""
+    n_buckets = 1 << log2_buckets
+    n_keys = int(n_buckets * ways * load)
+    rng = np.random.RandomState(seed)
+    keys = np.unique(rng.randint(1, 1 << 30, size=n_keys + n_keys // 8))
+    keys = rng.permutation(keys)[:n_keys]
+    vals = cuckoo_values(keys, val_words)
+    tbl = cuckoo.make_table(n_buckets, val_words, ways)
+    t0 = time.perf_counter()
+    tbl.memo_kicks(keys)
+    failed = sum(not tbl.insert(k, v) for k, v in zip(keys.tolist(), vals))
+    fill_s = time.perf_counter() - t0
+    # a failed insert drops the last key of its kick chain
+    resident = set(tbl.keys[tbl.keys != cuckoo.EMPTY].tolist())
+    oracle = {k: v for k, v in zip(keys.tolist(), vals.tolist())
+              if k in resident}
+    absent = rng.randint(1 << 30, (1 << 31) - 1, size=n_queries // 2)
+    absent[0] = cuckoo.EMPTY
+    q = rng.permutation(np.concatenate([
+        rng.choice(keys, n_queries - n_queries // 2), absent])).astype(
+        np.int32)
+    # key 0 hits any empty way of its buckets (the reference's rule)
+    zero_found = bool((tbl.keys[[cuckoo.h1(0, n_buckets),
+                                 cuckoo.h2(0, n_buckets)]] == 0).any())
+    want_found = np.asarray([k in oracle or (k == 0 and zero_found)
+                             for k in q.tolist()])
+    want_vals = np.asarray([oracle.get(k, [0] * val_words)
+                            for k in q.tolist()], np.int32)
+    dk, dv = tbl.as_device(device)
+    qd = torch.from_numpy(q).to(device)
+    found, out = cuckoo.lookup(dk, dv, qd)
+    require_equal(found, want_found, "cuckoo found")
+    err = require_equal(out, want_vals, "cuckoo values")
+    ck, cv = tbl.as_device("cpu")
+    cfound, cout = cuckoo.lookup(ck, cv, torch.from_numpy(q))
+    require_equal(found, cfound, "cuckoo found, card vs CPU")
+    require_equal(out, cout, "cuckoo values, card vs CPU")
+    table_bytes = dk.numel() * 4 + dv.numel() * 4
+    # each query reads its two buckets' keys and values once and writes
+    # its found flag and value row
+    per_query = 4 + 2 * ways * 4 * (1 + val_words) + 1 + val_words * 4
+    result = dict(buckets=n_buckets, ways=ways, val_words=val_words,
+                  keys=n_keys, failed_inserts=failed,
+                  resident=len(resident), fill_s=fill_s, queries=n_queries,
+                  hits=int(found.sum()), max_abs_err=err,
+                  table_bytes=table_bytes,
+                  bound_ms=n_queries * per_query / HBM_BYTES_PER_S * 1e3)
+    if time_it:
+        result["ms"] = cuda_ms(lambda: cuckoo.lookup(dk, dv, qd), reps=20)
+        result["lookups_per_s"] = n_queries / result["ms"] * 1e3
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 7: LM prefill (and decode continuing it)
 # ---------------------------------------------------------------------------
 
@@ -2854,7 +3178,8 @@ KERNELS = (
 # the phases in the order main() runs them
 PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "hopscotch_probe", "kv_write", "kv_faults", "kv_resize",
-          "kv_contend", "kv_service", "lm_prefill", "lm_serve",
+          "kv_contend", "kv_service", "chain_programs", "cuckoo_get",
+          "lm_prefill", "lm_serve",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
           "lm_griffin", "wkv6_kernel", "rglru_kernel")
 LM_ARCH = "qwen3-1.7b"
@@ -2949,6 +3274,32 @@ def main() -> int:
         flush=True)
     del kv, dk, dv
     torch.cuda.empty_cache()
+    run_phase(phases, "chain_programs",
+              lambda: phase_chain_programs(device))
+    g = phases["chain_programs"]["guests"]
+    lw = phases["chain_programs"]["lists"]
+    print(f"[times] chain_programs ({card}): verifier sweep "
+          f"{phases['chain_programs']['sweep_s']:.1f} s; "
+          f"{g['guests']} ADDLEQ guests "
+          f"{g['shape']}, kernel {g['ms']:.4f} ms (trace {g['trace_ms']:.4f}"
+          f", events {g['event_ms']:.4f}; bound "
+          f"{g['bound_ms']:.4f} ms, serial floor {g['serial_floor_ms']:.4f}"
+          f" ms over {g['steps_max']} steps; engine {g['engine_ms']:.1f} "
+          f"ms), plain {g['plain_ms']:.1f} ms, interpreter "
+          f"{g['interp_ms']:.1f} ms ({g['interp_ms_per_step']:.4f} ms a "
+          f"step); guest instructions "
+          f"a second: kernel {g['guest_instrs_per_s']:.1f}, interpreter "
+          f"{g['interp_guest_instrs_per_s']:.1f}; list walks of "
+          f"{lw['probes']} probes {lw['ms']}, break saves "
+          f"{lw['break_saves_at_0']} steps at position 0", flush=True)
+    torch.cuda.empty_cache()
+    run_phase(phases, "cuckoo_get", lambda: phase_cuckoo_get(device))
+    c_ = phases["cuckoo_get"]
+    print(f"[times] cuckoo_get ({card}): {c_['queries']} lookups "
+          f"{c_['ms']:.4f} ms ({c_['lookups_per_s']:.1f} lookups/s, bound "
+          f"{c_['bound_ms']:.4f} ms), table {c_['table_bytes']} bytes, host"
+          f" fill {c_['fill_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     cfg = registry.get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -3027,12 +3378,19 @@ def main() -> int:
 
     if tuple(phases) != PHASES:
         raise AssertionError(f"phases ran as {tuple(phases)}, not {PHASES}")
-    # kernel #1 also carries the kill faults of chain_faults' drive
+    # kernel #1 also carries the kill faults of chain_faults' drive and the
+    # ADDLEQ guests of chain_programs'
     phases["chain_kernel"]["launches_by_phase"] = dict(
         chain_kernel=phases["chain_kernel"]["launches"],
-        chain_faults=phases["chain_faults"]["launches"])
-    if phases["chain_faults"]["launches"] < 1:
-        raise AssertionError("chain_faults: no run_managed launch")
+        chain_faults=phases["chain_faults"]["launches"],
+        chain_programs=phases["chain_programs"]["launches"])
+    for key in ("chain_faults", "chain_programs"):
+        if phases[key]["launches"] < 1:
+            raise AssertionError(f"{key}: no run_managed launch")
+    g = phases["chain_programs"]["guests"]
+    phases["chain_kernel"]["addleq_guests"] = {f: g[f] for f in (
+        "shape", "launches", "ms", "trace_ms", "event_ms", "plain_ms",
+        "bound_ms", "serial_floor_ms", "steps_max")}
 
     rows = []
     for kname, phase, source, replaces in KERNELS:
@@ -3049,6 +3407,8 @@ def main() -> int:
             rows[-1]["kernel_launches"] = r["kernel_launches"]
         if "launches_by_phase" in r:
             rows[-1]["launches_by_phase"] = r["launches_by_phase"]
+        if "addleq_guests" in r:
+            rows[-1]["addleq_guests"] = r["addleq_guests"]
         if "shapes" in r:
             rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms")}

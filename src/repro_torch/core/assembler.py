@@ -199,13 +199,17 @@ class Program:
         """Build the memory image + MachineSpec/VMState on ``device``
         (default CUDA, see :func:`repro_torch.device.resolve`).
 
-        ``verify=True`` (the static verifier gate) needs the program
-        analysis, which the port does not carry yet.
+        With ``verify=True`` the static verifier (`core.analysis`) runs
+        over the finalized program first and raises
+        :class:`analysis.VerificationError` on any finding not covered
+        by ``waivers`` — the admission gate for generated programs.
         """
         if verify:
-            raise NotImplementedError(
-                "finalize(verify=True) needs the static program verifier, "
-                "which is not ported yet")
+            from . import analysis      # lazy: keeps assembler import-light
+            report = analysis.verify_program(self, waivers=waivers,
+                                             name=name)
+            if not report.ok():
+                raise analysis.VerificationError(report)
         if self._code_top > self._data_ptr:
             raise ValueError(
                 f"code ({self._code_top}) collides with data "

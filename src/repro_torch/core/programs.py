@@ -21,6 +21,8 @@
   source bucket re-homed into the doubled frame.
 * :class:`HopscotchShardDeleter` / :class:`ClockSweeper` — the rest of the
   Memcached lifecycle: *delete* and the CLOCK expiry sweeper.
+* :class:`ListTraversalOffload` — Fig. 12's linked-list walk, with and
+  without the §5.3 ``break``.
 * :class:`RecycledGetServer` — a §3.4 WQ-recycled *get* server on one
   managed WQ (the single-WQ program the chain kernel runs).
 
@@ -2551,6 +2553,157 @@ def _build_clock_sweeper(n_buckets: int, val_len: int,
         prog=p, spec=spec, state0=st0, n_buckets=n_buckets,
         val_len=val_len, table_base=table, values_base=values,
         resp_region=resp, recv_wq=rq.index)
+
+
+# ---------------------------------------------------------------------------
+# Fig. 12 — linked-list traversal
+# ---------------------------------------------------------------------------
+
+NODE_WORDS = 4   # [key, pad, val_ptr, next]
+
+
+@dataclasses.dataclass
+class ListTraversalOffload:
+    prog: Program
+    spec: machine.MachineSpec
+    state0: machine.VMState
+    n_iters: int
+    val_len: int
+    nodes_base: int
+    values_base: int
+    resp_region: int
+    recv_wq: int
+    use_break: bool
+    items: List[Tuple[int, List[int]]]
+
+    def node_addr(self, i: int) -> int:
+        return self.nodes_base + i * NODE_WORDS
+
+    def set_list(self, items: Sequence[Tuple[int, Sequence[int]]]):
+        self.items = [(k, list(v)) for k, v in items]
+
+    def materialize(self) -> machine.VMState:
+        """Fresh machine state holding the current list, on the image's
+        device."""
+        mem = self.state0.mem.cpu().numpy().copy()
+        for i, (key, value) in enumerate(self.items):
+            a = self.node_addr(i)
+            vslot = self.values_base + i * self.val_len
+            nxt = self.node_addr(i + 1) if i + 1 < len(self.items) else 0
+            mem[a:a + 4] = [key, 0, vslot, nxt]
+            mem[vslot:vslot + len(value)] = value
+        return self.state0._replace(
+            mem=torch.from_numpy(mem).to(self.state0.mem.device))
+
+    @property
+    def engine(self) -> ChainEngine:
+        return ChainEngine.for_spec(self.spec)
+
+    def _payload(self, key: int) -> List[int]:
+        return [self.node_addr(0)] + [key] * self.n_iters
+
+    def get(self, key: int, max_steps: int = 4096):
+        st = self.materialize()
+        st = machine.deliver(st, self.recv_wq, self._payload(key))
+        out = self.engine.run(st, max_steps)
+        val = out.mem[self.resp_region:self.resp_region + self.val_len]
+        return val.cpu().numpy(), out
+
+    def get_many(self, keys: Sequence[int], max_steps: int = 4096):
+        """Batched list walk: one materialize(), one vmapped run."""
+        return _batched_get(self, keys, max_steps)
+
+
+def build_list_traversal(n_iters: int = 8, val_len: int = 2,
+                         use_break: bool = False, mem_words: int = 8192,
+                         device=None) -> ListTraversalOffload:
+    """Unrolled list walk (Fig. 12), its state on ``device``.
+
+    Per iteration: ``drv`` patches and performs the node READ (filling the
+    response WR's ctrl/flags/src from the node) and advances the cursor;
+    ``exe`` CASes the response WR's control word against the searched key;
+    ``mod`` holds the conditional response WRs.  With ``use_break`` a hit
+    rewrites the *next* iteration's conditional WR into a completion-
+    suppressed response WRITE, so its missing completion starves both the
+    ``exe`` and ``drv`` chains — no further iterations execute (Fig. 6).
+    """
+    p = Program(mem_words)
+    resp = p.alloc(val_len, [MISS_SENTINEL] * val_len, "resp")
+    values = p.alloc(n_iters * val_len, name="values")
+    nodes = p.alloc(n_iters * NODE_WORDS, [0] * (n_iters * NODE_WORDS),
+                    "nodes")
+    cur = p.word(0, "cur")
+
+    rq = p.add_wq(4)
+    drv = p.add_wq(10 * n_iters + 4, ordering=isa.ORD_COMPLETION)
+    exe = p.add_wq(4 * n_iters + 4, ordering=isa.ORD_DOORBELL)
+    mod = p.add_wq(2 * n_iters + 2, ordering=isa.ORD_DOORBELL, managed=True)
+
+    per_iter = 2 if use_break else 1     # mod WRs per iteration
+    cas_opa_addrs = []
+    for i in range(n_iters):
+        # --- mod: the conditional WR (and, in break mode, the adjacent
+        #     event WR the next iteration gates on — Fig. 6's layout) -------
+        if use_break:
+            # C_i converted -> WRITE(template over E_i): E_i becomes a
+            # completion-suppressed response WRITE. Response fires AND the
+            # missing completion starves iteration i+1 before it can touch
+            # anything.
+            tmpl = p.alloc(isa.WR_WORDS, [
+                isa.pack_ctrl(isa.WRITE, 0), isa.FLAG_SUPPRESS_COMPLETION,
+                0, resp, val_len, 0, 0, -1])
+            c_i = mod.post(isa.NOOP, src=tmpl,
+                           dst=mod.future_wr_addr(1, "ctrl"), ln=8,
+                           tag=f"list.c{i}")
+            mod.post(isa.NOOP, tag=f"list.e{i}")      # E_i (the gate event)
+        else:
+            # C_i converted -> WRITE(value -> response region) directly
+            c_i = mod.post(isa.NOOP, src=0, dst=resp, ln=val_len,
+                           tag=f"list.c{i}")
+
+        # --- drv: patch + node READ + cursor advance ------------------------
+        if i == 0:
+            drv.wait(rq, 1, tag="list.trig")
+        else:
+            drv.wait(mod, per_iter * i, tag=f"list.gate{i}")
+        # node [key, pad(, val_ptr)] -> C_i.[ctrl, flags(, src)]; in break
+        # mode C_i.src must keep pointing at the template, so the READ stops
+        # after flags and the value pointer is forwarded into the template.
+        drv.write(src=cur, dst=drv.future_wr_addr(1, "src"), ln=1,
+                  tag=f"list.patch{i}")
+        drv.read(src=0, dst=c_i.ctrl_addr, ln=(2 if use_break else 3),
+                 tag=f"list.node{i}")
+        if use_break:
+            drv.write(src=cur, dst=drv.future_wr_addr(2, "src"), ln=1,
+                      tag=f"list.patch_v{i}")
+            drv.add(dst=drv.future_wr_addr(1, "src"), addend=2,
+                    tag=f"list.voff{i}")
+            drv.read(src=0, dst=tmpl + 2, ln=1, tag=f"list.val{i}")
+        # advance: cursor <- node.next
+        drv.write(src=cur, dst=drv.future_wr_addr(2, "src"), ln=1,
+                  tag=f"list.patch_n{i}")
+        drv.add(dst=drv.future_wr_addr(1, "src"), addend=3,
+                tag=f"list.off{i}")
+        rdn = drv.read(src=0, dst=cur, ln=1, tag=f"list.next{i}")
+
+        # --- exe: the conditional (gated on the full drv iteration) ---------
+        if i > 0:
+            exe.wait(mod, per_iter * i, tag=f"list.syncm{i}")
+        exe.wait(drv, rdn.completion_count, tag=f"list.sync{i}")
+        cas = exe.cas(dst=c_i.ctrl_addr, old=isa.pack_ctrl(isa.NOOP, 0),
+                      new=isa.pack_ctrl(isa.WRITE, 0), tag=f"list.cas{i}")
+        exe.enable(mod, upto=per_iter * (i + 1), tag=f"list.en{i}")
+        cas_opa_addrs.append(cas.addr("opa"))
+
+    # RECV: first-node address -> cursor; x -> every CAS comparand
+    tbl = p.scatter_table([cur] + cas_opa_addrs)
+    rq.recv(scatter_table=tbl, tag="list.recv")
+
+    spec, st0 = p.finalize(device=device)
+    return ListTraversalOffload(
+        prog=p, spec=spec, state0=st0, n_iters=n_iters, val_len=val_len,
+        nodes_base=nodes, values_base=values, resp_region=resp,
+        recv_wq=rq.index, use_break=use_break, items=[])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Memcached-analogue storage: the hopscotch table and the sharded KV store
-with its one-sided / two-sided / RedN-offload get paths.
+"""Memcached-analogue storage: the hopscotch and cuckoo tables and the
+sharded KV store with its one-sided / two-sided / RedN-offload get paths.
 
 The package's public surface, re-exported so callers write ``from
 repro_torch.kvstore import ShardedKVService, DeleteResult``:
@@ -13,7 +13,7 @@ repro_torch.kvstore import ShardedKVService, DeleteResult``:
   facade :class:`ShardedKVService` (lazy: it lives in
   ``repro_torch.rdma.failure``, which itself imports this package).
 """
-from . import fsck, hopscotch, store  # noqa: F401
+from . import cuckoo, fsck, hopscotch, store  # noqa: F401
 from .hopscotch import STATUS_NAMES, HopscotchTable, status_name  # noqa: F401
 from .store import (  # noqa: F401
     Admission,
@@ -25,7 +25,7 @@ from .store import (  # noqa: F401
 )
 
 __all__ = [
-    "hopscotch", "store", "fsck",
+    "cuckoo", "hopscotch", "store", "fsck",
     "Admission", "DeleteResult", "GetResult", "SetResult", "SweepReport",
     "WriterFaultConflict", "STATUS_NAMES", "status_name", "HopscotchTable",
     "ShardedKVService",

@@ -15,6 +15,7 @@ from repro.core import machine as jm
 from repro.core import programs as jp
 from repro.core.engine import ChainEngine as JEngine
 from repro_torch import convert
+from repro_torch.core import analysis as tanalysis
 from repro_torch.core import assembler as tasm
 from repro_torch.core import cost as tcost
 from repro_torch.core import isa as tisa
@@ -97,8 +98,9 @@ def test_program_budget_and_verify():
     jprog = jp.build_hash_lookup(n_buckets=8).prog
     tprog = tp.build_hash_lookup(n_buckets=8, device="cpu").prog
     assert tprog.budget() == jprog.budget()
-    with pytest.raises(NotImplementedError):
-        tprog.finalize(verify=True)
+    # the hash lookup's response arms race unless their waiver is given
+    with pytest.raises(tanalysis.VerificationError):
+        tprog.finalize(verify=True, device="cpu")
     p = tasm.Program(16)
     p.add_wq(4)                       # 32 code words in a 16-word image
     with pytest.raises(ValueError, match="collides"):

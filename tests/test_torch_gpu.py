@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import faults, isa, machine, programs
+from repro_torch.core import faults, isa, machine, programs, turing
 from repro_torch.core.engine import ChainEngine
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
@@ -30,7 +30,7 @@ from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rglru import ref as rg_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
-from repro_torch.kvstore import fsck, hopscotch, store
+from repro_torch.kvstore import cuckoo, fsck, hopscotch, store
 
 pytestmark = pytest.mark.gpu
 
@@ -644,3 +644,51 @@ def test_racing_writer_set_on_card_matches_cpu(cuda):
         assert torch.equal(a.cpu(), b), f
     assert torch.equal(kg.cpu(), kc) and torch.equal(vg.cpu(), vc)
     assert int(res_c.applied.sum()) >= 4
+
+
+# --- the chain-program toolchain and the cuckoo table ------------------------
+
+def test_addleq_guests_on_the_kernel_match_the_interpreter(cuda):
+    """ADDLEQ guests (the demos, one that loops forever) through the
+    managed chain kernel: equal to the interpreter on the card and to
+    the interpreter on the CPU in the fields the kernel models, every
+    halting guest's product right, the loop stopped at its fuel."""
+    interp = turing.build_interpreter(device=cuda)
+    d, i0 = interp.data_base, interp.instr_base
+    guests = [turing.guest_multiply(interp, x, y)
+              for x, y in ((7, 6), (3, 4), (12, 8), (9, 0))]
+    guests += [turing.guest_countdown(interp, 40),
+               turing.guest_add(interp, 17, 25),
+               turing.AddleqProgram([(d, d + 1, i0)], {d: 0, d + 1: 0})]
+    states = [interp.load(g) for g in guests]
+    batch = machine.VMState(*(torch.stack(f) for f in zip(*states)))
+    max_steps = interp.lap_words * 102
+    before = chain_ops.launches["run_managed"]
+    got = ChainEngine(interp.spec, "kernel").run_batch(batch, max_steps)
+    assert chain_ops.launches["run_managed"] == before + 1
+    interp_card = ChainEngine(interp.spec).run_batch(batch, max_steps)
+    cpu = machine.VMState(*(a.cpu() for a in batch))
+    interp_cpu = ChainEngine(interp.spec).run_batch(cpu, max_steps)
+    for f in ("mem", "head", "tail", "enable_limit", "completions", "steps",
+              "halted"):
+        assert torch.equal(getattr(got, f), getattr(interp_card, f)), f
+        assert torch.equal(getattr(got, f).cpu(), getattr(interp_cpu, f)), f
+    prods = got.mem[:3, d + 2].tolist()
+    assert prods == [42, 12, 96] and got.halted[:6].all()
+    assert not bool(got.halted[6]) and int(got.steps[6]) == max_steps
+
+
+def test_cuckoo_lookup_on_the_card_matches_the_cpu(cuda):
+    tbl = cuckoo.make_table(1024, 4)
+    rng = np.random.RandomState(4)
+    keys = rng.choice(np.arange(1, 1 << 24), 3600, replace=False)
+    tbl.memo_kicks(keys)
+    for k in keys.tolist():
+        tbl.insert(k, [k, -k, k ^ 3, 7])
+    q = torch.from_numpy(np.concatenate([
+        keys[:2000], rng.randint(1 << 24, 1 << 30, 2000), [0, -5]]).astype(
+        np.int32))
+    found, vals = cuckoo.lookup(*tbl.as_device(cuda), q.to(cuda))
+    cfound, cvals = cuckoo.lookup(*tbl.as_device("cpu"), q)
+    assert torch.equal(found.cpu(), cfound) and torch.equal(vals.cpu(), cvals)
+    assert int(cfound[:2000].sum()) > 1800

@@ -338,8 +338,14 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
+    """Seven rows, one a TPU kernel; each row's phase runs, and the guest
+    drive of ``chain_programs`` reaches kernel #1 (its launches join that
+    row's ``launches_by_phase``)."""
     assert len(smoke.KERNELS) == 7
-    for name, _, source, replaces in smoke.KERNELS:
+    assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
+    assert "chain_programs" in smoke.PHASES
+    for name, phase, source, replaces in smoke.KERNELS:
+        assert phase in smoke.PHASES, (name, phase)
         assert (ROOT / source).is_file(), source
         path, line = replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
@@ -352,13 +358,15 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 19
+    assert len(p) == len(set(p)) == 21
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")
     assert p.index("kv_resize") + 1 == p.index("kv_contend")
     assert p.index("kv_contend") + 1 == p.index("kv_service")
-    assert p.index("kv_service") < p.index("lm_prefill")
+    assert p.index("kv_service") + 1 == p.index("chain_programs")
+    assert p.index("chain_programs") + 1 == p.index("cuckoo_get")
+    assert p.index("cuckoo_get") < p.index("lm_prefill")
 
 
 def test_phase_chain_faults_cpu(smoke):
@@ -442,3 +450,43 @@ def test_phase_kv_service_cpu(smoke, write_store):
     assert r["chained_buckets_after"] == 32
     k, v = write_store.device_arrays("cpu")
     assert torch.equal(k, dk) and torch.equal(v, dv)
+
+
+def test_phase_chain_programs_cpu(smoke):
+    """The toolchain phase at 32 guests and 64 list probes: the sweep
+    equals BENCH_chains.json, the guests' kernel-backend batch (its plain
+    version here) equals the interpreter and the oracle, the looping
+    guest stops at its fuel, and break saves steps at position 0."""
+    r = smoke.phase_chain_programs("cpu", n_guests=32, n_probes=64,
+                                   time_it=False)
+    assert r["sweep"] == "18/18" and r["launches"] == 0
+    g = r["guests"]
+    assert g["max_abs_err"] == 0 and g["guests"] == 32
+    assert 10 <= g["halting"] == g["halted"] < 32
+    assert g["steps_max"] == g["max_steps"] == 26 * 102
+    assert g["shape"] == (32, 4096 + smoke.machine.GUARD_WORDS)
+    lw = r["lists"]
+    assert lw["probes"] == 64 and lw["break_saves_at_0"] > 0
+    assert lw["steps_at_0"][True] < lw["steps_at_0"][False]
+
+
+def test_guest_drive_refuses_a_wrong_cell(smoke, monkeypatch):
+    """The guest check fails when the oracle disagrees with the chain."""
+    real = smoke.turing.addleq_reference
+
+    def off_by_one(instrs, mem, pc0, base, max_instrs=1000):
+        m, n = real(instrs, mem, pc0, base, max_instrs)
+        return {a: v + 1 for a, v in m.items()}, n
+
+    monkeypatch.setattr(smoke.turing, "addleq_reference", off_by_one)
+    with pytest.raises(AssertionError, match="oracle"):
+        smoke.guest_drive("cpu", 12, 100, seed=1, time_it=False)
+
+
+def test_phase_cuckoo_get_cpu(smoke):
+    r = smoke.phase_cuckoo_get("cpu", log2_buckets=10, n_queries=1024,
+                               time_it=False)
+    assert r["keys"] == int(1024 * 4 * 0.9) and r["max_abs_err"] >= 0
+    assert r["resident"] + r["failed_inserts"] == r["keys"]
+    assert 0 < r["hits"] <= 512 + 1
+    assert r["table_bytes"] == 1024 * 4 * 4 * (1 + 4)

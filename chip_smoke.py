@@ -4,14 +4,15 @@ resize, racing writers and isolation, the crash-resilient services, the
 chain-program toolchain (verifier, ADDLEQ guests, list walks), the cuckoo
 table, and the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
-ServeEngine ticks).
+ServeEngine ticks; gemma3-1b, also on rolling int8 caches, mixtral-8x7b,
+phi-3-vision-4.2b and seamless-m4t-medium prefill and decode).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs twenty-one phases
+``nvcc`` per source, all started together), then runs twenty-six phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -144,20 +145,24 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          recurrentgemma-9b one (head dim 256, GQA 16,
                          window 2,048), float32 and bfloat16; ragged bf16
                          cases (Sq = Sk = 1,025; Sq 77, Sk 333, q_offset
-                         256) at both.  Both shapes timed beside SDPA.
-                         The drives' flash launches by kernel must be 28
-                         tensor-core (lm_prefill), 12 tensor-core
-                         (lm_griffin) and 28 CUDA-core (lm_float32).
+                         256) at both, and at phi-3-vision's (32 heads
+                         of 96, the CUDA-core kernel in both types).  All
+                         three shapes timed beside SDPA.  The drives'
+                         flash launches by kernel must be 28 tensor-core
+                         (lm_prefill), 12 tensor-core (lm_griffin), 28
+                         CUDA-core (lm_float32), and those of
+                         ``FLASH_DRIVE_LAUNCHES`` for the drives of 12b.
 10. ``decode_kernel``  — the decode kernels against their plain version
                          over a 32,768-long cache (B 16), lengths spread
                          over [1, S], and at recurrentgemma-9b's decode
                          shape (B 4, 16 query heads on 1 KV head of 256,
-                         S 4,096, window 2,048, lengths 2,049-2,056), each
-                         whole and as two ``kpos_offset`` shards, bf16 and
-                         float32.  A planted fault (half of each sequence's
-                         rows dropped) must fail the check.  Both shapes
-                         timed (device time from a trace) beside the plain
-                         version and SDPA.
+                         S 4,096, window 2,048, lengths 2,049-2,056) and
+                         phi-3-vision's (B 4, 32 heads of 96, S 4,096),
+                         each whole and as two ``kpos_offset`` shards, bf16
+                         and float32.  A planted fault (half of each
+                         sequence's rows dropped) must fail the check.
+                         Every shape timed (device time from a trace)
+                         beside the plain version and SDPA.
 11. ``lm_rwkv``        — rwkv6-7b at full width and depth (32 RWKV6 layers,
                          d 4,096, bf16, seeded random weights): the
                          ``lm_prefill`` drive (one WKV6 launch per layer),
@@ -177,6 +182,24 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          the same drives; the window binds on the last
                          rows.  The decode kernel is held on a local
                          layer's cache as the drive left it.
+12b. ``lm_gemma3`` .. ``lm_seamless`` — the ``lm_prefill`` drive of the
+                         other archs in bf16 (``ARCH_DRIVES``), B 4, 8
+                         decode steps, prefill last logits held against
+                         ``forward``, the decode kernel held on the last
+                         self-attention layer's cache as decode reads it:
+                         gemma3-1b whole (26 layers, 5 local (512) : 1
+                         global, vocab 262,144, prompt 2,048);
+                         ``lm_gemma3_cache``, the same weights with the
+                         rolling (512-slot) and int8 caches, the decode
+                         kernel on the dequantized caches; mixtral-8x7b at
+                         4 of its 32 layers, capacity factor 8 (drop-free),
+                         prompt 1,024; phi-3-vision-4.2b (head dim 96: the
+                         CUDA-core flash kernel), 576 seeded patch
+                         embeddings before 1,472 tokens; seamless-m4t
+                         (12 + 12 layers), 2,048 seeded frames through the
+                         encoder (flash, mode full) and cross-attention in
+                         every decoder layer, 36 flash launches a prefill
+                         and 24 + 24 decode launches a step.
 13. ``wkv6_kernel``    — the WKV6 kernel against its plain scan at the
                          prefill shape, at a T that is not a multiple of 32
                          and at T = 1, bfloat16 and float32.
@@ -283,8 +306,10 @@ from repro_torch.kernels.rglru import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.kvstore import cuckoo, fsck, hopscotch, store  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.rdma import failure, isolation, transport  # noqa: E402
@@ -2335,17 +2360,20 @@ def phase_cuckoo_get(device, log2_buckets=18, ways=4, val_words=4,
 
 def path_launches(cfg, device):
     """The kernel launches one prefill and one decode step of ``cfg``'s
-    model make: a flash-attention launch per attention layer, a WKV6 launch
-    per RWKV6 layer, an RG-LRU launch per recurrent layer, and a decode
-    launch per attention layer and step (none on the CPU, where the plain
+    model make: a flash-attention launch per attention layer, per encoder
+    layer and per cross-attention layer, a WKV6 launch per RWKV6 layer, an
+    RG-LRU launch per recurrent layer, and a decode launch per attention
+    and cross-attention layer and step (none on the CPU, where the plain
     versions run)."""
     kinds = [cfg.layer_type(i) for i in range(cfg.num_layers)]
     n_attn = sum(k in transformer.ATTN_KINDS for k in kinds)
+    n_cross = cfg.num_layers if cfg.cross_attention else 0
     on = int(torch.device(device).type == "cuda")
-    prefill = {"flash_attention": on * n_attn,
+    prefill = {"flash_attention": on * (n_attn + cfg.num_encoder_layers
+                                        + n_cross),
                "wkv6": on * kinds.count("rwkv"),
                "rglru": on * kinds.count("recurrent")}
-    return prefill, {"decode_partial": on * n_attn}
+    return prefill, {"decode_partial": on * (n_attn + n_cross)}
 
 
 def flash_variant_launches(cfg, device) -> dict:
@@ -2385,23 +2413,55 @@ def require_launches(want: dict, what: str) -> dict:
     return got
 
 
-def last_attention_cache(cfg, caches):
-    """The last attention layer's cache and its window (None if the model
-    has no attention layer)."""
+def last_attention_cache(cfg, caches, lengths):
+    """The last self-attention layer's cache as its decode step reads it:
+    ({'k', 'v'} in the model's type (an int8 cache dequantized), the
+    lengths and the window the decode kernel gets (a rolling cache:
+    min(lengths, window), no window)); (None, lengths, 0) if the model has
+    no attention layer."""
     for i in reversed(range(cfg.num_layers)):
         kind = cfg.layer_type(i)
-        if kind in transformer.ATTN_KINDS:
-            return caches[i], cfg.window if kind == "local" else 0
-    return None, 0
+        if kind not in transformer.ATTN_KINDS:
+            continue
+        c = caches[i]
+        k, v = c["k"], c["v"]
+        if "ks" in c:
+            dt = model_layers.dtype_of(cfg)
+            k = attention.dequantize_kv(k, c["ks"], dt)
+            v = attention.dequantize_kv(v, c["vs"], dt)
+        window = cfg.window if kind == "local" else 0
+        if window and cfg.window_cache and k.shape[2] == window:
+            return dict(k=k, v=v), torch.clamp(lengths, max=window), 0
+        return dict(k=k, v=v), lengths, window
+    return None, lengths, 0
+
+
+def frontend_inputs(cfg, batch: int, prompt: int, device) -> dict:
+    """The frontend stubs a drive's batch carries, seeded on the device:
+    'patches' (B, frontend_tokens, frontend_dim) for a vision model,
+    'frames' (B, prompt, frontend_dim) for an encoder-decoder, float32."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, prompt, cfg.frontend_dim),
+                                    generator=gen, device=device)
+    if cfg.frontend == "vision" and cfg.frontend_tokens:
+        out["patches"] = torch.randn(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim), generator=gen,
+            device=device)
+    return out
 
 
 def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
              time_it=True):
-    """The prompt pass of ``batch`` seeded prompts, then ``extra`` decode
-    steps continuing them, and one ``forward`` over the whole ``prompt +
-    extra`` tokens; the prefill's last logits are held against it.  Returns
-    (the result, {"tokens", "decoded" (B, extra, V), "forward" (the same
-    rows of ``forward``)}, both float32)."""
+    """The prompt pass of ``batch`` seeded prompts (after the seeded
+    patches of a vision model; with the seeded frames of an
+    encoder-decoder, which every decode step's cross-attention reads
+    whole), then ``extra`` decode steps continuing them, and one
+    ``forward`` over the whole ``prompt + extra`` tokens; the prefill's
+    last logits are held against it.  Returns (the result, {"tokens",
+    "decoded" (B, extra, V), "forward" (the same rows of ``forward``)},
+    both float32)."""
     want_prefill, want_step = path_launches(cfg, device)
     want_variants = flash_variant_launches(cfg, device)
     want_rglru = rglru_variant_launches(cfg, device)
@@ -2409,15 +2469,20 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     rng = np.random.RandomState(0)
     toks = torch.from_numpy(rng.randint(1, cfg.vocab_size, (
         batch, prompt + extra)).astype(np.int32)).to(device)
-    prefill_step = train_loop.make_prefill_step(cfg,
-                                                s_max=s_max or prompt + 64)
+    inputs = frontend_inputs(cfg, batch, prompt, device)
+    n_front = inputs["patches"].shape[1] if "patches" in inputs else 0
+    enc_lengths = (torch.full((batch,), prompt, dtype=torch.int32,
+                              device=device) if cfg.is_encdec else None)
+    prompt_batch = dict(inputs, tokens=toks[:, :prompt])
+    prefill_step = train_loop.make_prefill_step(
+        cfg, s_max=s_max or n_front + prompt + 64)
     serve_step = train_loop.make_serve_step(cfg)
     if time_it:
         torch.cuda.reset_peak_memory_stats()
     sync(device)
     reset_launches()
     t0 = time.perf_counter()
-    last, caches, lengths = prefill_step(params, {"tokens": toks[:, :prompt]})
+    last, caches, lengths = prefill_step(params, prompt_batch)
     sync(device)
     first_s = time.perf_counter() - t0
     prefill_launches = require_launches(want_prefill, "the prefill")
@@ -2431,7 +2496,7 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
         t0 = time.perf_counter()
         lengths = lengths + 1
         logits, caches = serve_step(params, toks[:, prompt + i], caches,
-                                    lengths)
+                                    lengths, enc_lengths)
         sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         decoded.append(logits.float())
@@ -2440,17 +2505,25 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
             cfg, device)}.items()}, f"{extra} decode steps")["decode_partial"]
     if logits.shape != (batch, cfg.padded_vocab):
         raise AssertionError(f"decode logits {tuple(logits.shape)}")
-    cache, window = last_attention_cache(cfg, caches)
+    if not bool(torch.isfinite(torch.stack(decoded)).all()):
+        raise AssertionError("non-finite decoded logits")
+    if int(lengths[0]) != n_front + prompt + extra:
+        raise AssertionError(f"lengths {lengths.tolist()} do not count the "
+                             f"{n_front} patches")
+    cache, cache_lengths, window = last_attention_cache(cfg, caches, lengths)
     cache_errs = None if cache is None else require_cache_decode(
-        cache, lengths, cfg.num_heads, "decode on the prefill cache",
+        cache, cache_lengths, cfg.num_heads, "decode on the prefill cache",
         window=window)
-    full, _, _ = model_lib.forward(params, {"tokens": toks}, cfg)
-    err_prefill = require_close(last, full[:, prompt - 1], LOGIT_TOL[dt],
+    full, _, aux = model_lib.forward(params, dict(inputs, tokens=toks), cfg)
+    err_prefill = require_close(last, full[:, n_front + prompt - 1],
+                                LOGIT_TOL[dt],
                                 "prefill last logits vs forward")
     rows = dict(tokens=toks, decoded=torch.stack(decoded, 1),
-                forward=full[:, prompt:].float().clone())
+                forward=full[:, n_front + prompt:].float().clone())
     del full
-    result = dict(batch=batch, prompt=prompt, decode_steps=extra,
+    result = dict(arch=cfg.name, batch=batch, prompt=prompt,
+                  frontend_positions=n_front, decode_steps=extra,
+                  forward_aux=float(aux),
                   prefill_launches=prefill_launches,
                   flash_launches=prefill_launches["flash_attention"],
                   flash_variant_launches=flash_variants,
@@ -2462,19 +2535,20 @@ def lm_drive(device, cfg, params, batch=4, prompt=2048, extra=8, s_max=None,
     if time_it:
         sync(device)
         t0 = time.perf_counter()
-        prefill_step(params, {"tokens": toks[:, :prompt]})
+        prefill_step(params, prompt_batch)
         sync(device)
         result["prefill_s"] = time.perf_counter() - t0
-        result["prefill_tokens_per_s"] = batch * prompt / result["prefill_s"]
+        result["prefill_tokens_per_s"] = (batch * (n_front + prompt)
+                                          / result["prefill_s"])
         result["decode_ms_per_step_median"] = float(np.median(step_ms))
         result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        prof = device_profile(
-            lambda: prefill_step(params, {"tokens": toks[:, :prompt]}), 1)
+        prof = device_profile(lambda: prefill_step(params, prompt_batch), 1)
         prof["idle_share"] = 1 - prof["device_ms"] / (result["prefill_s"]
                                                       * 1e3)
         result["prefill_profile"] = prof
         prof = device_profile(lambda: serve_step(
-            params, toks[:, prompt + extra - 1], caches, lengths), 3)
+            params, toks[:, prompt + extra - 1], caches, lengths,
+            enc_lengths), 3)
         prof["idle_share"] = 1 - (prof["device_ms"]
                                   / result["decode_ms_per_step_median"])
         result["decode_profile"] = prof
@@ -2535,6 +2609,54 @@ class planted_state_fault:
     def __exit__(self, *exc):
         for m, fn in self.saved:
             setattr(m, fn.__name__, fn)
+
+
+class recorded_routes:
+    """Records the experts each MoE layer chooses (``moe.route``'s idx_k,
+    (T, k)), call by call."""
+
+    def __enter__(self):
+        self.routes, self.saved = [], moe.route
+
+        def route(logits, cfg):
+            r = self.saved(logits, cfg)
+            self.routes.append(r.idx_k)
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.saved
+
+
+def route_agreement(cfg, params, toks, prompt: int, s_max: int) -> dict:
+    """The experts prefill and each decode step choose, against those
+    ``forward`` over the same tokens chooses, per (layer, token): the
+    share that agree, and the decoded logits' largest distance from
+    ``forward``'s in the rows whose routes agreed at every layer and step
+    so far, and in the rest."""
+    b, n = toks.shape
+    with recorded_routes() as fwd:
+        full, _, _ = model_lib.forward(params, {"tokens": toks}, cfg)
+    with recorded_routes() as dec:
+        decoded = decoded_rows(cfg, params, toks, prompt, s_max)
+    n_moe = len(fwd.routes)
+    want = torch.stack([r.reshape(b, n, -1) for r in fwd.routes])
+    pre = torch.stack([r.reshape(b, prompt, -1)
+                       for r in dec.routes[:n_moe]])
+    steps = torch.stack(dec.routes[n_moe:]).reshape(n - prompt, n_moe, b, -1)
+    same = (steps == want[:, :, prompt:].permute(2, 0, 1, 3)).all(-1)
+    clean = same.all(1).int().cumprod(0).bool()        # (steps, B)
+    err = (decoded - full[:, prompt:].float()).abs().amax(-1).T
+    return dict(
+        prefill_agree=float((pre == want[:, :, :prompt]).all(-1)
+                            .float().mean()),
+        decode_agree=float(same.float().mean()),
+        decode_flips=int((~same).sum()),
+        max_abs_err_agreeing=float(err[clean].max()) if clean.any()
+        else None,
+        max_abs_err_after_flip=float(err[~clean].max()) if (~clean).any()
+        else None)
 
 
 # ---------------------------------------------------------------------------
@@ -2603,9 +2725,10 @@ def phase_lm_serve(device, cfg, params, s_max=4096, n_slots=8, ticks=32,
     want_lengths = [1 + ticks] * slots + [0] * (n_slots - slots)
     if eng.lengths.cpu().tolist() != want_lengths:
         raise AssertionError(f"lengths {eng.lengths.tolist()}")
-    cache, window = last_attention_cache(cfg, eng.caches)
+    cache, cache_lengths, window = last_attention_cache(cfg, eng.caches,
+                                                        eng.lengths)
     cache_errs = None if cache is None else require_cache_decode(
-        cache, eng.lengths, cfg.num_heads, "decode on the serving cache",
+        cache, cache_lengths, cfg.num_heads, "decode on the serving cache",
         window=window)
     result = dict(slots=n_slots, active=slots, s_max=s_max, ticks=ticks,
                   crash_at=crash_at, admitted=admitted,
@@ -2636,12 +2759,14 @@ def random_qkv(device, seed, dtype, b, h, kh, sq, sk, d):
     return rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d)
 
 
-# The flash kernel's timed shapes: the prefill attention of the two models
-# whose prefill runs it, B 4 x 2,048 prompt tokens: (name, b, h, kh, s, d,
-# window).  At S = 2,048 griffin's window of 2,048 binds nothing, so SDPA
-# with is_causal=True, enable_gqa=True computes the same function.
+# The flash kernel's timed shapes: the prefill attention of three models
+# whose prefill runs it, B 4 x 2,048 prompt positions: (name, b, h, kh, s,
+# d, window).  At S = 2,048 griffin's window of 2,048 binds nothing, so
+# SDPA with is_causal=True, enable_gqa=True computes the same function.
+# phi-3-vision's head dim 96 takes the CUDA-core kernel in both types.
 FLASH_SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, 0),
-                ("recurrentgemma-9b", 4, 16, 1, 2048, 256, 2048))
+                ("recurrentgemma-9b", 4, 16, 1, 2048, 256, 2048),
+                ("phi-3-vision-4.2b", 4, 32, 32, 2048, 96, 0))
 # ragged bf16 causal cases at each shape's heads: (sq, sk, q_offset)
 FLASH_RAGGED = ((1025, 1025, 0), (77, 333, 256))
 BOTH_DTYPES = (torch.bfloat16, torch.float32)
@@ -2772,9 +2897,12 @@ def planted_fault_err(q, k, v, lengths, want, tol: float) -> float:
 # a 32,768-long cache (B 16, 16 / 8 heads of 128) with lengths spread over
 # [1, S], and recurrentgemma-9b's decode step as the lm_griffin drive runs
 # it (B 4, 16 query heads on 1 KV head of 256, s_max 4,096, window 2,048,
-# lengths 2,049-2,056, past the window).
+# lengths 2,049-2,056, past the window), and phi-3-vision's (B 4, 32 heads
+# of 96, s_max 4,096, the lengths of 2,048 prompt positions and 8 steps).
 DECODE_SHAPES = (("32k", 16, 16, 8, 32768, 128, 0, (1, 32768)),
                  ("recurrentgemma-9b", 4, 16, 1, 4096, 256, 2048,
+                  (2049, 2056)),
+                 ("phi-3-vision-4.2b", 4, 32, 32, 4096, 96, 0,
                   (2049, 2056)))
 
 
@@ -2988,6 +3116,33 @@ def phase_lm_recurrent(device, cfg, params, batch=4, prompt=2048, extra=8,
     return result
 
 
+def phase_lm_arch(device, cfg, params, batch=4, prompt=2048, extra=8,
+                  s_max=None, time_it=True):
+    """``lm_drive`` of one of the other archs in bf16 (its flash and
+    decode launches gated per kernel), with the largest distance of the
+    decoded logits from ``forward``'s (reported: bf16 decode differs from
+    bf16 forward by the model's own rounding, and an int8 cache by its
+    quantization), the MoE auxiliary loss, an MoE model's
+    ``route_agreement`` and the card's line."""
+    result, rows = lm_drive(device, cfg, params, batch, prompt, extra, s_max,
+                            time_it)
+    result["max_abs_err_decode"] = float(
+        (rows["decoded"] - rows["forward"]).abs().max())
+    if cfg.is_moe:
+        result["routes"] = route_agreement(
+            cfg, params, rows["tokens"], prompt,
+            s_max or result["frontend_positions"] + prompt + 64)
+    result["decode_kernel_launches"] = decode_kernel_launches(cfg, device)
+    result["config"] = dict(layers=cfg.num_layers, dtype=cfg.dtype,
+                            head_dim=cfg.head_dim, window=cfg.window,
+                            window_cache=cfg.window_cache,
+                            kv_quant=cfg.kv_quant,
+                            capacity_factor=cfg.capacity_factor)
+    if time_it:
+        result["card"] = card_line()
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phases 13-14: the recurrence kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -3181,13 +3336,33 @@ PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "kv_contend", "kv_service", "chain_programs", "cuckoo_get",
           "lm_prefill", "lm_serve",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
-          "lm_griffin", "wkv6_kernel", "rglru_kernel")
+          "lm_griffin", "lm_gemma3", "lm_gemma3_cache", "lm_mixtral",
+          "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel")
 LM_ARCH = "qwen3-1.7b"
-# each drive's flash launches per prefill: (kernel, one per attention layer)
+# each drive's flash launches per prefill: (kernel, one per attention,
+# encoder and cross-attention layer)
 FLASH_DRIVE_LAUNCHES = {"lm_prefill": ("wgmma", 28),
                         "lm_griffin": ("wgmma", 12),
-                        "lm_float32": ("fma", 28)}
+                        "lm_float32": ("fma", 28),
+                        "lm_gemma3": ("wgmma", 26),
+                        "lm_gemma3_cache": ("wgmma", 26),
+                        "lm_mixtral": ("wgmma", 4),
+                        "lm_phi3v": ("fma", 32),
+                        "lm_seamless": ("wgmma", 36)}
 RECURRENT_ARCHS = (("lm_rwkv", "rwkv6-7b"), ("lm_griffin", "recurrentgemma-9b"))
+# the other archs' drives: (phase, arch, config changes, prompt tokens).
+# gemma3-1b whole (its 512 window binds at 2,048), then with the rolling
+# int8 caches on the same weights; mixtral-8x7b at 4 of its 32 layers
+# (about 12 GB), drop-free as its own router is; phi-3-vision's 576 patch
+# positions before 1,472 tokens; seamless with 2,048 frames.
+ARCH_DRIVES = (
+    ("lm_gemma3", "gemma3-1b", {}, 2048),
+    ("lm_gemma3_cache", "gemma3-1b", dict(window_cache=True, kv_quant=True),
+     2048),
+    ("lm_mixtral", "mixtral-8x7b", dict(num_layers=4, capacity_factor=8.0),
+     1024),
+    ("lm_phi3v", "phi-3-vision-4.2b", {}, 1472),
+    ("lm_seamless", "seamless-m4t-medium", {}, 2048))
 
 
 def run_phase(phases, key, fn):
@@ -3331,6 +3506,31 @@ def main() -> int:
                                                           params))
         del params
         torch.cuda.empty_cache()
+    params, shape = None, None
+    for key, arch, changes, prompt in ARCH_DRIVES:
+        cfg = dataclasses.replace(registry.get_config(arch), **changes)
+        if (arch, cfg.num_layers) != shape:    # the cache arms share weights
+            del params
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            params = model_lib.init_params(cfg, seed=0, device=device)
+            sync(device)
+            shape = (arch, cfg.num_layers)
+            print(f"[{key}] {arch}: "
+                  f"{sum(p.numel() for p in params.parameters())} "
+                  f"parameters ({cfg.dtype}, {cfg.num_layers} layers) "
+                  f"initialised in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        run_phase(phases, key, lambda: phase_lm_arch(device, cfg, params,
+                                                     prompt=prompt))
+        d = phases[key]
+        print(f"[times] {key} ({card}): prefill {d['prefill_s']:.4f} s "
+              f"({d['prefill_tokens_per_s']:.1f} positions/s), decode step "
+              f"median {d['decode_ms_per_step_median']:.2f} ms, peak memory "
+              f"{d['max_memory_allocated']} bytes, aux {d['forward_aux']}",
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
     run_phase(phases, "wkv6_kernel", lambda: phase_wkv6_kernel(device))
     torch.cuda.empty_cache()
     run_phase(phases, "rglru_kernel", lambda: phase_rglru_kernel(device))
@@ -3343,7 +3543,9 @@ def main() -> int:
         lm_prefill=phases["lm_prefill"]["flash_variant_launches"],
         lm_griffin=phases["lm_griffin"]["prefill"][
             "flash_variant_launches"],
-        lm_float32=phases["lm_float32"]["flash_variant_launches"])
+        lm_float32=phases["lm_float32"]["flash_variant_launches"],
+        **{key: phases[key]["flash_variant_launches"]
+           for key, *_ in ARCH_DRIVES})
     for drive, (kind, n) in FLASH_DRIVE_LAUNCHES.items():
         want = {f"flash_attention.{v}": n if v == kind else 0
                 for v in ("wgmma", "fma")}
@@ -3351,6 +3553,11 @@ def main() -> int:
             raise AssertionError(f"{drive}: flash launches {variants[drive]}"
                                  f", expected {want}")
     phases["flash_kernel"]["variant_launches"] = variants
+    phases["flash_kernel"]["launches_by_phase"] = {
+        drive: sum(v.values()) for drive, v in variants.items()}
+    phases["decode_kernel"]["launches_by_phase"] = dict(
+        lm_serve=phases["lm_serve"]["decode_launches"],
+        **{key: phases[key]["decode_launches"] for key, *_ in ARCH_DRIVES})
     print(f"[flash_kernel] launches by kernel: {variants}", flush=True)
     phases["decode_kernel"]["launches"] = phases["lm_serve"][
         "decode_launches"]

@@ -1,0 +1,8 @@
+"""Assigned architecture config (see archs.py for the exact fields; a copy
+of the JAX package's module)."""
+from .archs import QWEN3_1_7B as CONFIG  # noqa: F401
+from .archs import smoke_of
+
+
+def smoke_config():
+    return smoke_of(CONFIG)

@@ -7,13 +7,16 @@ The four assigned input shapes (per arch):
   long_500k   : seq_len=524288, global_batch=1     -> serve_step; only for
                 sub-quadratic archs (SSM / hybrid / SWA / mostly-local).
 
-The JAX package's ``input_specs`` (abstract shapes for its dry run) has no
-counterpart here yet.
+``input_specs`` gives each cell's model inputs as tensors on the meta
+device: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import torch
+
+from ..models import model as model_lib
 from ..models.config import ModelConfig
 from . import archs
 
@@ -54,3 +57,35 @@ def shape_supported(name: str, shape: str) -> Tuple[bool, str]:
     if shape == "long_500k" and not LONG_OK[name]:
         return False, "full-attention arch: 500k dense decode skipped"
     return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> Dict:
+    """Meta-tensor stand-ins for every model input of this cell, under the
+    JAX package's keys: {'kind', 'batch', 'seq', 'global_batch'} for train
+    and prefill, {'kind', 'token', 'caches', 'lengths', 'enc_lengths',
+    'seq', 'global_batch'} for decode (one new token against an s-long
+    cache)."""
+    info = SHAPES[shape]
+    b, s = info["batch"], info["seq"]
+    if info["kind"] in ("train", "prefill"):
+        batch = {"tokens": _meta((b, s), torch.int32),
+                 "targets": _meta((b, s), torch.int32),
+                 "loss_mask": _meta((b, s), torch.bfloat16)}
+        if cfg.is_encdec:
+            src = int(s * cfg.encoder_seq_ratio)
+            batch["frames"] = _meta((b, src, cfg.frontend_dim),
+                                    torch.bfloat16)
+        if cfg.frontend == "vision" and cfg.frontend_tokens:
+            batch["patches"] = _meta((b, cfg.frontend_tokens,
+                                      cfg.frontend_dim), torch.bfloat16)
+        return dict(kind=info["kind"], batch=batch, seq=s, global_batch=b)
+    return dict(
+        kind="decode", token=_meta((b,), torch.int32),
+        caches=model_lib.abstract_cache(cfg, b, s),
+        lengths=_meta((b,), torch.int32),
+        enc_lengths=_meta((b,), torch.int32) if cfg.is_encdec else None,
+        seq=s, global_batch=b)

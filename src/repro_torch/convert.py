@@ -18,8 +18,9 @@ from the same state:
 * :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy` — the decode
   caches between the JAX layout ``{"groups": [per pattern position,
   stacked over groups], "rem": [...]}`` and the port's list of one dict
-  per layer (attention {'k','v'}, rwkv {'state','xtm','xcm'}, recurrent
-  {'conv','h'}).
+  per layer (attention {'k','v'} and, int8, {'ks','vs'}, rwkv
+  {'state','xtm','xcm'}, recurrent {'conv','h'}, cross-attention
+  {'ck','cv'}).
 
 Layer ``g * pattern_len + pos`` of the port is group ``g`` of the JAX
 package's ``groups[pos]``; the ``rem`` layers follow.
@@ -91,16 +92,17 @@ def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev, dtype)
 
 
-def _layer_trees(stack: Mapping, cfg: ModelConfig) -> List[Mapping]:
-    """The per-layer trees of a JAX ``{"groups", "rem"}`` stack, in layer
-    order."""
-    out: List = [None] * cfg.num_layers
-    p_len = cfg.pattern_len
+def _layer_trees(stack: Mapping, n_layers: int,
+                 p_len: int) -> List[Mapping]:
+    """The per-layer trees of a JAX ``{"groups", "rem"}`` stack of
+    ``n_layers`` layers of a ``p_len``-long pattern, in layer order."""
+    out: List = [None] * n_layers
+    n_groups = n_layers // p_len
     for pos, tree in enumerate(stack["groups"] or []):
-        for g in range(cfg.n_groups):
+        for g in range(n_groups):
             out[g * p_len + pos] = _index(tree, g)
     for i, tree in enumerate(stack["rem"]):
-        out[cfg.n_groups * p_len + i] = tree
+        out[n_groups * p_len + i] = tree
     return out
 
 
@@ -110,23 +112,47 @@ def _index(tree, g: int):
     return np.asarray(tree)[g]
 
 
+def _block_leaves(prefix: str, layer: Mapping, out: Dict) -> None:
+    """A JAX block tree's leaves under the port's parameter names
+    (``moe.shared`` nests one level deeper)."""
+    for name, a in layer.items():
+        if isinstance(a, Mapping):
+            _block_leaves(f"{prefix}.{name}", a, out)
+        else:
+            out[f"{prefix}.{name}"] = a
+
+
+def lm_param_leaves(tree: Mapping, cfg: ModelConfig) -> Dict:
+    """The JAX package's LM parameter tree (numpy leaves, or any leaves
+    with a shape that index like them) flattened to the port's parameter
+    names: ``embed.*``, ``final_norm``, ``decoder.{i}.*`` by layer (their
+    ``attn``, ``mix``, ``rec``, ``ffn``, ``moe`` (``moe.shared.*``),
+    ``cross`` and norms), ``encoder.{i}.*``, ``enc_norm`` and
+    ``frontend_proj``."""
+    flat = {f"embed.{name}": a for name, a in tree["embed"].items()}
+    for name in ("final_norm", "enc_norm", "frontend_proj"):
+        if name in tree:
+            flat[name] = tree[name]
+    stacks = [("decoder", cfg.num_layers, cfg.pattern_len)]
+    if "encoder" in tree:
+        stacks.append(("encoder", cfg.num_encoder_layers,
+                       len(model_lib.ENCODER_PATTERN)))
+    for stack, n_layers, p_len in stacks:
+        for i, layer in enumerate(_layer_trees(tree[stack], n_layers,
+                                               p_len)):
+            _block_leaves(f"{stack}.{i}", layer, flat)
+    return flat
+
+
 def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
                          device=None) -> model_lib.Model:
     """The JAX package's LM parameters (a tree of numpy arrays) as the
-    port's ``Model`` on ``device``, value for value."""
+    port's ``Model`` on ``device``, value for value.  Raises on a leaf that
+    is in one tree and not the other."""
     dev = device_mod.resolve(device)
     m = model_lib.Model(cfg, dev)
     named = dict(m.named_parameters())
-    flat = {"embed.embedding": tree["embed"]["embedding"],
-            "final_norm": tree["final_norm"]}
-    if "lm_head" in tree["embed"]:
-        flat["embed.lm_head"] = tree["embed"]["lm_head"]
-    for i, layer in enumerate(_layer_trees(tree["decoder"], cfg)):
-        for part in ("norm1", "norm2"):
-            flat[f"decoder.{i}.{part}"] = layer[part]
-        for part in ("attn", "mix", "rec", "ffn"):
-            for name, a in layer.get(part, {}).items():
-                flat[f"decoder.{i}.{part}.{name}"] = a
+    flat = lm_param_leaves(tree, cfg)
     if set(flat) != set(named):
         raise ValueError(f"parameter trees differ: only in JAX "
                          f"{sorted(set(flat) - set(named))}, only in the "
@@ -145,21 +171,22 @@ def lm_cache_from_numpy(tree: Mapping, cfg: ModelConfig,
                         device=None) -> List[Dict[str, torch.Tensor]]:
     """A JAX ``{"groups", "rem"}`` cache tree (numpy leaves) as the port's
     list of one dict per layer.  Each leaf takes its own dtype
-    (``model.cache_dtype``): the recurrent states 'state' and 'h' float32,
-    the rest the model's dtype."""
+    (``model.cache_dtype``): the recurrent states 'state' and 'h' and the
+    scales 'ks' and 'vs' float32, 'k' and 'v' int8 under ``kv_quant``, the
+    rest the model's dtype."""
     dev = device_mod.resolve(device)
     return [{name: _tensor(a, model_lib.cache_dtype(cfg, name), dev)
              for name, a in layer.items()}
-            for layer in _layer_trees(tree, cfg)]
+            for layer in _layer_trees(tree, cfg.num_layers, cfg.pattern_len)]
 
 
 def lm_cache_to_numpy(caches, cfg: ModelConfig) -> Dict:
     """The port's per-layer caches as the JAX ``{"groups", "rem"}`` layout:
-    float32 leaves as float32 numpy arrays, bfloat16 leaves widened
-    (exactly) to float32; :func:`lm_cache_from_numpy` restores each leaf's
-    dtype."""
+    float32 and int8 leaves as they are, bfloat16 leaves widened (exactly)
+    to float32; :func:`lm_cache_from_numpy` restores each leaf's dtype."""
     def arr(t):
-        return t.detach().float().cpu().numpy()
+        t = t.detach()
+        return (t if t.dtype == torch.int8 else t.float()).cpu().numpy()
 
     p_len, n_groups = cfg.pattern_len, cfg.n_groups
     groups = [{name: np.stack([arr(caches[g * p_len + pos][name])

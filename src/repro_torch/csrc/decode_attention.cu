@@ -48,13 +48,14 @@
 // partials go to a float32 scratch (B, H, n_split, D + 2) — acc, then m,
 // then l.
 //
-// decode_combine_kernel, grid (B * H, D / 64): merges the splits that hold visible
+// decode_combine_kernel, grid (B * H, D / cols), cols 64 (32 at head dims
+// 32 and 96): merges the splits that hold visible
 // rows by the flash-decoding identity, m = max m_s, l = sum l_s 2^(m_s - m),
 // acc = sum acc_s 2^(m_s - m), and writes m back in natural units; a row
 // with no visible row writes the idle partial without reading the scratch.
 // Its threads read the splits' m and l side by side and put the weights in
-// shared memory; then each of 64 columns of acc is summed by 4 threads
-// (8 at head dim 32), each over a quarter of the splits with its loads in
+// shared memory; then each of a block's columns of acc is summed by 4
+// threads (8 at 32 columns), each over a quarter of the splits with its loads in
 // flight together, so no thread walks the splits one round trip at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +71,13 @@ constexpr int kHeadsPerBlock = 16;    // query heads a split block serves
 constexpr int kSplitQuantum = 32;     // rows per split is a multiple of this
 constexpr int kCombineThreads = 256;
 constexpr int kCombineCols = 64;      // columns of acc a combine block sums
+
+// The columns of acc a combine block sums: 64, or 32 where 64 does not
+// divide D (D is a multiple of 32), so the D / cols blocks cover every
+// column (head dim 96 takes three blocks of 32).
+__host__ __device__ constexpr int combine_cols(int D) {
+  return D % kCombineCols == 0 ? kCombineCols : 32;
+}
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -77,12 +85,18 @@ constexpr float kLn2 = 0.6931471805599453f;
 // pipeline fault ends the launch with an error instead of hanging the card
 constexpr long long kWatchdogCycles = 1ll << 34;
 
+// The largest power of two <= n (n >= 1).
+constexpr int floor_pow2(int n) { return n < 2 ? 1 : 2 * floor_pow2(n / 2); }
+
 // The shared-memory tile: kRows cache rows of K and of V per ring stage,
-// at most 8 KB each; kRows divides kSplitQuantum.
+// at most 8 KB each; kRows is a power of two, so it divides kSplitQuantum
+// (float32 at head dim 96 fits 21 rows in 8 KB and takes 16).
 template <typename T, int D>
 struct Tile {
   static constexpr int kRowBytes = D * (int)sizeof(T);
-  static constexpr int kRows = 8192 / kRowBytes < 32 ? 8192 / kRowBytes : 32;
+  static constexpr int kRows = floor_pow2(8192 / kRowBytes < kSplitQuantum
+                                              ? 8192 / kRowBytes
+                                              : kSplitQuantum);
   static constexpr int kBytes = kRows * kRowBytes;
   static constexpr int kBarOffset = 2 * kStages * kBytes;     // K ring, V ring
   static constexpr int kSmemBytes = kBarOffset + 16 * kStages;
@@ -447,7 +461,7 @@ decode_combine_kernel(const float* __restrict__ part,
   __shared__ float scratch[kCombineThreads / 32];
   const int bh = blockIdx.x, b = bh / H, tid = threadIdx.x;
   // this block's columns, and the thread's group of splits
-  const int cols = min(D, kCombineCols), groups = kCombineThreads / cols;
+  const int cols = combine_cols(D), groups = kCombineThreads / cols;
   const int col = blockIdx.y * cols + tid % cols, grp = tid / cols;
   const bool first = blockIdx.y == 0 && tid == 0;   // writes m and l
   int j_lo, j_hi;
@@ -559,6 +573,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 64: return launch_g<T, 64>(q, k, v, lengths, part, B, H, KH, S,
                                     rows, n_split, window, kpos_offset,
                                     scale, s);
+    case 96: return launch_g<T, 96>(q, k, v, lengths, part, B, H, KH, S,
+                                    rows, n_split, window, kpos_offset,
+                                    scale, s);
     case 128: return launch_g<T, 128>(q, k, v, lengths, part, B, H, KH, S,
                                       rows, n_split, window, kpos_offset,
                                       scale, s);
@@ -602,7 +619,7 @@ int decode_combine(const void* part, const void* lengths, void* acc, void* m,
                    int window, int kpos_offset, void* stream) {
   if (rows <= 0 || (long long)rows * n_split < S || D % 32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cols = D < kCombineCols ? D : kCombineCols;
+  const int cols = combine_cols(D);
   decode_combine_kernel<<<dim3(B * H, D / cols), kCombineThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<const int*>(lengths),

@@ -41,7 +41,8 @@
 // loop range) — and release each stage to the producer.
 //
 // flash_fwd_kernel — float32 (which the tensor cores' TF32 would round past
-// the 2e-5 tolerance) and head dim 32: CUDA-core float32 FMAs.  One block
+// the 2e-5 tolerance) and head dims 32 and 96 (the tensor-core kernel's
+// TMA boxes are 64 columns wide): CUDA-core float32 FMAs.  One block
 // (256 threads) per (q-tile of BQ rows, h, b) stages its Q tile (pre-scaled,
 // float32) in shared memory once, then each visible K/V tile as float32;
 // the BQ x BK scores come from a 16 x 16 thread grid (each thread a RQ x RK
@@ -319,6 +320,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
                                   mode, window, q_offset, scale, s);
     case 64: return launch<T, 64>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
+                                  mode, window, q_offset, scale, s);
+    case 96: return launch<T, 96>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
                                   mode, window, q_offset, scale, s);
     case 128: return launch<T, 128>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
                                     mode, window, q_offset, scale, s);

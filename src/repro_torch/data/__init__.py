@@ -1,1 +1,1 @@
-"""Synthetic request streams."""
+"""Synthetic token and request streams."""

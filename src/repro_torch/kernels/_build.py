@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # what the float kernels take: element types (their codes in the C
 # interface); and the attention kernels' head dims
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

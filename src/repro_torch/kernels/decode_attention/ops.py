@@ -31,6 +31,18 @@ SPLIT_ROWS_MAX = 512
 SPLIT_BLOCKS = 4 * 132
 
 
+# The combine kernel's column blocks, as ``csrc/decode_attention.cu``'s
+# ``combine_cols`` computes them: a combine block sums COMBINE_COLS columns
+# of acc, or 32 where that does not divide the head dim (a multiple of 32),
+# so the D // cols blocks cover every column.
+COMBINE_COLS = 64
+
+
+def combine_cols(d: int) -> int:
+    """Columns of acc one combine block sums at head dim ``d``."""
+    return COMBINE_COLS if d % COMBINE_COLS == 0 else 32
+
+
 def plan_splits(b: int, kh: int, s: int) -> Tuple[int, int]:
     """(rows per split, number of splits) for a (B, KH, S) cache, from the
     shapes alone: the rule never reads ``lengths``, which would sync the

@@ -58,19 +58,24 @@ def combine_partials_reference(parts):
 def split_partial_emulation(q, k, v, lengths, *, window: int = 0,
                             kpos_offset: int = 0,
                             scale: Optional[float] = None,
-                            rows: Optional[int] = None):
+                            rows: Optional[int] = None,
+                            cols: Optional[int] = None):
     """The decode kernel's split and combine passes in plain PyTorch: the
     shard cut into splits of ``rows`` rows (the wrapper's ``plan_splits``
     by default), ``decode_partial_reference`` on each split at its own
     kpos_offset, and the splits that hold visible rows merged as the
     combine kernel merges them (the kernel evaluates the same sums in base
-    2); a row with no visible row gives acc 0, l 0, m -1e30.  Returns
-    (acc, m, l) as ``decode_partial_reference`` does."""
-    from .ops import plan_splits
+    2), ``cols`` columns of acc a block (``combine_cols`` by default) over
+    D // cols blocks: a column no block covers stays NaN.  A row with no
+    visible row gives acc 0, l 0, m -1e30.  Returns (acc, m, l) as
+    ``decode_partial_reference`` does."""
+    from .ops import combine_cols, plan_splits
     b, _, _, d = q.shape
     kh, s = k.shape[1], k.shape[2]
     if rows is None:
         rows = plan_splits(b, kh, s)[0]
+    if cols is None:
+        cols = combine_cols(d)
     n = max(1, -(-s // rows))
     ln = lengths.to(device=q.device, dtype=torch.int64)
     lo = ln - window if window > 0 else torch.zeros_like(ln)
@@ -87,7 +92,10 @@ def split_partial_emulation(q, k, v, lengths, *, window: int = 0,
     accs, ms, ls = (torch.stack(x) for x in zip(*parts))
     m = torch.where(used, ms, -torch.inf).amax(0)
     f = torch.where(used, torch.exp(ms - m), 0.0)
-    acc, l = (f * accs).sum(0), (f * ls).sum(0)
+    l = (f * ls).sum(0)
+    acc = torch.full_like(accs[0], torch.nan)
+    for c0 in range(0, (d // cols) * cols, cols):         # the column blocks
+        acc[..., c0:c0 + cols] = (f * accs[..., c0:c0 + cols]).sum(0)
     vis = visible[:, None, None, None]
     return (torch.where(vis, acc, 0.0), torch.where(vis, m, NEG_INF),
             torch.where(vis, l, 0.0))

@@ -19,13 +19,16 @@ MODES = {"causal": 0, "length": 1, "full": 2}
 
 # The kernel for each (type, head dim) the wrapper takes: "wgmma" (the
 # tensor cores, bf16 operands, float32 accumulation) for bfloat16 at head
-# dims 64-256; "fma" (CUDA-core float32) for float32, which TF32 would
-# round past its 2e-5 tolerance, and for head dim 32.
+# dims 64, 128 and 256; "fma" (CUDA-core float32) for float32, which TF32
+# would round past its 2e-5 tolerance, and for head dims 32 and 96, which
+# the tensor-core kernel's 64-column TMA boxes do not tile.
 VARIANTS = {
     (torch.bfloat16, 32): "fma", (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 128): "wgmma", (torch.bfloat16, 256): "wgmma",
+    (torch.bfloat16, 96): "fma", (torch.bfloat16, 128): "wgmma",
+    (torch.bfloat16, 256): "wgmma",
     (torch.float32, 32): "fma", (torch.float32, 64): "fma",
-    (torch.float32, 128): "fma", (torch.float32, 256): "fma",
+    (torch.float32, 96): "fma", (torch.float32, 128): "fma",
+    (torch.float32, 256): "fma",
 }
 
 

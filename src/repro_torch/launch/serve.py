@@ -2,7 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
 
-Runs the arch's smoke config with seeded random weights on the card.
+Runs the arch's smoke config (any of ``configs.registry.ARCHS``) with
+seeded random weights on the card.  An encoder-decoder arch's slots read
+s_max encoder positions (``ServeEngine.enc_lengths``), as the JAX path's
+``decode_step(enc_lengths=)`` does.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from ..serve import ServeEngine
 
 def main(argv=None, device=None) -> ServeEngine:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=registry.ARCHS)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--crash-host", action="store_true",

@@ -1,5 +1,5 @@
-"""The LM stack: config, layers, attention, the transformer blocks and the
-model's entry points (``forward``, ``prefill``, ``decode_step``).  It
-holds the dense attention families, RWKV6 (``rwkv``) and Griffin's
-recurrent block (``griffin``); MoE, the encoder and the frontends raise
-``NotImplementedError``."""
+"""The LM stack: config, layers, attention, MoE, the transformer blocks
+and the model's entry points (``forward``, ``loss_fn``, ``prefill``,
+``decode_step``).  It holds every family of ``configs/archs.py``: the dense
+attention families, MoE (``moe``), RWKV6 (``rwkv``), Griffin's recurrent
+block (``griffin``), the encoder-decoder and the modality frontends."""

@@ -153,3 +153,21 @@ def logits_fn(p: Embed, x, cfg):
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token cross entropy in float32 (the JAX package's
+    ``cross_entropy``, in its max-shifted form).  The label's logit is what
+    the JAX package's one-hot sum gives: 0 for a label outside [0, V).
+    With ``mask``, the masked mean over max(sum(mask), 1)."""
+    m = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    v = logits.shape[-1]
+    inside = (labels >= 0) & (labels < v)
+    lab = torch.gather(logits, -1,
+                       labels.long().clamp(0, v - 1)[..., None])[..., 0]
+    nll = lse - torch.where(inside, lab, torch.zeros_like(lab))
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

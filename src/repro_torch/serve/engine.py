@@ -43,6 +43,11 @@ class ServeEngine:
                                            self.s_max, self.device)
         self.lengths = torch.zeros(self.n_slots, dtype=torch.int32,
                                    device=self.device)
+        # an encoder-decoder model's cross-attention reads its slot's
+        # s_max encoder positions ('ck', 'cv'; zeros until set)
+        self.enc_lengths = (torch.full((self.n_slots,), self.s_max,
+                                       dtype=torch.int32, device=self.device)
+                            if self.cfg.is_encdec else None)
         self.tokens = torch.zeros(self.n_slots, dtype=torch.int32,
                                   device=self.device)
         self.active = np.zeros((self.n_slots,), bool)
@@ -73,7 +78,8 @@ class ServeEngine:
         """One decode tick for every slot (idle ones too, at length 0);
         returns the sampled (argmax) tokens."""
         logits, self.caches = self._serve(self.params, self.tokens,
-                                          self.caches, self.lengths)
+                                          self.caches, self.lengths,
+                                          self.enc_lengths)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         self.tokens = nxt
         self.lengths = self.lengths + torch.from_numpy(

@@ -16,6 +16,7 @@ def make_prefill_step(cfg: ModelConfig, s_max: int):
 
 
 def make_serve_step(cfg: ModelConfig):
-    def serve_step(params, token, caches, lengths):
-        return model_lib.decode_step(params, token, caches, lengths, cfg)
+    def serve_step(params, token, caches, lengths, enc_lengths=None):
+        return model_lib.decode_step(params, token, caches, lengths, cfg,
+                                     enc_lengths=enc_lengths)
     return serve_step

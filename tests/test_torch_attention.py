@@ -87,8 +87,9 @@ def test_flash_variant_table():
     for d in (64, 128, 256):
         assert tfa.variant(torch.bfloat16, d) == "wgmma"
         assert tfa.variant(torch.float32, d) == "fma"
-    assert tfa.variant(torch.bfloat16, 32) == tfa.variant(
-        torch.float32, 32) == "fma"
+    for d in (32, 96):
+        assert tfa.variant(torch.bfloat16, d) == tfa.variant(
+            torch.float32, d) == "fma"
     for dtype, d in ((torch.float16, 128), (torch.bfloat16, 48)):
         with pytest.raises(ValueError, match="no flash-attention kernel"):
             tfa.variant(dtype, d)

@@ -77,6 +77,8 @@ def _close(got, want, what):
 SPLIT_CASES = [(g, d, window, off, "float32") for g in (1, 2, 16)
                for d in (32, 256) for window, off in ((0, 0), (100, 256))]
 SPLIT_CASES += [(16, 256, 100, 0, "bfloat16"), (2, 32, 0, 256, "bfloat16")]
+# head dim 96 (phi-3-vision): three 32-column combine blocks
+SPLIT_CASES += [(2, 96, 0, 0, "float32"), (16, 96, 100, 256, "bfloat16")]
 
 
 @pytest.mark.parametrize("g,d,window,kpos_offset,dtype", SPLIT_CASES)
@@ -126,3 +128,26 @@ def test_split_emulation_at_other_split_sizes(rows):
         if off == 700:                # past every length: all rows idle
             assert torch.all(got[0] == 0) and torch.all(got[2] == 0)
             assert torch.all(got[1] == tdec_ref.NEG_INF)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_combine_columns_cover_every_head_dim(d):
+    """The combine's D // cols column blocks tile [0, D) at every head dim
+    the kernels take."""
+    cols = tdec.combine_cols(d)
+    assert cols in (32, 64) and (d // cols) * cols == d
+
+
+def test_combine_at_head_dim_96_covers_every_column():
+    """At D 96 the combine's blocks of 32 columns write all of acc; blocks
+    of min(D, 64) = 64 columns, one block, would leave columns 64-95
+    unwritten."""
+    (_, _, _), (tq, tk, tv) = _inputs(96, 3, 4, 2, 300, 96, "float32")
+    lengths = torch.tensor([0, 150, 300], dtype=torch.int32)
+    want = tdec_ref.decode_partial_reference(tq, tk, tv, lengths)
+    got = tdec_ref.split_partial_emulation(tq, tk, tv, lengths)
+    for x, y, name in zip(got, want, ("acc", "m", "l")):
+        _close(x, y, name)
+    short = tdec_ref.split_partial_emulation(tq, tk, tv, lengths, cols=64)
+    assert torch.isnan(short[0][1:, :, :, 64:]).all()
+    _close(short[0][1:, :, :, :64], want[0][1:, :, :, :64], "first block")

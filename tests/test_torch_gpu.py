@@ -292,14 +292,16 @@ def _flash_checked(q, k, v, kind, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_flash_kernel_matches_plain(cuda, dtype, d):
     # tails: 200, 333, 130, 77 and 1,025 are not multiples of the 32- to
-    # 128-row tiles; bf16 at D >= 64 takes the tensor-core kernel
+    # 128-row tiles; bf16 at D 64, 128 and 256 takes the tensor-core
+    # kernel, D 32 and 96 (not a whole number of its 64-column boxes) the
+    # CUDA-core one
     b, h, kh = 2, 4, 2
     kind = fa_ops.variant(dtype, d)
-    assert kind == ("wgmma" if dtype == torch.bfloat16 and d >= 64
-                    else "fma")
+    assert kind == ("wgmma" if dtype == torch.bfloat16
+                    and d in (64, 128, 256) else "fma")
     lengths = torch.tensor([1, 150], dtype=torch.int32, device=cuda)
     cases = [  # (sq, sk, kwargs)
         (200, 200, dict(mode="causal")),
@@ -377,7 +379,7 @@ def _decode_close(got, want, what):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_decode_kernel_matches_plain(cuda, dtype, d):
     b, s = 5, 700
     # an idle row (0), rows before, inside and past the shard at offset 128

@@ -503,8 +503,8 @@ def test_blocks_prefill_and_decode(rwkv_setup, griffin_setup, arch, pos):
     assert tl.kind == kind
     jx, jc, _ = jtrans.apply_block(jl, jnp.asarray(x[:, :10]), jcfg, kind,
                                    return_cache=True, s_max=16)
-    tx, tc = ttrans.apply_block(tl, t(x[:, :10]), tcfg, return_cache=True,
-                                s_max=16)
+    tx, tc, _ = ttrans.apply_block(tl, t(x[:, :10]), tcfg,
+                                   return_cache=True, s_max=16)
     close(tx, jx, TOL, f"{kind} block")
     assert list(tc) == list(jc)
     for name in jc:

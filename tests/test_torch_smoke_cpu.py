@@ -254,6 +254,59 @@ def test_phase_lm_recurrent_cpu(smoke, arch):
         assert serve["cache_decode_errs"]["idle_rows"] == 2
 
 
+@pytest.mark.parametrize("key", ["lm_gemma3", "lm_gemma3_cache",
+                                 "lm_mixtral", "lm_phi3v", "lm_seamless"])
+def test_phase_lm_arch_cpu(smoke, key):
+    """Each of the other archs' drives at its smoke config with the
+    drive's cache and routing changes: the prefill against ``forward``,
+    decode through the cache arms, the patches counted in the lengths,
+    the frames read by the cross layers."""
+    _, arch, changes, _ = next(d for d in smoke.ARCH_DRIVES if d[0] == key)
+    changes = {k: v for k, v in changes.items() if k != "num_layers"}
+    cfg = dataclasses.replace(registry.smoke_config(arch), **changes)
+    params = model_lib.init_params(cfg, seed=0, device="cpu")
+    r = smoke.phase_lm_arch("cpu", cfg, params, batch=2, prompt=20, extra=3,
+                            time_it=False)
+    assert r["flash_launches"] == r["decode_launches"] == 0   # plain path
+    assert r["max_abs_err_prefill"] <= r["logit_tol"] == 2e-3
+    # float32 decode continues forward; an int8 cache within its error
+    assert r["max_abs_err_decode"] <= (0.05 if cfg.kv_quant else 2e-3)
+    assert r["frontend_positions"] == (8 if key == "lm_phi3v" else 0)
+    assert (r["forward_aux"] > 0) == (key == "lm_mixtral")
+    errs = r["cache_decode_errs"]
+    # a last local layer's full cache is read through the 16 window, a
+    # rolling one (20 + 3 positions in 16 slots) with none
+    local = cfg.layer_type(cfg.num_layers - 1) == "local"
+    assert errs["window"] == (16 if local and not cfg.window_cache else 0)
+    assert r["config"]["kv_quant"] == (key == "lm_gemma3_cache")
+    if key == "lm_mixtral":         # float32: every route as forward's
+        routes = r["routes"]
+        assert routes["prefill_agree"] == routes["decode_agree"] == 1.0
+        assert routes["decode_flips"] == 0
+        assert routes["max_abs_err_agreeing"] <= 2e-3
+        assert routes["max_abs_err_after_flip"] is None
+    else:
+        assert "routes" not in r
+
+
+def test_drive_launch_table_matches_the_configs(smoke):
+    """``FLASH_DRIVE_LAUNCHES`` of the other archs' drives is what their
+    configs launch on the card: a flash launch per attention, encoder and
+    cross layer, of the kernel ``variant`` picks."""
+    for key, arch, changes, _ in smoke.ARCH_DRIVES:
+        cfg = dataclasses.replace(registry.get_config(arch), **changes)
+        kind, n = smoke.FLASH_DRIVE_LAUNCHES[key]
+        assert smoke.flash_variant_launches(cfg, "cuda")[
+            f"flash_attention.{kind}"] == n, key
+    seamless = registry.get_config("seamless-m4t-medium")
+    assert smoke.path_launches(seamless, "cuda") == (
+        {"flash_attention": 36, "wkv6": 0, "rglru": 0},
+        {"decode_partial": 24})
+    phi3v = registry.get_config("phi-3-vision-4.2b")
+    assert smoke.decode_kernel_launches(phi3v, "cuda") == {
+        "decode_partial.split": 32, "decode_partial.combine": 32}
+
+
 def test_layer0_wkv6_inputs_are_the_prefills(smoke, monkeypatch):
     """What the layer-0 check reads is what layer 0 of a prefill hands the
     WKV6 recurrence."""
@@ -358,7 +411,7 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 21
+    assert len(p) == len(set(p)) == 26
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")

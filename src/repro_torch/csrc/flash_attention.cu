@@ -21,17 +21,22 @@
 // visible fraction, against the card's bf16 tensor-core peak (989 TFLOP/s
 // on an H100 SXM).  Two kernels compute it:
 //
-// flash_wgmma_kernel — bfloat16 at head dims 64, 128 and 256: the tensor
-// cores.  One block of three warpgroups per (128-row q tile, h, b), the
-// q tiles launched heaviest (last) first.  Warpgroup 0 is the producer:
+// flash_wgmma_kernel — bfloat16 at head dims 64, 96, 128 and 256: the
+// tensor cores.  One block of three warpgroups per (128-row q tile, h, b),
+// the q tiles launched heaviest (last) first.  Warpgroup 0 is the producer:
 // after `setmaxnreg` gives its registers to the consumers, one thread
 // loads the Q tile once and then K and V tiles of BK keys (128 at D <= 128,
-// 64 at D = 256) by TMA (3-D tensor maps over (D, S, B * heads), 64-column
-// boxes, 128-byte swizzle) into a 2-stage ring with full and empty
-// mbarriers; the out-of-bounds fill gives the zeros past Sq and Sk.
-// Warpgroups 1 and 2 each own 64 query rows: S = Q K^T by `wgmma` with both
-// operands in shared memory (K-major), the scale (times log2 e) applied to
-// S in float32, the mask only on tiles that straddle a mask edge, the
+// 64 at D = 256) by TMA (3-D tensor maps over (D, S, B * heads)) into a
+// 2-stage ring with full and empty mbarriers; the out-of-bounds fill gives
+// the zeros past Sq and Sk.  Q and K arrive as column boxes of 64 columns
+// (128-byte rows, 128-byte swizzle), and at D = 96 a last box of 32 columns
+// (64-byte rows: one 64-byte swizzle atom), so 96 = 64 + 32 with no column
+// padded; V arrives as 64-column boxes where 64 divides D, else as 32-column
+// ones (three at D = 96), so that one `wgmma` of N = D reads all of a
+// 16-key step.  Warpgroups 1 and 2 each own 64 query rows: S = Q K^T by
+// `wgmma` with both operands in shared memory (K-major; each 16-column step
+// reads its box with that box's swizzle), the scale (times log2 e) applied
+// to S in float32, the mask only on tiles that straddle a mask edge, the
 // online softmax in registers (row max over the quad by two shuffles, l
 // summed per thread from the float32 p and over the quad at the end), O
 // rescaled by alpha, then O += P V by `wgmma` with P converted to bf16 in
@@ -41,10 +46,10 @@
 // loop range) — and release each stage to the producer.
 //
 // flash_fwd_kernel — float32 (which the tensor cores' TF32 would round past
-// the 2e-5 tolerance) and head dims 32 and 96 (the tensor-core kernel's
-// TMA boxes are 64 columns wide): CUDA-core float32 FMAs.  One block
-// (256 threads) per (q-tile of BQ rows, h, b) stages its Q tile (pre-scaled,
-// float32) in shared memory once, then each visible K/V tile as float32;
+// the 2e-5 tolerance) and bfloat16 at head dim 32 (which no arch uses at
+// full size): CUDA-core float32 FMAs.  One block (256 threads) per (q-tile
+// of BQ rows, h, b) stages its Q tile (pre-scaled, float32) in shared
+// memory once, then each visible K/V tile as float32;
 // the BQ x BK scores come from a 16 x 16 thread grid (each thread a RQ x RK
 // register tile), one warp per row does the online-softmax update, and
 // each thread keeps a RQ x RD slice of the output accumulator in
@@ -311,28 +316,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, int B, int H, int KH,
-                     int Sq, int Sk, int mode, int window, int q_offset,
-                     float scale, cudaStream_t s) {
+// float32 at each head dim the wrapper takes
+cudaError_t launch_f32(int D, const void* q, const void* k, const void* v,
+                       const void* lengths, void* out, int B, int H, int KH,
+                       int Sq, int Sk, int mode, int window, int q_offset,
+                       float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
-                                  mode, window, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
-                                  mode, window, q_offset, scale, s);
-    case 96: return launch<T, 96>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
-                                  mode, window, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
-                                    mode, window, q_offset, scale, s);
-    case 256: return launch<T, 256>(q, k, v, lengths, out, B, H, KH, Sq, Sk,
-                                    mode, window, q_offset, scale, s);
+    case 32: return launch<float, 32>(q, k, v, lengths, out, B, H, KH, Sq,
+                                      Sk, mode, window, q_offset, scale, s);
+    case 64: return launch<float, 64>(q, k, v, lengths, out, B, H, KH, Sq,
+                                      Sk, mode, window, q_offset, scale, s);
+    case 96: return launch<float, 96>(q, k, v, lengths, out, B, H, KH, Sq,
+                                      Sk, mode, window, q_offset, scale, s);
+    case 128: return launch<float, 128>(q, k, v, lengths, out, B, H, KH, Sq,
+                                        Sk, mode, window, q_offset, scale, s);
+    case 256: return launch<float, 256>(q, k, v, lengths, out, B, H, KH, Sq,
+                                        Sk, mode, window, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel (bfloat16, head dims 64 / 128 / 256)
+// The tensor-core kernel (bfloat16, head dims 64 / 96 / 128 / 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBQ = 128;            // query rows per block
@@ -343,10 +348,26 @@ constexpr int kConsumerRegs = 240;    //   fits the SM's 65,536 registers
 // pipeline fault ends the launch with an error instead of hanging the card
 constexpr long long kWatchdogCycles = 1ll << 34;
 
+// The widths of Q's and K's column boxes, left to right: 64 columns
+// (128-byte rows, 128-byte swizzle) each, and where 64 does not divide D a
+// last box of 32 (64-byte rows, 64-byte swizzle): 96 = 64 + 32.
+__host__ __device__ constexpr int box_cols(int D, int c) {
+  return c < D / 64 ? 64 : D % 64;
+}
+__host__ __device__ constexpr int box_cols_sum(int D) {
+  int sum = 0;
+  for (int c = 0; c < (D + 63) / 64; ++c) sum += box_cols(D, c);
+  return sum;
+}
+
 template <int D>
 struct TcTile {
   static constexpr int BK = D == 256 ? 64 : 128;   // keys per KV tile
-  static constexpr int kChunks = D / 64;           // 128-byte column boxes
+  static constexpr int kBoxes = (D + 63) / 64;     // Q's and K's column boxes
+  // V's column boxes: 64 columns where 64 divides D, else 32, so that the
+  // boxes share one width (and one swizzle) and a single wgmma of N = D
+  // steps over them by its leading byte offset
+  static constexpr int kVCols = D % 64 == 0 ? 64 : 32;
   static constexpr int kStages = 2;                // K/V ring depth
   static constexpr int kQBytes = kTcBQ * D * 2;
   static constexpr int kKVBytes = BK * D * 2;
@@ -355,6 +376,8 @@ struct TcTile {
   static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 3 * kStages)
                                        + 1024;
   static_assert(kSmemBytes <= 232448, "past a block's 227 KB of shared memory");
+  static_assert(D % 64 == 0 || D % 64 == 32, "boxes of 64 and 32 columns");
+  static_assert(box_cols_sum(D) == D, "the column boxes cover D");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -407,13 +430,16 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1 in bits 62-63
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (all >> 4), and in bits 62-63 the swizzle that TMA wrote into
+// rows of `pitch` bytes: layout type 1 (128-byte swizzle) for 128-byte
+// rows, 2 (64-byte swizzle) for 64-byte rows
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo, int pitch) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(pitch == 128 ? 1 : 2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -439,6 +465,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   WGMMA_O4(d, i), WGMMA_O4(d, i + 4), WGMMA_O4(d, i + 8), WGMMA_O4(d, i + 12)
 #define WGMMA_O32(d, i) WGMMA_O16(d, i), WGMMA_O16(d, i + 16)
 #define WGMMA_OUT32(d) WGMMA_O32(d, 0)
+#define WGMMA_OUT48(d) WGMMA_O32(d, 0), WGMMA_O16(d, 32)
 #define WGMMA_OUT64(d) WGMMA_O32(d, 0), WGMMA_O32(d, 32)
 #define WGMMA_OUT128(d) \
   WGMMA_O32(d, 0), WGMMA_O32(d, 32), WGMMA_O32(d, 64), WGMMA_O32(d, 96)
@@ -486,6 +513,21 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : WGMMA_OUT48(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -544,6 +586,14 @@ struct Wgmma<64> {
   }
 };
 template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void rs(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs_n96(d, a, b);
+  }
+};
+template <>
 struct Wgmma<128> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
                                             uint64_t b, int scale_d) {
@@ -587,7 +637,9 @@ __device__ __forceinline__ bool tile_unmasked(int mode, int qa, int qb,
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tq_last,
                    const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tk_last,
                    const __grid_constant__ CUtensorMap tv,
                    const int* __restrict__ lengths,
                    __nv_bfloat16* __restrict__ out, int H, int KH, int Sq,
@@ -595,6 +647,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    float scale_log2) {
   using G = TcTile<D>;
   constexpr int BK = G::BK;
+  constexpr int kVPitch = 2 * G::kVCols;        // V's row in a box, bytes
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -632,24 +685,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0 && n_tiles > 0) {
       const int qm = b * H + h, kvm = b * KH + h / (H / KH);
+      // box c of a tile of R rows starts at c * R * 128 bytes (the boxes
+      // before it are 64 columns wide); the last box has its own map
       mbar_expect_tx(q_full, G::kQBytes);
 #pragma unroll
-      for (int c = 0; c < G::kChunks; ++c)
-        tma_load3(s_q + c * kTcBQ * 128, &tq, q_full, 64 * c, q0, qm);
+      for (int c = 0; c < G::kBoxes; ++c)
+        tma_load3(s_q + c * kTcBQ * 128, c + 1 < G::kBoxes ? &tq : &tq_last,
+                  q_full, 64 * c, q0, qm);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % G::kStages;
         mbar_wait(kv_empty + 8 * st, ((i / G::kStages) & 1) ^ 1);
         const int k0 = t0 + i * BK;
         mbar_expect_tx(k_full + 8 * st, G::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < G::kChunks; ++c)
-          tma_load3(s_k + st * G::kKVBytes + c * BK * 128, &tk,
-                    k_full + 8 * st, 64 * c, k0, kvm);
+        for (int c = 0; c < G::kBoxes; ++c)
+          tma_load3(s_k + st * G::kKVBytes + c * BK * 128,
+                    c + 1 < G::kBoxes ? &tk : &tk_last, k_full + 8 * st,
+                    64 * c, k0, kvm);
         mbar_expect_tx(v_full + 8 * st, G::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < G::kChunks; ++c)
-          tma_load3(s_v + st * G::kKVBytes + c * BK * 128, &tv,
-                    v_full + 8 * st, 64 * c, k0, kvm);
+        for (int c = 0; c < D / G::kVCols; ++c)
+          tma_load3(s_v + st * G::kKVBytes + c * BK * kVPitch, &tv,
+                    v_full + 8 * st, G::kVCols * c, k0, kvm);
       }
     }
   } else {
@@ -660,7 +717,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qa = q0 + 64 * g;                 // this warpgroup's rows
     const int row = qa + 16 * warp + lane / 4;  // and row + 8
     const int col = 2 * (lane % 4);             // + 8 j (+ 1)
-    const uint32_t q_base = s_q + g * 64 * 128;
 
     float o[D / 2];
 #pragma unroll
@@ -684,11 +740,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;   // 16 columns in the atom
+        // 16 columns of box c, whose rows are `pitch` bytes: 8-row groups
+        // SBO = 8 * pitch apart, +32 bytes a step within the swizzle atom;
+        // this warpgroup's 64 Q rows start 64 rows into Q's box
+        const int c = kk / 4, pitch = 2 * box_cols(D, c);
+        const uint32_t off = (kk % 4) * 32;
         Wgmma<BK>::ss(s,
-                      smem_desc(q_base + (kk / 4) * kTcBQ * 128 + off, 16,
-                                1024),
-                      smem_desc(k_st + (kk / 4) * BK * 128 + off, 16, 1024),
+                      smem_desc(s_q + c * kTcBQ * 128 + g * 64 * pitch + off,
+                                16, 8 * pitch, pitch),
+                      smem_desc(k_st + c * BK * 128 + off, 16, 8 * pitch,
+                                pitch),
                       kk > 0);
       }
       wgmma_commit();
@@ -742,10 +803,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(v_full + 8 * st, parity);
       fence_regs(o);
       wgmma_fence();
+      // V MN-major: LBO steps from one column box to the next (BK rows of
+      // kVPitch bytes), SBO from one 8-key group to the next, and a k-step
+      // is 16 keys
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        Wgmma<D>::rs(o, p[kk], smem_desc(v_st + kk * 16 * 128, BK * 128,
-                                          1024));
+        Wgmma<D>::rs(o, p[kk], smem_desc(v_st + kk * 16 * kVPitch,
+                                          BK * kVPitch, 8 * kVPitch,
+                                          kVPitch));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -801,20 +866,23 @@ EncodeTiledFn encode_tiled() {
 }
 
 // a 3-D map over `mats` contiguous (rows, d) bf16 matrices, boxes of
-// (box_rows, 64) with 128-byte swizzle; out-of-bounds boxes read zeros
+// (box_rows, box_cols) with 64 columns under a 128-byte swizzle or 32 under
+// a 64-byte one; out-of-bounds boxes read zeros
 bool encode_map(CUtensorMap* map, const void* base, int d, int rows, int mats,
-                int box_rows) {
+                int box_rows, int box_cols) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)mats};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -826,10 +894,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   using G = TcTile<D>;
   if (Sk == 0)   // no key: every row gives 0
     return cudaMemsetAsync(out, 0, (size_t)B * H * Sq * D * 2, stream);
-  CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, D, Sq, B * H, kTcBQ) ||
-      !encode_map(&tk, k, D, Sk, B * KH, G::BK) ||
-      !encode_map(&tv, v, D, Sk, B * KH, G::BK))
+  // Q's and K's 64-column boxes, their last box (its own width), V's boxes;
+  // a map that fails to encode fails the call
+  constexpr int last = box_cols(D, G::kBoxes - 1);
+  CUtensorMap tq, tq_last, tk, tk_last, tv;
+  if (!encode_map(&tq, q, D, Sq, B * H, kTcBQ, 64) ||
+      !encode_map(&tq_last, q, D, Sq, B * H, kTcBQ, last) ||
+      !encode_map(&tk, k, D, Sk, B * KH, G::BK, 64) ||
+      !encode_map(&tk_last, k, D, Sk, B * KH, G::BK, last) ||
+      !encode_map(&tv, v, D, Sk, B * KH, G::BK, G::kVCols))
     return cudaErrorInvalidValue;
   auto kernel = flash_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -838,7 +911,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (Sq + kTcBQ - 1) / kTcBQ);
   kernel<<<grid, kTcThreads, G::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<const int*>(lengths),
+      tq, tq_last, tk, tk_last, tv, static_cast<const int*>(lengths),
       static_cast<__nv_bfloat16*>(out), H, KH, Sq, Sk, mode, window, q_offset,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -848,7 +921,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's CUDA error code.
+// The CUDA-core kernel: dtype 0 = float32 at D = 32, 64, 96, 128 or 256,
+// 1 = bfloat16 at D = 32 (the tensor-core kernel takes bfloat16 at the
+// others).  Returns the launch's CUDA error code.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* lengths, void* out, int dtype, int B,
                         int H, int KH, int Sq, int Sk, int D, int mode,
@@ -857,17 +932,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (KH <= 0 || H % KH != 0 || mode < kCausal || mode > kFull)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return static_cast<int>(launch_d<float>(D, q, k, v, lengths, out, B, H,
-                                            KH, Sq, Sk, mode, window,
-                                            q_offset, scale, s));
-  if (dtype == 1)
-    return static_cast<int>(launch_d<__nv_bfloat16>(
-        D, q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
+    return static_cast<int>(launch_f32(D, q, k, v, lengths, out, B, H, KH,
+                                       Sq, Sk, mode, window, q_offset, scale,
+                                       s));
+  if (dtype == 1 && D == 32)
+    return static_cast<int>(launch<__nv_bfloat16, 32>(
+        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
         scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core kernel: bfloat16 q, k, v at D = 64, 128 or 256, each
+// The tensor-core kernel: bfloat16 q, k, v at D = 64, 96, 128 or 256, each
 // 16-byte aligned.  Returns the launch's CUDA error code.
 int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
                               const void* lengths, void* out, int B, int H,
@@ -879,6 +954,9 @@ int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64: return static_cast<int>(launch_wgmma<64>(
+        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
+        scale, s));
+    case 96: return static_cast<int>(launch_wgmma<96>(
         q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
         scale, s));
     case 128: return static_cast<int>(launch_wgmma<128>(

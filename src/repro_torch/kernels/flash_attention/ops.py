@@ -1,7 +1,10 @@
 """Flash-attention forward wrapper: the plain PyTorch version for tensors
 on the CPU, a CUDA kernel (``csrc/flash_attention.cu``) for tensors on the
-card — the tensor-core kernel or the CUDA-core one, as ``variant`` says.
-``launches`` counts kernel launches, in all and by kernel."""
+card — the tensor-core kernel (``flash_wgmma_kernel``: bfloat16 at head
+dims 64, 96, 128 and 256) or the CUDA-core one (``flash_fwd_kernel``:
+float32, and bfloat16 at head dim 32), as ``variant`` says.  There is no
+fallback: a launch or tensor map the card refuses raises.  ``launches``
+counts kernel launches, in all and by kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -19,12 +22,14 @@ MODES = {"causal": 0, "length": 1, "full": 2}
 
 # The kernel for each (type, head dim) the wrapper takes: "wgmma" (the
 # tensor cores, bf16 operands, float32 accumulation) for bfloat16 at head
-# dims 64, 128 and 256; "fma" (CUDA-core float32) for float32, which TF32
-# would round past its 2e-5 tolerance, and for head dims 32 and 96, which
-# the tensor-core kernel's 64-column TMA boxes do not tile.
+# dims 64, 96, 128 and 256 (Q and K in 64-column TMA boxes, and at D 96 a
+# last box of 32 columns, 96 = 64 + 32; V in 32-column boxes there); "fma"
+# (CUDA-core float32) for float32, which TF32 would round past its 2e-5
+# tolerance, and for bfloat16 at head dim 32, which no arch uses at full
+# size.
 VARIANTS = {
     (torch.bfloat16, 32): "fma", (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 96): "fma", (torch.bfloat16, 128): "wgmma",
+    (torch.bfloat16, 96): "wgmma", (torch.bfloat16, 128): "wgmma",
     (torch.bfloat16, 256): "wgmma",
     (torch.float32, 32): "fma", (torch.float32, 64): "fma",
     (torch.float32, 96): "fma", (torch.float32, 128): "fma",

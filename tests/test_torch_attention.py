@@ -45,6 +45,7 @@ FLASH_CASES = [
     ("float32", 1, 8, 2, 128, 384, 32, "causal", 0, 256),    # GQA 4, offset
     ("bfloat16", 1, 4, 1, 384, 384, 128, "full", 0, 0),      # tail (384)
     ("float32", 1, 4, 2, 384, 384, 32, "causal", 100, 0),    # tail + window
+    ("bfloat16", 1, 4, 2, 256, 384, 96, "causal", 100, 128), # D 96 (64 + 32)
 ]
 
 
@@ -84,15 +85,26 @@ def test_flash_attention_length_mode_matches_jax(dtype, window):
 
 
 def test_flash_variant_table():
-    for d in (64, 128, 256):
+    for d in (64, 96, 128, 256):
         assert tfa.variant(torch.bfloat16, d) == "wgmma"
         assert tfa.variant(torch.float32, d) == "fma"
-    for d in (32, 96):
-        assert tfa.variant(torch.bfloat16, d) == tfa.variant(
-            torch.float32, d) == "fma"
+    assert tfa.variant(torch.bfloat16, 32) == tfa.variant(
+        torch.float32, 32) == "fma"
     for dtype, d in ((torch.float16, 128), (torch.bfloat16, 48)):
         with pytest.raises(ValueError, match="no flash-attention kernel"):
             tfa.variant(dtype, d)
+
+
+def test_flash_variant_table_is_pinned():
+    # the whole table: every bf16 head dim but 32 on the tensor cores,
+    # float32 (which TF32 would round past 2e-5) always on the CUDA cores
+    assert tfa.VARIANTS == {
+        (torch.bfloat16, 32): "fma", (torch.bfloat16, 64): "wgmma",
+        (torch.bfloat16, 96): "wgmma", (torch.bfloat16, 128): "wgmma",
+        (torch.bfloat16, 256): "wgmma",
+        (torch.float32, 32): "fma", (torch.float32, 64): "fma",
+        (torch.float32, 96): "fma", (torch.float32, 128): "fma",
+        (torch.float32, 256): "fma"}
 
 
 # The tensor-core kernel's arithmetic (P rounded to bf16 before P @ V, l

@@ -295,13 +295,13 @@ def _flash_checked(q, k, v, kind, **kw):
 @pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_flash_kernel_matches_plain(cuda, dtype, d):
     # tails: 200, 333, 130, 77 and 1,025 are not multiples of the 32- to
-    # 128-row tiles; bf16 at D 64, 128 and 256 takes the tensor-core
-    # kernel, D 32 and 96 (not a whole number of its 64-column boxes) the
-    # CUDA-core one
+    # 128-row tiles; bf16 at D 64, 96, 128 and 256 takes the tensor-core
+    # kernel (at D 96 a 64- and a 32-column box), float32 and bf16 at D 32
+    # the CUDA-core one
     b, h, kh = 2, 4, 2
     kind = fa_ops.variant(dtype, d)
     assert kind == ("wgmma" if dtype == torch.bfloat16
-                    and d in (64, 128, 256) else "fma")
+                    and d in (64, 96, 128, 256) else "fma")
     lengths = torch.tensor([1, 150], dtype=torch.int32, device=cuda)
     cases = [  # (sq, sk, kwargs)
         (200, 200, dict(mode="causal")),
@@ -329,22 +329,38 @@ def test_flash_kernel_gqa_groups_and_scale(cuda):
         _close(got, want, torch.bfloat16, f"KH={kh}")
 
 
+def _flash_gqa_checked(cuda, seed, h, kh, d, cases):
+    """Each (sq, sk, kwargs) case over h query heads on kh KV heads of d,
+    bf16, on the tensor-core kernel against the plain version."""
+    for i, (sq, sk, kw) in enumerate(cases):
+        q, k, v = _qkv(cuda, seed + i, torch.bfloat16, 2, h, kh, sq, sk, d)
+        got = _flash_checked(q, k, v, "wgmma", **kw)
+        want = fa_ref.attention_reference(q, k, v, **kw)
+        _close(got, want, torch.bfloat16, f"D={d} KH={kh} {kw}")
+
+
 @pytest.mark.parametrize("kh", [16, 8, 1])
 def test_flash_tensor_core_gqa_groups_at_head_dim_256(cuda, kh):
     # GQA groups 1, 2 and 16 (recurrentgemma-9b's) over 16 query heads,
     # windowed as its local layers are, on ragged lengths
-    for i, (sq, sk, kw) in enumerate((
-            (300, 300, dict(mode="causal", window=100)),
-            (65, 321, dict(mode="causal", q_offset=256)),
-            (130, 190, dict(mode="full")))):
-        q, k, v = _qkv(cuda, 10 * kh + i, torch.bfloat16, 2, 16, kh, sq, sk,
-                       256)
-        got = _flash_checked(q, k, v, "wgmma", **kw)
-        want = fa_ref.attention_reference(q, k, v, **kw)
-        _close(got, want, torch.bfloat16, f"KH={kh} {kw}")
+    _flash_gqa_checked(cuda, 10 * kh, 16, kh, 256, (
+        (300, 300, dict(mode="causal", window=100)),
+        (65, 321, dict(mode="causal", q_offset=256)),
+        (130, 190, dict(mode="full"))))
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kh", [32, 8, 1])
+def test_flash_tensor_core_gqa_groups_at_head_dim_96(cuda, kh):
+    # phi-3-vision's 32 query heads of 96 over 32 KV heads (its own), 8
+    # and 1: causal with a window, ragged (no length a multiple of the
+    # 128-row tiles), an offset query block, and full
+    _flash_gqa_checked(cuda, 20 * kh, 32, kh, 96, (
+        (300, 300, dict(mode="causal", window=100)),
+        (65, 321, dict(mode="causal", window=64, q_offset=256)),
+        (130, 190, dict(mode="full"))))
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_tensor_core_empty_row_gives_zeros(cuda, d):
     # length 0 sees no key: exactly 0 (the reference's uniform row over the
     # -1e30 logits is not the kernel's function there); the others as plain
@@ -461,6 +477,17 @@ def test_attention_kernels_reject_and_raise(cuda):
         dec_ops.decode_partial(q, k, v, lengths)
     assert (fa_ops.launches["flash_attention"],
             dict(dec_ops.launches)) == before
+
+
+def test_flash_tensor_core_at_head_dim_96_raises_without_fallback(cuda):
+    # bf16 at D 96 launches the tensor-core kernel or raises: a grid the
+    # card refuses (B past 65,535) reaches neither kernel nor the plain
+    # version, and nothing is counted
+    q, k, v = _qkv(cuda, 0, torch.bfloat16, 65536, 1, 1, 1, 1, 96)
+    before = dict(fa_ops.launches)
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        fa_ops.flash_attention(q, k, v)
+    assert fa_ops.launches == before
 
 
 # --- recurrences -------------------------------------------------------------

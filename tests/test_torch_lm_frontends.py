@@ -126,7 +126,10 @@ def test_attention_layer_at_head_dim_96(dtype):
     got = tfa.flash_attention(*(torch.from_numpy(a).to(tdt)
                                 for a in (q, k, v)))
     lp.close(got, want, tol, "flash at D 96")
-    assert tfa.variant(tdt, 96) == "fma"
+    # on the card bf16 takes the tensor-core kernel at D 96, float32 the
+    # CUDA-core one
+    assert tfa.variant(torch.bfloat16, 96) == "wgmma"
+    assert tfa.variant(torch.float32, 96) == "fma"
 
 
 def _spec(x):

@@ -149,6 +149,56 @@ def test_flash_launches_by_kernel_follow_the_dispatch(smoke):
     assert set(smoke.flash_variant_launches(rwkv, "cuda").values()) == {0}
 
 
+def _sass_listing(bodies):
+    """A ``cuobjdump -sass`` listing with one function per (name, lines)."""
+    out = ["", "Fatbin elf code:", "================", "arch = sm_90a"]
+    for name, lines in bodies:
+        out += [f"\t\tFunction : {name}",
+                '\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"']
+        out += [f"        /*{16 * i:04x}*/   {x} ;" for i, x in enumerate(lines)]
+    return "\n".join(out)
+
+
+def test_hgmma_check_counts_each_head_dim(smoke):
+    """The card phase's SASS check: HGMMA counted per flash_wgmma_kernel<D>
+    instantiation (mangled names), other functions ignored; a head dim
+    whose function holds none, or has no function, fails the run."""
+    def wgmma(d):
+        return (f"_ZN12_GLOBAL__N_118flash_wgmma_kernelILi{d}EEEv14CUtensorM"
+                f"ap_stS1_S1_S1_S1_PKiP13__nv_bfloat16iiiiiiif")
+    hg = "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT"
+    bodies = [(wgmma(d), ["MOV R1, c[0x0][0x28]"] + [hg] * n)
+              for d, n in ((64, 4), (96, 7), (128, 8), (256, 16))]
+    fma = ("_ZN12_GLOBAL__N_116flash_fwd_kernelI13__nv_bfloat16Li96EEEvPKT_"
+           "S4_S4_PKiPS2_iiiiiiiif", [hg, "FFMA R0, R1, R2, R0"])
+    assert smoke.hgmma_by_head_dim(_sass_listing(bodies + [fma])) == {
+        64: 4, 96: 7, 128: 8, 256: 16}
+    bodies[1] = (wgmma(96), ["FFMA R0, R1, R2, R0"])
+    with pytest.raises(AssertionError, match=r"head dims \[96\]"):
+        smoke.hgmma_by_head_dim(_sass_listing(bodies + [fma]))
+    with pytest.raises(AssertionError, match=r"head dims \[64, 96\]"):
+        smoke.hgmma_by_head_dim(_sass_listing(bodies[2:] + [fma]))
+
+
+def test_device_time_retakes_an_empty_trace(smoke, monkeypatch):
+    """A profiler trace that recorded no device time is taken again; after
+    three empty ones CUDA events stand in, labelled, so no time reads 0."""
+    traces = iter([0.0, 0.0, 0.25])
+
+    def profile(fn, reps, kernels=()):
+        return dict(device_ms=next(traces), by_group_ms={}, device_ops=1.0,
+                    by_kernel_ms={k: 0.1 for k in kernels})
+    monkeypatch.setattr(smoke, "device_profile", profile)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, reps=5, warmup=1: 0.5)
+    calls = []
+    r = smoke.device_time(lambda: calls.append(1), 4, ("k",))
+    assert (r["device_ms"], r["timed_by"], calls) == (0.25, "trace", [1])
+    traces = iter([0.0] * 3)
+    assert smoke.device_time(lambda: None, 4, ("k",)) == dict(
+        device_ms=0.5, by_group_ms=None, device_ops=None,
+        by_kernel_ms={"k": None}, timed_by="events")
+
+
 def test_phase_decode_kernel_cpu(smoke):
     # the 32k case and the recurrentgemma-9b decode case at a small size:
     # 16 query heads on one KV head, a window the lengths are past

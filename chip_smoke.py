@@ -114,7 +114,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          list walks (8 nodes, with and without break) on
                          1,024 probes through ``get_many``, values equal to
                          the host oracle, steps and ``total_time_us`` equal
-                         to the same batch on the CPU, bit for bit.
+                         to the same batch on the CPU, bit for bit.  The
+                         guests' serial floor takes one dependent load a
+                         step at the latency ``chase_cycles`` measures in
+                         shared memory (and, beside it, in L2).
 6g. ``cuckoo_get``     — a MemC3-layout cuckoo table (2^18 buckets x 4
                          ways, 4 value words) filled to 90% by the host
                          insert, moved to the card, and one ``lookup`` of
@@ -2068,10 +2071,6 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
 SWEEP_FIELDS = ("ok", "errors", "warnings", "waived", "n_wqs", "n_posted",
                 "static_wr_bound", "recycled_wqs", "budget",
                 "serial_latency_us", "fuel")
-# One dependent global access of the chain kernel's walk, for its serial
-# floor: an L2 hit, taken as 260 SM cycles (published microbenchmarks of
-# Hopper's memory hierarchy), at the card's maximum SM clock.
-L2_HIT_CYCLES = 260
 # the fields the kernel backend models (it passes the clocks through)
 GUEST_FIELDS = ("mem", "head", "tail", "enable_limit", "completions",
                 "steps", "halted")
@@ -2213,8 +2212,24 @@ def guest_drive(device, n_guests: int, budget: int, seed: int,
         # run of the phase alone did): CUDA events, over a kernel of ~2 ms,
         # then stand in
         result["ms"] = result["trace_ms"] or result["event_ms"]
-        result["serial_floor_ms"] = (result["steps_max"] * L2_HIT_CYCLES
-                                     / max_sm_clock_hz() * 1e3)
+        # the serial floor: one dependent shared-memory load a step (the
+        # walk's words live there), at the card's maximum SM clock; beside
+        # it the same steps at one L2 hit each, as a walk in global memory
+        cycles = {level: chain_ops.chase_cycles(level, device)
+                  for level in chain_ops.CHASE_LEVELS}
+        hz = max_sm_clock_hz()
+        result["load_cycles"] = cycles
+        result["serial_floor_ms"] = (result["steps_max"] * cycles["shared"]
+                                     / hz * 1e3)
+        result["serial_floor_l2_ms"] = (result["steps_max"] * cycles["l2"]
+                                        / hz * 1e3)
+        # the looping guest's walk by itself: what one walk costs a step,
+        # beside the batch in which thousands of walks share the SMs
+        one = [t[LOOP_GUEST:LOOP_GUEST + 1].contiguous() for t in args]
+        result["loop_guest_ms"] = cuda_ms(
+            lambda: chain_ops.run_managed(*one, **kw), reps=5)
+        result["loop_guest_cycles_per_step"] = (
+            result["loop_guest_ms"] * 1e-3 * hz / max_steps)
         result["guest_instrs_per_s"] = result["guest_instrs"] / result[
             "ms"] * 1e3
     return result
@@ -3497,7 +3512,12 @@ def main() -> int:
           f"{g['shape']}, kernel {g['ms']:.4f} ms (trace {g['trace_ms']:.4f}"
           f", events {g['event_ms']:.4f}; bound "
           f"{g['bound_ms']:.4f} ms, serial floor {g['serial_floor_ms']:.4f}"
-          f" ms over {g['steps_max']} steps; engine {g['engine_ms']:.1f} "
+          f" ms over {g['steps_max']} steps at {g['load_cycles']['shared']}"
+          f" cycles a shared load, {g['serial_floor_l2_ms']:.4f} ms at "
+          f"{g['load_cycles']['l2']} an L2 hit; the looping guest alone "
+          f"{g['loop_guest_ms']:.4f} ms, "
+          f"{g['loop_guest_cycles_per_step']:.1f} cycles a step; engine "
+          f"{g['engine_ms']:.1f} "
           f"ms), plain {g['plain_ms']:.1f} ms, interpreter "
           f"{g['interp_ms']:.1f} ms ({g['interp_ms_per_step']:.4f} ms a "
           f"step); guest instructions "
@@ -3635,7 +3655,8 @@ def main() -> int:
     g = phases["chain_programs"]["guests"]
     phases["chain_kernel"]["addleq_guests"] = {f: g[f] for f in (
         "shape", "launches", "ms", "trace_ms", "event_ms", "plain_ms",
-        "bound_ms", "serial_floor_ms", "steps_max")}
+        "bound_ms", "serial_floor_ms", "serial_floor_l2_ms", "load_cycles",
+        "steps_max", "loop_guest_ms", "loop_guest_cycles_per_step")}
 
     rows = []
     for kname, phase, source, replaces in KERNELS:

@@ -24,6 +24,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.chain_vm_run_managed.restype = i
     lib.chain_vm_run_chains.argtypes = [p, p, i, i, i, i, i, p]
     lib.chain_vm_run_chains.restype = i
+    lib.chain_vm_chase.argtypes = [p, p, i, i, i, i, p]
+    lib.chain_vm_chase.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -97,3 +99,26 @@ def run_chains(mems, *, wq_base: int, n_wrs: int, max_steps: int = 64):
         max_steps, _build.stream()), "chain_vm_run_chains")
     launches["run_chains"] += 1
     return out
+
+
+# where a chain step's dependent loads may be served: the C code's ``where``
+CHASE_LEVELS = {"shared": 0, "l2": 1}
+
+
+def chase_cycles(level: str, device="cuda", steps: int = 4096) -> float:
+    """SM cycles of one dependent load from ``level`` ("shared", or "l2":
+    ``ld.global.cg``, past L1), measured on the card: one thread follows
+    ``steps`` indices around a ring of ints 33 words apart (a new 128-byte
+    line each load), timed by ``clock64`` after as many to warm up."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"device {dev}: the latency probe runs on the card")
+    words = 4096 if level == "shared" else 1 << 18
+    ring = torch.empty(words if level == "l2" else 0, dtype=torch.int32,
+                       device=dev)
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = _build.load("chain_vm", _declare)
+    _build.check(lib, lib.chain_vm_chase(
+        _build.pointer(ring), _build.pointer(out), words, 33, steps,
+        CHASE_LEVELS[level], _build.stream()), "chain_vm_chase")
+    return int(out[0]) / steps

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _chain_images as hazards
 from _parity import assert_states_equal, to_torch
 from repro.core import assembler as jasm
 from repro.core import isa, machine as jm
@@ -58,6 +59,36 @@ def test_managed_chain_loop_matches_pallas_interpret(managed):
         max_steps=24)
     np.testing.assert_array_equal(got_mem.numpy(), np.asarray(want_mem))
     np.testing.assert_array_equal(got_stats.numpy(), np.asarray(want_stats))
+
+
+# the images the kernel's shared-memory walk makes hard
+# (tests/_chain_images.py): a ring at the image's start and one ending at
+# its last word
+HAZARD_M, HAZARD_STEPS = 512, 17
+HAZARDS = {(base, name): case
+           for base in (0, HAZARD_M - 8 * hazards.WR)
+           for name, case in {**hazards.recv_cases(HAZARD_M, base),
+                              **hazards.copy_cases(HAZARD_M, base)}.items()}
+
+
+@pytest.mark.parametrize("base,name", sorted(HAZARDS))
+def test_managed_chain_loop_matches_jax_on_hazard_images(base, name):
+    """RECV scatters that rewrite their own table or store twice to one
+    word, tables clamped at the image's end, copies across the ring's edges
+    and the image's end: the port's plain loop equals JAX's loop and its
+    Pallas kernel in interpret mode, every word and counter."""
+    mems, msgs, inits, kw = hazards.fixed_steps(HAZARDS[base, name],
+                                                HAZARD_STEPS)
+    got = tref.managed_chain_loop(torch.from_numpy(mems),
+                                  torch.from_numpy(msgs),
+                                  torch.from_numpy(inits), **kw)
+    assert bool((got[0] != torch.from_numpy(mems)).any())
+    for impl in ("ref", "interpret"):
+        want = jops.run_managed(jnp.asarray(mems), jnp.asarray(msgs),
+                                jnp.asarray(inits), impl=impl, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=impl)
 
 
 def test_run_chain_reference_matches_pallas_interpret():

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _chain_images as hazards
 from repro_torch.core import faults, isa, machine, programs, turing
 from repro_torch.core.engine import ChainEngine
 from repro_torch.kernels.chain_vm import ops as chain_ops
@@ -77,6 +78,152 @@ def test_run_managed_kernel_matches_plain(cuda, managed):
     torch.cuda.synchronize()
     assert chain_ops.launches["run_managed"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# run_managed's routes (csrc/chain_vm.cu): an image of up to WHOLE_WORDS
+# words is staged whole in shared memory, a larger one stages its ring and
+# logs the words its chain writes outside it while copy warps copy the image
+WHOLE_WORDS = 16384
+
+
+def _managed_equal(cuda, mems, msgs, inits, **kw):
+    """run_managed against managed_chain_loop on the card: one launch, mem
+    and stats bit for bit."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (mems, msgs, inits)]
+    before = chain_ops.launches["run_managed"]
+    got = chain_ops.run_managed(*args, **kw)
+    want = chain_ref.managed_chain_loop(*args, **kw)
+    torch.cuda.synchronize()
+    assert chain_ops.launches["run_managed"] == before + 1
+    bad = (got[0] != want[0]).nonzero()[:8].tolist()
+    assert not bad, f"words differ at (row, word) {bad}"
+    assert torch.equal(got[1], want[1]), (got[1], want[1])
+    return want
+
+
+def _random_managed(seed, n, m, wq_base, n_wrs):
+    """n random managed contexts of m words with the ring at wq_base; fields
+    stray past both ends of the image and into the ring."""
+    rng = np.random.RandomState(seed)
+    mems = rng.randint(-40, m + 40, size=(n, m)).astype(np.int32)
+    lo, hi = wq_base - 24, wq_base + 8 * n_wrs + 24
+    for s in range(n_wrs):
+        o = wq_base + s * isa.WR_WORDS
+        mems[:, o] = (rng.randint(0, 16, n) << 24) | rng.randint(0, 5, n)
+        mems[:, o + 1] = rng.randint(0, 2, n)
+        near = rng.rand(n, 3) < 0.5            # src, dst, aux near the ring
+        mems[:, o + 2:o + 4] = np.where(
+            near[:, :2], rng.randint(lo, hi, (n, 2)), mems[:, o + 2:o + 4])
+        mems[:, o + 4] = rng.randint(-2, 20, n)
+        mems[:, o + 5] = rng.randint(-2, 6, n)
+        mems[:, o + 7] = np.where(near[:, 2], rng.randint(lo, hi, n),
+                                  mems[:, o + 7])
+    msgs = rng.randint(-5, m + 40, (n, 4 * isa.MSG_WORDS)).astype(np.int32)
+    inits = np.stack([
+        rng.randint(0, 3, n), rng.randint(0, 40, n), rng.randint(0, 40, n),
+        rng.randint(0, 3, n), rng.randint(0, 2, n), rng.randint(0, 4, n),
+        rng.randint(0, 48, n), rng.rand(n) < 0.1], 1).astype(np.int32)
+    return mems, msgs, inits
+
+
+@pytest.mark.parametrize("m", [WHOLE_WORDS - 1, WHOLE_WORDS,
+                               WHOLE_WORDS + 1])
+def test_run_managed_kernel_at_the_whole_image_budget(cuda, m):
+    """Images one word under, at and over the shared-memory budget: the
+    whole-image route twice, then the ring-and-log route."""
+    for managed in (True, False):
+        _managed_equal(cuda, *_random_managed(m, 96, m, 0, 8), wq_base=0,
+                       n_wrs=8, managed=managed, max_steps=48)
+
+
+@pytest.mark.parametrize("m,wq_base", [(20000, 20000 - 64), (20000, 7001),
+                                       (4112, 4112 - 64)])
+def test_run_managed_kernel_ring_at_the_image_end(cuda, m, wq_base):
+    """A ring away from word 0, once ending at the image's last word (in
+    both routes), once at an odd base: fields that reach around it."""
+    _managed_equal(cuda, *_random_managed(m + wq_base, 128, m, wq_base, 8),
+                   wq_base=wq_base, n_wrs=8, managed=True, max_steps=48)
+
+
+def test_run_managed_kernel_long_walks(cuda):
+    """Rings without HALT, RECV or WAIT that run to their fuel or enable
+    limit (up to 700 steps) unless a write makes one."""
+    n, m = 64, 1024
+    mems, msgs, inits = _random_managed(5, n, m, 0, 8)
+    rng = np.random.RandomState(6)
+    ops = np.asarray([0, 1, 2, 3, 4, 6, 7, 8, 9, 11])
+    for s in range(8):
+        mems[:, 8 * s] = (rng.choice(ops, n) << 24) | rng.randint(0, 5, n)
+        mems[:, 8 * s + 5] = rng.randint(-2, 700, n)     # ENABLE limits
+    inits[:, 1] = 700
+    inits[:, 2] = rng.randint(0, 700, n)
+    inits[:, 6] = rng.randint(200, 700, n)
+    want = _managed_equal(cuda, mems, msgs, inits, wq_base=0, n_wrs=8,
+                          managed=True, max_steps=700)
+    steps = (want[1][:, 0].cpu() - torch.from_numpy(inits[:, 0])).numpy()
+    assert (steps > 256).sum() >= n // 4, steps
+
+
+def test_run_managed_kernel_on_addleq_guests(cuda):
+    """A batch of 4,112-word ADDLEQ interpreter images (the chain_programs
+    drive's shape), one guest looping until its fuel runs out."""
+    interp = turing.build_interpreter(device="cpu")
+    d, i0 = interp.data_base, interp.instr_base
+    guests = [turing.guest_countdown(interp, c) for c in (1, 5, 12)]
+    guests += [turing.guest_add(interp, 17, 25),
+               turing.guest_multiply(interp, 7, 6),
+               turing.guest_multiply(interp, 3, 0),
+               turing.AddleqProgram([(d, d + 1, i0)], {d: 0, d + 1: 0})]
+    st = [interp.load(g) for g in guests]
+    batch = machine.VMState(*(torch.stack(f) for f in zip(*st)))
+    n, cap = batch.mem.shape[0], batch.msg_buf.shape[2]
+    max_steps = interp.lap_words * 30
+    inits = torch.stack(
+        [batch.head[:, 0], batch.tail[:, 0], batch.enable_limit[:, 0],
+         batch.completions[:, 0], batch.msg_head[:, 0], batch.msg_tail[:, 0],
+         torch.full((n,), max_steps, dtype=torch.int32),
+         batch.halted.to(torch.int32)], 1)
+    msgs = batch.msg_buf[:, 0].reshape(n, cap * isa.MSG_WORDS)
+    assert batch.mem.shape[1] == 4112
+    spec = interp.spec
+    want = _managed_equal(cuda, batch.mem.numpy(), msgs.numpy(),
+                          inits.numpy(), wq_base=spec.wq_bases[0],
+                          n_wrs=spec.wq_sizes[0], managed=True,
+                          max_steps=max_steps)
+    stats = want[1].cpu()
+    assert int(stats[-1, 0] - inits[-1, 0]) == max_steps   # the loop guest
+    assert int(stats[:-1, 4].sum()) == n - 1                # the rest halt
+
+
+@pytest.mark.parametrize("m,wq_base", [(512, 0), (512, 448), (20000, 0),
+                                       (20000, 19936), (20000, 5000)])
+def test_run_managed_kernel_on_hazard_images(cuda, m, wq_base):
+    """RECV scatters that rewrite their own table or store twice to one
+    word, tables clamped at the image's end or inside the ring, copies
+    across the ring's edges and the image's end (tests/_chain_images.py),
+    in both routes."""
+    cases = {**hazards.recv_cases(m, wq_base),
+             **hazards.copy_cases(m, wq_base)}
+    for name, (mems, msgs, inits, kw) in sorted(cases.items()):
+        _managed_equal(cuda, mems, msgs, inits, **kw)
+
+
+def test_run_managed_kernel_past_its_write_log(cuda):
+    """A chain that writes 0, 320, 640 and 1,280 distinct words outside its
+    ring (the log holds 512): the walker waits for the copy warps at a
+    named barrier and writes the rest straight to the output, reading them
+    back from there."""
+    (mems, msgs, inits, kw), = hazards.overflow_case(20000).values()
+    _managed_equal(cuda, mems, msgs, inits, **kw)
+
+
+def test_chase_probe_reads_latencies(cuda):
+    """The latency probe: a shared-memory load beats an L2 hit, both take
+    more than a cycle and less than a microsecond."""
+    smem = chain_ops.chase_cycles("shared", cuda)
+    l2 = chain_ops.chase_cycles("l2", cuda)
+    assert 1 < smem < l2 < 2000, (smem, l2)
 
 
 @pytest.mark.parametrize("m", [16, 517, 4096])

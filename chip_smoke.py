@@ -2,17 +2,19 @@
 RedN GET path, the store's write path, its fault recovery and online
 resize, racing writers and isolation, the crash-resilient services, the
 chain-program toolchain (verifier, ADDLEQ guests, list walks), the cuckoo
-table, and the LM serving paths
+table, the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
 ServeEngine ticks; gemma3-1b, also on rolling int8 caches, mixtral-8x7b,
-phi-3-vision-4.2b and seamless-m4t-medium prefill and decode).
+phi-3-vision-4.2b and seamless-m4t-medium prefill and decode), and the
+training path (smollm-135m: train steps through the flash backward
+kernels, AdamW, checkpoints and a crash resumed bit for bit).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs twenty-six phases
+``nvcc`` per source, all started together), then runs twenty-eight phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -215,6 +217,37 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``rglru.variant`` picks it.  The recurrentgemma-9b
                          drives' 26 launches a prefill must all be the
                          ring kernel's.
+15. ``flash_bwd_kernel`` — the flash backward kernels
+                         (``flash_bwd_dq_kernel`` then
+                         ``flash_bwd_dkdv_kernel``) against the plain
+                         backward, and the forward's lse against the
+                         plain one: at smollm-135m's training shape (8,
+                         9 / 3 heads, 2,048^2, head dim 64, causal,
+                         float32) and qwen3-1.7b's (4, 16 / 8, 2,048^2,
+                         128, causal, bf16); and in both types on window,
+                         length (rows past a short length), full (Sk
+                         384), q_offset, G 1, head dims 32 / 96 / 256 and
+                         rows that see no key.  Both big shapes timed by
+                         device time beside their bound (10 B H S^2 D / 2
+                         FLOPs at the float32 or bf16 peak), the plain
+                         backward and SDPA's backward.
+16. ``lm_train``       — smollm-135m at full width and depth (30 layers,
+                         d 576, vocab 49,152, tied), float32, remat
+                         "block", batch 8 x 2,048 from ``TokenPipeline``,
+                         the launcher's AdamW: the first step's loss,
+                         grad_norm and every gradient held against the
+                         same step with the plain attention forward and
+                         backward on the card; 60 forward (fma) and 30 of
+                         each backward kernel's launches a step, counted;
+                         30 steps whose loss falls by 0.3 (on
+                         ``TokenPipeline`` data over 512 tokens);
+                         microbatches=2 against 1; an int8-moment,
+                         master-less run that descends; the restart drill
+                         at seq 512 (10 steps straight against a crash at
+                         7 resumed from the step-5 checkpoint: every
+                         parameter and optimizer tensor bit-equal, with
+                         PyTorch's default algorithms); ms a step, tokens/s,
+                         peak memory and a traced step's idle share.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
@@ -222,17 +255,23 @@ timing launches come after.  The int32 kernels are exact (tolerance 0);
 the flash kernel is held at 2e-5 (float32) and 2e-2 (bfloat16),
 test_kernels.py's tolerances, the decode partial at DECODE_TOL in
 both types, the recurrences at REC_TOL and their float32 final states at
-STATE_TOL.  The last lines are the kernels' JSON, the
-card line from ``nvidia-smi`` and the result line.  Without a CUDA card,
-or outside a checkout, the script exits non-zero and prints no result.
+STATE_TOL; the flash backward's gradients at TOL of their largest
+magnitude, and lm_train's at GRAD_REL.  The last lines are the kernels'
+JSON, the card line from ``nvidia-smi`` and the result line.  Without a
+CUDA card, or outside a checkout, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -298,7 +337,9 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import analysis, turing  # noqa: E402
 from repro_torch.core import faults, isa, machine, programs  # noqa: E402
 from repro_torch.core.engine import ChainEngine  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
+from repro_torch.distributed import fault  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_vm import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.chain_vm import ref as chain_ref  # noqa: E402
@@ -320,7 +361,9 @@ from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.rdma import failure, isolation, transport  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +441,24 @@ def require_close(got, want, tol: float, what: str) -> float:
         raise AssertionError(f"{what}: {int(bad.sum())} values off by more "
                              f"than {tol} (max {float(diff.max())})")
     return float(diff.max())
+
+
+def require_scaled(got, want, rel: float, what: str) -> float:
+    """Raise unless |got - want| <= rel * max|want| everywhere (and both
+    are finite): a gradient held at a tolerance relative to its largest
+    magnitude.  Returns max|got - want| / max|want|."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max()) / scale
+    if err > rel:
+        raise AssertionError(f"{what}: off by {err} of its largest "
+                             f"magnitude {scale} (limit {rel})")
+    return err
 
 
 def require_equal(a, b, what: str) -> int:
@@ -3289,11 +3350,437 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-16: the flash backward, and the training path
+# ---------------------------------------------------------------------------
+
+def flash_bwd_ops(b, h, sq, sk, d, causal: bool) -> float:
+    """The backward's FLOPs: five products (S, dP, dV, dK, dQ) of 2 B H Sq
+    Sk D each, halved when causal."""
+    return 10.0 * b * h * sq * sk * d * (0.5 if causal else 1.0)
+
+
+def flash_bwd_check(device, dtype, b, h, kh, sq, sk, d, kw, seed, what):
+    """The forward's lse and the backward kernels against the plain
+    versions on one seeded case: lse (on the rows that see a key) at 1e-5
+    relative, the other rows at -1e30, out at TOL, and dq, dk, dv within
+    TOL[dtype] of each gradient's largest magnitude.  Returns the errors
+    and the inputs."""
+    q, k, v = random_qkv(device, seed, dtype, b, h, kh, sq, sk, d)
+    do = random_qkv(device, seed + 1000, dtype, b, h, kh, sq, sk, d)[0]
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    want_out, want_lse = fa_ref.attention_reference_lse(q, k, v, **kw)
+    seen = want_lse > -1e29
+    errs = dict(lse=require_close(lse[seen], want_lse[seen], 1e-5,
+                                  f"{what} lse"))
+    if not bool((lse[~seen] == -1e30).all()):
+        raise AssertionError(f"{what}: rows that see no key have lse "
+                             f"{lse[~seen].unique()[:4].tolist()}")
+    errs["out"] = require_close(out[seen], want_out[seen], TOL[dtype],
+                                f"{what} out")
+    del want_out, want_lse
+    got = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    want = fa_ref.attention_backward_reference(q, k, v, out, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = require_scaled(g, w, TOL[dtype], f"{what} {name}")
+    return errs, (q, k, v, out, lse, do)
+
+
+# The backward's timed shapes, as training runs them: smollm-135m (this
+# slice's model, float32, the lm_train batch) and qwen3-1.7b's prefill
+# shape in bf16: (name, b, h, kh, s, d, dtype)
+FLASH_BWD_SHAPES = (("smollm-135m", 8, 9, 3, 2048, 64, torch.float32),
+                    ("qwen3-1.7b", 4, 16, 8, 2048, 128, torch.bfloat16))
+# small cases in both types: (case, b, h, kh, sq, sk, d, kwargs); the
+# lengths of "length" are (sk // 3, sk), so rows past a short length stay
+FLASH_BWD_SMALL = (
+    ("window", 2, 4, 2, 512, 512, 64, dict(mode="causal", window=128)),
+    ("length", 2, 4, 2, 256, 700, 64, dict(mode="length")),
+    ("length_window", 2, 4, 1, 64, 700, 128, dict(mode="length",
+                                                  window=200)),
+    ("full_sk384", 2, 4, 2, 200, 384, 64, dict(mode="full")),
+    ("offset", 2, 4, 2, 77, 333, 128, dict(mode="causal", q_offset=256)),
+    ("g1", 2, 4, 4, 300, 300, 64, dict(mode="causal")),
+    ("d32", 2, 4, 2, 200, 200, 32, dict(mode="causal")),
+    ("d96", 1, 8, 2, 256, 256, 96, dict(mode="causal")),
+    ("d256", 1, 4, 1, 256, 256, 256, dict(mode="causal")),
+    ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)))
+
+
+def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
+                           small=FLASH_BWD_SMALL, time_it=True):
+    """The backward kernels (and the forward's lse) against the plain
+    backward at each of ``shapes`` (causal) and on ``small`` in float32 and
+    bf16; gradients held within TOL of their largest magnitude.  With
+    ``time_it``, each shape's backward by device time beside its bound
+    (operations: ``flash_bwd_ops`` at the float32 or bf16 peak), the plain
+    backward and SDPA's backward (SDPA forward plus backward less its
+    forward).  The first shape's numbers are the kernel's row."""
+    errs, timed = {}, {}
+    for i, (case, b, h, kh, sq, sk, d, kw) in enumerate(small):
+        kw = dict(kw)
+        if kw["mode"] == "length":
+            kw["lengths"] = torch.tensor([sk // 3, sk], dtype=torch.int32,
+                                         device=device)
+        for dtype in BOTH_DTYPES:
+            key = f"{case}/{str(dtype)[6:]}"
+            errs[key] = flash_bwd_check(device, dtype, b, h, kh, sq, sk, d,
+                                        kw, 40 + i, f"flash bwd {key}")[0]
+    for name, b, h, kh, s, d, dtype in shapes:
+        key = f"{name}/causal/{str(dtype)[6:]}"
+        errs[key], (q, k, v, out, lse, do) = flash_bwd_check(
+            device, dtype, b, h, kh, s, s, d, {}, 7, f"flash bwd {key}")
+        flops = flash_bwd_ops(b, h, s, s, d, True)
+        peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+                  + 4 * lse.numel())     # q, out, dO, dQ; k, v, dK, dV
+        r = dict(shape=(b, h, kh, s, s, d, str(dtype)[6:]), flops=flops,
+                 bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+                 bound_by=("operations" if flops / peak
+                           >= nbytes / HBM_BYTES_PER_S else "bytes"))
+        if time_it:
+            t = device_time(lambda: fa_ops.flash_attention_backward(
+                q, k, v, out, lse, do), 3, FLASH_BWD_KERNELS)
+            r.update(ms=t["device_ms"], timed_by=t["timed_by"],
+                     by_kernel_ms=t["by_kernel_ms"])
+            r["tflop_per_s"] = flops / (r["ms"] * 1e-3) / 1e12
+            r["plain_ms"] = cuda_ms(
+                lambda: fa_ref.attention_backward_reference(
+                    q, k, v, out, lse, do), reps=2)
+            r["library_ms"] = sdpa_backward_ms(q, k, v, do)
+        timed[name] = r
+        del q, k, v, out, lse, do
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    first = shapes[0][0]
+    key = f"{first}/causal/{str(shapes[0][6])[6:]}"
+    return dict(timed[first], max_abs_err=errs[key]["dq"], errs=errs,
+                shapes=timed)
+
+
+FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+
+
+def sdpa_backward_ms(q, k, v, do) -> float:
+    """SDPA's backward at this shape (causal, GQA): the time of SDPA's
+    forward plus backward less that of its forward (the yardstick; the
+    port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+    def fwd_bwd():
+        o = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    return cuda_ms(fwd_bwd, reps=5) - cuda_ms(fwd, reps=5)
+
+
+class PlainAttentionFn(torch.autograd.Function):
+    """The plain forward and the plain backward (``attention_reference_lse``
+    and ``attention_backward_reference``) as one autograd function: the
+    witness of the kernels' gradient in ``lm_train``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, mode, window, q_offset, scale):
+        kw = dict(mode=mode, window=window, lengths=lengths,
+                  q_offset=q_offset, scale=scale)
+        out, lse = fa_ref.attention_reference_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*fa_ref.attention_backward_reference(q, k, v, out, lse, do,
+                                                     **ctx.kw),
+                None, None, None, None, None)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within: the models' flash attention is the plain forward and
+    backward (no kernel launches), on any device."""
+    kernel = fa_ops.flash_attention
+
+    def plain(q, k, v, *, mode="causal", window=0, lengths=None, q_offset=0,
+              scale=None):
+        return PlainAttentionFn.apply(q, k, v, lengths, mode, window,
+                                      q_offset, scale)
+    fa_ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention = kernel
+
+
+def train_launches(cfg, device) -> dict:
+    """The flash launches of one train step of ``cfg``'s model under its
+    remat: the forward once per attention layer, again under remat (in
+    the backward pass), and each backward kernel once (none on the
+    CPU)."""
+    n = path_launches(cfg, device)[0]["flash_attention"]
+    fwd = n * (1 if cfg.remat == "none" else 2)
+    kind = fa_ops.variant(getattr(torch, cfg.dtype), cfg.head_dim) if n \
+        else "fma"
+    return {"flash_attention": fwd, f"flash_attention.{kind}": fwd,
+            "flash_attention.bwd": n, "flash_attention.bwd_dq": n,
+            "flash_attention.bwd_dkdv": n}
+
+
+def grad_step(cfg, ocfg, params, batch, **kw):
+    """One ``make_train_step`` step on a copy of ``params``: (the copy,
+    the state, the metrics, the gradients it took)."""
+    p, seen = copy.deepcopy(params), {}
+    step = train_loop.make_train_step(
+        cfg, ocfg, grad_constraint=lambda g: seen.update(g) or g, **kw)
+    p, state, m = step(p, train_opt.init(p), batch)
+    return p, state, m, seen
+
+
+def state_arrays(params, state) -> dict:
+    """Every parameter and optimizer-state tensor, by checkpoint key."""
+    return train_ckpt._flatten({"params": params, "opt": state})
+
+
+# lm_train's gates: the first step's loss within LOSS_REL of the witness
+# (the same step with the plain attention forward and backward on the
+# card), each gradient within GRAD_REL of its leaf's largest magnitude
+# (float32: the kernels sum in another order than the plain einsums, over
+# 30 layers of backward); microbatches=2 against 1 on the loss and the
+# summed gradient, at the same limits
+LOSS_REL = 1e-5
+GRAD_REL = 1e-4
+LOSS_DROP = 0.3          # tests/test_train_runtime.py::test_loss_decreases
+INT8_DROP = 0.1          # "descends" over a few steps
+# The data of the runs that must learn (the loss-falls and int8 runs):
+# TokenPipeline over 512 tokens, the smoke configs' vocabulary that
+# test_loss_decreases trains on, fed to the full model (its logits stay
+# 49,152 wide, so a step costs the same).  Over the full vocabulary a
+# token recurs ~0.33 times a step, and 30 steps at lr 3e-4 to 3e-3 moved
+# the loss by under 0.03 (PERF.md §6).  The witness, the launches,
+# the microbatches and the restart drill read full-vocabulary batches.
+LEARN_VOCAB = 512
+
+
+def phase_lm_train(device, cfg=None, ocfg=None, batch=8, seq=2048,
+                   steps=30, drill_seq=512, int8_steps=10, ckpt_root=None,
+                   time_it=True):
+    """smollm-135m at full width and depth in float32 (remat "block"),
+    batches of ``TokenPipeline`` (seed 0), the launcher's AdamW settings
+    unless ``ocfg`` is given (lr 3e-3, warmup 10, total ``steps``): the
+    gradient witness; the flash
+    launches of a step; ``steps`` steps (on LEARN_VOCAB data) whose loss
+    must fall by LOSS_DROP;
+    microbatches=2 against 1 (loss and gradient); an int8-moment
+    master-less run; the restart
+    drill at ``drill_seq`` (10 steps straight, and a run that crashes at
+    7 and resumes from the step-5 checkpoint: bit-equal parameters and
+    optimizer state, as the launcher runs them); and,
+    with ``time_it``, ms per step, tokens/s, peak memory and the idle
+    share of a traced step."""
+    cfg = cfg or dataclasses.replace(registry.get_config("smollm-135m"),
+                                     dtype="float32")
+    ocfg = ocfg or train_opt.AdamWConfig(lr=3e-3, warmup_steps=10,
+                                         total_steps=steps)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=0)
+
+    def batch_at(i, pipe=pipe):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(i).items()}
+    sync(device)
+    result = dict(arch=cfg.name, params=n_params, batch=batch, seq=seq,
+                  remat=cfg.remat, dtype=cfg.dtype,
+                  init_s=time.perf_counter() - t0)
+
+    # the gradient witness and a step's launches
+    want = train_launches(cfg, device)
+    sync(device)
+    reset_launches()
+    p_kernel, _, m_kernel, g_kernel = grad_step(cfg, ocfg, params,
+                                                batch_at(0))
+    sync(device)
+    result["step_launches"] = require_launches(want, "one train step")
+    reset_launches()
+    with plain_attention():
+        _, _, m_plain, g_plain = grad_step(cfg, ocfg, params, batch_at(0))
+    sync(device)
+    if any(read_launches().values()):
+        raise AssertionError(f"the plain witness launched kernels: "
+                             f"{read_launches()}")
+    for key, rel in (("loss", LOSS_REL), ("grad_norm", GRAD_REL)):
+        got, ref = float(m_kernel[key]), float(m_plain[key])
+        if not abs(got - ref) <= rel * abs(ref):
+            raise AssertionError(f"lm_train witness: {key} {got} vs plain "
+                                 f"{ref} (limit {rel} relative)")
+    grad_errs = {name: require_scaled(g_kernel[name], ref, GRAD_REL,
+                                      f"lm_train witness d {name}")
+                 for name, ref in g_plain.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    result["witness"] = dict(loss=float(m_kernel["loss"]),
+                             plain_loss=float(m_plain["loss"]),
+                             grad_norm=float(m_kernel["grad_norm"]),
+                             plain_grad_norm=float(m_plain["grad_norm"]),
+                             worst_grad=worst,
+                             worst_grad_rel_err=grad_errs[worst])
+    del g_plain
+
+    # microbatches=2 against 1: the same loss, and the two halves' summed
+    # gradient (the last sum the grad_constraint sees, over 2) equal to
+    # the whole batch's at the witness's limits.  The parameters after
+    # the step are reported, not held: Adam's first step moves a
+    # parameter by lr g / (|g| + eps), so a gradient within summation
+    # noise of 0 may move by up to 2 lr either way (PERF.md §6).
+    p_micro, _, m_micro, g_micro = grad_step(cfg, ocfg, params, batch_at(0),
+                                             microbatches=2)
+    for key, rel in (("loss", LOSS_REL), ("grad_norm", GRAD_REL)):
+        got, ref = float(m_micro[key]), float(m_kernel[key])
+        if not abs(got - ref) <= rel * abs(ref):
+            raise AssertionError(f"microbatches=2: {key} {got} vs one batch"
+                                 f" {ref} (limit {rel} relative)")
+    micro_errs = {name: require_scaled(g_micro[name] / 2, ref, GRAD_REL,
+                                       f"microbatches=2 d {name}")
+                  for name, ref in g_kernel.items()}
+    result["microbatches"] = dict(
+        loss=float(m_micro["loss"]),
+        worst_grad_rel_err=max(micro_errs.values()),
+        param_max_abs_diff=max(float((a - b).detach().abs().max())
+                               for a, b in zip(p_micro.parameters(),
+                                               p_kernel.parameters())))
+    del p_kernel, p_micro, g_kernel, g_micro
+
+    # the loss falls over ``steps`` steps
+    learn = TokenPipeline(LEARN_VOCAB, seq, batch, seed=0)
+    p = copy.deepcopy(params)
+    state = train_opt.init(p)
+    step = train_loop.make_train_step(cfg, ocfg)
+    losses, step_ms = [], []
+    sync(device)
+    reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, batch_at(i, learn))
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    result["launches"] = require_launches(
+        {k: n * steps for k, n in want.items()}, f"{steps} train steps")
+    if not min(losses[-5:]) < losses[0] - LOSS_DROP:
+        raise AssertionError(f"lm_train: the loss did not fall by "
+                             f"{LOSS_DROP}: {losses}")
+    result.update(losses=losses, step_ms=step_ms)
+    if time_it:
+        result["ms_per_step_median"] = float(np.median(step_ms[1:]))
+        result["tokens_per_s"] = (batch * seq * 1e3
+                                  / result["ms_per_step_median"])
+        torch.cuda.reset_peak_memory_stats()
+        b0 = batch_at(steps, learn)
+        sync(device)
+        t0 = time.perf_counter()
+        p, state, _ = step(p, state, b0)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: step(p, state, b0), 1,
+                              FLASH_BWD_KERNELS)
+        prof["wall_ms"] = wall_ms
+        prof["idle_share"] = 1 - prof["device_ms"] / wall_ms
+        result["step_profile"] = prof
+    del p, state
+
+    # int8 moments, no master
+    qcfg = dataclasses.replace(ocfg, moments_dtype="int8", master=False)
+    p = copy.deepcopy(params)
+    state = train_opt.init(p, qcfg)
+    qstep = train_loop.make_train_step(cfg, qcfg)
+    qlosses = []
+    for i in range(int8_steps):
+        p, state, m = qstep(p, state, batch_at(i, learn))
+        qlosses.append(float(m["loss"]))
+    kinds = {x["q"].dtype for mom in (state.mu, state.nu)
+             for x in mom.values()}
+    if state.master is not None or kinds != {torch.int8}:
+        raise AssertionError(f"int8 moments: master {state.master is None},"
+                             f" moment types {kinds}")
+    if not min(qlosses[-3:]) < qlosses[0] - INT8_DROP:
+        raise AssertionError(f"int8-moment run did not descend by "
+                             f"{INT8_DROP}: {qlosses}")
+    result["int8_losses"] = qlosses
+    del p, state
+
+    # the restart drill
+    result["restart"] = restart_drill(device, cfg, ocfg, params, batch,
+                                      drill_seq, ckpt_root)
+    del params
+    return result
+
+
+def restart_drill(device, cfg, ocfg, params, batch, seq, ckpt_root=None):
+    """10 steps straight; then a run that crashes at step 7 and resumes
+    from the step-5 checkpoint into meta-device templates: every
+    parameter and optimizer tensor bit-equal.  The steps run as the
+    launcher runs them, with PyTorch's default algorithms (no
+    ``use_deterministic_algorithms``, which would swap in other kernels
+    than training uses), so the drill holds the path users run.
+    Checkpoints go to a scratch directory of the checkout's ``build/``,
+    removed after."""
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=5)
+
+    def batch_fn(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(i).items()}
+    root = Path(ckpt_root or ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="lm_train_ckpt_", dir=root))
+    try:
+        step = train_loop.make_train_step(cfg, ocfg)
+        t0 = time.perf_counter()
+        ctl = fault.TrainController(step, batch_fn, str(tmp / "a"), 5)
+        p = copy.deepcopy(params)
+        p_ref, o_ref, _ = ctl.run(p, train_opt.init(p), 0, 10)
+        want = state_arrays(p_ref, o_ref)
+        del p_ref, o_ref, p
+        shutil.rmtree(tmp / "a")
+        ctl2 = fault.TrainController(step, batch_fn, str(tmp / "b"), 5)
+        p = copy.deepcopy(params)
+        try:
+            ctl2.run(p, train_opt.init(p), 0, 10, crash_at=7)
+            raise AssertionError("the crashing run did not crash")
+        except RuntimeError as e:
+            if "simulated node failure at 7" not in str(e):
+                raise
+        del p
+        p, o, at = ctl2.resume(model_lib.abstract_params(cfg),
+                               train_opt.abstract_init(params), device)
+        if at != 5:
+            raise AssertionError(f"resumed at step {at}, not 5")
+        p, o, end = ctl2.run(p, o, at, 10)
+        got = state_arrays(p, o)
+        drill_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if set(got) != set(want):
+        raise AssertionError("restart drill: the states hold other keys")
+    differ = [k for k in want if not np.array_equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"restart drill: {len(differ)} tensors differ "
+                             f"after the resume, e.g. {differ[:3]}")
+    return dict(seq=seq, steps=end, resumed_at=at, tensors=len(want),
+                bit_equal=True, drill_s=drill_s)
+
+
+# ---------------------------------------------------------------------------
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
+                 ("flash_backward", ("flash_bwd_dq_kernel",
+                                     "flash_bwd_dkdv_kernel")),
                  ("decode_attention", DECODE_KERNELS),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel", "rglru_ring_kernel")),
@@ -3360,6 +3847,10 @@ KERNELS = (
      "src/repro/kernels/rwkv6/kernel.py:61"),
     ("rglru.rglru", "rglru_kernel", "src/repro_torch/csrc/rglru.cu",
      "src/repro/kernels/rglru/kernel.py:32"),
+    # no TPU kernel: the JAX package's flash backward is plain JAX
+    ("flash_attention.backward", "flash_bwd_kernel",
+     "src/repro_torch/csrc/flash_attention_bwd.cu",
+     "src/repro/kernels/flash_attention/ops.py:166"),
 )
 # the phases in the order main() runs them
 PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
@@ -3368,7 +3859,8 @@ PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "lm_prefill", "lm_serve",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
           "lm_griffin", "lm_gemma3", "lm_gemma3_cache", "lm_mixtral",
-          "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel")
+          "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel",
+          "flash_bwd_kernel", "lm_train")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -3592,6 +4084,30 @@ def main() -> int:
     run_phase(phases, "wkv6_kernel", lambda: phase_wkv6_kernel(device))
     torch.cuda.empty_cache()
     run_phase(phases, "rglru_kernel", lambda: phase_rglru_kernel(device))
+    torch.cuda.empty_cache()
+    run_phase(phases, "flash_bwd_kernel",
+              lambda: phase_flash_bwd_kernel(device))
+    torch.cuda.empty_cache()
+    run_phase(phases, "lm_train", lambda: phase_lm_train(device))
+    t = phases["lm_train"]
+    print(f"[times] lm_train ({card}): {t['arch']} {t['params']} parameters"
+          f" float32, batch {t['batch']} x {t['seq']}, remat {t['remat']}: "
+          f"{t['ms_per_step_median']:.1f} ms a step (median of "
+          f"{len(t['step_ms']) - 1}), {t['tokens_per_s']:.1f} tokens/s, peak"
+          f" memory {t['max_memory_allocated']} bytes, idle share "
+          f"{t['step_profile']['idle_share']:.4f} of a traced step "
+          f"(device {t['step_profile']['device_ms']:.1f} ms of "
+          f"{t['step_profile']['wall_ms']:.1f}; by group "
+          f"{t['step_profile']['by_group_ms']}); loss {t['losses'][0]:.4f} "
+          f"-> {min(t['losses'][-5:]):.4f}; restart drill "
+          f"{t['restart']['drill_s']:.1f} s", flush=True)
+    # the backward's launches are those of lm_train's steps; the forward's
+    # there join its launches by phase
+    phases["flash_bwd_kernel"]["launches"] = t["launches"][
+        "flash_attention.bwd"]
+    phases["flash_bwd_kernel"]["kernel_launches"] = {
+        k: t["launches"][f"flash_attention.{k}"] for k in ("bwd_dq",
+                                                           "bwd_dkdv")}
     # the attention kernels' launches are those of the LM path's drives;
     # the flash launches by kernel: bf16 prefills on the tensor cores, the
     # float32 drive on the CUDA cores
@@ -3613,6 +4129,8 @@ def main() -> int:
     phases["flash_kernel"]["variant_launches"] = variants
     phases["flash_kernel"]["launches_by_phase"] = {
         drive: sum(v.values()) for drive, v in variants.items()}
+    phases["flash_kernel"]["launches_by_phase"]["lm_train"] = phases[
+        "lm_train"]["launches"]["flash_attention"]
     phases["decode_kernel"]["launches_by_phase"] = dict(
         lm_serve=phases["lm_serve"]["decode_launches"],
         **{key: phases[key]["decode_launches"] for key, *_ in ARCH_DRIVES})

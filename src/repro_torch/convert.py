@@ -20,14 +20,19 @@ from the same state:
   stacked over groups], "rem": [...]}`` and the port's list of one dict
   per layer (attention {'k','v'} and, int8, {'ks','vs'}, rwkv
   {'state','xtm','xcm'}, recurrent {'conv','h'}, cross-attention
-  {'ck','cv'}).
+  {'ck','cv'});
+* :func:`adamw_state_from_numpy` / :func:`adamw_state_to_numpy` — the
+  optimizer state (float32 or int8 ``{"q", "s"}`` moments, with or
+  without the master) between the JAX ``AdamWState`` of parameter-shaped
+  trees and the port's, keyed by parameter name
+  (:func:`lm_param_tree` is :func:`lm_param_leaves` backwards).
 
 Layer ``g * pattern_len + pos`` of the port is group ``g`` of the JAX
 package's ``groups[pos]``; the ``rem`` layers follow.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -38,6 +43,7 @@ from .kvstore import hopscotch
 from .kvstore.store import ShardedKV
 from .models import model as model_lib
 from .models.config import ModelConfig
+from .train.optimizer import AdamWState
 
 _VM_DTYPES = dict(last_comp_time=np.float32, clock=np.float32,
                   halted=np.bool_)
@@ -195,3 +201,120 @@ def lm_cache_to_numpy(caches, cfg: ModelConfig) -> Dict:
     rem = [{name: arr(t) for name, t in caches[n_groups * p_len + i].items()}
            for i in range(cfg.n_rem)]
     return {"groups": groups, "rem": rem}
+
+
+def _nest(tree: Dict, path: str, leaf) -> None:
+    head, _, rest = path.partition(".")
+    if rest:
+        _nest(tree.setdefault(head, {}), rest, leaf)
+    else:
+        tree[head] = leaf
+
+
+def _stack(trees: List):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def lm_param_tree(flat: Mapping[str, Any], cfg: ModelConfig) -> Dict:
+    """:func:`lm_param_leaves` backwards: leaves keyed by the port's
+    parameter names as the JAX package's tree, the layers of each pattern
+    position stacked over the groups (a leaf may itself be a dict, such as
+    an int8 moment's {'q', 's'}, whose entries are stacked alike)."""
+    tree: Dict = {"embed": {}}
+    layers: Dict[str, Dict[int, Dict]] = {}
+    for name, a in flat.items():
+        head, _, rest = name.partition(".")
+        if head == "embed":
+            tree["embed"][rest] = a
+        elif head in ("decoder", "encoder"):
+            i, _, path = rest.partition(".")
+            _nest(layers.setdefault(head, {}).setdefault(int(i), {}), path,
+                  a)
+        else:
+            tree[head] = a
+    for stack, by_layer in layers.items():
+        n_layers, p_len = ((cfg.num_layers, cfg.pattern_len)
+                           if stack == "decoder" else
+                           (cfg.num_encoder_layers,
+                            len(model_lib.ENCODER_PATTERN)))
+        n_groups = n_layers // p_len
+        tree[stack] = {
+            "groups": [_stack([by_layer[g * p_len + pos]
+                               for g in range(n_groups)])
+                       for pos in range(p_len)] if n_groups else [],
+            "rem": [by_layer[n_groups * p_len + i]
+                    for i in range(n_layers % p_len)]}
+    return tree
+
+
+def _is_q8(x) -> bool:
+    return isinstance(x, Mapping) and set(x) == {"q", "s"}
+
+
+def _part(tree, key: str):
+    """An int8 moment tree's 'q' (or 's') entries in the tree's shape."""
+    if _is_q8(tree):
+        return tree[key]
+    if isinstance(tree, Mapping):
+        return {k: _part(v, key) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_part(v, key) for v in tree]
+    return tree
+
+
+def _has_q8(tree) -> bool:
+    if _is_q8(tree):
+        return True
+    if isinstance(tree, Mapping):
+        return any(_has_q8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_q8(v) for v in tree)
+    return False
+
+
+def adamw_state_from_numpy(state, cfg: ModelConfig,
+                           device=None) -> AdamWState:
+    """The JAX package's ``AdamWState`` (a namedtuple or a dict of its
+    fields, numpy leaves) as the port's: moments and master keyed by
+    parameter name, float32 (an int8 moment as {'q' int8, 's' float32}),
+    step an int32 scalar, master None if it has none."""
+    dev = device_mod.resolve(device)
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+
+    def leaves(tree, dtype):
+        return {n: _tensor(a, dtype, dev)
+                for n, a in lm_param_leaves(tree, cfg).items()}
+
+    def moments(tree):
+        if not _has_q8(tree):
+            return leaves(tree, torch.float32)
+        q = leaves(_part(tree, "q"), torch.int8)
+        s = leaves(_part(tree, "s"), torch.float32)
+        return {n: {"q": q[n], "s": s[n]} for n in q}
+
+    master = fields["master"]
+    return AdamWState(
+        step=_tensor(fields["step"], torch.int32, dev),
+        mu=moments(fields["mu"]), nu=moments(fields["nu"]),
+        master=None if master is None else leaves(master, torch.float32))
+
+
+def adamw_state_to_numpy(state: AdamWState, cfg: ModelConfig) -> Dict:
+    """The port's ``AdamWState`` as the JAX layout: a dict of its fields
+    ('step', and 'mu', 'nu', 'master' as parameter trees, int8 moments as
+    {'q', 's'} leaves), numpy arrays; :func:`adamw_state_from_numpy` takes
+    it back."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def tree(m):
+        if m is None:
+            return None
+        return lm_param_tree({n: ({"q": arr(x["q"]), "s": arr(x["s"])}
+                                  if isinstance(x, Mapping) else arr(x))
+                              for n, x in m.items()}, cfg)
+
+    return {"step": arr(state.step), "mu": tree(state.mu),
+            "nu": tree(state.nu), "master": tree(state.master)}

@@ -15,7 +15,10 @@
 // float32), and the output is acc / max(l, 1e-30) in q's type — what the
 // TPU kernel computes.  A masked score gives p = 0 (the TPU kernel's
 // exp(-1e30 - m) is 0 as well once a row has seen a visible key), so a row
-// that sees no key gives 0.
+// that sees no key gives 0.  Given a non-null float32 `lse` (B, H, Sq),
+// both kernels also write each row's log-sum-exp of its scaled scores,
+// m + log(max(l, 1e-30)) (-1e30 for a row that sees no key), which the
+// backward (flash_attention_bwd.cu) reads; the serving path passes null.
 //
 // Bound: at prefill shapes, operations — 4 * B * H * Sq * Sk * D times the
 // visible fraction, against the card's bf16 tensor-core peak (989 TFLOP/s
@@ -167,8 +170,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lengths,
-                 T* __restrict__ out, int H, int KH, int Sq, int Sk, int mode,
-                 int window, int q_offset, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int H, int KH,
+                 int Sq, int Sk, int mode, int window, int q_offset,
+                 float scale) {
   using G = Tile<D>;
   extern __shared__ float smem[];
   float* qs = smem;                       // (BQ, LD)
@@ -295,13 +299,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < G::RD; ++c)
       store1(op + (size_t)(q0 + row) * D + tx + 16 * c, acc[r][c] / l);
   }
+  // the backward's log-sum-exp, m + log(max(l, 1e-30)); a row that saw no
+  // key keeps m = -1e30, and so lse = -1e30
+  if (lse != nullptr)
+    for (int row = tid; row < G::BQ && q0 + row < Sq; row += kThreads)
+      lse[(size_t)(b * H + h) * Sq + q0 + row] =
+          m_s[row] + logf(fmaxf(l_s[row], 1e-30f));
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int H, int KH,
-                   int Sq, int Sk, int mode, int window, int q_offset,
-                   float scale, cudaStream_t stream) {
+                   const void* lengths, void* out, void* lse, int B, int H,
+                   int KH, int Sq, int Sk, int mode, int window,
+                   int q_offset, float scale, cudaStream_t stream) {
   using G = Tile<D>;
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -312,26 +322,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), H, KH, Sq, Sk, mode, window, q_offset, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), H, KH, Sq, Sk, mode,
+      window, q_offset, scale);
   return cudaGetLastError();
 }
 
 // float32 at each head dim the wrapper takes
 cudaError_t launch_f32(int D, const void* q, const void* k, const void* v,
-                       const void* lengths, void* out, int B, int H, int KH,
-                       int Sq, int Sk, int mode, int window, int q_offset,
-                       float scale, cudaStream_t s) {
+                       const void* lengths, void* out, void* lse, int B,
+                       int H, int KH, int Sq, int Sk, int mode, int window,
+                       int q_offset, float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<float, 32>(q, k, v, lengths, out, B, H, KH, Sq,
-                                      Sk, mode, window, q_offset, scale, s);
-    case 64: return launch<float, 64>(q, k, v, lengths, out, B, H, KH, Sq,
-                                      Sk, mode, window, q_offset, scale, s);
-    case 96: return launch<float, 96>(q, k, v, lengths, out, B, H, KH, Sq,
-                                      Sk, mode, window, q_offset, scale, s);
-    case 128: return launch<float, 128>(q, k, v, lengths, out, B, H, KH, Sq,
-                                        Sk, mode, window, q_offset, scale, s);
-    case 256: return launch<float, 256>(q, k, v, lengths, out, B, H, KH, Sq,
-                                        Sk, mode, window, q_offset, scale, s);
+    case 32: return launch<float, 32>(q, k, v, lengths, out, lse, B, H,
+                                      KH, Sq, Sk, mode, window, q_offset,
+                                      scale, s);
+    case 64: return launch<float, 64>(q, k, v, lengths, out, lse, B, H,
+                                      KH, Sq, Sk, mode, window, q_offset,
+                                      scale, s);
+    case 96: return launch<float, 96>(q, k, v, lengths, out, lse, B, H,
+                                      KH, Sq, Sk, mode, window, q_offset,
+                                      scale, s);
+    case 128: return launch<float, 128>(q, k, v, lengths, out, lse, B, H,
+                                      KH, Sq, Sk, mode, window, q_offset,
+                                      scale, s);
+    case 256: return launch<float, 256>(q, k, v, lengths, out, lse, B, H,
+                                      KH, Sq, Sk, mode, window, q_offset,
+                                      scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -642,9 +658,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk_last,
                    const __grid_constant__ CUtensorMap tv,
                    const int* __restrict__ lengths,
-                   __nv_bfloat16* __restrict__ out, int H, int KH, int Sq,
-                   int Sk, int mode, int window, int q_offset,
-                   float scale_log2) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int H, int KH, int Sq, int Sk, int mode, int window,
+                   int q_offset, float scale_log2) {
   using G = TcTile<D>;
   constexpr int BK = G::BK;
   constexpr int kVPitch = 2 * G::kVCols;        // V's row in a box, bytes
@@ -834,7 +850,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(op + (size_t)qi * D + 8 * j) =
             pack_bf16(o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
     }
+    // the backward's log-sum-exp in natural-log units, m ln 2 + log(l); a
+    // row that saw no key (m = -inf) gets -1e30, as the CUDA-core kernel
+    if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row + 8 * r;
+        if (qi < Sq)
+          lse[(size_t)(b * H + h) * Sq + qi] =
+              m[r] == -INFINITY ? kNegInf
+                                : m[r] * 0.6931471805599453f + logf(l[r]);
+      }
+    }
   }
+}
+
+// lse = -1e30 over n rows (no key: Sk = 0)
+__global__ void fill_lse_kernel(float* lse, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    lse[i] = kNegInf;
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the library
@@ -888,12 +923,19 @@ bool encode_map(CUtensorMap* map, const void* base, int d, int rows, int mats,
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         const void* lengths, void* out, int B, int H, int KH,
-                         int Sq, int Sk, int mode, int window, int q_offset,
-                         float scale, cudaStream_t stream) {
+                         const void* lengths, void* out, void* lse, int B,
+                         int H, int KH, int Sq, int Sk, int mode, int window,
+                         int q_offset, float scale, cudaStream_t stream) {
   using G = TcTile<D>;
-  if (Sk == 0)   // no key: every row gives 0
+  if (Sk == 0) {  // no key: every row gives 0, and its lse is -1e30
+    if (lse != nullptr && B * H * Sq > 0) {
+      fill_lse_kernel<<<64, 256, 0, stream>>>(static_cast<float*>(lse),
+                                              (size_t)B * H * Sq);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
     return cudaMemsetAsync(out, 0, (size_t)B * H * Sq * D * 2, stream);
+  }
   // Q's and K's 64-column boxes, their last box (its own width), V's boxes;
   // a map that fails to encode fails the call
   constexpr int last = box_cols(D, G::kBoxes - 1);
@@ -912,8 +954,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(H, B, (Sq + kTcBQ - 1) / kTcBQ);
   kernel<<<grid, kTcThreads, G::kSmemBytes, stream>>>(
       tq, tq_last, tk, tk_last, tv, static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), H, KH, Sq, Sk, mode, window, q_offset,
-      scale * 1.4426950408889634f);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, KH, Sq,
+      Sk, mode, window, q_offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -925,19 +967,19 @@ extern "C" {
 // 1 = bfloat16 at D = 32 (the tensor-core kernel takes bfloat16 at the
 // others).  Returns the launch's CUDA error code.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* lengths, void* out, int dtype, int B,
-                        int H, int KH, int Sq, int Sk, int D, int mode,
+                        const void* lengths, void* out, void* lse, int dtype,
+                        int B, int H, int KH, int Sq, int Sk, int D, int mode,
                         int window, int q_offset, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KH <= 0 || H % KH != 0 || mode < kCausal || mode > kFull)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return static_cast<int>(launch_f32(D, q, k, v, lengths, out, B, H, KH,
-                                       Sq, Sk, mode, window, q_offset, scale,
-                                       s));
+    return static_cast<int>(launch_f32(D, q, k, v, lengths, out, lse, B, H,
+                                       KH, Sq, Sk, mode, window, q_offset,
+                                       scale, s));
   if (dtype == 1 && D == 32)
     return static_cast<int>(launch<__nv_bfloat16, 32>(
-        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
+        q, k, v, lengths, out, lse, B, H, KH, Sq, Sk, mode, window, q_offset,
         scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -945,26 +987,26 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
 // The tensor-core kernel: bfloat16 q, k, v at D = 64, 96, 128 or 256, each
 // 16-byte aligned.  Returns the launch's CUDA error code.
 int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v,
-                              const void* lengths, void* out, int B, int H,
-                              int KH, int Sq, int Sk, int D, int mode,
-                              int window, int q_offset, float scale,
+                              const void* lengths, void* out, void* lse,
+                              int B, int H, int KH, int Sq, int Sk, int D,
+                              int mode, int window, int q_offset, float scale,
                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KH <= 0 || H % KH != 0 || mode < kCausal || mode > kFull)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64: return static_cast<int>(launch_wgmma<64>(
-        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
-        scale, s));
+        q, k, v, lengths, out, lse, B, H, KH, Sq, Sk, mode, window,
+        q_offset, scale, s));
     case 96: return static_cast<int>(launch_wgmma<96>(
-        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
-        scale, s));
+        q, k, v, lengths, out, lse, B, H, KH, Sq, Sk, mode, window,
+        q_offset, scale, s));
     case 128: return static_cast<int>(launch_wgmma<128>(
-        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
-        scale, s));
+        q, k, v, lengths, out, lse, B, H, KH, Sq, Sk, mode, window,
+        q_offset, scale, s));
     case 256: return static_cast<int>(launch_wgmma<256>(
-        q, k, v, lengths, out, B, H, KH, Sq, Sk, mode, window, q_offset,
-        scale, s));
+        q, k, v, lengths, out, lse, B, H, KH, Sq, Sk, mode, window,
+        q_offset, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

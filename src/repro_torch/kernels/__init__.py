@@ -8,7 +8,8 @@ kernel (``csrc/<name>.cu``, built by :mod:`._build`) for CUDA tensors.
   (managed WQ and straight-line forms).
 * ``hopscotch`` — the batched hopscotch get, one thread per query.
 * ``flash_attention`` — blocked online-softmax attention, forward, one
-  block per (query tile, head, batch row).
+  block per (query tile, head, batch row), and its backward (a dQ kernel
+  per query tile, a dK/dV kernel per key tile and KV head).
 * ``decode_attention`` — the flash-decode partial of one query token,
   one block per (KV head, batch row).
 * ``rwkv6`` — the WKV6 recurrence, one block per (batch row, head) with

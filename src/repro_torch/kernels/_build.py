@@ -20,8 +20,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chain_vm", "hopscotch", "flash_attention", "decode_attention",
-           "wkv6", "rglru")
+SOURCES = ("chain_vm", "hopscotch", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "wkv6", "rglru")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,6 +114,20 @@ def kernel_input(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned (the kernels' vector loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``, a
+    forward kernel with no backward kernel yet: its output, written through
+    a raw pointer, would carry none, and the gradient would silently be
+    zero.  CPU tensors never get here (their plain path differentiates)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel yet (ROADMAP.md, queue 1: the "
+            f"backward kernels of the recurrences and of decode attention), "
+            f"so no gradient can flow through it on the card; call it under "
+            f"torch.no_grad(), or on CPU tensors for a differentiable plain "
+            f"version")
 
 
 def check_attention_inputs(q, k, v, what: str) -> None:

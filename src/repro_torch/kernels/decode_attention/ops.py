@@ -73,6 +73,8 @@ def decode_partial(q, k, v, lengths, *, window: int = 0,
         return decode_partial_reference(q, k, v, lengths, window=window,
                                         kpos_offset=kpos_offset, scale=scale)
     _build.check_attention_inputs(q, k, v, "decode-attention")
+    _build.refuse_grad("the decode-attention kernels "
+                       "(csrc/decode_attention.cu)", q, k, v)
     b, h, sq, d = q.shape
     kh, s = k.shape[1], k.shape[2]
     if sq != 1 or lengths.shape != (b,):

@@ -1,10 +1,16 @@
-"""Flash-attention forward wrapper: the plain PyTorch version for tensors
-on the CPU, a CUDA kernel (``csrc/flash_attention.cu``) for tensors on the
-card — the tensor-core kernel (``flash_wgmma_kernel``: bfloat16 at head
-dims 64, 96, 128 and 256) or the CUDA-core one (``flash_fwd_kernel``:
-float32, and bfloat16 at head dim 32), as ``variant`` says.  There is no
-fallback: a launch or tensor map the card refuses raises.  ``launches``
-counts kernel launches, in all and by kernel."""
+"""Flash-attention wrappers: the plain PyTorch versions for tensors on the
+CPU, CUDA kernels for tensors on the card.  The forward
+(``csrc/flash_attention.cu``) is the tensor-core kernel
+(``flash_wgmma_kernel``: bfloat16 at head dims 64, 96, 128 and 256) or the
+CUDA-core one (``flash_fwd_kernel``: float32, and bfloat16 at head dim
+32), as ``variant`` says; the backward (``csrc/flash_attention_bwd.cu``) is
+a pair of CUDA-core kernels, ``flash_bwd_dq_kernel`` then
+``flash_bwd_dkdv_kernel``, behind :class:`FlashAttentionFn`, which
+:func:`flash_attention` goes through when autograd needs the gradient.
+There is no fallback: a launch or tensor map the card refuses raises.
+``launches`` counts kernel launches, in all and by kernel (the backward's
+calls as ``flash_attention.bwd``, its kernels as ``.bwd_dq`` and
+``.bwd_dkdv``)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,10 +19,12 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import attention_reference
+from .ref import (attention_backward_reference, attention_reference,
+                  attention_reference_lse)
 
 launches = {"flash_attention": 0, "flash_attention.wgmma": 0,
-            "flash_attention.fma": 0}
+            "flash_attention.fma": 0, "flash_attention.bwd": 0,
+            "flash_attention.bwd_dq": 0, "flash_attention.bwd_dkdv": 0}
 
 MODES = {"causal": 0, "length": 1, "full": 2}
 
@@ -49,30 +57,33 @@ def variant(dtype: torch.dtype, d: int) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        i, i, i, ctypes.c_float, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                        i, i, i, i, ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
-    lib.flash_attention_wgmma_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                              i, i, i, i, ctypes.c_float, p]
+    lib.flash_attention_wgmma_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              i, i, i, i, i, ctypes.c_float,
+                                              p]
     lib.flash_attention_wgmma_fwd.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
 
-def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
-                    lengths: Optional[torch.Tensor] = None,
-                    q_offset: int = 0, scale: Optional[float] = None):
-    """Attention forward; q (B, H, Sq, D), k/v (B, KH, Sk, D); the modes and
-    masks of :func:`.ref.attention_reference`.  Returns q's shape and type."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, mode=mode, window=window,
-                                   lengths=lengths, q_offset=q_offset,
-                                   scale=scale)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 10 + [
+        ctypes.c_float, p]
+    lib.flash_attention_bwd.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def _prepare(q, k, v, mode: str, lengths):
+    """Check the card's inputs; returns them contiguous and aligned, with
+    ``lengths`` as a (B,) int32 tensor (Sk for every row if None)."""
     _build.check_attention_inputs(q, k, v, "flash-attention")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    b, h, sq, d = q.shape
-    kh, sk = k.shape[1], k.shape[2]
+    b, sk = q.shape[0], k.shape[2]
     if lengths is None:
         if mode == "length":
             raise ValueError("mode='length' needs lengths")
@@ -80,15 +91,30 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
     if lengths.shape != (b,):
         raise ValueError(f"lengths {tuple(lengths.shape)}, expected ({b},)")
     lengths = lengths.to(device=q.device, dtype=torch.int32)
-    q, k, v, lengths = (_build.kernel_input(t) for t in (q, k, v, lengths))
+    return tuple(_build.kernel_input(t) for t in (q, k, v, lengths))
+
+
+def _scale(scale: Optional[float], d: int) -> float:
+    return d ** -0.5 if scale is None else scale
+
+
+def _forward(q, k, v, lengths, mode: str, window: int, q_offset: int,
+             scale: Optional[float], with_lse: bool):
+    """The forward kernel on prepared inputs: (out, lse (B, H, Sq) float32
+    or None)."""
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     kind = variant(q.dtype, d)
     lib = _build.load("flash_attention", _declare)
     ptrs = [_build.pointer(t) for t in (q, k, v, lengths, out)]
+    ptrs.append(_build.pointer(lse) if with_lse else None)
     dims = (b, h, kh, sq, sk, d, MODES[mode], window, q_offset,
-            d ** -0.5 if scale is None else scale, _build.stream())
+            _scale(scale, d), _build.stream())
     if kind == "wgmma":
         code = lib.flash_attention_wgmma_fwd(*ptrs, *dims)
     else:
@@ -96,4 +122,108 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
     _build.check(lib, code, "flash_attention")
     launches["flash_attention"] += 1
     launches[f"flash_attention.{kind}"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_lse(q, k, v, *, mode: str = "causal", window: int = 0,
+                        lengths: Optional[torch.Tensor] = None,
+                        q_offset: int = 0, scale: Optional[float] = None):
+    """The forward and its log-sum-exp: (out, lse (B, H, Sq) float32), as
+    :func:`.ref.attention_reference_lse` gives them."""
+    if q.device.type == "cpu":
+        return attention_reference_lse(q, k, v, mode=mode, window=window,
+                                       lengths=lengths, q_offset=q_offset,
+                                       scale=scale)
+    q, k, v, lengths = _prepare(q, k, v, mode, lengths)
+    return _forward(q, k, v, lengths, mode, window, q_offset, scale, True)
+
+
+def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
+                             window: int = 0,
+                             lengths: Optional[torch.Tensor] = None,
+                             q_offset: int = 0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of the forward from its ``out`` and ``lse`` and the
+    output gradient ``do``, as :func:`.ref.attention_backward_reference`
+    computes them: the plain version on the CPU, the backward kernels on
+    the card."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(
+            q, k, v, out, lse, do, mode=mode, window=window, lengths=lengths,
+            q_offset=q_offset, scale=scale)
+    q, k, v, lengths = _prepare(q, k, v, mode, lengths)
+    if out.shape != q.shape or do.shape != q.shape or \
+            lse.shape != q.shape[:3]:
+        raise ValueError(f"out {tuple(out.shape)}, do {tuple(do.shape)} and "
+                         f"lse {tuple(lse.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    out, do = (_build.kernel_input(t.to(q.dtype)) for t in (out, do))
+    lse = _build.kernel_input(lse.float())
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq, dk, dv
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd", _declare_bwd)
+    code = lib.flash_attention_bwd(
+        *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths, delta,
+                                       dq, dk, dv)),
+        _build.DTYPES[q.dtype], b, h, kh, sq, sk, d, MODES[mode], window,
+        q_offset, _scale(scale, d), _build.stream())
+    _build.check(lib, code, "flash_attention_bwd")
+    launches["flash_attention.bwd"] += 1
+    launches["flash_attention.bwd_dq"] += 1
+    launches["flash_attention.bwd_dkdv"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward saves (q, k, v,
+    lengths, out, lse) and the backward recomputes p from lse, as the JAX
+    package's ``_make_blocked_vjp`` does.  Both halves are kernels on the
+    card and the plain versions on the CPU.  Under activation
+    checkpointing the forward runs again in the backward pass, and its
+    ``lse`` is saved with the rest (never kept on a module)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, mode, window, q_offset, scale):
+        if q.device.type == "cpu":
+            out, lse = attention_reference_lse(
+                q, k, v, mode=mode, window=window, lengths=lengths,
+                q_offset=q_offset, scale=scale)
+        else:
+            q, k, v, lengths = _prepare(q, k, v, mode, lengths)
+            out, lse = _forward(q, k, v, lengths, mode, window, q_offset,
+                                scale, True)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        ctx.args = dict(mode=mode, window=window, q_offset=q_offset,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
+                                              lengths=lengths, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
+                    lengths: Optional[torch.Tensor] = None,
+                    q_offset: int = 0, scale: Optional[float] = None):
+    """Attention forward; q (B, H, Sq, D), k/v (B, KH, Sk, D); the modes and
+    masks of :func:`.ref.attention_reference`.  Returns q's shape and type.
+    When grad is enabled and an input requires it, the call goes through
+    :class:`FlashAttentionFn` (its gradient from the backward kernels);
+    otherwise the forward runs alone, with no ``lse``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, lengths, mode, window,
+                                      q_offset, scale)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, mode=mode, window=window,
+                                   lengths=lengths, q_offset=q_offset,
+                                   scale=scale)
+    q, k, v, lengths = _prepare(q, k, v, mode, lengths)
+    return _forward(q, k, v, lengths, mode, window, q_offset, scale,
+                    False)[0]

@@ -45,6 +45,7 @@ def rglru(a, u):
     if a.device.type != "cuda":
         raise ValueError(f"a on {a.device}: the RG-LRU kernel runs on CUDA "
                          "tensors (CPU tensors take the plain path)")
+    _build.refuse_grad("the RG-LRU kernel (csrc/rglru.cu)", a, u)
     if a.ndim != 3 or u.shape != a.shape:
         raise ValueError(f"expected a and u (B, T, D); got {tuple(a.shape)},"
                          f" {tuple(u.shape)}")

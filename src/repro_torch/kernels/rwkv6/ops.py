@@ -54,6 +54,7 @@ def wkv6(r, k, v, w, u):
     if r.device.type == "cpu":
         return wkv6_reference(r, k, v, w, u)
     _check(r, k, v, w, u)
+    _build.refuse_grad("the WKV6 kernel (csrc/wkv6.cu)", r, k, v, w, u)
     b, h, t, n = r.shape
     r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
     o = torch.empty_like(r)

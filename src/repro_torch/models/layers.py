@@ -23,7 +23,8 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter (inference only: no gradient)."""
+    """An uninitialised parameter; it needs no gradient until the train
+    step asks for one (``train.loop.make_train_step``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -5,7 +5,7 @@ Handles the modality frontends (stubs, as in the JAX package: ``patches``
 and ``frames`` arrive as precomputed embeddings) and the optional encoder
 (seamless).  The entry points the launch and serve layers call are
 ``prefill`` (the prompt pass) and ``decode_step`` (one token per
-sequence); ``loss_fn`` is the forward half of the train step.
+sequence); ``loss_fn`` is what the train step differentiates.
 """
 from __future__ import annotations
 
@@ -82,7 +82,8 @@ def _encode(params: Model, batch: Dict, cfg: ModelConfig):
     bidirectional (flash, mode full), RoPE on."""
     proj = params.frontend_proj
     x = batch["frames"].to(proj.dtype) @ proj
-    x, _, _ = transformer.apply_stack(params.encoder, x, cfg, mode="full")
+    x, _, _ = transformer.apply_stack(params.encoder, x, cfg, mode="full",
+                                      group=len(ENCODER_PATTERN))
     return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -117,7 +118,8 @@ def forward(params: Model, batch: Dict, cfg: ModelConfig, *,
 
 def loss_fn(params: Model, batch: Dict, cfg: ModelConfig):
     """Next-token CE (+ 0.01 MoE aux), the frontend positions sliced off.
-    Returns (loss, {"ce", "aux"}).  (Forward only: no gradient yet.)"""
+    Returns (loss, {"ce", "aux"}); differentiable in the parameters that
+    require grad (the train step's)."""
     logits, _, aux = forward(params, batch, cfg)
     labels = batch["targets"]
     n_front = logits.shape[1] - labels.shape[1]

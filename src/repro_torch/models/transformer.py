@@ -9,14 +9,17 @@ kind: attention {'k','v'} (int8 with 'ks','vs' under ``kv_quant``), rwkv
 {'state','xtm','xcm'}, recurrent {'conv','h'}; a decoder block with
 cross-attention adds the encoder's {'ck','cv'}.  The attention and
 recurrent kinds have a dense FFN or, in an MoE model, an MoE FFN; the rwkv
-kind its channel-mix.
+kind its channel-mix.  When a gradient is tracked, each pattern group of
+blocks is rematerialised as ``cfg.remat`` says (:func:`remat`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..kernels.flash_attention import ops as fa_ops
 from . import attention, griffin, layers, moe, rwkv
@@ -161,14 +164,57 @@ def make_stack(cfg, n_layers: int, device,
                          for i in range(n_layers))
 
 
+# what remat="dots" keeps of a group's forward: the matmul outputs (the
+# JAX package's ``checkpoint_dots``); everything else is recomputed
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default)
+
+
+def remat(fn, cfg):
+    """The JAX package's ``_maybe_remat``: ``fn`` as it is for ``"none"``
+    or when autograd is not recording (prefill, decode); for ``"block"``
+    and ``"full"`` a checkpoint that keeps only its inputs and recomputes
+    its forward in the backward pass; for ``"dots"`` a selective one that
+    also keeps the matmul outputs."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("block", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r} not in none|block|full|dots")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, list(SAVED_DOTS))
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def apply_stack(stack: nn.ModuleList, x, cfg, *, mode: str = "causal",
                 enc_out=None, return_cache: bool = False,
-                s_max: Optional[int] = None):
+                s_max: Optional[int] = None, group: Optional[int] = None):
     """Returns (x, caches (a list per layer) or None, aux summed over the
-    layers)."""
+    layers).  When a gradient is tracked and no cache is returned, the
+    blocks run in groups of ``group`` (default the pattern's length), each
+    under :func:`remat`, and the remainder one by one, as the JAX package
+    scans its groups."""
     caches: List[Dict] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in stack:
+
+    def group_fn(blocks, x):
+        a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in blocks:
+            x, _, a = apply_block(blk, x, cfg, mode=mode, enc_out=enc_out)
+            a_sum = a_sum + a
+        return x, a_sum
+
+    tracked = x.requires_grad or any(p.requires_grad
+                                     for p in stack.parameters())
+    body = remat(group_fn, cfg) if tracked else group_fn
+    p_len = group or cfg.pattern_len
+    n_grouped = (0 if body is group_fn or return_cache
+                 else len(stack) // p_len * p_len)
+    for g0 in range(0, n_grouped, p_len):
+        x, a = body(stack[g0:g0 + p_len], x)
+        aux = aux + a
+    for blk in stack[n_grouped:]:
         x, c, a = apply_block(blk, x, cfg, mode=mode, enc_out=enc_out,
                               return_cache=return_cache, s_max=s_max)
         caches.append(c)

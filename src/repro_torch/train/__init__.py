@@ -1,1 +1,2 @@
-"""Step builders (prefill and serve; training comes later)."""
+"""Training: the train step (loss, gradients, AdamW), the optimizer and
+the checkpoint; and the prefill and serve step builders."""

@@ -868,3 +868,120 @@ def test_cuckoo_lookup_on_the_card_matches_the_cpu(cuda):
     cfound, cvals = cuckoo.lookup(*tbl.as_device("cpu"), q)
     assert torch.equal(found.cpu(), cfound) and torch.equal(vals.cpu(), cvals)
     assert int(cfound[:2000].sum()) > 1800
+
+
+# --- the flash backward --------------------------------------------------
+
+# (b, h, kh, sq, sk, d, kwargs): causal GQA, window, q_offset with Sq < Sk,
+# length with rows past the length and a window, full with Sk 384, G 1,
+# head dims 32, 96, 128, 256, and rows that see no key (window, Sq > Sk)
+FLASH_BWD_CASES = {
+    "causal_gqa3": (2, 9, 3, 256, 256, 64, dict(mode="causal")),
+    "window": (1, 4, 2, 200, 200, 64, dict(mode="causal", window=48)),
+    "offset": (2, 4, 1, 77, 333, 128, dict(mode="causal", q_offset=256)),
+    "length": (2, 4, 2, 96, 300, 64, dict(mode="length")),
+    "length_window": (2, 2, 1, 40, 300, 96, dict(mode="length", window=70)),
+    "full_384": (2, 4, 2, 130, 384, 64, dict(mode="full")),
+    "g1_d32": (2, 4, 4, 100, 100, 32, dict(mode="causal")),
+    "d256": (1, 4, 1, 96, 96, 256, dict(mode="causal")),
+    "no_key_rows": (1, 2, 1, 200, 100, 64, dict(mode="causal", window=16)),
+}
+
+
+def _bwd_inputs(cuda, case, dtype, seed=0):
+    b, h, kh, sq, sk, d, kw = FLASH_BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, k, v, do = rnd(b, h, sq, d), rnd(b, kh, sk, d), rnd(b, kh, sk, d), \
+        rnd(b, h, sq, d)
+    kw = dict(kw)
+    if kw["mode"] == "length":
+        kw["lengths"] = torch.tensor([sk // 3, sk], dtype=torch.int32,
+                                     device=cuda)
+    return q, k, v, do, kw
+
+
+def _scaled_close(got, want, tol, what):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    err = float((got - want).abs().max())
+    assert err <= tol * max(float(want.abs().max()), 1e-30), (what, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_flash_lse_matches_plain(cuda, case, dtype):
+    q, k, v, _, kw = _bwd_inputs(cuda, case, dtype)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    want_out, want_lse = fa_ref.attention_reference_lse(q, k, v, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    seen = want_lse > -1e29              # rows that see a key
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-4)
+    assert (lse[~seen] == -1e30).all()
+    _scaled_close(out[seen], want_out[seen], TOL[dtype], f"{case} out")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_flash_backward_matches_plain(cuda, case, dtype):
+    """The backward kernels against the plain backward on the same (q, k,
+    v, out, lse, dO) — the kernel forward's out and lse — at the float32
+    (2e-5) and bf16 (2e-2) tolerances, scaled by each gradient's largest
+    magnitude; and through autograd, against the plain backward of the
+    plain forward."""
+    q, k, v, do, kw = _bwd_inputs(cuda, case, dtype)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    before = dict(fa_ops.launches)
+    got = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    for key in ("bwd", "bwd_dq", "bwd_dkdv"):
+        assert fa_ops.launches[f"flash_attention.{key}"] == \
+            before[f"flash_attention.{key}"] + 1
+    want = fa_ref.attention_backward_reference(q, k, v, out, lse, do, **kw)
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _scaled_close(g, w, TOL[dtype], f"{case} {name}")
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa_ops.flash_attention(qa, ka, va, **kw).backward(do)
+    pout, plse = fa_ref.attention_reference_lse(q, k, v, **kw)
+    want = fa_ref.attention_backward_reference(q, k, v, pout, plse, do, **kw)
+    for name, t, w in zip(("dq", "dk", "dv"), (qa, ka, va), want):
+        _scaled_close(t.grad, w, TOL[dtype], f"{case} autograd {name}")
+    if case == "no_key_rows":            # rows 115.. see no key
+        assert (qa.grad[:, :, 115:] == 0).all()
+
+
+def test_flash_backward_is_deterministic(cuda):
+    q, k, v, do, kw = _bwd_inputs(cuda, "causal_gqa3", torch.float32, 3)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+    a = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    b = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """WKV6, RG-LRU and decode attention have no backward kernel: asked
+    for a gradient on the card they raise instead of giving a zero one;
+    under no_grad they run."""
+    r, k, v = (torch.randn(1, 2, 8, 32, device=cuda, requires_grad=True)
+               for _ in range(3))
+    w = torch.rand(1, 2, 8, 32, device=cuda) * 0.5 + 0.4
+    u = torch.randn(2, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="WKV6 kernel.*no backward"):
+        wkv_ops.wkv6(r, k, v, w, u)
+    a = torch.rand(1, 8, 64, device=cuda, requires_grad=True)
+    x = torch.randn(1, 8, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="RG-LRU kernel.*no backward"):
+        rg_ops.rglru(a, x)
+    q = torch.randn(1, 4, 1, 64, device=cuda, requires_grad=True)
+    kc, vc = (torch.randn(1, 2, 16, 64, device=cuda) for _ in range(2))
+    lengths = torch.tensor([9], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode-attention.*no backward"):
+        dec_ops.decode_attention(q, kc, vc, lengths)
+    with torch.no_grad():
+        wkv_ops.wkv6(r, k, v, w, u)
+        rg_ops.rglru(a, x)
+        dec_ops.decode_attention(q, kc, vc, lengths)

@@ -441,10 +441,12 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    """Seven rows, one a TPU kernel; each row's phase runs, and the guest
-    drive of ``chain_programs`` reaches kernel #1 (its launches join that
-    row's ``launches_by_phase``)."""
-    assert len(smoke.KERNELS) == 7
+    """Eight rows: seven a TPU kernel each, and the flash backward, which
+    replaces the JAX package's plain-JAX backward (``_make_blocked_vjp``'s
+    ``bwd``); each row's phase runs, and the guest drive of
+    ``chain_programs`` reaches kernel #1 (its launches join that row's
+    ``launches_by_phase``)."""
+    assert len(smoke.KERNELS) == 8
     assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
     assert "chain_programs" in smoke.PHASES
     for name, phase, source, replaces in smoke.KERNELS:
@@ -452,7 +454,9 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
         assert (ROOT / source).is_file(), source
         path, line = replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
-        assert re.match(r"def _\w+_kernel\(", text), (replaces, text)
+        pattern = (r"\s+def bwd\(res, do\):" if name.endswith(".backward")
+                   else r"def _\w+_kernel\(")
+        assert re.match(pattern, text), (replaces, text)
 
 
 def test_phases_run_in_order(smoke):
@@ -461,7 +465,7 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 26
+    assert len(p) == len(set(p)) == 28
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")
@@ -470,6 +474,7 @@ def test_phases_run_in_order(smoke):
     assert p.index("kv_service") + 1 == p.index("chain_programs")
     assert p.index("chain_programs") + 1 == p.index("cuckoo_get")
     assert p.index("cuckoo_get") < p.index("lm_prefill")
+    assert p[-2:] == ("flash_bwd_kernel", "lm_train")
 
 
 def test_phase_chain_faults_cpu(smoke):
@@ -593,3 +598,69 @@ def test_phase_cuckoo_get_cpu(smoke):
     assert r["resident"] + r["failed_inserts"] == r["keys"]
     assert 0 < r["hits"] <= 512 + 1
     assert r["table_bytes"] == 1024 * 4 * 4 * (1 + 4)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the training rehearsals' tiny models, so
+    that a parallel test run does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_phase_flash_bwd_kernel_cpu(smoke, one_thread):
+    """The backward phase at small shapes on the CPU: the plain versions
+    stand in on both sides, so every error is 0 and nothing launches."""
+    r = smoke.phase_flash_bwd_kernel(
+        "cpu", shapes=(("tiny", 2, 4, 2, 64, 32, torch.float32),),
+        small=smoke.FLASH_BWD_SMALL[:2] + smoke.FLASH_BWD_SMALL[-1:],
+        time_it=False)
+    assert r["max_abs_err"] == 0 and len(r["errs"]) == 7
+    assert r["shape"] == (2, 4, 2, 64, 64, 32, "float32")
+    assert r["bound_by"] in ("bytes", "operations") and r["bound_ms"] > 0
+    assert r["flops"] == 10 * 2 * 4 * 64 * 64 * 32 / 2
+
+
+def test_phase_lm_train_cpu(smoke, tmp_path, one_thread):
+    """The training phase at the smoke config on the CPU, with the AdamW
+    settings of ``test_loss_decreases``: the witness (the plain attention
+    both ways: equal), the loss falling over 40 steps, microbatches (loss
+    and summed gradient), the int8 run and the bit-exact restart drill."""
+    cfg = registry.smoke_config("smollm-135m")
+    ocfg = smoke.train_opt.AdamWConfig(lr=1e-2, warmup_steps=3,
+                                       total_steps=200, weight_decay=0.0)
+    r = smoke.phase_lm_train("cpu", cfg=cfg, ocfg=ocfg, batch=16, seq=32,
+                             steps=40, drill_seq=16, int8_steps=40,
+                             ckpt_root=tmp_path, time_it=False)
+    assert r["witness"]["loss"] == r["witness"]["plain_loss"]
+    assert r["witness"]["worst_grad_rel_err"] == 0
+    assert r["step_launches"] == {k: 0 for k in r["step_launches"]}
+    assert r["restart"]["bit_equal"] and r["restart"]["resumed_at"] == 5
+    assert len(r["losses"]) == 40
+    assert r["microbatches"]["worst_grad_rel_err"] <= 1e-5
+    assert not list(tmp_path.iterdir())       # the checkpoints are gone
+
+
+def test_train_launches_count_the_remat(smoke):
+    cfg = dataclasses.replace(registry.get_config("smollm-135m"),
+                              dtype="float32")
+    want = smoke.train_launches(cfg, "cuda")
+    assert want == {"flash_attention": 60, "flash_attention.fma": 60,
+                    "flash_attention.bwd": 30, "flash_attention.bwd_dq": 30,
+                    "flash_attention.bwd_dkdv": 30}
+    want = smoke.train_launches(dataclasses.replace(cfg, remat="none"),
+                                "cuda")
+    assert want["flash_attention.fma"] == 30
+    assert set(smoke.train_launches(cfg, "cpu").values()) == {0}
+
+
+def test_plain_attention_patch_is_undone(smoke):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    kernel = fa_ops.flash_attention
+    with pytest.raises(ValueError):
+        with smoke.plain_attention():
+            assert fa_ops.flash_attention is not kernel
+            raise ValueError
+    assert fa_ops.flash_attention is kernel

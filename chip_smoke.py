@@ -6,15 +6,16 @@ table, the LM serving paths
 (qwen3-1.7b, rwkv6-7b and recurrentgemma-9b prefill, decode and
 ServeEngine ticks; gemma3-1b, also on rolling int8 caches, mixtral-8x7b,
 phi-3-vision-4.2b and seamless-m4t-medium prefill and decode), and the
-training path (smollm-135m: train steps through the flash backward
-kernels, AdamW, checkpoints and a crash resumed bit for bit).
+training paths (smollm-135m in float32: train steps through the flash
+backward's CUDA-core pair, AdamW, checkpoints and a crash resumed bit for
+bit; qwen3-1.7b in bf16 through its tensor-core pair).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs twenty-eight phases
+``nvcc`` per source, all started together), then runs twenty-nine phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -217,20 +218,28 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``rglru.variant`` picks it.  The recurrentgemma-9b
                          drives' 26 launches a prefill must all be the
                          ring kernel's.
-15. ``flash_bwd_kernel`` — the flash backward kernels
-                         (``flash_bwd_dq_kernel`` then
-                         ``flash_bwd_dkdv_kernel``) against the plain
-                         backward, and the forward's lse against the
-                         plain one: at smollm-135m's training shape (8,
-                         9 / 3 heads, 2,048^2, head dim 64, causal,
-                         float32) and qwen3-1.7b's (4, 16 / 8, 2,048^2,
-                         128, causal, bf16); and in both types on window,
-                         length (rows past a short length), full (Sk
-                         384), q_offset, G 1, head dims 32 / 96 / 256 and
-                         rows that see no key.  Both big shapes timed by
-                         device time beside their bound (10 B H S^2 D / 2
-                         FLOPs at the float32 or bf16 peak), the plain
-                         backward and SDPA's backward.
+15. ``flash_bwd_kernel`` — the flash backward's two pairs, a dQ kernel
+                         then a dK/dV kernel: on the tensor cores
+                         (``flash_bwd_dq_wgmma_kernel``,
+                         ``flash_bwd_dkdv_wgmma_kernel``; bf16 at head
+                         dims 64 and 128, whose SASS must hold HGMMA
+                         instructions at both) and on the CUDA cores
+                         (``flash_bwd_dq_kernel``,
+                         ``flash_bwd_dkdv_kernel``; the rest), each case
+                         through the pair ``bwd_variant`` picks, against
+                         the plain backward, and the forward's lse
+                         against the plain one: at qwen3-1.7b's training
+                         shape (4, 16 / 8, 2,048^2, head dim 128, causal,
+                         bf16) and smollm-135m's (8, 9 / 3, 2,048^2, 64,
+                         causal) in bf16 and float32; and in both types
+                         on window, length (rows past a short length),
+                         full (Sk 384), q_offset, G 1, head dims 32 / 96
+                         / 256 and rows that see no key.  The big shapes
+                         timed by device time beside their bound (10 B H
+                         S^2 D / 2 FLOPs at the float32 or bf16 peak),
+                         the plain backward and SDPA's backward; the bf16
+                         ones also on the CUDA-core pair (its C entry
+                         point), the time the tensor-core pair replaced.
 16. ``lm_train``       — smollm-135m at full width and depth (30 layers,
                          d 576, vocab 49,152, tied), float32, remat
                          "block", batch 8 x 2,048 from ``TokenPipeline``,
@@ -248,6 +257,24 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          parameter and optimizer tensor bit-equal, with
                          PyTorch's default algorithms); ms a step, tokens/s,
                          peak memory and a traced step's idle share.
+17. ``lm_train_bf16``  — qwen3-1.7b at full width and depth (28 layers,
+                         16 / 8 heads, head dim 128, vocab 151,936,
+                         tied), bf16 with AdamW's float32 master and
+                         moments, remat "block", batch 4 x 2,048 from
+                         ``TokenPipeline``, the launcher's AdamW: the
+                         first step's loss and gradients against the same
+                         step with the plain attention, beside the same
+                         step with the flash backward's CUDA-core pair
+                         (the tensor-core pair's worst gradient error
+                         within 2x the CUDA-core pair's, the loss within
+                         1e-2 relative); 56 forward (wgmma) and 28 + 28
+                         tensor-core backward launches a step and no
+                         CUDA-core one, counted; 12 steps (on data over
+                         512 tokens) whose losses are finite and whose
+                         last is below the first; ms a step, tokens/s,
+                         peak memory, a traced step's idle share and its
+                         device time by flash backward (dQ, dK/dV), flash
+                         forward, matmuls and the rest.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
@@ -256,7 +283,8 @@ the flash kernel is held at 2e-5 (float32) and 2e-2 (bfloat16),
 test_kernels.py's tolerances, the decode partial at DECODE_TOL in
 both types, the recurrences at REC_TOL and their float32 final states at
 STATE_TOL; the flash backward's gradients at TOL of their largest
-magnitude, and lm_train's at GRAD_REL.  The last lines are the kernels'
+magnitude, lm_train's at GRAD_REL, and lm_train_bf16's against the
+CUDA-core pair's error (BF16_WITNESS_K).  The last lines are the kernels'
 JSON, the card line from ``nvidia-smi`` and the result line.  Without a
 CUDA card, or outside a checkout, the script exits non-zero and prints no
 result.
@@ -3363,8 +3391,9 @@ def flash_bwd_check(device, dtype, b, h, kh, sq, sk, d, kw, seed, what):
     """The forward's lse and the backward kernels against the plain
     versions on one seeded case: lse (on the rows that see a key) at 1e-5
     relative, the other rows at -1e30, out at TOL, and dq, dk, dv within
-    TOL[dtype] of each gradient's largest magnitude.  Returns the errors
-    and the inputs."""
+    TOL[dtype] of each gradient's largest magnitude; on the card the
+    backward must launch the pair ``bwd_variant`` picks.  Returns the
+    errors (and the pair, "plain" on the CPU) and the inputs."""
     q, k, v = random_qkv(device, seed, dtype, b, h, kh, sq, sk, d)
     do = random_qkv(device, seed + 1000, dtype, b, h, kh, sq, sk, d)[0]
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
@@ -3378,20 +3407,62 @@ def flash_bwd_check(device, dtype, b, h, kh, sq, sk, d, kw, seed, what):
     errs["out"] = require_close(out[seen], want_out[seen], TOL[dtype],
                                 f"{what} out")
     del want_out, want_lse
+    before = read_launches()
     got = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
+    ran = [kind for kind in ("wgmma", "fma")
+           if read_launches()[f"flash_attention.bwd_{kind}"]
+           > before[f"flash_attention.bwd_{kind}"]]
+    errs["pair"] = ran[0] if ran else "plain"
+    if torch.device(device).type == "cuda" and \
+            ran != [fa_ops.bwd_variant(dtype, d)]:
+        raise AssertionError(f"{what}: the backward launched {ran}, not "
+                             f"{fa_ops.bwd_variant(dtype, d)}")
     want = fa_ref.attention_backward_reference(q, k, v, out, lse, do, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         errs[name] = require_scaled(g, w, TOL[dtype], f"{what} {name}")
     return errs, (q, k, v, out, lse, do)
 
 
-# The backward's timed shapes, as training runs them: smollm-135m (this
-# slice's model, float32, the lm_train batch) and qwen3-1.7b's prefill
-# shape in bf16: (name, b, h, kh, s, d, dtype)
-FLASH_BWD_SHAPES = (("smollm-135m", 8, 9, 3, 2048, 64, torch.float32),
-                    ("qwen3-1.7b", 4, 16, 8, 2048, 128, torch.bfloat16))
-# small cases in both types: (case, b, h, kh, sq, sk, d, kwargs); the
-# lengths of "length" are (sk // 3, sk), so rows past a short length stay
+def cuda_core_backward(q, k, v, out, lse, do, *, mode="causal", window=0,
+                       lengths=None, q_offset=0, scale=None):
+    """(dq, dk, dv) from the flash backward's CUDA-core pair at any type
+    and head dim, through its C entry point: the time the tensor-core pair
+    replaced, and the lm_train_bf16 witness's yardstick (the wrapper routes
+    bf16 at head dims 64 and 128 to the tensor cores).  Counts no launch;
+    the plain backward on the CPU."""
+    kw = dict(mode=mode, window=window, lengths=lengths, q_offset=q_offset,
+              scale=scale)
+    if q.device.type == "cpu":
+        return fa_ref.attention_backward_reference(q, k, v, out, lse, do,
+                                                   **kw)
+    q, k, v, lengths = fa_ops._prepare(q, k, v, mode, lengths)
+    out, do = (_build.kernel_input(t.to(q.dtype)) for t in (out, do))
+    lse = _build.kernel_input(lse.float())
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
+    code = lib.flash_attention_bwd(
+        *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths, delta,
+                                       dq, dk, dv)),
+        _build.DTYPES[q.dtype], b, h, kh, sq, sk, d, fa_ops.MODES[mode],
+        window, q_offset, fa_ops._scale(scale, d), _build.stream())
+    _build.check(lib, code, "flash_attention_bwd (CUDA cores)")
+    return dq, dk, dv
+
+
+# The backward's timed shapes, as training runs them: qwen3-1.7b's
+# (lm_train_bf16's: the tensor-core pair's row) and smollm-135m's in bf16,
+# and smollm-135m's in float32 (lm_train's, the CUDA-core pair):
+# (name, b, h, kh, s, d, dtype)
+FLASH_BWD_SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, torch.bfloat16),
+                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.bfloat16),
+                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.float32))
+# small cases in both types (bf16 at head dims 64 and 128 on the tensor
+# cores, the rest on the CUDA cores): (case, b, h, kh, sq, sk, d, kwargs);
+# the lengths of "length" are (sk // 3, sk), so rows past a short length
+# stay
 FLASH_BWD_SMALL = (
     ("window", 2, 4, 2, 512, 512, 64, dict(mode="causal", window=128)),
     ("length", 2, 4, 2, 256, 700, 64, dict(mode="length")),
@@ -3403,19 +3474,35 @@ FLASH_BWD_SMALL = (
     ("d32", 2, 4, 2, 200, 200, 32, dict(mode="causal")),
     ("d96", 1, 8, 2, 256, 256, 96, dict(mode="causal")),
     ("d256", 1, 4, 1, 256, 256, 256, dict(mode="causal")),
-    ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)))
+    ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)),
+    ("no_key_rows_d128", 1, 2, 1, 200, 100, 128, dict(mode="causal",
+                                                      window=16)))
+# the tensor-core pair's kernels and head dims, which the SASS must show
+BWD_WGMMA_KERNELS = ("flash_bwd_dq_wgmma_kernel",
+                     "flash_bwd_dkdv_wgmma_kernel")
+BWD_WGMMA_HEAD_DIMS = tuple(sorted(
+    d for (_, d), kind in fa_ops.BWD_VARIANTS.items() if kind == "wgmma"))
 
 
 def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
                            small=FLASH_BWD_SMALL, time_it=True):
     """The backward kernels (and the forward's lse) against the plain
     backward at each of ``shapes`` (causal) and on ``small`` in float32 and
-    bf16; gradients held within TOL of their largest magnitude.  With
+    bf16, each through the pair ``bwd_variant`` picks; gradients held
+    within TOL of their largest magnitude.  On the card, the tensor-core
+    pair's SASS must hold HGMMA at each of its head dims.  With
     ``time_it``, each shape's backward by device time beside its bound
     (operations: ``flash_bwd_ops`` at the float32 or bf16 peak), the plain
     backward and SDPA's backward (SDPA forward plus backward less its
-    forward).  The first shape's numbers are the kernel's row."""
+    forward); a bf16 shape also on the CUDA-core pair (``fma_ms``).  The
+    first shape's numbers are the backward's row."""
     errs, timed = {}, {}
+    hgmma = None
+    if torch.device(device).type == "cuda":
+        listing = _build.sass("flash_attention_bwd")
+        hgmma = {kname: hgmma_by_head_dim(listing, kname,
+                                          BWD_WGMMA_HEAD_DIMS)
+                 for kname in BWD_WGMMA_KERNELS}
     for i, (case, b, h, kh, sq, sk, d, kw) in enumerate(small):
         kw = dict(kw)
         if kw["mode"] == "length":
@@ -3434,6 +3521,7 @@ def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
         nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
                   + 4 * lse.numel())     # q, out, dO, dQ; k, v, dK, dV
         r = dict(shape=(b, h, kh, s, s, d, str(dtype)[6:]), flops=flops,
+                 pair=errs[key]["pair"],
                  bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
                  bound_by=("operations" if flops / peak
                            >= nbytes / HBM_BYTES_PER_S else "bytes"))
@@ -3443,21 +3531,29 @@ def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
             r.update(ms=t["device_ms"], timed_by=t["timed_by"],
                      by_kernel_ms=t["by_kernel_ms"])
             r["tflop_per_s"] = flops / (r["ms"] * 1e-3) / 1e12
+            if r["pair"] == "wgmma":
+                f = device_time(lambda: cuda_core_backward(
+                    q, k, v, out, lse, do), 3, FLASH_BWD_KERNELS)
+                r.update(fma_ms=f["device_ms"],
+                         fma_by_kernel_ms=f["by_kernel_ms"])
             r["plain_ms"] = cuda_ms(
                 lambda: fa_ref.attention_backward_reference(
                     q, k, v, out, lse, do), reps=2)
             r["library_ms"] = sdpa_backward_ms(q, k, v, do)
-        timed[name] = r
+        timed[f"{name}/{str(dtype)[6:]}"] = r
         del q, k, v, out, lse, do
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
-    first = shapes[0][0]
-    key = f"{first}/causal/{str(shapes[0][6])[6:]}"
-    return dict(timed[first], max_abs_err=errs[key]["dq"], errs=errs,
-                shapes=timed)
+    name, *_, dtype = shapes[0]
+    first = f"{name}/{str(dtype)[6:]}"
+    return dict(timed[first], max_abs_err=errs[f"{name}/causal/"
+                                               f"{str(dtype)[6:]}"]["dq"],
+                errs=errs, shapes=timed, hgmma=hgmma)
 
 
-FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                     "flash_bwd_dq_wgmma_kernel",
+                     "flash_bwd_dkdv_wgmma_kernel")
 
 
 def sdpa_backward_ms(q, k, v, do) -> float:
@@ -3499,17 +3595,37 @@ class PlainAttentionFn(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+class CudaCoreBackwardFn(torch.autograd.Function):
+    """The forward kernel with its lse, and the flash backward's CUDA-core
+    pair by its C entry point (``cuda_core_backward``): lm_train_bf16's
+    yardstick for the tensor-core pair's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, mode, window, q_offset, scale):
+        kw = dict(mode=mode, window=window, lengths=lengths,
+                  q_offset=q_offset, scale=scale)
+        out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*cuda_core_backward(q, k, v, out, lse, do, **ctx.kw),
+                None, None, None, None, None)
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """Within: the models' flash attention is the plain forward and
-    backward (no kernel launches), on any device."""
+def plain_attention(fn=PlainAttentionFn):
+    """Within: the models' flash attention is ``fn`` (by default the plain
+    forward and backward, no kernel launches), on any device."""
     kernel = fa_ops.flash_attention
 
-    def plain(q, k, v, *, mode="causal", window=0, lengths=None, q_offset=0,
-              scale=None):
-        return PlainAttentionFn.apply(q, k, v, lengths, mode, window,
-                                      q_offset, scale)
-    fa_ops.flash_attention = plain
+    def patched(q, k, v, *, mode="causal", window=0, lengths=None,
+                q_offset=0, scale=None):
+        return fn.apply(q, k, v, lengths, mode, window, q_offset, scale)
+    fa_ops.flash_attention = patched
     try:
         yield
     finally:
@@ -3519,15 +3635,21 @@ def plain_attention():
 def train_launches(cfg, device) -> dict:
     """The flash launches of one train step of ``cfg``'s model under its
     remat: the forward once per attention layer, again under remat (in
-    the backward pass), and each backward kernel once (none on the
-    CPU)."""
+    the backward pass), all of the kernel ``variant`` picks, and each
+    backward kernel once, all of the pair ``bwd_variant`` picks (none on
+    the CPU)."""
     n = path_launches(cfg, device)[0]["flash_attention"]
     fwd = n * (1 if cfg.remat == "none" else 2)
-    kind = fa_ops.variant(getattr(torch, cfg.dtype), cfg.head_dim) if n \
-        else "fma"
-    return {"flash_attention": fwd, f"flash_attention.{kind}": fwd,
-            "flash_attention.bwd": n, "flash_attention.bwd_dq": n,
-            "flash_attention.bwd_dkdv": n}
+    dtype = getattr(torch, cfg.dtype)
+    kind = fa_ops.variant(dtype, cfg.head_dim) if n else None
+    pair = fa_ops.bwd_variant(dtype, cfg.head_dim) if n else None
+    return {"flash_attention": fwd,
+            **{f"flash_attention.{v}": fwd if v == kind else 0
+               for v in ("wgmma", "fma")},
+            "flash_attention.bwd": n,
+            **{f"flash_attention.bwd_{v}": n if v == pair else 0
+               for v in ("wgmma", "fma")},
+            "flash_attention.bwd_dq": n, "flash_attention.bwd_dkdv": n}
 
 
 def grad_step(cfg, ocfg, params, batch, **kw):
@@ -3773,14 +3895,161 @@ def restart_drill(device, cfg, ocfg, params, batch, seq, ckpt_root=None):
                 bit_equal=True, drill_s=drill_s)
 
 
+# lm_train_bf16's witness: the tensor-core pair's worst gradient error
+# (against each leaf's largest magnitude, from the same step with the plain
+# attention) may be BF16_WITNESS_K times the CUDA-core pair's, which sums
+# the same bf16 operands in float32 on the CUDA cores; both read the same
+# forward.  Over 28 layers of bf16 backward the floor is the model's own
+# rounding, common to both; a wrong mask, scale or tile moves a gradient
+# by O(1) of its size.  The loss reads the forward only: BF16_LOSS_REL.
+BF16_WITNESS_K = 2.0
+BF16_LOSS_REL = 1e-2
+
+
+def phase_lm_train_bf16(device, cfg=None, ocfg=None, batch=4, seq=2048,
+                        steps=12, time_it=True):
+    """qwen3-1.7b at full width and depth in bf16 (remat "block"; AdamW's
+    float32 master and moments), batches of ``TokenPipeline`` (seed 0),
+    the launcher's AdamW settings unless ``ocfg`` is given (lr 3e-3,
+    warmup 10, total ``steps``): the gradient witness at the drive's
+    batch (a step's loss and gradients, ``loss_and_grads``, against the
+    same with the plain attention, beside the same with the CUDA-core
+    backward pair); ``steps`` steps on LEARN_VOCAB data, each loss finite and the
+    last below the first, the first step's flash launches all on the
+    tensor cores, AdamW's state float32; and, with ``time_it``, ms a step,
+    tokens/s, peak memory, a traced step's idle share and its device time
+    by kernel group, and a step's loss and gradients against its AdamW
+    update by CUDA events."""
+    cfg = cfg or registry.get_config("qwen3-1.7b")
+    ocfg = ocfg or train_opt.AdamWConfig(lr=3e-3, warmup_steps=10,
+                                         total_steps=steps)
+    if cfg.dtype != "bfloat16":
+        raise ValueError(f"lm_train_bf16 trains a bf16 model, not "
+                         f"{cfg.dtype}")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=0)
+
+    def batch_at(i, pipe=pipe):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(i).items()}
+    sync(device)
+    result = dict(arch=cfg.name, params=n_params, batch=batch, seq=seq,
+                  remat=cfg.remat, dtype=cfg.dtype, witness_batch=batch,
+                  init_s=time.perf_counter() - t0)
+
+    # a step's gradient against the plain attention's and against the
+    # CUDA-core pair's (the loss and gradients alone: an optimizer state,
+    # 3 x 1.72 G float32 words, for each of the three would not fit)
+    want = train_launches(cfg, device)
+    loss, g_kernel = train_loop.loss_and_grads(params, batch_at(0), cfg)[::2]
+    with plain_attention():
+        plain_loss, g_plain = train_loop.loss_and_grads(
+            params, batch_at(0), cfg)[::2]
+    with plain_attention(CudaCoreBackwardFn):
+        fma_loss, g_fma = train_loop.loss_and_grads(params, batch_at(0),
+                                                    cfg)[::2]
+    sync(device)
+    inf = float("inf")
+    errs = {pair: {name: require_scaled(g[name], ref, inf,
+                                        f"lm_train_bf16 {pair} d {name}")
+                   for name, ref in g_plain.items()}
+            for pair, g in (("wgmma", g_kernel), ("fma", g_fma))}
+    worst = {pair: max(e, key=e.get) for pair, e in errs.items()}
+    result["witness"] = dict(
+        loss=float(loss), plain_loss=float(plain_loss),
+        fma_loss=float(fma_loss),
+        grad_norm=float(train_opt.global_norm(g_kernel)),
+        plain_grad_norm=float(train_opt.global_norm(g_plain)),
+        fma_grad_norm=float(train_opt.global_norm(g_fma)),
+        worst_grad=worst,
+        worst_grad_rel_err={p: errs[p][w] for p, w in worst.items()})
+    del g_kernel, g_plain, g_fma
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()    # the witnesses' blocks, before the run
+    w = result["witness"]
+    if not abs(w["loss"] - w["plain_loss"]) <= BF16_LOSS_REL * abs(
+            w["plain_loss"]):
+        raise AssertionError(f"lm_train_bf16 witness: loss {w['loss']} vs "
+                             f"plain {w['plain_loss']} (limit "
+                             f"{BF16_LOSS_REL} relative)")
+    e = w["worst_grad_rel_err"]
+    if not e["wgmma"] <= BF16_WITNESS_K * e["fma"]:
+        raise AssertionError(f"lm_train_bf16 witness: the tensor-core pair's"
+                             f" worst gradient error {e['wgmma']} is past "
+                             f"{BF16_WITNESS_K} x the CUDA-core pair's "
+                             f"{e['fma']}")
+
+    # ``steps`` steps on data that can be learned in that many
+    learn = TokenPipeline(LEARN_VOCAB, seq, batch, seed=0)
+    p, params = params, None
+    state = train_opt.init(p)
+    step = train_loop.make_train_step(cfg, ocfg)
+    losses, step_ms = [], []
+    sync(device)
+    reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, batch_at(i, learn))
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            result["step_launches"] = require_launches(
+                want, "one bf16 train step")
+    result["launches"] = require_launches(
+        {k: n * steps for k, n in want.items()}, f"{steps} bf16 train steps")
+    types = {str(t.dtype)[6:] for t in [*state.mu.values(),
+                                        *state.nu.values(),
+                                        *state.master.values()]}
+    if types != {"float32"}:
+        raise AssertionError(f"AdamW's master and moments hold {types}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"lm_train_bf16: the losses are not finite or "
+                             f"the last is not below the first: {losses}")
+    result.update(losses=losses, step_ms=step_ms)
+    if time_it:
+        result["ms_per_step_median"] = float(np.median(step_ms[1:]))
+        result["tokens_per_s"] = (batch * seq * 1e3
+                                  / result["ms_per_step_median"])
+        torch.cuda.reset_peak_memory_stats()
+        b0 = batch_at(steps, learn)
+        sync(device)
+        t0 = time.perf_counter()
+        p, state, _ = step(p, state, b0)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: step(p, state, b0), 1,
+                              FLASH_BWD_KERNELS)
+        prof["wall_ms"] = wall_ms
+        prof["idle_share"] = 1 - prof["device_ms"] / wall_ms
+        prof["flash_backward_share"] = (prof["by_group_ms"]["flash_backward"]
+                                        / prof["device_ms"])
+        result["step_profile"] = prof
+        # the step's two halves by CUDA events: the loss and gradients,
+        # then AdamW's update
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        grads = train_loop.loss_and_grads(p, b0, cfg)[2]
+        marks[1].record()
+        train_opt.update(ocfg, grads, state, p)
+        marks[2].record()
+        marks[2].synchronize()
+        result["grads_ms"] = marks[0].elapsed_time(marks[1])
+        result["update_ms"] = marks[1].elapsed_time(marks[2])
+        del grads
+    del p, state
+    return result
+
+
 # ---------------------------------------------------------------------------
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
-                 ("flash_backward", ("flash_bwd_dq_kernel",
-                                     "flash_bwd_dkdv_kernel")),
+                 ("flash_backward", FLASH_BWD_KERNELS),
                  ("decode_attention", DECODE_KERNELS),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel", "rglru_ring_kernel")),
@@ -3860,7 +4129,7 @@ PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
           "lm_griffin", "lm_gemma3", "lm_gemma3_cache", "lm_mixtral",
           "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel",
-          "flash_bwd_kernel", "lm_train")
+          "flash_bwd_kernel", "lm_train", "lm_train_bf16")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -3893,25 +4162,54 @@ WGMMA_HEAD_DIMS = tuple(sorted(d for (_, d), kind in fa_ops.VARIANTS.items()
                                if kind == "wgmma"))
 
 
-def hgmma_by_head_dim(sass: str) -> dict:
-    """The HGMMA (tensor-core) instructions of each ``flash_wgmma_kernel<D>``
-    function in a ``cuobjdump -sass`` listing, by D; raises unless every
-    head dim of ``WGMMA_HEAD_DIMS`` has a function that holds some."""
+def hgmma_by_head_dim(sass: str, kernel: str = "flash_wgmma_kernel",
+                      head_dims=WGMMA_HEAD_DIMS) -> dict:
+    """The HGMMA (tensor-core) instructions of each ``kernel<D>`` function
+    (``flash_wgmma_kernel`` by default) in a ``cuobjdump -sass`` listing,
+    by D; raises unless every head dim of ``head_dims`` has a function
+    that holds some."""
     counts, head_dim = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_wgmma_kernel(?:ILi|<)(\d+)", line)
+            m = re.search(re.escape(kernel) + r"(?:ILi|<)(\d+)", line)
             head_dim = int(m.group(1)) if m else None
             if head_dim is not None:
                 counts[head_dim] = 0
         elif head_dim is not None and "HGMMA" in line:
             counts[head_dim] += 1
-    bare = [d for d in WGMMA_HEAD_DIMS if not counts.get(d)]
+    bare = [d for d in head_dims if not counts.get(d)]
     if bare:
         raise AssertionError(
-            f"flash_wgmma_kernel at head dims {bare} holds no HGMMA "
+            f"{kernel} at head dims {bare} holds no HGMMA "
             f"instruction (counts {counts}): not on the tensor cores")
     return counts
+
+
+def ptxas_report(log: str, kernels) -> dict:
+    """Registers and spills of each instantiation ``kernel<D>`` of the
+    named kernels, from a ``-Xptxas -v`` build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = next((k for k in kernels if k in m.group(1)), None)
+            d = re.search(r"(?:ILi|<)(\d+)", m.group(1))
+            name = f"{k}<{d.group(1)}>" if k and d else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def run_phase(phases, key, fn):
@@ -3943,6 +4241,14 @@ def main() -> int:
     hgmma = hgmma_by_head_dim(_build.sass("flash_attention"))
     print(f"[card] flash_attention: HGMMA instructions in the SASS of "
           f"flash_wgmma_kernel by head dim: {hgmma}", flush=True)
+    ptxas = ptxas_report(logs.get("flash_attention_bwd", ""),
+                         BWD_WGMMA_KERNELS)
+    print(f"[card] flash_attention_bwd: ptxas of the tensor-core pair "
+          f"{ptxas}", flush=True)
+    smem = {d: _build.load("flash_attention_bwd", fa_ops._declare_bwd)
+            .flash_attention_wgmma_bwd_smem(d) for d in BWD_WGMMA_HEAD_DIMS}
+    print(f"[card] flash_attention_bwd: the tensor-core pair's dynamic "
+          f"shared memory a block by head dim: {smem} bytes", flush=True)
 
     phases = {}
     t0 = time.perf_counter()
@@ -4101,13 +4407,41 @@ def main() -> int:
           f"{t['step_profile']['by_group_ms']}); loss {t['losses'][0]:.4f} "
           f"-> {min(t['losses'][-5:]):.4f}; restart drill "
           f"{t['restart']['drill_s']:.1f} s", flush=True)
-    # the backward's launches are those of lm_train's steps; the forward's
-    # there join its launches by phase
-    phases["flash_bwd_kernel"]["launches"] = t["launches"][
-        "flash_attention.bwd"]
+    torch.cuda.empty_cache()
+    run_phase(phases, "lm_train_bf16", lambda: phase_lm_train_bf16(device))
+    t16 = phases["lm_train_bf16"]
+    sp = t16["step_profile"]
+    print(f"[times] lm_train_bf16 ({card}): {t16['arch']} {t16['params']} "
+          f"parameters bf16, batch {t16['batch']} x {t16['seq']}, remat "
+          f"{t16['remat']}: {t16['ms_per_step_median']:.1f} ms a step "
+          f"(median of {len(t16['step_ms']) - 1}), "
+          f"{t16['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{t16['max_memory_allocated']} bytes, idle share "
+          f"{sp['idle_share']:.4f} of a traced step (device "
+          f"{sp['device_ms']:.1f} ms of {sp['wall_ms']:.1f}; by group "
+          f"{sp['by_group_ms']}; backward kernels {sp['by_kernel_ms']}; "
+          f"the flash backward {sp['flash_backward_share']:.4f} of device "
+          f"time); loss and gradients {t16['grads_ms']:.2f} ms, AdamW "
+          f"update {t16['update_ms']:.2f} ms; loss {t16['losses'][0]:.4f} -> "
+          f"{t16['losses'][-1]:.4f}; "
+          f"witness {t16['witness']}", flush=True)
+    # the backward's launches are those of the training drives' steps:
+    # lm_train's on the CUDA-core pair, lm_train_bf16's on the tensor
+    # cores; the forward's there join its launches by phase
+    trains = {key: phases[key]["launches"] for key in ("lm_train",
+                                                        "lm_train_bf16")}
+    phases["flash_bwd_kernel"]["launches"] = sum(
+        n["flash_attention.bwd"] for n in trains.values())
     phases["flash_bwd_kernel"]["kernel_launches"] = {
-        k: t["launches"][f"flash_attention.{k}"] for k in ("bwd_dq",
-                                                           "bwd_dkdv")}
+        k: sum(n[f"flash_attention.{k}"] for n in trains.values())
+        for k in ("bwd_wgmma", "bwd_fma", "bwd_dq", "bwd_dkdv")}
+    phases["flash_bwd_kernel"]["launches_by_phase"] = {
+        key: {k: n[f"flash_attention.{k}"] for k in ("bwd_wgmma", "bwd_fma")}
+        for key, n in trains.items()}
+    for pair in ("bwd_wgmma", "bwd_fma"):
+        if phases["flash_bwd_kernel"]["kernel_launches"][pair] < 1:
+            raise AssertionError(f"flash_attention.{pair}: no launch on the "
+                                 f"training paths")
     # the attention kernels' launches are those of the LM path's drives;
     # the flash launches by kernel: bf16 prefills on the tensor cores, the
     # float32 drive on the CUDA cores
@@ -4129,8 +4463,9 @@ def main() -> int:
     phases["flash_kernel"]["variant_launches"] = variants
     phases["flash_kernel"]["launches_by_phase"] = {
         drive: sum(v.values()) for drive, v in variants.items()}
-    phases["flash_kernel"]["launches_by_phase"]["lm_train"] = phases[
-        "lm_train"]["launches"]["flash_attention"]
+    for key in ("lm_train", "lm_train_bf16"):
+        phases["flash_kernel"]["launches_by_phase"][key] = phases[key][
+            "launches"]["flash_attention"]
     phases["decode_kernel"]["launches_by_phase"] = dict(
         lm_serve=phases["lm_serve"]["decode_launches"],
         **{key: phases[key]["decode_launches"] for key, *_ in ARCH_DRIVES})
@@ -4195,7 +4530,8 @@ def main() -> int:
             rows[-1]["addleq_guests"] = r["addleq_guests"]
         if "shapes" in r:
             rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
-                "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                "pair", "fma_ms", "tflop_per_s")}
                 for n, t in r["shapes"].items()}
         for t in r.get("shapes", {}).values() or (r,):
             print(f"[times] {kname} ({card}): {t['ms']:.4f} ms, bound "

@@ -7,45 +7,73 @@
 // ops.py:166, a lax.scan of einsums over KV blocks that saves (out, lse)
 // and recomputes p per block).  The port needs it as a kernel because its
 // forward is one, which autograd cannot see through.  q, O, dO (B, H, Sq,
-// D), k/v (B, KH, Sk, D), float32 or bfloat16, contiguous; lse (B, H, Sq)
-// float32; dq, dk, dv in their inputs' types.  The masks and the visible-key
-// rule are the forward's (`visible`, `key_range`); the scale multiplies q
-// before Q K^T, and dQ once more at the end.  A masked pair has p = 0, so a
-// row that sees no key (output 0 in the forward) has no gradient.  Two
-// kernels, launched in this order on one stream:
+// D), k/v (B, KH, Sk, D), contiguous; lse (B, H, Sq) float32; dq, dk, dv in
+// their inputs' types.  The masks and the visible-key rule are the
+// forward's (`visible`, `key_range`); a masked pair has p = 0, so a row
+// that sees no key (output 0 in the forward) has no gradient.
 //
-// flash_bwd_dq_kernel — one block (256 threads) per (BQ query rows, h, b):
-// delta = rowsum(dO * O) (also written to a float32 scratch for the second
-// kernel), then over the key tiles that hold a visible key for some row of
-// the block: S = (q scale) K^T, P = exp(S - lse) on visible pairs, dP =
-// dO V^T, dS = P (dP - delta), dQ += dS K (a RQ x RD register tile a
-// thread); dQ * scale is written.
+// Bound: operations — the backward's five products (S, dP, dV, dK, dQ), 10
+// B H Sq Sk D FLOPs times the visible fraction, against the bf16
+// tensor-core peak (989 TFLOP/s) or, in float32, the CUDA cores' (67
+// TFLOP/s).  Both pairs below split the work into two kernels, launched in
+// this order on one stream, so that every output element is summed in one
+// fixed order with no atomics (deterministic run to run): a dQ kernel,
+// which also writes delta = rowsum(dO O), then a dK/dV kernel that keeps a
+// key tile's dK and dV on chip while it walks every query head of the KV
+// head's group (G = H / KH) and every query tile that sees one of its
+// keys.  Each kernel recomputes S and dP, so the pair does seven products
+// where the bound counts five: the price of determinism without a float32
+// dQ scratch summed by atomics.
 //
-// flash_bwd_dkdv_kernel — one block per (BK keys, KV head, b): K and V
-// staged once, then for every query head of the KV head's group (G = H /
-// KH) and every query tile that sees one of the block's keys: S^T, P^T,
-// dP^T = V dO^T and dS^T, then dV += P^T dO and dK += dS^T (q scale) in
-// registers.  The group's sum stays inside one block, so nothing is added
-// by atomics and every output element is summed in one fixed order: both
-// kernels are deterministic, run to run.
+// flash_bwd_dq_wgmma_kernel / flash_bwd_dkdv_wgmma_kernel — bfloat16 at head
+// dims 64 and 128: the tensor cores.  Blocks of three warpgroups, as the
+// forward's: warpgroup 0 gives its registers away (`setmaxnreg`) and one of
+// its threads loads every tile by TMA into a 3-stage ring with full and
+// empty mbarriers (the out-of-bounds zero fill gives the ragged edges);
+// warpgroups 1 and 2 each own 64 rows of the block's 128 and run the
+// products by `wgmma`, bf16 operands and float32 accumulators.  dQ: a block
+// per (128 query rows, h, b) holds its Q and dO tiles and streams K and V
+// tiles of 64 keys (128 at D 64): S = Q K^T and dP = dO V^T (both
+// K-major), P = exp2(S scale log2 e - lse log2 e) with S scaled exactly as
+// the forward scales it, dS = P (dP - delta) converted in registers to
+// the bf16 A operand (as the forward turns S into P), dQ += dS K with K
+// read MN-major; the thread's two rows' delta comes from O and dO in
+// global memory (a quad a row), and the kernel writes delta and lse2 =
+// lse log2 e (+inf where lse is -1e30 or the row lies past Sq, so p = 0
+// there) for the second kernel.  dK/dV: a block per (128 keys, KV head,
+// b) holds K and V and streams Q and dO tiles of 64 rows (128 at D 64)
+// with their lse2 and delta (1-D bulk copies); keys are the accumulators'
+// rows, so S^T = K Q^T and dP^T = V dO^T, lse2 and delta apply per column,
+// and dV += P^T dO, dK += dS^T Q read dO and Q MN-major.  At D 128 a
+// consumer thread holds dK and dV (128 float32 registers) beside S^T and
+// dP^T (64): 64 keys a warpgroup and 64-row streamed tiles keep that
+// within the 240 registers that `setmaxnreg` gives; at D 64 the same
+// registers hold 128-row tiles.  A warpgroup skips the products of a tile
+// in which none of its pairs is visible, and masks only tiles that
+// straddle a mask edge.  Float32 stays on the CUDA cores: TF32 would round
+// past its 2e-5 tolerance; D 96 and 256 (whose dK and dV tiles do not fit
+// the same registers) are later work.
 //
-// Both are CUDA-core float32 FMAs on tiles staged in shared memory as
-// float32 (bfloat16 widened on the way in), with the forward's 16 x 16
-// thread grid and its rows padded by one float.  Bound: operations — the
-// backward's five products (S, dP, dV, dK, dQ), 10 B H Sq Sk D FLOPs times
-// the visible fraction, against the float32 peak (67 TFLOP/s without the
-// tensor cores); these kernels recompute S and dP in both passes (seven
-// products) and read their operands from shared memory, so they run well
-// below it.  The tensor cores are later work.
+// flash_bwd_dq_kernel / flash_bwd_dkdv_kernel — float32 at every head dim
+// and bfloat16 at 32, 96 and 256: CUDA-core float32 FMAs on tiles staged
+// in shared memory as float32 (bfloat16 widened on the way in), with the
+// forward's 16 x 16 thread grid and its rows padded by one float; the
+// scale multiplies q before Q K^T, and dQ once more at the end.  They read
+// their operands from shared memory and so run well below the float32
+// peak.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e30f;     // the forward's lse of a keyless row
 
 enum Mode { kCausal = 0, kLength = 1, kFull = 2 };
 
@@ -484,6 +512,539 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core pair (bfloat16, head dims 64 and 128)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;      // producer warpgroup + 2 consumers
+constexpr int kBwdRows = 128;         // a block's own rows: queries or keys
+constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240
+constexpr int kConsumerRegs = 240;    //   fits the SM's 65,536 registers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of either kernel: the block's two 128-row tiles (Q and dO,
+// or K and V), the ring of streamed 64-row pairs (K and V, or Q and dO),
+// the dK/dV kernel's ring of lse2 and delta vectors (64 floats each a
+// stage), then the mbarriers.  Every tile is D / 64 boxes of 64 columns
+// (128-byte rows under the 128-byte swizzle), box c at c * rows * 128.
+template <int D>
+struct BwdTile {
+  static_assert(D == 64 || D == 128, "the tensor-core backward's head dims");
+  static constexpr int kBoxes = D / 64;
+  // the rows of a streamed tile: at D 128 a thread's dK and dV (or dQ)
+  // leave room for 64-column S and dP accumulators, at D 64 for 128-column
+  // ones; and the ring's depth.  Measured on the card against 64 rows at
+  // D 64 and 2 or 4 stages (PERF.md): 3 stages of these ran fastest, and
+  // at D 64 ptxas spilled the dK/dV kernel's registers at 2 and 4.
+  static constexpr int kStep = D == 64 ? 128 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kOwnBytes = kBwdRows * D * 2;
+  static constexpr int kStepBytes = kStep * D * 2;
+  static constexpr int kVecBytes = 2 * kStep * 4;          // lse2, delta
+  static constexpr int kRingOffset = 2 * kOwnBytes;
+  static constexpr int kVecOffset = kRingOffset + kStages * 2 * kStepBytes;
+  static constexpr int kBarOffset = kVecOffset + kStages * kVecBytes;
+  // own_full, then full[kStages], empty[kStages]; + 1 KB to align
+  static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages)
+                                       + 1024;
+  static_assert(kBwdRows % kStep == 0, "streamed tiles cover the rows");
+  static_assert(kSmemBytes <= 232448, "past a block's 227 KB");
+};
+
+// every (q, k) pair with q in [qa, qb] and k in [k0, k0 + bk) visible: the
+// tile needs no mask (the forward's rule; rows past Sq get p = 0 from their
+// lse2 of +inf instead)
+__device__ __forceinline__ bool tile_unmasked(int mode, int qa, int qb,
+                                              int k0, int bk, int len,
+                                              int window, int q_offset,
+                                              int sk) {
+  if (k0 + bk > sk) return false;
+  if (mode == kCausal)
+    return k0 + bk - 1 <= qa + q_offset &&
+           (window <= 0 || k0 > qb + q_offset - window);
+  if (mode == kLength)
+    return k0 + bk <= len && (window <= 0 || k0 >= len - window);
+  return true;
+}
+
+// no pair with q in [qa, qb] (< sq) and k in [ka, kb] (< sk) visible: the
+// warpgroup skips the tile (it still waits for it and releases it)
+__device__ __forceinline__ bool tile_empty(int mode, int qa, int qb, int ka,
+                                           int kb, int len, int window,
+                                           int q_offset, int sq, int sk) {
+  if (qa >= sq || ka >= sk) return true;
+  qb = min(qb, sq - 1);
+  kb = min(kb, sk - 1);
+  if (mode == kCausal)
+    return ka > qb + q_offset ||
+           (window > 0 && kb <= qa + q_offset - window);
+  if (mode == kLength)
+    return ka >= len || (window > 0 && kb < len - window);
+  return false;
+}
+
+// descriptor of the 16 columns at k-step kk of a K-major operand: rows of
+// 128 bytes, 8-row groups 1,024 bytes apart; `row0` rows into a tile of
+// `rows` rows at `tile`
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int row0,
+                                           int kk) {
+  return smem_desc(tile + (kk / 4) * rows * 128 + row0 * 128 + (kk % 4) * 32,
+                   16, 1024, 128);
+}
+
+// descriptor of the 16 rows at k-step kk of an MN-major B operand (the
+// product runs over the tile's rows, N over its D columns): box to box
+// (LBO) rows * 128 bytes, 8-row groups (SBO) 1,024 bytes apart
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kk) {
+  return smem_desc(tile + kk * 16 * 128, rows * 128, 1024, 128);
+}
+
+// the m64nN accumulator's element j lies at row 8 * ((j % 4) / 2) (+ the
+// thread's row) and column 8 * (j / 4) + 2 * (lane % 4) + (j % 2); each
+// k-step fragment of a bf16 A operand comes from 8 of them
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// one 64-row tile's rows of a (rows, D) bf16 result, from an m64nD
+// accumulator times `scale`; rows at or past n_rows dropped
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int row,
+                                           int n_rows, int col,
+                                           const float (&acc)[D / 2],
+                                           float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int at = row + 8 * r;
+    if (at >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)at * D + 8 * j + col) =
+          pack_bf16(acc[4 * j + 2 * r] * scale,
+                    acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+// dQ (and the vectors the dK/dV kernel reads): one block per (128 query
+// rows, h, b), heaviest (last) rows first.  vec holds lse2 = lse log2 e
+// (+inf for a row that sees no key or lies past Sq) at [b H + h][row] and
+// delta = rowsum(dO O) at [B H + b H + h][row], sq_pad rows a head.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __nv_bfloat16* __restrict__ out,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ vec,
+                          __nv_bfloat16* __restrict__ dq, int B, int H,
+                          int KH, int Sq, int Sk, int sq_pad, int mode,
+                          int window, int q_offset, float scale,
+                          float scale_log2) {
+  using G = BwdTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_q = smem_u32(smem);
+  const uint32_t s_do = s_q + G::kOwnBytes;
+  const uint32_t s_ring = s_q + G::kRingOffset;   // stage st: K, then V
+  const uint32_t own_full = s_q + G::kBarOffset;
+  const uint32_t full = own_full + 8;
+  const uint32_t empty = full + 8 * G::kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdRows;
+  const int bh = b * H + h;
+  const int len = lengths[b];
+  int k_lo, k_hi;
+  key_range(mode, q0, min(q0 + kBwdRows, Sq) - 1, len, window, q_offset, Sk,
+            &k_lo, &k_hi);
+  const int t0 = (k_lo / G::kStep) * G::kStep;
+  const int n_tiles =
+      k_hi > t0 ? (k_hi - t0 + G::kStep - 1) / G::kStep : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < G::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      const int kvm = b * KH + h / (H / KH);
+      mbar_expect_tx(own_full, 2 * G::kOwnBytes);
+#pragma unroll
+      for (int c = 0; c < G::kBoxes; ++c) {
+        tma_load3(s_q + c * kBwdRows * 128, &tq, own_full, 64 * c, q0, bh);
+        tma_load3(s_do + c * kBwdRows * 128, &tdo, own_full, 64 * c, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % G::kStages;
+        mbar_wait(empty + 8 * st, ((i / G::kStages) & 1) ^ 1);
+        const uint32_t k_st = s_ring + st * 2 * G::kStepBytes;
+        const int k0 = t0 + i * G::kStep;
+        mbar_expect_tx(full + 8 * st, 2 * G::kStepBytes);
+#pragma unroll
+        for (int c = 0; c < G::kBoxes; ++c) {
+          tma_load3(k_st + c * G::kStep * 128, &tk, full + 8 * st, 64 * c,
+                    k0, kvm);
+          tma_load3(k_st + G::kStepBytes + c * G::kStep * 128, &tv,
+                    full + 8 * st, 64 * c, k0, kvm);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = threadIdx.x - 128;
+    const int g = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int qa = q0 + 64 * g;                  // this warpgroup's rows
+    const int row = qa + 16 * warp + lane / 4;   // and row + 8
+    const int col = 2 * (lane % 4);
+
+    // delta and lse2 of the thread's two rows: a quad sums a row's D
+    // columns, 8 at a time
+    float dl[2], l2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row + 8 * r;
+      float acc = 0.f;
+      if (qi < Sq) {
+        const size_t at = ((size_t)bh * Sq + qi) * D;
+#pragma unroll
+        for (int c = 8 * (lane % 4); c < D; c += 32)
+          acc += dot8(*reinterpret_cast<const uint4*>(dout + at + c),
+                      *reinterpret_cast<const uint4*>(out + at + c));
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      const float x = qi < Sq ? lse[(size_t)bh * Sq + qi] : kNegInf;
+      dl[r] = acc;
+      l2[r] = x <= kNegInf ? INFINITY : x * kLog2e;
+      if (lane % 4 == 0) {
+        vec[(size_t)bh * sq_pad + qi] = l2[r];
+        vec[((size_t)B * H + bh) * sq_pad + qi] = acc;
+      }
+    }
+
+    float dqa[D / 2];
+    zero(dqa);
+    if (n_tiles > 0) mbar_wait(own_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % G::kStages;
+      const int k0 = t0 + i * G::kStep;
+      const uint32_t k_st = s_ring + st * 2 * G::kStepBytes;
+      const uint32_t v_st = k_st + G::kStepBytes;
+      mbar_wait(full + 8 * st, (i / G::kStages) & 1);
+      if (!tile_empty(mode, qa, qa + 63, k0, k0 + G::kStep - 1, len,
+                      window, q_offset, Sq, Sk)) {
+        // S = Q K^T and dP = dO V^T, K-major from shared memory
+        float s[G::kStep / 2], dp[G::kStep / 2];
+        zero(s);
+        zero(dp);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<G::kStep>::ss(s, kmajor(s_q, kBwdRows, 64 * g, kk),
+                              kmajor(k_st, G::kStep, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<G::kStep>::ss(dp, kmajor(s_do, kBwdRows, 64 * g, kk),
+                              kmajor(v_st, G::kStep, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P = exp2(S scale log2 e - lse2), the forward's scale at its place
+        const bool masked = !tile_unmasked(mode, qa, qa + 63, k0,
+                                           G::kStep, len, window, q_offset,
+                                           Sk);
+#pragma unroll
+        for (int j = 0; j < G::kStep / 2; ++j) {
+          const int r = (j % 4) / 2;
+          const float x = s[j] * scale_log2;
+          s[j] = masked && !visible(mode, row + 8 * r,
+                                    k0 + 8 * (j / 4) + col + (j % 2), len,
+                                    window, q_offset, Sq, Sk)
+                     ? 0.f : exp2f(x - l2[r]);
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - delta), as bf16 A fragments
+#pragma unroll
+        for (int j = 0; j < G::kStep / 2; ++j)
+          dp[j] = s[j] * (dp[j] - dl[(j % 4) / 2]);
+        uint32_t ds[G::kStep / 16][4];
+        pack_a<G::kStep>(ds, dp);
+        // dQ += dS K, K read MN-major
+        fence_regs(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::kStep / 16; ++kk)
+          Wgmma<D>::rs(dqa, ds[kk], mnmajor(k_st, G::kStep, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+      }
+      mbar_arrive(empty + 8 * st);
+    }
+    store_rows<D>(dq + (size_t)bh * Sq * D, row, Sq, col, dqa, scale);
+  }
+}
+
+// dK and dV: one block per (128 keys, KV head, b); each consumer warpgroup
+// holds 64 keys' dK and dV in registers over every query head of the group
+// and every 64-row query tile that sees a key of the block, in that order.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const float* __restrict__ vec,
+                            const int* __restrict__ lengths,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int B, int H,
+                            int KH, int Sq, int Sk, int sq_pad, int mode,
+                            int window, int q_offset, float scale,
+                            float scale_log2) {
+  using G = BwdTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_k = smem_u32(smem);
+  const uint32_t s_v = s_k + G::kOwnBytes;
+  const uint32_t s_ring = s_k + G::kRingOffset;   // stage st: Q, then dO
+  const uint32_t s_vec = s_k + G::kVecOffset;     // stage st: lse2, delta
+  const float* vec_s = reinterpret_cast<const float*>(smem + G::kVecOffset);
+  const uint32_t own_full = s_k + G::kBarOffset;
+  const uint32_t full = own_full + 8;
+  const uint32_t empty = full + 8 * G::kStages;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBwdRows;        // causal: the heaviest first
+  const int group = H / KH;
+  const int len = lengths[b];
+  int q_lo, q_hi;
+  query_range(mode, k0, min(k0 + kBwdRows, Sk) - 1, len, window, q_offset,
+              Sq, &q_lo, &q_hi);
+  const int t0 = (q_lo / G::kStep) * G::kStep;
+  const int n_q = q_hi > t0 ? (q_hi - t0 + G::kStep - 1) / G::kStep : 0;
+  const int n_tiles = group * n_q;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < G::kStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      const int kvm = b * KH + kvh;
+      mbar_expect_tx(own_full, 2 * G::kOwnBytes);
+#pragma unroll
+      for (int c = 0; c < G::kBoxes; ++c) {
+        tma_load3(s_k + c * kBwdRows * 128, &tk, own_full, 64 * c, k0, kvm);
+        tma_load3(s_v + c * kBwdRows * 128, &tv, own_full, 64 * c, k0, kvm);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % G::kStages;
+        const int bh = b * H + kvh * group + i / n_q;
+        const int q0 = t0 + (i % n_q) * G::kStep;
+        mbar_wait(empty + 8 * st, ((i / G::kStages) & 1) ^ 1);
+        const uint32_t q_st = s_ring + st * 2 * G::kStepBytes;
+        const uint32_t v_st = s_vec + st * G::kVecBytes;
+        mbar_expect_tx(full + 8 * st, 2 * G::kStepBytes + G::kVecBytes);
+#pragma unroll
+        for (int c = 0; c < G::kBoxes; ++c) {
+          tma_load3(q_st + c * G::kStep * 128, &tq, full + 8 * st, 64 * c,
+                    q0, bh);
+          tma_load3(q_st + G::kStepBytes + c * G::kStep * 128, &tdo,
+                    full + 8 * st, 64 * c, q0, bh);
+        }
+        bulk_load(v_st, vec + (size_t)bh * sq_pad + q0, G::kStep * 4,
+                  full + 8 * st);
+        bulk_load(v_st + G::kStep * 4,
+                  vec + ((size_t)B * H + bh) * sq_pad + q0, G::kStep * 4,
+                  full + 8 * st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = threadIdx.x - 128;
+    const int g = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const int ka = k0 + 64 * g;                  // this warpgroup's keys
+    const int row = ka + 16 * warp + lane / 4;   // and row + 8
+    const int col = 2 * (lane % 4);
+
+    float dka[D / 2], dva[D / 2];
+    zero(dka);
+    zero(dva);
+    if (n_tiles > 0) mbar_wait(own_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % G::kStages;
+      const int q0 = t0 + (i % n_q) * G::kStep;
+      const uint32_t q_st = s_ring + st * 2 * G::kStepBytes;
+      const uint32_t do_st = q_st + G::kStepBytes;
+      const float* lse2 = vec_s + st * (G::kVecBytes / 4);
+      const float* delta = lse2 + G::kStep;
+      mbar_wait(full + 8 * st, (i / G::kStages) & 1);
+      if (!tile_empty(mode, q0, q0 + G::kStep - 1, ka, ka + 63, len, window,
+                      q_offset, Sq, Sk)) {
+        // S^T = K Q^T and dP^T = V dO^T: keys are the rows
+        float s[G::kStep / 2], dp[G::kStep / 2];
+        zero(s);
+        zero(dp);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<G::kStep>::ss(s, kmajor(s_k, kBwdRows, 64 * g, kk),
+                              kmajor(q_st, G::kStep, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<G::kStep>::ss(dp, kmajor(s_v, kBwdRows, 64 * g, kk),
+                              kmajor(do_st, G::kStep, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P^T = exp2(S^T scale log2 e - lse2 of the column)
+        const bool masked = !tile_unmasked(mode, q0, q0 + G::kStep - 1, ka,
+                                           64, len, window, q_offset, Sk);
+#pragma unroll
+        for (int j = 0; j < G::kStep / 2; ++j) {
+          const int c = 8 * (j / 4) + col + (j % 2);
+          const float x = s[j] * scale_log2;
+          s[j] = masked && !visible(mode, q0 + c, row + 8 * ((j % 4) / 2),
+                                    len, window, q_offset, Sq, Sk)
+                     ? 0.f : exp2f(x - lse2[c]);
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS^T = P^T (dP^T - delta of the column)
+#pragma unroll
+        for (int j = 0; j < G::kStep / 2; ++j)
+          dp[j] = s[j] * (dp[j] - delta[8 * (j / 4) + col + (j % 2)]);
+        uint32_t pt[G::kStep / 16][4], dst[G::kStep / 16][4];
+        pack_a<G::kStep>(pt, s);
+        pack_a<G::kStep>(dst, dp);
+        // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+        fence_regs(dva);
+        fence_regs(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::kStep / 16; ++kk)
+          Wgmma<D>::rs(dva, pt[kk], mnmajor(do_st, G::kStep, kk));
+#pragma unroll
+        for (int kk = 0; kk < G::kStep / 16; ++kk)
+          Wgmma<D>::rs(dka, dst[kk], mnmajor(q_st, G::kStep, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+      }
+      mbar_arrive(empty + 8 * st);
+    }
+    const size_t base = (size_t)(b * KH + kvh) * Sk * D;
+    store_rows<D>(dk + base, row, Sk, col, dka, scale);
+    store_rows<D>(dv + base, row, Sk, col, dva, 1.f);
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* out, const void* dout, const void* lse,
+                         const void* lengths, void* vec, void* dq, void* dk,
+                         void* dv, int B, int H, int KH, int Sq, int Sk,
+                         int mode, int window, int q_offset, float scale,
+                         cudaStream_t stream) {
+  using G = BwdTile<D>;
+  const int sq_pad = (Sq + kBwdRows - 1) / kBwdRows * kBwdRows;
+  // the dQ kernel's maps: Q and dO in 128-row boxes, K and V in 64-row
+  // ones; the dK/dV kernel's the other way round
+  CUtensorMap tq_own, tdo_own, tk_step, tv_step, tq_step, tdo_step, tk_own,
+      tv_own;
+  if (!encode_map(&tq_own, q, D, Sq, B * H, kBwdRows, 64) ||
+      !encode_map(&tdo_own, dout, D, Sq, B * H, kBwdRows, 64) ||
+      !encode_map(&tk_step, k, D, Sk, B * KH, G::kStep, 64) ||
+      !encode_map(&tv_step, v, D, Sk, B * KH, G::kStep, 64) ||
+      !encode_map(&tq_step, q, D, Sq, B * H, G::kStep, 64) ||
+      !encode_map(&tdo_step, dout, D, Sq, B * H, G::kStep, 64) ||
+      !encode_map(&tk_own, k, D, Sk, B * KH, kBwdRows, 64) ||
+      !encode_map(&tv_own, v, D, Sk, B * KH, kBwdRows, 64))
+    return cudaErrorInvalidValue;
+  auto dq_kernel = flash_bwd_dq_wgmma_kernel<D>;
+  auto dkdv_kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * kLog2e;     // as the forward scales S
+  // dQ and the vectors first: the dK/dV pass reads them
+  dq_kernel<<<dim3(H, B, sq_pad / kBwdRows), kBwdThreads, G::kSmemBytes,
+              stream>>>(
+      tq_own, tdo_own, tk_step, tv_step,
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const int*>(lengths),
+      static_cast<float*>(vec), static_cast<__nv_bfloat16*>(dq), B, H, KH,
+      Sq, Sk, sq_pad, mode, window, q_offset, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<<<dim3(KH, B, (Sk + kBwdRows - 1) / kBwdRows), kBwdThreads,
+                G::kSmemBytes, stream>>>(
+      tq_step, tdo_step, tk_own, tv_own, static_cast<const float*>(vec),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), B, H, KH, Sq, Sk, sq_pad, mode,
+      window, q_offset, scale, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -510,6 +1071,41 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
         D, q, k, v, out, dout, lse, lengths, delta, dq, dk, dv, B, H, KH, Sq,
         Sk, mode, window, q_offset, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core pair: bfloat16 q, k, v, out, dout (16-byte aligned) at D =
+// 64 or 128; Sq, Sk, B, H >= 1.  `vec` is a float32 scratch of 2 x B x H x
+// roundup(Sq, 128).  Returns the launches' CUDA error code.
+int flash_attention_wgmma_bwd(const void* q, const void* k, const void* v,
+                              const void* out, const void* dout,
+                              const void* lse, const void* lengths,
+                              void* vec, void* dq, void* dk, void* dv, int B,
+                              int H, int KH, int Sq, int Sk, int D, int mode,
+                              int window, int q_offset, float scale,
+                              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (KH <= 0 || H % KH != 0 || mode < kCausal || mode > kFull || B <= 0 ||
+      Sq <= 0 || Sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 64: return static_cast<int>(launch_wgmma<64>(
+        q, k, v, out, dout, lse, lengths, vec, dq, dk, dv, B, H, KH, Sq, Sk,
+        mode, window, q_offset, scale, s));
+    case 128: return static_cast<int>(launch_wgmma<128>(
+        q, k, v, out, dout, lse, lengths, vec, dq, dk, dv, B, H, KH, Sq, Sk,
+        mode, window, q_offset, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the tensor-core pair's dynamic shared memory a block at head dim D (0 for
+// a head dim it does not take)
+int flash_attention_wgmma_bwd_smem(int D) {
+  switch (D) {
+    case 64: return static_cast<int>(BwdTile<64>::kSmemBytes);
+    case 128: return static_cast<int>(BwdTile<128>::kSmemBytes);
+    default: return 0;
+  }
 }
 
 const char* cuda_error_string(int code) {

@@ -2,8 +2,9 @@
 
 Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes``.  A library is named by a digest of its source and built at
-first use into ``build/kernels/`` of the checkout, so a changed source is
+``ctypes``.  A library is named by a digest of its source and of the
+headers of ``csrc/`` it includes, and built at first use into
+``build/kernels/`` of the checkout, so a changed source or header is
 rebuilt and an unchanged one is reused.  Nothing here runs at import.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/{name}.cu``, named by a digest of the source
+    and of each header of ``csrc/`` it includes (``#include "x.cuh"``)."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src)
+    for header in sorted(set(re.findall(rb'#include "([^"]+)"', src))):
+        digest.update((CSRC / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:

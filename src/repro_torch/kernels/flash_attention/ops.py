@@ -4,12 +4,15 @@ CPU, CUDA kernels for tensors on the card.  The forward
 (``flash_wgmma_kernel``: bfloat16 at head dims 64, 96, 128 and 256) or the
 CUDA-core one (``flash_fwd_kernel``: float32, and bfloat16 at head dim
 32), as ``variant`` says; the backward (``csrc/flash_attention_bwd.cu``) is
-a pair of CUDA-core kernels, ``flash_bwd_dq_kernel`` then
-``flash_bwd_dkdv_kernel``, behind :class:`FlashAttentionFn`, which
-:func:`flash_attention` goes through when autograd needs the gradient.
-There is no fallback: a launch or tensor map the card refuses raises.
-``launches`` counts kernel launches, in all and by kernel (the backward's
-calls as ``flash_attention.bwd``, its kernels as ``.bwd_dq`` and
+a pair of kernels, a dQ kernel then a dK/dV kernel, on the tensor cores
+(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkdv_wgmma_kernel``: bfloat16
+at head dims 64 and 128) or the CUDA cores (``flash_bwd_dq_kernel``,
+``flash_bwd_dkdv_kernel``: the rest), as ``bwd_variant`` says, behind
+:class:`FlashAttentionFn`, which :func:`flash_attention` goes through when
+autograd needs the gradient.  There is no fallback: a launch or tensor
+map the card refuses raises.  ``launches`` counts kernel launches, in all
+and by kernel (the backward's calls as ``flash_attention.bwd``, by pair as
+``.bwd_wgmma`` and ``.bwd_fma``, its kernels as ``.bwd_dq`` and
 ``.bwd_dkdv``)."""
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from .ref import (attention_backward_reference, attention_reference,
 
 launches = {"flash_attention": 0, "flash_attention.wgmma": 0,
             "flash_attention.fma": 0, "flash_attention.bwd": 0,
+            "flash_attention.bwd_wgmma": 0, "flash_attention.bwd_fma": 0,
             "flash_attention.bwd_dq": 0, "flash_attention.bwd_dkdv": 0}
 
 MODES = {"causal": 0, "length": 1, "full": 2}
@@ -45,6 +49,19 @@ VARIANTS = {
 }
 
 
+# The backward pair for each (type, head dim) the forward takes: "wgmma"
+# (the tensor cores) for bfloat16 at head dims 64 and 128; "fma" (CUDA-core
+# float32) for float32, which TF32 would round past its tolerance, and for
+# bfloat16 at 32, 96 and 256 (a D-256 tile of dK and dV does not fit a
+# warpgroup's registers in the same design).
+BWD_VARIANTS = {key: "wgmma" if key in ((torch.bfloat16, 64),
+                                        (torch.bfloat16, 128)) else "fma"
+                for key in VARIANTS}
+# the tensor-core pair's blocks own 128 rows: its float32 scratch holds
+# lse2 and delta for Sq rounded up to them
+BWD_ROWS = 128
+
+
 def variant(dtype: torch.dtype, d: int) -> str:
     """"wgmma" or "fma": the kernel that computes q of ``dtype`` at head dim
     ``d`` on the card."""
@@ -53,6 +70,13 @@ def variant(dtype: torch.dtype, d: int) -> str:
     except KeyError:
         raise ValueError(f"no flash-attention kernel for {dtype} at head "
                          f"dim {d}") from None
+
+
+def bwd_variant(dtype: torch.dtype, d: int) -> str:
+    """"wgmma" or "fma": the backward pair for q of ``dtype`` at head dim
+    ``d`` on the card."""
+    variant(dtype, d)
+    return BWD_VARIANTS[(dtype, d)]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -73,6 +97,11 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 10 + [
         ctypes.c_float, p]
     lib.flash_attention_bwd.restype = i
+    lib.flash_attention_wgmma_bwd.argtypes = [p] * 11 + [i] * 9 + [
+        ctypes.c_float, p]
+    lib.flash_attention_wgmma_bwd.restype = i
+    lib.flash_attention_wgmma_bwd_smem.argtypes = [i]
+    lib.flash_attention_wgmma_bwd_smem.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -159,20 +188,33 @@ def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
                          f"{tuple(q.shape)}")
     out, do = (_build.kernel_input(t.to(q.dtype)) for t in (out, do))
     lse = _build.kernel_input(lse.float())
-    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
-        return dq, dk, dv
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    # both pairs write every element of dq, dk and dv
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     kh, sk = k.shape[1], k.shape[2]
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kind = bwd_variant(q.dtype, d)
     lib = _build.load("flash_attention_bwd", _declare_bwd)
-    code = lib.flash_attention_bwd(
-        *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths, delta,
-                                       dq, dk, dv)),
-        _build.DTYPES[q.dtype], b, h, kh, sq, sk, d, MODES[mode], window,
-        q_offset, _scale(scale, d), _build.stream())
+    dims = (b, h, kh, sq, sk, d, MODES[mode], window, q_offset,
+            _scale(scale, d), _build.stream())
+    if kind == "wgmma":
+        # lse2 and delta, each (B, H, Sq rounded up to BWD_ROWS)
+        rows = -(-sq // BWD_ROWS) * BWD_ROWS
+        vec = torch.empty((2, b, h, rows), dtype=torch.float32,
+                          device=q.device)
+        code = lib.flash_attention_wgmma_bwd(
+            *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths,
+                                           vec, dq, dk, dv)), *dims)
+    else:
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        code = lib.flash_attention_bwd(
+            *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths,
+                                           delta, dq, dk, dv)),
+            _build.DTYPES[q.dtype], *dims)
     _build.check(lib, code, "flash_attention_bwd")
     launches["flash_attention.bwd"] += 1
+    launches[f"flash_attention.bwd_{kind}"] += 1
     launches["flash_attention.bwd_dq"] += 1
     launches["flash_attention.bwd_dkdv"] += 1
     return dq, dk, dv

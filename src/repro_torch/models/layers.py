@@ -158,11 +158,13 @@ def logits_fn(p: Embed, x, cfg):
 
 def cross_entropy(logits, labels, mask=None):
     """Mean next-token cross entropy in float32 (the JAX package's
-    ``cross_entropy``, in its max-shifted form).  The label's logit is what
-    the JAX package's one-hot sum gives: 0 for a label outside [0, V).
-    With ``mask``, the masked mean over max(sum(mask), 1)."""
-    m = logits.amax(-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    ``cross_entropy``): the log-sum-exp in its max-shifted form, by
+    ``torch.logsumexp``, whose backward keeps no second (B, S, V) float32
+    tensor (at qwen3-1.7b's vocabulary and a 4 x 2,048 batch, 4.6 GiB
+    each).  The label's logit is what the JAX package's one-hot sum gives:
+    0 for a label outside [0, V).  With ``mask``, the masked mean over
+    max(sum(mask), 1)."""
+    lse = torch.logsumexp(logits, -1)
     v = logits.shape[-1]
     inside = (labels >= 0) & (labels < v)
     lab = torch.gather(logits, -1,

@@ -18,6 +18,24 @@ from ..models.config import ModelConfig
 from . import optimizer as opt_lib
 
 
+def loss_and_grads(params, batch, cfg: ModelConfig):
+    """(loss, metrics, grads by parameter name) of ``model.loss_fn`` on
+    ``batch``, by autograd (the JAX package's ``jax.value_and_grad`` of
+    it); makes the parameters require grad, and gives a parameter that the
+    loss does not reach a zero gradient."""
+    ps = opt_lib.named(params)
+    for p in ps.values():
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = model_lib.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, list(ps.values()),
+                                    allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for (n, p), g in zip(ps.items(), grads)}
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, *,
                     compress_grads: bool = False,
                     microbatches: int = 1,
@@ -47,22 +65,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, *,
             g = grad_constraint(g)
         return g
 
-    def loss_and_grads(params, batch):
-        ps = opt_lib.named(params)
-        for p in ps.values():
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            loss, metrics = model_lib.loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, list(ps.values()),
-                                        allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(ps.items(), grads)}
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                post_grads(grads))
+    def step_grads(params, batch):
+        loss, metrics, grads = loss_and_grads(params, batch, cfg)
+        return loss, metrics, post_grads(grads)
 
     def grads_of(params, batch):
         if microbatches == 1:
-            return loss_and_grads(params, batch)
+            return step_grads(params, batch)
         b = batch["tokens"].shape[0]
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into "
@@ -78,7 +87,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, *,
             acc = grad_constraint(acc)
         loss_sum = 0.0
         for j in range(microbatches):
-            loss, metrics, g = loss_and_grads(
+            loss, metrics, g = step_grads(
                 params, {k: fold(a, j) for k, a in batch.items()})
             acc = {n: a + g[n].float() for n, a in acc.items()}
             if grad_constraint is not None:

@@ -874,9 +874,11 @@ def test_cuckoo_lookup_on_the_card_matches_the_cpu(cuda):
 
 # (b, h, kh, sq, sk, d, kwargs): causal GQA, window, q_offset with Sq < Sk,
 # length with rows past the length and a window, full with Sk 384, G 1,
-# head dims 32, 96, 128, 256, and rows that see no key (window, Sq > Sk)
+# head dims 32, 96, 128, 256, and rows that see no key (window, Sq > Sk);
+# in bf16 the cases at head dims 64 and 128 take the tensor-core pair
 FLASH_BWD_CASES = {
     "causal_gqa3": (2, 9, 3, 256, 256, 64, dict(mode="causal")),
+    "causal_d128": (2, 8, 2, 320, 320, 128, dict(mode="causal")),
     "window": (1, 4, 2, 200, 200, 64, dict(mode="causal", window=48)),
     "offset": (2, 4, 1, 77, 333, 128, dict(mode="causal", q_offset=256)),
     "length": (2, 4, 2, 96, 300, 64, dict(mode="length")),
@@ -885,6 +887,8 @@ FLASH_BWD_CASES = {
     "g1_d32": (2, 4, 4, 100, 100, 32, dict(mode="causal")),
     "d256": (1, 4, 1, 96, 96, 256, dict(mode="causal")),
     "no_key_rows": (1, 2, 1, 200, 100, 64, dict(mode="causal", window=16)),
+    "no_key_rows_d128": (1, 2, 1, 200, 100, 128, dict(mode="causal",
+                                                      window=16)),
 }
 
 
@@ -930,15 +934,22 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
     """The backward kernels against the plain backward on the same (q, k,
     v, out, lse, dO) — the kernel forward's out and lse — at the float32
     (2e-5) and bf16 (2e-2) tolerances, scaled by each gradient's largest
-    magnitude; and through autograd, against the plain backward of the
-    plain forward."""
+    magnitude, through the pair ``bwd_variant`` picks (the tensor cores
+    for bf16 at head dims 64 and 128); and through autograd, against the
+    plain backward of the plain forward."""
     q, k, v, do, kw = _bwd_inputs(cuda, case, dtype)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
     before = dict(fa_ops.launches)
     got = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
-    for key in ("bwd", "bwd_dq", "bwd_dkdv"):
+    pair = fa_ops.bwd_variant(dtype, q.shape[-1])
+    assert pair == ("wgmma" if dtype == torch.bfloat16
+                    and q.shape[-1] in (64, 128) else "fma")
+    for key in ("bwd", f"bwd_{pair}", "bwd_dq", "bwd_dkdv"):
         assert fa_ops.launches[f"flash_attention.{key}"] == \
             before[f"flash_attention.{key}"] + 1
+    other = {"wgmma": "fma", "fma": "wgmma"}[pair]
+    assert fa_ops.launches[f"flash_attention.bwd_{other}"] == \
+        before[f"flash_attention.bwd_{other}"]
     want = fa_ref.attention_backward_reference(q, k, v, out, lse, do, **kw)
     for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
@@ -949,12 +960,16 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
     want = fa_ref.attention_backward_reference(q, k, v, pout, plse, do, **kw)
     for name, t, w in zip(("dq", "dk", "dv"), (qa, ka, va), want):
         _scaled_close(t.grad, w, TOL[dtype], f"{case} autograd {name}")
-    if case == "no_key_rows":            # rows 115.. see no key
+    if case.startswith("no_key_rows"):   # rows 115.. see no key
         assert (qa.grad[:, :, 115:] == 0).all()
 
 
-def test_flash_backward_is_deterministic(cuda):
-    q, k, v, do, kw = _bwd_inputs(cuda, "causal_gqa3", torch.float32, 3)
+@pytest.mark.parametrize("case,dtype", [("causal_gqa3", torch.float32),
+                                        ("causal_d128", torch.bfloat16)])
+def test_flash_backward_is_deterministic(cuda, case, dtype):
+    """Two calls, bit-equal: the CUDA-core pair in float32 and the
+    tensor-core pair in bf16 at head dim 128 (no atomics)."""
+    q, k, v, do, kw = _bwd_inputs(cuda, case, dtype, 3)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
     a = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
     b = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)

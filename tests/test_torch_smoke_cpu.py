@@ -178,6 +178,17 @@ def test_hgmma_check_counts_each_head_dim(smoke):
         smoke.hgmma_by_head_dim(_sass_listing(bodies + [fma]))
     with pytest.raises(AssertionError, match=r"head dims \[64, 96\]"):
         smoke.hgmma_by_head_dim(_sass_listing(bodies[2:] + [fma]))
+    # the backward's tensor-core pair, each kernel at head dims 64 and 128
+    bwd = [(f"_ZN12_GLOBAL__N_125{k}ILi{d}EEEv14CUtensorMap_", [hg] * 3)
+           for k in smoke.BWD_WGMMA_KERNELS for d in (64, 128)]
+    for k in smoke.BWD_WGMMA_KERNELS:
+        assert smoke.hgmma_by_head_dim(_sass_listing(bwd), k,
+                                       smoke.BWD_WGMMA_HEAD_DIMS) == {
+            64: 3, 128: 3}
+    with pytest.raises(AssertionError, match=r"dkdv_wgmma_kernel at head "
+                                             r"dims \[128\]"):
+        smoke.hgmma_by_head_dim(_sass_listing(bwd[:3]), "flash_bwd_dkdv_"
+                                "wgmma_kernel", (64, 128))
 
 
 def test_device_time_retakes_an_empty_trace(smoke, monkeypatch):
@@ -465,7 +476,7 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 28
+    assert len(p) == len(set(p)) == 29
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")
@@ -474,7 +485,7 @@ def test_phases_run_in_order(smoke):
     assert p.index("kv_service") + 1 == p.index("chain_programs")
     assert p.index("chain_programs") + 1 == p.index("cuckoo_get")
     assert p.index("cuckoo_get") < p.index("lm_prefill")
-    assert p[-2:] == ("flash_bwd_kernel", "lm_train")
+    assert p[-3:] == ("flash_bwd_kernel", "lm_train", "lm_train_bf16")
 
 
 def test_phase_chain_faults_cpu(smoke):
@@ -643,17 +654,65 @@ def test_phase_lm_train_cpu(smoke, tmp_path, one_thread):
     assert not list(tmp_path.iterdir())       # the checkpoints are gone
 
 
+def test_phase_lm_train_bf16_cpu(smoke, one_thread):
+    """The bf16 training phase at qwen3's smoke config on the CPU: the
+    three witnesses (the plain attention every way: equal), no launches,
+    AdamW's float32 state and finite losses whose last is below the
+    first."""
+    cfg = dataclasses.replace(registry.smoke_config("qwen3-1.7b"),
+                              dtype="bfloat16", remat="block")
+    ocfg = smoke.train_opt.AdamWConfig(lr=1e-2, warmup_steps=3,
+                                       total_steps=200, weight_decay=0.0)
+    r = smoke.phase_lm_train_bf16("cpu", cfg=cfg, ocfg=ocfg, batch=16,
+                                  seq=32, steps=40, time_it=False)
+    w = r["witness"]
+    assert w["loss"] == w["plain_loss"] == w["fma_loss"]
+    assert w["worst_grad_rel_err"] == {"wgmma": 0.0, "fma": 0.0}
+    assert r["step_launches"] == {k: 0 for k in r["step_launches"]}
+    assert len(r["losses"]) == 40 and r["losses"][-1] < r["losses"][0]
+    with pytest.raises(ValueError, match="bf16 model"):
+        smoke.phase_lm_train_bf16("cpu", cfg=dataclasses.replace(
+            cfg, dtype="float32"))
+
+
+def test_ptxas_report_reads_each_instantiation(smoke):
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_"
+        "bwd_dq_wgmma_kernelILi128EEEv14CUtensorMap_st' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_"
+        "bwd_dq_kernelIfLi64EEEvPKT_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers"])
+    assert smoke.ptxas_report(log, smoke.BWD_WGMMA_KERNELS) == {
+        "flash_bwd_dq_wgmma_kernel<128>": dict(
+            registers=168, spill_stores=8, spill_loads=4)}
+
+
 def test_train_launches_count_the_remat(smoke):
     cfg = dataclasses.replace(registry.get_config("smollm-135m"),
                               dtype="float32")
     want = smoke.train_launches(cfg, "cuda")
-    assert want == {"flash_attention": 60, "flash_attention.fma": 60,
-                    "flash_attention.bwd": 30, "flash_attention.bwd_dq": 30,
+    assert want == {"flash_attention": 60, "flash_attention.wgmma": 0,
+                    "flash_attention.fma": 60, "flash_attention.bwd": 30,
+                    "flash_attention.bwd_wgmma": 0,
+                    "flash_attention.bwd_fma": 30,
+                    "flash_attention.bwd_dq": 30,
                     "flash_attention.bwd_dkdv": 30}
     want = smoke.train_launches(dataclasses.replace(cfg, remat="none"),
                                 "cuda")
     assert want["flash_attention.fma"] == 30
     assert set(smoke.train_launches(cfg, "cpu").values()) == {0}
+    # lm_train_bf16's: qwen3-1.7b in bf16, all on the tensor cores
+    want = smoke.train_launches(registry.get_config("qwen3-1.7b"), "cuda")
+    assert want == {"flash_attention": 56, "flash_attention.wgmma": 56,
+                    "flash_attention.fma": 0, "flash_attention.bwd": 28,
+                    "flash_attention.bwd_wgmma": 28,
+                    "flash_attention.bwd_fma": 0,
+                    "flash_attention.bwd_dq": 28,
+                    "flash_attention.bwd_dkdv": 28}
 
 
 def test_plain_attention_patch_is_undone(smoke):

@@ -8,14 +8,15 @@ ServeEngine ticks; gemma3-1b, also on rolling int8 caches, mixtral-8x7b,
 phi-3-vision-4.2b and seamless-m4t-medium prefill and decode), and the
 training paths (smollm-135m in float32: train steps through the flash
 backward's CUDA-core pair, AdamW, checkpoints and a crash resumed bit for
-bit; qwen3-1.7b in bf16 through its tensor-core pair).
+bit; qwen3-1.7b in bf16 through its tensor-core pair; rwkv6-7b and
+recurrentgemma-9b in bf16 through the recurrences' backward kernels).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs twenty-nine phases
+``nvcc`` per source, all started together), then runs thirty-three phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -218,6 +219,22 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``rglru.variant`` picks it.  The recurrentgemma-9b
                          drives' 26 launches a prefill must all be the
                          ring kernel's.
+14b. ``wkv6_bwd_kernel`` — the WKV6 backward kernel (two passes over
+                         time, float64 states) against its plain backward
+                         at the ``wkv6_kernel`` cases (prefill shape, T /
+                         2 + 1, T 1; bf16 and float32), with a final-
+                         state gradient, and at decays in [0.01, 0.115]:
+                         dr, dk, dv at REC_TOL, dw and du within STATE_TOL
+                         of their largest magnitude, each case bit-equal
+                         run to run; timed beside its bound (operations)
+                         and the plain backward.
+14c. ``rglru_bwd_kernel`` — the RG-LRU backward kernel likewise at the
+                         ``rglru_kernel`` cases on the forward kernel's h,
+                         with and without a final-state gradient: float32
+                         bit-equal to the plain backward, du at REC_TOL,
+                         da within STATE_TOL of its largest magnitude,
+                         bit-equal run to run; timed beside its bytes
+                         bound.
 15. ``flash_bwd_kernel`` — the flash backward's two pairs, a dQ kernel
                          then a dK/dV kernel: on the tensor cores
                          (``flash_bwd_dq_wgmma_kernel``,
@@ -275,6 +292,29 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          peak memory, a traced step's idle share and its
                          device time by flash backward (dQ, dK/dV), flash
                          forward, matmuls and the rest.
+18. ``lm_train_rwkv``   — rwkv6-7b at full width and 8 of its 32 layers
+                         (2.29 G parameters), bf16 with AdamW's float32
+                         master and moments, remat "block", batch 4 x
+                         2,048: the first step's loss and gradients at
+                         sequence 512 against the same call with the
+                         plain recurrences (plain forward and plain
+                         backward functions) on the card, beside the
+                         same with their forward in float64; 16 WKV6
+                         forward and 8 backward launches a step and no
+                         plain call; 8 steps (on data over 512 tokens) whose
+                         losses are finite and fall; ms a step, tokens/s,
+                         peak memory, a traced step's idle share and its
+                         device time by kernel group.
+19. ``lm_train_griffin`` — recurrentgemma-9b at full width and one
+                         pattern (2 recurrent layers and 1 local-attention
+                         layer, 2.76 G parameters), bf16, batch 2 x 2,048:
+                         the same; 4 RG-LRU forward (ring) and 2 backward
+                         launches, 2 flash forward (tensor cores) and 1 +
+                         1 CUDA-core backward launches a step; then the
+                         flash backward at its shape (2, 16 / 1, 2,048^2,
+                         head dim 256, window 2,048, bf16; the CUDA-core
+                         pair) against the plain backward, timed beside its
+                         bound, the plain backward and SDPA's backward.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
@@ -283,9 +323,12 @@ the flash kernel is held at 2e-5 (float32) and 2e-2 (bfloat16),
 test_kernels.py's tolerances, the decode partial at DECODE_TOL in
 both types, the recurrences at REC_TOL and their float32 final states at
 STATE_TOL; the flash backward's gradients at TOL of their largest
-magnitude, lm_train's at GRAD_REL, and lm_train_bf16's against the
-CUDA-core pair's error (BF16_WITNESS_K).  The last lines are the kernels'
-JSON, the card line from ``nvidia-smi`` and the result line.  Without a
+magnitude, lm_train's at GRAD_REL, lm_train_bf16's against the
+CUDA-core pair's error (BF16_WITNESS_K), the recurrent drives' against
+the plain recurrences' float64 forward's (REC_WITNESS_K); the
+recurrences' backward kernels as 14b and 14c say.  The
+last lines are the kernels' JSON, the card line from ``nvidia-smi`` and
+the result line.  Without a
 CUDA card, or outside a checkout, the script exits non-zero and prints no
 result.
 """
@@ -3324,21 +3367,22 @@ def rglru_cases(b: int, t: int, d: int):
             (b, 33, d + 3))
 
 
-def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
-    def inputs(seed, dtype, bb, tt, dd):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        # the path's decays: a = exp(-8 softplus(lam) r) >= ~0.86
-        a = 0.86 + 0.14 * torch.rand((bb, tt, dd), generator=gen,
-                                     device=device)
-        u = torch.randn((bb, tt, dd), generator=gen, device=device)
-        return a.to(dtype), u.to(dtype)
+def rglru_inputs(device, seed, dtype, b, t, d):
+    """Seeded a and u (B, T, D) of ``dtype``, a drawn in the path's range:
+    a = exp(-8 softplus(lam) r) >= ~0.86."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = 0.86 + 0.14 * torch.rand((b, t, d), generator=gen, device=device)
+    u = torch.randn((b, t, d), generator=gen, device=device)
+    return a.to(dtype), u.to(dtype)
 
+
+def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
     on = int(torch.device(device).type == "cuda")
     errs, kinds = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for bb, tt, dd in rglru_cases(b, t, d):
             key = f"{bb}x{tt}x{dd}/{str(dtype)[6:]}"
-            a, u = inputs(tt + dd, dtype, bb, tt, dd)
+            a, u = rglru_inputs(device, tt + dd, dtype, bb, tt, dd)
             kind = rg_ops.variant(dtype, dd)
             before = read_launches()
             h, last = rg_ops.rglru(a, u)
@@ -3360,7 +3404,7 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
             errs[f"last/{key}"] = require_close(last, plast, STATE_TOL,
                                                 f"rglru final h {key}")
             del a, u, h, last, ph, plast
-    a, u = inputs(0, torch.float32, b, t, d)
+    a, u = rglru_inputs(device, 0, torch.float32, b, t, d)
     nbytes = 3 * a.numel() * 4 + b * d * 4      # a, u in; h, final h out
     result = dict(max_abs_err=errs[f"h/{b}x{t}x{d}/float32"], errs=errs,
                   variants=kinds, shape=(b, t, d), bytes=nbytes,
@@ -3374,6 +3418,154 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
         result["bf16_ms"] = cuda_ms(lambda: rg_ops.rglru(a, u), reps=10)
         result["bf16_bound_ms"] = (3 * a.numel() * 2 + b * d * 4) \
             / HBM_BYTES_PER_S * 1e3
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 14b-14c: the recurrences' backward kernels
+# ---------------------------------------------------------------------------
+
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du")
+
+
+def wkv6_bwd_inputs(device, seed, dtype, b, h, t, n, decays=None,
+                    with_ds=False):
+    """``wkv6_inputs`` (decays drawn as the model's, or uniform in
+    ``decays``), an output gradient do of r's type and, ``with_ds``, a
+    float32 final-state gradient."""
+    args = list(wkv6_inputs(device, seed, dtype, b, h, t, n))
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if decays is not None:
+        lo, hi = decays
+        args[3] = lo + (hi - lo) * torch.rand((b, h, t, n), generator=gen,
+                                              device=device)
+    do = torch.randn((b, h, t, n), generator=gen, device=device).to(dtype)
+    ds = (torch.randn((b, h, n, n), generator=gen, device=device)
+          if with_ds else None)
+    return tuple(args), do, ds
+
+
+def check_wkv6_backward(args, do, ds, what) -> dict:
+    """The WKV6 backward (kernel on the card) against the plain backward:
+    dr, dk, dv at REC_TOL of r's type, dw and du within STATE_TOL of their
+    largest magnitude; a second run must be bit-equal.  Returns the
+    errors."""
+    got = wkv_ops.wkv6_backward(*args, do, ds)
+    again = wkv_ops.wkv6_backward(*args, do, ds)
+    want = wkv_ref.wkv6_backward_reference(*args, do, ds)
+    errs = {}
+    for name, g, w, g2 in zip(WKV_BWD_NAMES, got, want, again):
+        if name in ("dw", "du"):
+            errs[name] = require_scaled(g, w, STATE_TOL, f"{what} {name}")
+        else:
+            errs[name] = require_close(g, w, REC_TOL[args[0].dtype],
+                                       f"{what} {name}")
+        if not torch.equal(g, g2):
+            raise AssertionError(f"{what}: {name} differs from run to run")
+    return errs
+
+
+def phase_wkv6_bwd_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
+    """The WKV6 backward kernel against its plain backward at the
+    ``wkv6_kernel`` phase's shapes and cases (the prefill shape, T / 2 + 1
+    and T 1, bf16 and float32), with a given final-state gradient, and
+    with decays in [0.01, 0.115], below the chunked form's range; each
+    case twice, bit-equal.  With ``time_it``, the kernel (CUDA events)
+    beside its bound and the plain backward at the prefill shape."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for tt in (t, t // 2 + 1, 1):
+            key = f"T{tt}/{str(dtype)[6:]}"
+            errs[key] = check_wkv6_backward(
+                *wkv6_bwd_inputs(device, tt, dtype, b, h, tt, n),
+                f"wkv6 bwd {key}")
+    errs["dS/bfloat16"] = check_wkv6_backward(
+        *wkv6_bwd_inputs(device, 5, torch.bfloat16, b, h, t, n,
+                         with_ds=True), "wkv6 bwd dS/bfloat16")
+    errs["small_decays/float32"] = check_wkv6_backward(
+        *wkv6_bwd_inputs(device, 6, torch.float32, b, h, t // 2 + 1, n,
+                         decays=(0.01, 0.115), with_ds=True),
+        "wkv6 bwd small_decays/float32")
+    args, do, _ = wkv6_bwd_inputs(device, 0, torch.bfloat16, b, h, t, n)
+    r = args[0]
+    # r, k, v, do, w in; dr, dk, dv, dw out; u and du
+    nbytes = (r.numel() * (7 * r.element_size() + 2 * 4)
+              + 2 * args[4].numel() * 4)
+    flops = 10.0 * b * h * t * n * n       # pass A 4 N^2, pass B 6 N^2
+    result = dict(max_abs_err=max(errs[f"T{t}/bfloat16"][k]
+                                  for k in ("dr", "dk", "dv")),
+                  errs=errs, shape=(b, h, t, n), bytes=nbytes, flops=flops,
+                  bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                               flops / F32_FLOP_PER_S) * 1e3,
+                  bound_by=("operations" if flops / F32_FLOP_PER_S
+                            > nbytes / HBM_BYTES_PER_S else "bytes"))
+    if time_it:
+        result["ms"] = cuda_ms(lambda: wkv_ops.wkv6_backward(*args, do),
+                               reps=5)
+        result["plain_ms"] = cuda_ms(
+            lambda: wkv_ref.wkv6_backward_reference(*args, do), reps=1)
+        f32 = tuple(x.float() for x in args)
+        result["float32_ms"] = cuda_ms(
+            lambda: wkv_ops.wkv6_backward(*f32, do.float()), reps=5)
+        result["tflop_per_s"] = flops / (result["ms"] * 1e-3) / 1e12
+    return result
+
+
+def phase_rglru_bwd_kernel(device, b=4, t=2048, d=4096, time_it=True):
+    """The RG-LRU backward kernel against its plain backward at the
+    ``rglru_kernel`` phase's cases, float32 and bf16, on the forward
+    kernel's own h, every other case with a final-state gradient: du at
+    REC_TOL, da within STATE_TOL of its largest magnitude, float32 bit-equal
+    to the plain backward (both round each multiply and add alone), and a
+    second run bit-equal.  With ``time_it``, the kernel at the prefill
+    shape (CUDA events) beside its bytes bound and the plain backward."""
+    on = int(torch.device(device).type == "cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (bb, tt, dd) in enumerate(rglru_cases(b, t, d)):
+            key = f"{bb}x{tt}x{dd}/{str(dtype)[6:]}"
+            a, u = rglru_inputs(device, tt + dd, dtype, bb, tt, dd)
+            h, _ = rg_ops.rglru(a, u)
+            gen = torch.Generator(device=device).manual_seed(i)
+            dh = torch.randn((bb, tt, dd), generator=gen,
+                             device=device).to(dtype)
+            last = (torch.randn((bb, dd), generator=gen, device=device)
+                    if i % 2 == 0 else None)
+            before = read_launches()["rglru_bwd"]
+            da, du = rg_ops.rglru_backward(a, h, dh, last)
+            if read_launches()["rglru_bwd"] != before + on:
+                raise AssertionError(f"rglru bwd {key}: no launch counted")
+            pda, pdu = rg_ref.rglru_backward_reference(a, h, dh, last)
+            if dtype == torch.float32 and not (torch.equal(da, pda) and
+                                               torch.equal(du, pdu)):
+                raise AssertionError(f"rglru bwd {key}: float32 da or du "
+                                     f"not bit-equal to the plain backward")
+            errs[f"du/{key}"] = require_close(du, pdu, REC_TOL[dtype],
+                                              f"rglru bwd du {key}")
+            errs[f"da/{key}"] = require_scaled(da, pda, STATE_TOL,
+                                               f"rglru bwd da {key}")
+            da2, du2 = rg_ops.rglru_backward(a, h, dh, last)
+            if not (torch.equal(da, da2) and torch.equal(du, du2)):
+                raise AssertionError(f"rglru bwd {key}: differs from run "
+                                     f"to run")
+            del a, u, h, dh, da, du, pda, pdu, da2, du2
+    a, u = rglru_inputs(device, 0, torch.float32, b, t, d)
+    h, _ = rg_ops.rglru(a, u)
+    dh = torch.randn_like(h)
+    nbytes = 5 * a.numel() * 4               # a, h, dh in; da, du out
+    result = dict(max_abs_err=errs[f"du/{b}x{t}x{d}/float32"], errs=errs,
+                  shape=(b, t, d), bytes=nbytes,
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    if time_it:
+        result["ms"] = cuda_ms(lambda: rg_ops.rglru_backward(a, h, dh),
+                               reps=10)
+        result["plain_ms"] = cuda_ms(
+            lambda: rg_ref.rglru_backward_reference(a, h, dh), reps=1)
+        result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
+        a, h, dh = a.bfloat16(), h.bfloat16(), dh.bfloat16()
+        result["bf16_ms"] = cuda_ms(lambda: rg_ops.rglru_backward(a, h, dh),
+                                    reps=10)
+        result["bf16_bound_ms"] = nbytes / 2 / HBM_BYTES_PER_S * 1e3
     return result
 
 
@@ -4044,13 +4236,341 @@ def phase_lm_train_bf16(device, cfg=None, ocfg=None, batch=4, seq=2048,
 
 
 # ---------------------------------------------------------------------------
+# phases 18-19: training of the recurrent archs
+# ---------------------------------------------------------------------------
+
+class PlainWKV6Fn(torch.autograd.Function):
+    """The plain WKV6 forward and the plain backward
+    (``wkv6_reference``, ``wkv6_backward_reference``) as one autograd
+    function, on any device: the recurrent drives' witness."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return wkv_ref.wkv6_reference(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        r, k, v, w, u = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        return wkv_ref.wkv6_backward_reference(r, k, v, w, u, do, ds)
+
+
+class PlainRGLRUFn(torch.autograd.Function):
+    """The plain RG-LRU forward and backward as one autograd function."""
+
+    @staticmethod
+    def forward(ctx, a, u):
+        ctx.set_materialize_grads(False)
+        h, h_last = rg_ref.rglru_reference(a, u)
+        ctx.save_for_backward(a, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        return rg_ref.rglru_backward_reference(a, h, dh, dh_last)
+
+
+class Float64WKV6Fn(PlainWKV6Fn):
+    """The plain WKV6 forward in float64 (its outputs rounded to the
+    model's types once), and the plain backward (float64 throughout): the
+    recurrence's own rounding floor, the yardstick of the witness."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        o, s = wkv_ref.wkv6_reference(*(x.double() for x in (r, k, v, w,
+                                                             u)))
+        return o.to(r.dtype), s.float()
+
+
+class Float64RGLRUFn(torch.autograd.Function):
+    """The plain RG-LRU forward and backward in float64, rounded to the
+    model's types once."""
+
+    @staticmethod
+    def forward(ctx, a, u):
+        ctx.set_materialize_grads(False)
+        h, h_last = rg_ref.rglru_reference(a.double(), u.double())
+        ctx.save_for_backward(a, h)
+        return h.to(a.dtype), h_last.float()
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        da, du = rg_ref.rglru_backward_reference(
+            a.double(), h, dh.double(),
+            None if dh_last is None else dh_last.double())
+        return da.to(a.dtype), du.to(a.dtype)
+
+
+@contextlib.contextmanager
+def plain_recurrences(wkv_fn=PlainWKV6Fn, rglru_fn=PlainRGLRUFn):
+    """Within: the models' WKV6 and RG-LRU are the plain forward and
+    backward functions (by default; no kernel launches, and not autograd
+    of the scans, which would keep a state a step), on any device."""
+    kernels = wkv_ops.wkv6, rg_ops.rglru
+    wkv_ops.wkv6 = wkv_fn.apply
+    rg_ops.rglru = rglru_fn.apply
+    try:
+        yield
+    finally:
+        wkv_ops.wkv6, rg_ops.rglru = kernels
+
+
+# the plain versions the kernel wrappers call on CPU tensors
+PLAIN_FUNCTIONS = ((wkv_ops, "wkv6_reference"),
+                   (wkv_ops, "wkv6_backward_reference"),
+                   (rg_ops, "rglru_reference"),
+                   (rg_ops, "rglru_backward_reference"),
+                   (fa_ops, "attention_reference"),
+                   (fa_ops, "attention_reference_lse"),
+                   (fa_ops, "attention_backward_reference"))
+
+
+@contextlib.contextmanager
+def counted_plain_calls(calls: dict):
+    """Within: each call the wrappers make of a plain version (which they
+    make only for CPU tensors) is counted in ``calls`` by name."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in
+             PLAIN_FUNCTIONS]
+    for mod, name, fn in saved:
+        calls.setdefault(name, 0)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def recurrent_train_launches(cfg, device) -> dict:
+    """``train_launches`` of ``cfg`` and the recurrences' launches of one
+    train step: each forward kernel once per layer and again under remat,
+    of the kernel ``variant`` picks for RG-LRU, and each backward kernel
+    once per layer (none on the CPU)."""
+    prefill = path_launches(cfg, device)[0]
+    again = 1 if cfg.remat == "none" else 2
+    return {**train_launches(cfg, device),
+            "wkv6": again * prefill["wkv6"], "wkv6_bwd": prefill["wkv6"],
+            "rglru": again * prefill["rglru"],
+            **{k: again * n for k, n in
+               rglru_variant_launches(cfg, device).items()},
+            "rglru_bwd": prefill["rglru"]}
+
+
+# The recurrent drives' witness, at sequence WITNESS_SEQ on the card: the
+# loss and gradients with the kernels against the same call with the plain
+# recurrences (float32 forward), the loss within BF16_LOSS_REL.  Both
+# compute the recurrence in float32 (the backward in float64) on the same
+# bf16 operands and differ in the order of the forward's sums, which flips
+# bf16 roundings of its outputs that the next layers carry: the kernels'
+# worst gradient error (of its leaf's largest magnitude) may be
+# REC_WITNESS_K times that of the plain recurrences with a float64 forward,
+# which differ from the float32 ones by just that rounding.  (A first
+# fixed limit of 5e-2 read 0.0566 on rwkv6-7b's decoder.0.mix.wo, of a
+# leaf whose largest magnitude is 0.011.)
+WITNESS_SEQ = 512
+REC_WITNESS_K = BF16_WITNESS_K
+# rwkv6-7b at 8 of its 32 layers (2.29 G parameters, 36.6 GB of parameter,
+# gradient, master and moments), batch 4; recurrentgemma-9b at one whole
+# pattern, 3 of 38 layers (2.76 G parameters, 2.1 G of them the untied
+# embedding and head, 44 GB), batch 2 (its 256,000-wide logits and AdamW's
+# temporaries would pass 80 GB at 4)
+RECURRENT_TRAIN = (("lm_train_rwkv", "rwkv6-7b", 8, 4),
+                   ("lm_train_griffin", "recurrentgemma-9b", 3, 2))
+
+
+def phase_lm_train_recurrent(device, cfg, ocfg=None, batch=4, seq=2048,
+                             steps=8, witness_seq=WITNESS_SEQ,
+                             time_it=True):
+    """A recurrent arch (rwkv6-7b or recurrentgemma-9b, cut in depth) in
+    bf16 (remat "block"; AdamW's float32 master and moments), batches of
+    ``TokenPipeline`` (seed 0), the launcher's AdamW settings unless
+    ``ocfg`` is given: the gradient witness at ``witness_seq`` (the loss
+    and gradients, ``loss_and_grads``, against the same call with the
+    plain recurrences); a step's launches by kernel, with no plain call;
+    ``steps`` steps on LEARN_VOCAB data, each loss finite and the last
+    below the first; with ``time_it``, ms a step, tokens/s, peak memory, a
+    traced step's idle share and device time by kernel group.  A model
+    with attention layers (recurrentgemma-9b's local ones), also the flash
+    backward at the drive's shape (its D 256 pair) against the plain
+    backward, timed beside its bound, the plain backward and SDPA's
+    backward."""
+    ocfg = ocfg or train_opt.AdamWConfig(lr=3e-3, warmup_steps=10,
+                                         total_steps=steps)
+    if cfg.dtype != "bfloat16":
+        raise ValueError(f"the recurrent drives train a bf16 model, not "
+                         f"{cfg.dtype}")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=0)
+
+    def batch_at(i, pipe=pipe):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in pipe.batch_at(i).items()}
+    sync(device)
+    result = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+                  batch=batch, seq=seq, remat=cfg.remat, dtype=cfg.dtype,
+                  witness_seq=witness_seq, init_s=time.perf_counter() - t0)
+
+    # the witness: kernels against the plain recurrences, at witness_seq,
+    # beside the plain recurrences with a float64 forward
+    wb = batch_at(0, TokenPipeline(cfg.vocab_size, witness_seq, batch,
+                                   seed=0))
+    loss, g_kernel = train_loop.loss_and_grads(params, wb, cfg)[::2]
+    sync(device)
+    reset_launches()
+    with plain_recurrences():
+        plain_loss, g_plain = train_loop.loss_and_grads(params, wb, cfg)[::2]
+    with plain_recurrences(Float64WKV6Fn, Float64RGLRUFn):
+        f64_loss, g_f64 = train_loop.loss_and_grads(params, wb, cfg)[::2]
+    sync(device)
+    ran = {k: n for k, n in read_launches().items()
+           if k.startswith(("wkv6", "rglru")) and n}
+    if ran:
+        raise AssertionError(f"the plain witnesses launched {ran}")
+    inf = float("inf")
+    errs = {kind: {name: require_scaled(g[name], ref, inf,
+                                        f"{cfg.name} {kind} d {name}")
+                   for name, ref in g_plain.items()}
+            for kind, g in (("kernels", g_kernel), ("float64", g_f64))}
+    worst = {kind: max(e, key=e.get) for kind, e in errs.items()}
+    result["witness"] = dict(
+        loss=float(loss), plain_loss=float(plain_loss),
+        float64_loss=float(f64_loss),
+        grad_norm=float(train_opt.global_norm(g_kernel)),
+        plain_grad_norm=float(train_opt.global_norm(g_plain)),
+        worst_grad=worst,
+        worst_grad_rel_err={k: errs[k][w] for k, w in worst.items()})
+    del g_kernel, g_plain, g_f64, wb
+    if not abs(float(loss) - float(plain_loss)) <= BF16_LOSS_REL * abs(
+            float(plain_loss)):
+        raise AssertionError(f"{cfg.name} witness: loss {float(loss)} vs "
+                             f"plain {float(plain_loss)} (limit "
+                             f"{BF16_LOSS_REL} relative)")
+    e = result["witness"]["worst_grad_rel_err"]
+    if not e["kernels"] <= REC_WITNESS_K * e["float64"]:
+        raise AssertionError(f"{cfg.name} witness: the kernels' worst "
+                             f"gradient error {e['kernels']} is past "
+                             f"{REC_WITNESS_K} x the float64 forward's "
+                             f"{e['float64']}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ``steps`` steps on data that can be learned in that many; the first
+    # counted by kernel, with no plain version called
+    want = recurrent_train_launches(cfg, device)
+    learn = TokenPipeline(LEARN_VOCAB, seq, batch, seed=0)
+    p, params = params, None
+    state = train_opt.init(p)
+    step = train_loop.make_train_step(cfg, ocfg)
+    losses, step_ms, plain_calls = [], [], {}
+    sync(device)
+    reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i == 0 and torch.device(device).type == "cuda":
+            with counted_plain_calls(plain_calls):
+                p, state, m = step(p, state, batch_at(i, learn))
+        else:
+            p, state, m = step(p, state, batch_at(i, learn))
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            result["step_launches"] = require_launches(
+                want, f"one {cfg.name} train step")
+            if any(plain_calls.values()):
+                raise AssertionError(f"a {cfg.name} train step called plain"
+                                     f" versions: {plain_calls}")
+    result["launches"] = require_launches(
+        {k: n * steps for k, n in want.items()},
+        f"{steps} {cfg.name} train steps")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: the losses are not finite or the"
+                             f" last is not below the first: {losses}")
+    result.update(losses=losses, step_ms=step_ms, plain_calls=plain_calls)
+    if time_it:
+        result["ms_per_step_median"] = float(np.median(step_ms[1:]))
+        result["tokens_per_s"] = (batch * seq * 1e3
+                                  / result["ms_per_step_median"])
+        torch.cuda.reset_peak_memory_stats()
+        b0 = batch_at(steps, learn)
+        sync(device)
+        t0 = time.perf_counter()
+        p, state, _ = step(p, state, b0)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: step(p, state, b0), 1,
+                              RECURRENT_BWD_KERNELS)
+        prof["wall_ms"] = wall_ms
+        prof["idle_share"] = 1 - prof["device_ms"] / wall_ms
+        result["step_profile"] = prof
+    del p, state
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    if any(cfg.layer_type(i) in transformer.ATTN_KINDS
+           for i in range(cfg.num_layers)):
+        result["flash_backward"] = flash_bwd_at(
+            device, cfg, batch, seq, time_it)
+    return result
+
+
+def flash_bwd_at(device, cfg, batch, seq, time_it=True) -> dict:
+    """The flash backward at a drive's attention shape (``cfg``'s heads,
+    head dim and window, causal, its type), through the pair
+    ``bwd_variant`` picks, against the plain backward; with ``time_it``
+    by device time beside its bound (operations: ``flash_bwd_ops`` at the
+    bf16 peak), the plain backward and SDPA's backward."""
+    dtype = getattr(torch, cfg.dtype)
+    b, h, kh, d = batch, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(mode="causal", window=cfg.window)
+    errs, (q, k, v, out, lse, do) = flash_bwd_check(
+        device, dtype, b, h, kh, seq, seq, d, kw, 9,
+        f"flash bwd at {cfg.name}'s shape")
+    flops = flash_bwd_ops(b, h, seq, seq, d, True)
+    r = dict(shape=(b, h, kh, seq, seq, d, str(dtype)[6:]),
+             window=cfg.window, pair=errs["pair"], errs=errs, flops=flops,
+             bound_ms=flops / BF16_FLOP_PER_S * 1e3, bound_by="operations")
+    if time_it:
+        t = device_time(lambda: fa_ops.flash_attention_backward(
+            q, k, v, out, lse, do, **kw), 3, FLASH_BWD_KERNELS)
+        r.update(ms=t["device_ms"], timed_by=t["timed_by"],
+                 by_kernel_ms=t["by_kernel_ms"],
+                 tflop_per_s=flops / (t["device_ms"] * 1e-3) / 1e12)
+        r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_backward_reference(
+            q, k, v, out, lse, do, **kw), reps=2)
+        # SDPA's causal mask is the window's where the window spans S
+        r["library_ms"] = (sdpa_backward_ms(q, k, v, do)
+                           if cfg.window == 0 or cfg.window >= seq else None)
+    return r
+
+
+# ---------------------------------------------------------------------------
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
+RECURRENT_BWD_KERNELS = ("wkv6_bwd_kernel", "rglru_bwd_kernel")
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
                  ("flash_backward", FLASH_BWD_KERNELS),
                  ("decode_attention", DECODE_KERNELS),
+                 ("wkv6_bwd", ("wkv6_bwd_kernel",)),
+                 ("rglru_bwd", ("rglru_bwd_kernel",)),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel", "rglru_ring_kernel")),
                  ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
@@ -4120,6 +4640,11 @@ KERNELS = (
     ("flash_attention.backward", "flash_bwd_kernel",
      "src/repro_torch/csrc/flash_attention_bwd.cu",
      "src/repro/kernels/flash_attention/ops.py:166"),
+    # no TPU kernel: the JAX package differentiates its chunked forms
+    ("rwkv6.wkv6_backward", "wkv6_bwd_kernel",
+     "src/repro_torch/csrc/wkv6_bwd.cu", "src/repro/kernels/rwkv6/ops.py:15"),
+    ("rglru.rglru_backward", "rglru_bwd_kernel",
+     "src/repro_torch/csrc/rglru_bwd.cu", "src/repro/kernels/rglru/ops.py:14"),
 )
 # the phases in the order main() runs them
 PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
@@ -4129,7 +4654,8 @@ PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
           "lm_griffin", "lm_gemma3", "lm_gemma3_cache", "lm_mixtral",
           "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel",
-          "flash_bwd_kernel", "lm_train", "lm_train_bf16")
+          "wkv6_bwd_kernel", "rglru_bwd_kernel", "flash_bwd_kernel",
+          "lm_train", "lm_train_bf16", "lm_train_rwkv", "lm_train_griffin")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -4391,6 +4917,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase(phases, "rglru_kernel", lambda: phase_rglru_kernel(device))
     torch.cuda.empty_cache()
+    run_phase(phases, "wkv6_bwd_kernel",
+              lambda: phase_wkv6_bwd_kernel(device))
+    torch.cuda.empty_cache()
+    run_phase(phases, "rglru_bwd_kernel",
+              lambda: phase_rglru_bwd_kernel(device))
+    torch.cuda.empty_cache()
     run_phase(phases, "flash_bwd_kernel",
               lambda: phase_flash_bwd_kernel(device))
     torch.cuda.empty_cache()
@@ -4425,11 +4957,42 @@ def main() -> int:
           f"update {t16['update_ms']:.2f} ms; loss {t16['losses'][0]:.4f} -> "
           f"{t16['losses'][-1]:.4f}; "
           f"witness {t16['witness']}", flush=True)
+    for key, arch, layers, batch in RECURRENT_TRAIN:
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  num_layers=layers)
+        run_phase(phases, key, lambda: phase_lm_train_recurrent(
+            device, cfg, batch=batch))
+        t = phases[key]
+        sp = t["step_profile"]
+        print(f"[times] {key} ({card}): {t['arch']} at {t['layers']} layers"
+              f", {t['params']} parameters bf16, batch {t['batch']} x "
+              f"{t['seq']}, remat {t['remat']}: "
+              f"{t['ms_per_step_median']:.1f} ms a step (median of "
+              f"{len(t['step_ms']) - 1}), {t['tokens_per_s']:.1f} tokens/s,"
+              f" peak memory {t['max_memory_allocated']} bytes, idle share "
+              f"{sp['idle_share']:.4f} of a traced step (device "
+              f"{sp['device_ms']:.1f} ms of {sp['wall_ms']:.1f}; by group "
+              f"{sp['by_group_ms']}; backward kernels {sp['by_kernel_ms']});"
+              f" loss {t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; "
+              f"witness at seq {t['witness_seq']} {t['witness']}; flash "
+              f"backward {t.get('flash_backward')}", flush=True)
+    # the recurrences' backward launches are those of their training
+    # drives' steps
+    phases["wkv6_bwd_kernel"]["launches"] = phases["lm_train_rwkv"][
+        "launches"]["wkv6_bwd"]
+    phases["rglru_bwd_kernel"]["launches"] = phases["lm_train_griffin"][
+        "launches"]["rglru_bwd"]
+    # the flash backward at recurrentgemma-9b's shape (D 256, on the pair
+    # bwd_variant picks) joins the backward's timed shapes
+    phases["flash_bwd_kernel"]["shapes"]["recurrentgemma-9b/bfloat16"] = \
+        phases["lm_train_griffin"]["flash_backward"]
     # the backward's launches are those of the training drives' steps:
-    # lm_train's on the CUDA-core pair, lm_train_bf16's on the tensor
-    # cores; the forward's there join its launches by phase
-    trains = {key: phases[key]["launches"] for key in ("lm_train",
-                                                        "lm_train_bf16")}
+    # lm_train's and lm_train_griffin's on the CUDA-core pair,
+    # lm_train_bf16's on the tensor cores; the forward's there join its
+    # launches by phase
+    trains = {key: phases[key]["launches"]
+              for key in ("lm_train", "lm_train_bf16", "lm_train_griffin")}
     phases["flash_bwd_kernel"]["launches"] = sum(
         n["flash_attention.bwd"] for n in trains.values())
     phases["flash_bwd_kernel"]["kernel_launches"] = {
@@ -4463,7 +5026,7 @@ def main() -> int:
     phases["flash_kernel"]["variant_launches"] = variants
     phases["flash_kernel"]["launches_by_phase"] = {
         drive: sum(v.values()) for drive, v in variants.items()}
-    for key in ("lm_train", "lm_train_bf16"):
+    for key in trains:
         phases["flash_kernel"]["launches_by_phase"][key] = phases[key][
             "launches"]["flash_attention"]
     phases["decode_kernel"]["launches_by_phase"] = dict(
@@ -4487,6 +5050,12 @@ def main() -> int:
         "prefill_launches"]["wkv6"]
     phases["rglru_kernel"]["launches"] = phases["lm_griffin"]["prefill"][
         "prefill_launches"]["rglru"]
+    phases["wkv6_kernel"]["launches_by_phase"] = dict(
+        lm_rwkv=phases["wkv6_kernel"]["launches"],
+        lm_train_rwkv=phases["lm_train_rwkv"]["launches"]["wkv6"])
+    phases["rglru_kernel"]["launches_by_phase"] = dict(
+        lm_griffin=phases["rglru_kernel"]["launches"],
+        lm_train_griffin=phases["lm_train_griffin"]["launches"]["rglru"])
     rg_variants = dict(
         bf16=phases["lm_griffin"]["prefill"]["rglru_variant_launches"],
         float32=phases["lm_griffin"]["lm_float32"]["rglru_variant_launches"])

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("chain_vm", "hopscotch", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "wkv6", "rglru")
+           "decode_attention", "wkv6", "wkv6_bwd", "rglru", "rglru_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -124,16 +124,15 @@ def kernel_input(t: torch.Tensor) -> torch.Tensor:
 
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise when autograd would need a gradient through ``kernel``, a
-    forward kernel with no backward kernel yet: its output, written through
-    a raw pointer, would carry none, and the gradient would silently be
-    zero.  CPU tensors never get here (their plain path differentiates)."""
+    forward kernel with no backward kernel (decode attention, which only
+    serving runs): its output, written through a raw pointer, would carry
+    none, and the gradient would silently be zero.  CPU tensors never get
+    here (their plain path differentiates)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{kernel} has no backward kernel yet (ROADMAP.md, queue 1: the "
-            f"backward kernels of the recurrences and of decode attention), "
-            f"so no gradient can flow through it on the card; call it under "
-            f"torch.no_grad(), or on CPU tensors for a differentiable plain "
-            f"version")
+            f"{kernel} has no backward kernel, so no gradient can flow "
+            f"through it on the card; call it under torch.no_grad(), or on "
+            f"CPU tensors for a differentiable plain version")
 
 
 def check_attention_inputs(q, k, v, what: str) -> None:

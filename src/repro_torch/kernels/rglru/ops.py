@@ -1,7 +1,12 @@
-"""RG-LRU wrapper: the plain scan for tensors on the CPU, a CUDA kernel
-(``csrc/rglru.cu``) for tensors on the card — the ring kernel or the
-direct one, as ``variant`` says.  ``launches`` counts kernel launches, in
-all and by kernel.  The decode step stays plain, as in the JAX package."""
+"""RG-LRU wrappers: the plain scan and its plain backward for tensors on
+the CPU, CUDA kernels for tensors on the card: the forward
+(``csrc/rglru.cu``, the ring kernel or the direct one, as ``variant``
+says) and the backward (``csrc/rglru_bwd.cu``), joined by
+:class:`RGLRUFn`, which :func:`rglru` goes through when autograd needs
+the gradient.  There is no fallback: a launch the card refuses raises.
+``launches`` counts kernel launches, in all and by kernel (the
+backward's as ``rglru_bwd``).  The decode step stays plain, as in the JAX
+package."""
 from __future__ import annotations
 
 import ctypes
@@ -9,9 +14,10 @@ import ctypes
 import torch
 
 from .. import _build
-from .ref import rglru_decode_step, rglru_reference  # noqa: F401
+from .ref import (rglru_backward_reference,  # noqa: F401
+                  rglru_decode_step, rglru_reference)
 
-launches = {"rglru": 0, "rglru.ring": 0, "rglru.direct": 0}
+launches = {"rglru": 0, "rglru.ring": 0, "rglru.direct": 0, "rglru_bwd": 0}
 
 # The kernel for each type: "ring" (the steps fed from a shared-memory ring
 # that TMA copies fill) when a row of D elements is a whole number of
@@ -37,15 +43,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cuda_error_string.restype = ctypes.c_char_p
 
 
-def rglru(a, u):
-    """h_t = a_t h_{t-1} + u_t from h_0 = 0 over a, u (B, T, D).  Returns
-    (h (B, T, D) in a's dtype, final state (B, D) float32)."""
-    if a.device.type == "cpu":
-        return rglru_reference(a, u)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_backward.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.rglru_backward.restype = i
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def _check(a, u) -> None:
     if a.device.type != "cuda":
         raise ValueError(f"a on {a.device}: the RG-LRU kernel runs on CUDA "
                          "tensors (CPU tensors take the plain path)")
-    _build.refuse_grad("the RG-LRU kernel (csrc/rglru.cu)", a, u)
     if a.ndim != 3 or u.shape != a.shape:
         raise ValueError(f"expected a and u (B, T, D); got {tuple(a.shape)},"
                          f" {tuple(u.shape)}")
@@ -54,6 +63,13 @@ def rglru(a, u):
                          f"type; got {a.dtype}, {u.dtype}")
     if u.device != a.device:
         raise ValueError("a and u must lie on one device")
+
+
+def _forward(a, u):
+    """The forward: the plain scan on the CPU, a kernel on the card."""
+    if a.device.type == "cpu":
+        return rglru_reference(a, u)
+    _check(a, u)
     b, t, d = a.shape
     a, u = _build.kernel_input(a), _build.kernel_input(u)
     h = torch.empty_like(a)
@@ -70,3 +86,69 @@ def rglru(a, u):
     launches["rglru"] += 1
     launches[f"rglru.{kind}"] += 1
     return h, h_last
+
+
+def rglru_backward(a, h, dh, dh_last=None):
+    """(da, du) of :func:`rglru` from a, its output h (in a's dtype), the
+    output gradient ``dh`` (B, T, D) and optionally the final state's
+    ``dh_last`` (B, D), as :func:`.ref.rglru_backward_reference` computes
+    them: the plain version on the CPU, the backward kernel on the card
+    (both in a's dtype)."""
+    if a.device.type == "cpu":
+        return rglru_backward_reference(a, h, dh, dh_last)
+    _check(a, h)
+    b, t, d = a.shape
+    if dh.shape != a.shape or (dh_last is not None and
+                               dh_last.shape != (b, d)):
+        raise ValueError(f"dh {tuple(dh.shape)} and dh_last "
+                         f"{None if dh_last is None else tuple(dh_last.shape)}"
+                         f" do not match a {tuple(a.shape)}")
+    a, h = _build.kernel_input(a), _build.kernel_input(h)
+    dh = _build.kernel_input(dh.to(a.dtype))
+    if dh_last is not None:
+        dh_last = _build.kernel_input(dh_last.float())
+    da, du = torch.empty_like(a), torch.empty_like(a)
+    if b * t * d == 0:
+        return da, du
+    lib = _build.load("rglru_bwd", _declare_bwd)
+    _build.check(lib, lib.rglru_backward(
+        _build.pointer(a), _build.pointer(h), _build.pointer(dh),
+        None if dh_last is None else _build.pointer(dh_last),
+        _build.pointer(da), _build.pointer(du), _build.DTYPES[a.dtype], b, t,
+        d, _build.stream()), "rglru_bwd")
+    launches["rglru_bwd"] += 1
+    return da, du
+
+
+class RGLRUFn(torch.autograd.Function):
+    """RG-LRU with its backward: the forward saves a and its output h, and
+    the backward walks time in reverse from them; both halves are kernels
+    on the card and the plain versions on the CPU.  A gradient that
+    reaches neither output gives none."""
+
+    @staticmethod
+    def forward(ctx, a, u):
+        ctx.set_materialize_grads(False)
+        h, h_last = _forward(a, u)
+        ctx.save_for_backward(a, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        if dh is None and dh_last is None:
+            return None, None
+        a, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        return rglru_backward(a, h, dh, dh_last)
+
+
+def rglru(a, u):
+    """h_t = a_t h_{t-1} + u_t from h_0 = 0 over a, u (B, T, D).  Returns
+    (h (B, T, D) in a's dtype, final state (B, D) float32).  When grad is
+    enabled and a or u requires it, the call goes through
+    :class:`RGLRUFn`; otherwise the forward runs alone and nothing is
+    saved."""
+    if torch.is_grad_enabled() and (a.requires_grad or u.requires_grad):
+        return RGLRUFn.apply(a, u)
+    return _forward(a, u)

@@ -6,6 +6,10 @@ one device: the card by default, or ``--device cpu`` for the plain path.
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --steps 50 --batch 16 --seq 64 --ckpt /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b --smoke
+
+Every arch trains; on the card the recurrences (WKV6, RG-LRU) and the
+attention take their gradients from backward kernels.
 """
 from __future__ import annotations
 

@@ -122,8 +122,13 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
            state: AdamWState, params) -> Tuple[Any, AdamWState, Dict]:
     """One AdamW step: clip by the global norm, then the bias-corrected
     update with decoupled weight decay on the master (or, master-less, on
-    the parameter in float32).  Writes the parameters in place; returns
-    (params, new state, {"grad_norm", "lr"})."""
+    the parameter in float32).  Writes the parameters, and the float32
+    moments and master, in place (each operation rounds as its
+    out-of-place form would: the same bits); returns (params, the state,
+    {"grad_norm", "lr"}).  A functional update would hold the old and the
+    new master and moments at once, 24 bytes a parameter, and a large
+    tensor's temporaries beside them; in place, a step needs the state
+    once and a few temporaries of its largest tensor."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
@@ -140,16 +145,21 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
             mu, nu = _dq8(mu), _dq8(nu, sqrt_domain=True)
         m = (state.master[name] if state.master is not None
              else p.float())           # master-less: params carry the state
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
-        mu_hat = mu / (1 - cfg.b1 ** stepf)
-        nu_hat = nu / (1 - cfg.b2 ** stepf)
-        delta = mu_hat / (torch.sqrt(nu_hat) + eps) + cfg.weight_decay * m
-        m2 = m - lr * delta
+        # mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        del g
+        # delta = mu_hat / (sqrt(nu_hat) + eps) + wd m;  m = m - lr delta
+        delta = mu / (1 - cfg.b1 ** stepf)
+        denom = nu / (1 - cfg.b2 ** stepf)
+        delta.div_(denom.sqrt_().add_(eps)).add_(cfg.weight_decay * m)
+        del denom
+        m.sub_(delta.mul_(lr))
+        del delta
         if quant:
             mu, nu = _q8(mu), _q8(nu, sqrt_domain=True)
-        mus[name], nus[name], masters[name] = mu, nu, m2
-        p.copy_(m2.to(p.dtype))
+        mus[name], nus[name], masters[name] = mu, nu, m
+        p.copy_(m.to(p.dtype))
     master = masters if state.master is not None else None
     return params, AdamWState(step, mus, nus, master), {
         "grad_norm": gnorm, "lr": lr}

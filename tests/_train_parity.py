@@ -6,6 +6,8 @@ per arch, and the tolerances.  Both packages sum float32 in their own
 orders: the loss, grad_norm and lr are held within 1e-5 relative, each
 gradient within 1e-5 of its leaf's largest magnitude, optimizer state
 within 1e-6 of its leaf's largest magnitude."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,9 +57,12 @@ def leaf_close(got, want, rel, what):
                                err_msg=what)
 
 
-def setup(name):
-    jcfg = jreg.smoke_config(name)
-    tcfg = treg.smoke_config(name)
+def setup(name, **changes):
+    """The arch's smoke config in both packages (with ``changes``, e.g. the
+    JAX package's ``attn_impl``), its carried parameters, jitted JAX
+    gradient and step functions and three batches."""
+    jcfg = dataclasses.replace(jreg.smoke_config(name), **changes)
+    tcfg = dataclasses.replace(treg.smoke_config(name), **changes)
     jp, tree, _ = lp.carried(jcfg, tcfg)
     grad_fn = jax.jit(jax.value_and_grad(JM.loss_fn, has_aux=True),
                       static_argnums=(2,))

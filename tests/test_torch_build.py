@@ -81,3 +81,24 @@ def test_the_variant_tool_sets_the_tile_constants():
         "static constexpr int kStages = 2;"]
     with pytest.raises(ValueError, match="matches 0 times"):
         tool.variant_source("int x;", 64, 2)
+
+
+def test_the_wkv6_backward_tool_sets_the_walks_unroll():
+    """``tools/wkv6_bwd_variants.py`` sets the unroll pragma of both of
+    the WKV6 backward's walks in a copy of the source (the committed 4
+    gives the source back, others change exactly those two lines); the
+    recurrences' backward sources are built."""
+    import importlib.util
+    path = _build.CSRC.parents[2] / "tools" / "wkv6_bwd_variants.py"
+    spec = importlib.util.spec_from_file_location("wkv6_bwd_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (_build.CSRC / "wkv6_bwd.cu").read_text()
+    assert tool.variant_source(text, 4) == text
+    other = tool.variant_source(text, 2)
+    changed = [(a, b) for a, b in zip(text.splitlines(),
+                                      other.splitlines()) if a != b]
+    assert [b for _, b in changed] == ["#pragma unroll 2"] * 2
+    with pytest.raises(ValueError, match="matches 0 times"):
+        tool.variant_source("int x;", 2)
+    assert {"wkv6_bwd", "rglru_bwd"} <= set(_build.SOURCES)

@@ -164,8 +164,9 @@ def test_without_grad_the_forward_runs_alone():
 
 def test_refuse_grad_names_the_missing_backward():
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="WKV6.*no backward kernel"):
-        _build.refuse_grad("the WKV6 kernel", x)
+    with pytest.raises(RuntimeError,
+                       match="decode-attention.*no backward kernel"):
+        _build.refuse_grad("the decode-attention kernels", x)
     with torch.no_grad():
-        _build.refuse_grad("the WKV6 kernel", x)
-    _build.refuse_grad("the WKV6 kernel", x.detach())
+        _build.refuse_grad("the decode-attention kernels", x)
+    _build.refuse_grad("the decode-attention kernels", x.detach())

@@ -978,25 +978,127 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):
-    """WKV6, RG-LRU and decode attention have no backward kernel: asked
-    for a gradient on the card they raise instead of giving a zero one;
-    under no_grad they run."""
-    r, k, v = (torch.randn(1, 2, 8, 32, device=cuda, requires_grad=True)
-               for _ in range(3))
-    w = torch.rand(1, 2, 8, 32, device=cuda) * 0.5 + 0.4
-    u = torch.randn(2, 32, device=cuda)
-    with pytest.raises(RuntimeError, match="WKV6 kernel.*no backward"):
-        wkv_ops.wkv6(r, k, v, w, u)
-    a = torch.rand(1, 8, 64, device=cuda, requires_grad=True)
-    x = torch.randn(1, 8, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="RG-LRU kernel.*no backward"):
-        rg_ops.rglru(a, x)
+    """Decode attention (serving only) has no backward kernel: asked for a
+    gradient on the card it raises instead of giving a zero one; under
+    no_grad it runs.  (WKV6 and RG-LRU have backward kernels: the next
+    test.)"""
     q = torch.randn(1, 4, 1, 64, device=cuda, requires_grad=True)
     kc, vc = (torch.randn(1, 2, 16, 64, device=cuda) for _ in range(2))
     lengths = torch.tensor([9], dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="decode-attention.*no backward"):
         dec_ops.decode_attention(q, kc, vc, lengths)
     with torch.no_grad():
-        wkv_ops.wkv6(r, k, v, w, u)
-        rg_ops.rglru(a, x)
         dec_ops.decode_attention(q, kc, vc, lengths)
+
+
+def test_a_gradient_through_the_recurrences_launches_their_backward(cuda):
+    """A gradient through WKV6 or RG-LRU on the card goes through the
+    Functions: one forward and one backward kernel launch, counted, and
+    the gradients of the plain backward."""
+    r, k, v, w, u = _wkv_inputs(cuda, 3, torch.float32, 1, 2, 40, 32, 0.4)
+    xs = [x.clone().requires_grad_(True) for x in (r, k, v, w, u)]
+    do = torch.randn_like(r)
+    before = dict(wkv_ops.launches)
+    o, _ = wkv_ops.wkv6(*xs)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert {n: wkv_ops.launches[n] - before[n] for n in before} == {
+        "wkv6": 1, "wkv6_bwd": 1}
+    want = wkv_ref.wkv6_backward_reference(r, k, v, w, u, do)
+    for x, g in zip(xs, want):
+        _scaled_close(x.grad, g, STATE_TOL, "wkv6 autograd")
+    a = (0.5 + 0.5 * torch.rand(2, 70, 96, device=cuda)).requires_grad_(True)
+    x = torch.randn(2, 70, 96, device=cuda, requires_grad=True)
+    before = dict(rg_ops.launches)
+    h, h_last = rg_ops.rglru(a, x)
+    (h * 2).sum().backward()
+    torch.cuda.synchronize()
+    assert rg_ops.launches["rglru"] == before["rglru"] + 1
+    assert rg_ops.launches["rglru_bwd"] == before["rglru_bwd"] + 1
+    da, du = rg_ref.rglru_backward_reference(a.detach(), h.detach(),
+                                             torch.full_like(h, 2.0))
+    assert torch.equal(a.grad, da) and torch.equal(x.grad, du)
+
+
+def _wkv_bwd_case(cuda, seed, dtype, b, h, t, n, w_lo, w_hi, with_ds):
+    r, k, v, w, u = _wkv_inputs(cuda, seed, dtype, b, h, t, n, w_lo)
+    w = w_lo + (w - w_lo) * (w_hi - w_lo) / (0.999 - w_lo)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 100)
+    do = torch.randn((b, h, t, n), generator=gen, device=cuda).to(dtype)
+    ds = (torch.randn((b, h, n, n), generator=gen, device=cuda)
+          if with_ds else None)
+    return (r, k, v, w, u), do, ds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [32, 64])
+def test_wkv6_backward_kernel_matches_plain(cuda, dtype, n):
+    """The backward kernel against the plain backward: T 1, T that end in
+    a part of its 16-step chunk, a long T; decays down to 0.01 and in
+    [0.01, 0.115]; with and without dS_T.  dr, dk, dv at REC_TOL, dw and
+    du within STATE_TOL of their largest magnitude; two runs bit-equal."""
+    cases = ((1, 1, 1, 0.01, 0.999, False), (1, 2, 1, 0.5, 0.9, True),
+             (2, 3, 33, 0.01, 0.999, True), (2, 2, 65, 0.01, 0.115, True),
+             (1, 2, 2048, 0.01, 0.115, False), (2, 3, 31, 0.3, 0.99, True))
+    for i, (b, h, t, lo, hi, with_ds) in enumerate(cases):
+        args, do, ds = _wkv_bwd_case(cuda, i, dtype, b, h, t, n, lo, hi,
+                                     with_ds)
+        before = wkv_ops.launches["wkv6_bwd"]
+        got = wkv_ops.wkv6_backward(*args, do, ds)
+        again = wkv_ops.wkv6_backward(*args, do, ds)
+        torch.cuda.synchronize()
+        assert wkv_ops.launches["wkv6_bwd"] == before + 2
+        want = wkv_ref.wkv6_backward_reference(*args, do, ds)
+        what = f"{(b, h, t, n)} w [{lo}, {hi}] ds={with_ds}"
+        for name, g, wnt, g2, x in zip(("dr", "dk", "dv", "dw", "du"), got,
+                                       want, again, (*args[:4], args[4])):
+            assert g.dtype == x.dtype and g.shape == x.shape, name
+            assert torch.equal(g, g2), f"{name} run to run, {what}"
+            if name in ("dw", "du"):
+                _scaled_close(g, wnt, STATE_TOL, f"{name} {what}")
+            else:
+                _close_rec(g, wnt, REC_TOL[dtype], f"{name} {what}")
+        if t == 1:        # S_0 = 0: dw is exactly 0
+            assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_kernel_matches_plain(cuda, dtype):
+    """The backward kernel on the forward kernel's h against the plain
+    backward, bit for bit (both round each multiply and add alone, and
+    bf16 outputs once), with and without dh_last; two runs bit-equal."""
+    for i, (b, t, d) in enumerate(((1, 1, 1), (3, 1, 7), (2, 37, 4099),
+                                   (4, 300, 130), (4, 2048, 4096))):
+        a, u, h, _ = _rglru_case(cuda, i, dtype, b, t, d)
+        gen = torch.Generator(device=cuda).manual_seed(i + 50)
+        dh = torch.randn((b, t, d), generator=gen, device=cuda).to(dtype)
+        last = (torch.randn((b, d), generator=gen, device=cuda)
+                if i % 2 else None)
+        before = rg_ops.launches["rglru_bwd"]
+        da, du = rg_ops.rglru_backward(a, h, dh, last)
+        da2, du2 = rg_ops.rglru_backward(a, h, dh, last)
+        torch.cuda.synchronize()
+        assert rg_ops.launches["rglru_bwd"] == before + 2
+        pda, pdu = rg_ref.rglru_backward_reference(a, h, dh, last)
+        assert da.dtype == du.dtype == dtype and da.shape == a.shape
+        assert torch.equal(da, pda) and torch.equal(du, pdu), (b, t, d)
+        assert torch.equal(da, da2) and torch.equal(du, du2), (b, t, d)
+
+
+def test_recurrent_backward_kernels_refuse_bad_inputs(cuda):
+    r, k, v, w, u = _wkv_inputs(cuda, 0, torch.float32, 1, 2, 8, 32, 0.5)
+    a = torch.rand((2, 5, 9), device=cuda)
+    before = (wkv_ops.launches["wkv6_bwd"], rg_ops.launches["rglru_bwd"])
+    with pytest.raises(ValueError, match="do not match"):
+        wkv_ops.wkv6_backward(r, k, v, w, u, r[:, :, :4])
+    with pytest.raises(ValueError, match="do not match"):
+        wkv_ops.wkv6_backward(r, k, v, w, u, r, torch.zeros(1, 2, 32, 16,
+                                                            device=cuda))
+    with pytest.raises(ValueError, match="float32 w and u"):
+        wkv_ops.wkv6_backward(r, k, v, w.bfloat16(), u, r)
+    with pytest.raises(ValueError, match="do not match"):
+        rg_ops.rglru_backward(a, a, a[:, :4])
+    with pytest.raises(ValueError, match="one type"):
+        rg_ops.rglru_backward(a, a.double(), a)
+    assert (wkv_ops.launches["wkv6_bwd"],
+            rg_ops.launches["rglru_bwd"]) == before

@@ -452,12 +452,13 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    """Eight rows: seven a TPU kernel each, and the flash backward, which
+    """Ten rows: seven a TPU kernel each; the flash backward, which
     replaces the JAX package's plain-JAX backward (``_make_blocked_vjp``'s
-    ``bwd``); each row's phase runs, and the guest drive of
-    ``chain_programs`` reaches kernel #1 (its launches join that row's
-    ``launches_by_phase``)."""
-    assert len(smoke.KERNELS) == 8
+    ``bwd``); and the recurrences' backward kernels, which replace JAX's
+    autodiff of its chunked forms (``_chunked_jax``).  Each row's phase
+    runs, and the guest drive of ``chain_programs`` reaches kernel #1 (its
+    launches join that row's ``launches_by_phase``)."""
+    assert len(smoke.KERNELS) == 10
     assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
     assert "chain_programs" in smoke.PHASES
     for name, phase, source, replaces in smoke.KERNELS:
@@ -466,6 +467,7 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
         path, line = replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         pattern = (r"\s+def bwd\(res, do\):" if name.endswith(".backward")
+                   else r"def _chunked_jax\(" if name.endswith("_backward")
                    else r"def _\w+_kernel\(")
         assert re.match(pattern, text), (replaces, text)
 
@@ -476,7 +478,7 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 29
+    assert len(p) == len(set(p)) == 33
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")
@@ -485,7 +487,10 @@ def test_phases_run_in_order(smoke):
     assert p.index("kv_service") + 1 == p.index("chain_programs")
     assert p.index("chain_programs") + 1 == p.index("cuckoo_get")
     assert p.index("cuckoo_get") < p.index("lm_prefill")
-    assert p[-3:] == ("flash_bwd_kernel", "lm_train", "lm_train_bf16")
+    assert p.index("wkv6_kernel") < p.index("wkv6_bwd_kernel")
+    assert p.index("rglru_kernel") < p.index("rglru_bwd_kernel")
+    assert p[-5:] == ("flash_bwd_kernel", "lm_train", "lm_train_bf16",
+                      "lm_train_rwkv", "lm_train_griffin")
 
 
 def test_phase_chain_faults_cpu(smoke):
@@ -723,3 +728,108 @@ def test_plain_attention_patch_is_undone(smoke):
             assert fa_ops.flash_attention is not kernel
             raise ValueError
     assert fa_ops.flash_attention is kernel
+
+
+def test_phase_wkv6_bwd_kernel_cpu(smoke, one_thread):
+    """The WKV6 backward phase at a small shape on the CPU: the plain
+    backward on both sides, so every error is 0 and nothing launches."""
+    r = smoke.phase_wkv6_bwd_kernel("cpu", b=1, h=2, t=40, n=32,
+                                    time_it=False)
+    assert set(r["errs"]) == {f"T{t}/{d}" for t in (40, 21, 1)
+                              for d in ("bfloat16", "float32")} | {
+        "dS/bfloat16", "small_decays/float32"}
+    assert all(set(e) == set(smoke.WKV_BWD_NAMES)
+               for e in r["errs"].values())
+    assert r["max_abs_err"] == 0
+    assert max(max(e.values()) for e in r["errs"].values()) == 0
+    assert r["flops"] == 10 * 1 * 2 * 40 * 32 * 32
+    assert r["bound_by"] == "operations" or r["bound_by"] == "bytes"
+
+
+def test_phase_rglru_bwd_kernel_cpu(smoke, one_thread):
+    r = smoke.phase_rglru_bwd_kernel("cpu", b=2, t=40, d=20, time_it=False)
+    cases = [f"2x{t}x{d}" for t, d in ((40, 20), (21, 20), (1, 20), (97, 24),
+                                       (33, 23))]
+    assert set(r["errs"]) == {f"{p}/{c}/{t}" for p in ("da", "du")
+                              for c in cases
+                              for t in ("float32", "bfloat16")}
+    assert r["max_abs_err"] == 0 and max(r["errs"].values()) == 0
+    assert r["bytes"] == 5 * 2 * 40 * 20 * 4 and r["bound_by"] == "bytes"
+
+
+def recurrent_smoke(arch):
+    return dataclasses.replace(registry.smoke_config(arch),
+                               dtype="bfloat16", remat="block")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_phase_lm_train_recurrent_cpu(smoke, one_thread, arch):
+    """The recurrent training drives at the smoke configs in bf16 on the
+    CPU: the witness (the plain recurrences both ways: equal; the float64
+    forward's yardstick apart), no launches, finite losses whose last is
+    below the first; griffin's local-attention layer also has the flash
+    backward checked at its shape (plain both ways)."""
+    ocfg = smoke.train_opt.AdamWConfig(lr=1e-2, warmup_steps=3,
+                                       total_steps=200, weight_decay=0.0)
+    r = smoke.phase_lm_train_recurrent(
+        "cpu", recurrent_smoke(arch), ocfg=ocfg, batch=4, seq=32, steps=12,
+        witness_seq=16, time_it=False)
+    w = r["witness"]
+    assert w["loss"] == w["plain_loss"]
+    assert w["worst_grad_rel_err"]["kernels"] == 0
+    assert w["worst_grad_rel_err"]["float64"] < 0.5
+    assert r["step_launches"] == {k: 0 for k in r["step_launches"]}
+    assert {"wkv6", "wkv6_bwd", "rglru", "rglru_bwd"} <= set(
+        r["step_launches"])
+    assert len(r["losses"]) == 12 and r["losses"][-1] < r["losses"][0]
+    if arch == "recurrentgemma-9b":
+        fb = r["flash_backward"]
+        assert fb["pair"] == "plain" and fb["window"] == 16
+        assert fb["shape"] == (4, 4, 1, 32, 32, 32, "bfloat16")
+    else:
+        assert "flash_backward" not in r
+    with pytest.raises(ValueError, match="bf16 model"):
+        smoke.phase_lm_train_recurrent("cpu", dataclasses.replace(
+            recurrent_smoke(arch), dtype="float32"))
+
+
+def test_recurrent_train_launches_count_the_remat(smoke):
+    """A step of the drives' cuts: each recurrence's forward once a layer
+    and again under remat, its backward once a layer; griffin's local
+    layer one flash forward twice and one CUDA-core backward pair (D
+    256)."""
+    cfg = dataclasses.replace(registry.get_config("rwkv6-7b"), num_layers=8)
+    want = smoke.recurrent_train_launches(cfg, "cuda")
+    assert (want["wkv6"], want["wkv6_bwd"]) == (16, 8)
+    assert want["flash_attention"] == want["rglru"] == want["rglru_bwd"] == 0
+    cfg = dataclasses.replace(registry.get_config("recurrentgemma-9b"),
+                              num_layers=3)
+    want = smoke.recurrent_train_launches(cfg, "cuda")
+    assert {k: want[k] for k in ("rglru", "rglru.ring", "rglru.direct",
+                                 "rglru_bwd", "wkv6", "wkv6_bwd")} == dict(
+        rglru=4, **{"rglru.ring": 4, "rglru.direct": 0}, rglru_bwd=2,
+        wkv6=0, wkv6_bwd=0)
+    assert {k: want[f"flash_attention{k}"] for k in (
+        "", ".wgmma", ".bwd", ".bwd_fma", ".bwd_wgmma")} == {
+        "": 2, ".wgmma": 2, ".bwd": 1, ".bwd_fma": 1, ".bwd_wgmma": 0}
+    assert set(smoke.recurrent_train_launches(cfg, "cpu").values()) == {0}
+    assert [(k, a, n, b) for k, a, n, b in smoke.RECURRENT_TRAIN] == [
+        ("lm_train_rwkv", "rwkv6-7b", 8, 4),
+        ("lm_train_griffin", "recurrentgemma-9b", 3, 2)]
+
+
+def test_plain_recurrence_patches_are_undone_and_count(smoke):
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    kernels = wkv_ops.wkv6, rg_ops.rglru
+    with pytest.raises(ValueError):
+        with smoke.plain_recurrences():
+            assert wkv_ops.wkv6 == smoke.PlainWKV6Fn.apply
+            raise ValueError
+    assert (wkv_ops.wkv6, rg_ops.rglru) == kernels
+    calls = {}
+    a = torch.full((1, 3, 4), 0.5)
+    with smoke.counted_plain_calls(calls):
+        rg_ops.rglru(a, a)
+    assert calls["rglru_reference"] == 1 and calls["wkv6_reference"] == 0
+    assert rg_ops.rglru_reference is smoke.rg_ref.rglru_reference

@@ -9,7 +9,9 @@ phi-3-vision-4.2b and seamless-m4t-medium prefill and decode), and the
 training paths (smollm-135m in float32: train steps through the flash
 backward's CUDA-core pair, AdamW, checkpoints and a crash resumed bit for
 bit; qwen3-1.7b in bf16 through its tensor-core pair; rwkv6-7b and
-recurrentgemma-9b in bf16 through the recurrences' backward kernels).
+recurrentgemma-9b in bf16 through the recurrences' backward kernels, and
+recurrentgemma-9b's local attention through the tensor-core pair at head
+dim 256).
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
@@ -238,25 +240,32 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 15. ``flash_bwd_kernel`` — the flash backward's two pairs, a dQ kernel
                          then a dK/dV kernel: on the tensor cores
                          (``flash_bwd_dq_wgmma_kernel``,
-                         ``flash_bwd_dkdv_wgmma_kernel``; bf16 at head
-                         dims 64 and 128, whose SASS must hold HGMMA
-                         instructions at both) and on the CUDA cores
-                         (``flash_bwd_dq_kernel``,
+                         ``flash_bwd_dkdv_wgmma_kernel``, and at head
+                         dim 256 ``flash_bwd_sum_kernel`` where the
+                         dK/dV blocks split a group's heads; bf16 at head
+                         dims 64, 128 and 256, whose SASS must hold HGMMA
+                         instructions at each, with no ptxas spill) and
+                         on the CUDA cores (``flash_bwd_dq_kernel``,
                          ``flash_bwd_dkdv_kernel``; the rest), each case
                          through the pair ``bwd_variant`` picks, against
                          the plain backward, and the forward's lse
                          against the plain one: at qwen3-1.7b's training
                          shape (4, 16 / 8, 2,048^2, head dim 128, causal,
                          bf16) and smollm-135m's (8, 9 / 3, 2,048^2, 64,
-                         causal) in bf16 and float32; and in both types
-                         on window, length (rows past a short length),
-                         full (Sk 384), q_offset, G 1, head dims 32 / 96
-                         / 256 and rows that see no key.  The big shapes
-                         timed by device time beside their bound (10 B H
-                         S^2 D / 2 FLOPs at the float32 or bf16 peak),
-                         the plain backward and SDPA's backward; the bf16
-                         ones also on the CUDA-core pair (its C entry
-                         point), the time the tensor-core pair replaced.
+                         causal) in bf16 and float32, phi-3-vision's (4,
+                         32 / 32, 2,048^2, 96, causal, bf16) and
+                         gemma3-1b's (4, 4 / 1, 2,048^2, 256, window 512,
+                         bf16); and in both types on window, length (rows
+                         past a short length), full (Sk 384), q_offset, G
+                         1, head dims 32 / 96 / 256 (an MQA group of 16
+                         and each mode's edge at 256) and rows that see
+                         no key.  The big shapes timed by device time
+                         beside their bound (10 B H D FLOPs a visible
+                         pair at the float32 or bf16 peak), the plain
+                         backward and SDPA's backward (where SDPA's mask
+                         is the window's); the bf16 ones on the
+                         tensor-core pair also on the CUDA-core pair (its
+                         C entry point), the time that pair replaced.
 16. ``lm_train``       — smollm-135m at full width and depth (30 layers,
                          d 576, vocab 49,152, tied), float32, remat
                          "block", batch 8 x 2,048 from ``TokenPipeline``,
@@ -308,13 +317,17 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 19. ``lm_train_griffin`` — recurrentgemma-9b at full width and one
                          pattern (2 recurrent layers and 1 local-attention
                          layer, 2.76 G parameters), bf16, batch 2 x 2,048:
-                         the same; 4 RG-LRU forward (ring) and 2 backward
+                         the same, the plain arm and the yardstick with
+                         the plain attention and the CUDA-core backward
+                         pair too; 4 RG-LRU forward (ring) and 2 backward
                          launches, 2 flash forward (tensor cores) and 1 +
-                         1 CUDA-core backward launches a step; then the
-                         flash backward at its shape (2, 16 / 1, 2,048^2,
-                         head dim 256, window 2,048, bf16; the CUDA-core
-                         pair) against the plain backward, timed beside its
-                         bound, the plain backward and SDPA's backward.
+                         1 tensor-core backward launches a step (and the
+                         partial sums' kernel once where the heads are
+                         split); then the flash backward at its shape (2,
+                         16 / 1, 2,048^2, head dim 256, window 2,048,
+                         bf16; the tensor-core pair) against the plain
+                         backward, timed beside its bound, the CUDA-core
+                         pair, the plain backward and SDPA's backward.
 
 Each kernel's launches are counted over the drive of its path only (the
 counts are zeroed just before and read just after); the comparison and
@@ -325,7 +338,7 @@ both types, the recurrences at REC_TOL and their float32 final states at
 STATE_TOL; the flash backward's gradients at TOL of their largest
 magnitude, lm_train's at GRAD_REL, lm_train_bf16's against the
 CUDA-core pair's error (BF16_WITNESS_K), the recurrent drives' against
-the plain recurrences' float64 forward's (REC_WITNESS_K); the
+the float64 recurrences' with the CUDA-core pair (REC_WITNESS_K); the
 recurrences' backward kernels as 14b and 14c say.  The
 last lines are the kernels' JSON, the card line from ``nvidia-smi`` and
 the result line.  Without a
@@ -3573,9 +3586,14 @@ def phase_rglru_bwd_kernel(device, b=4, t=2048, d=4096, time_it=True):
 # phases 15-16: the flash backward, and the training path
 # ---------------------------------------------------------------------------
 
-def flash_bwd_ops(b, h, sq, sk, d, causal: bool) -> float:
-    """The backward's FLOPs: five products (S, dP, dV, dK, dQ) of 2 B H Sq
-    Sk D each, halved when causal."""
+def flash_bwd_ops(b, h, sq, sk, d, causal: bool, window: int = 0) -> float:
+    """The backward's FLOPs: five products (S, dP, dV, dK, dQ) of 2 B H D
+    FLOPs a visible (query, key) pair: Sq Sk pairs, halved when causal;
+    with a window narrower than Sk (causal, Sq == Sk), the pairs it keeps
+    (min(q + 1, window) keys for query q)."""
+    if causal and 0 < window < sk:
+        pairs = sum(min(q + 1, window) for q in range(sq))
+        return 10.0 * b * h * d * pairs
     return 10.0 * b * h * sq * sk * d * (0.5 if causal else 1.0)
 
 
@@ -3619,9 +3637,9 @@ def cuda_core_backward(q, k, v, out, lse, do, *, mode="causal", window=0,
                        lengths=None, q_offset=0, scale=None):
     """(dq, dk, dv) from the flash backward's CUDA-core pair at any type
     and head dim, through its C entry point: the time the tensor-core pair
-    replaced, and the lm_train_bf16 witness's yardstick (the wrapper routes
-    bf16 at head dims 64 and 128 to the tensor cores).  Counts no launch;
-    the plain backward on the CPU."""
+    replaced, and the bf16 training witnesses' yardstick (the wrapper
+    routes bf16 at head dims 64, 128 and 256 to the tensor cores).  Counts
+    no launch; the plain backward on the CPU."""
     kw = dict(mode=mode, window=window, lengths=lengths, q_offset=q_offset,
               scale=scale)
     if q.device.type == "cpu":
@@ -3646,15 +3664,21 @@ def cuda_core_backward(q, k, v, out, lse, do, *, mode="causal", window=0,
 
 # The backward's timed shapes, as training runs them: qwen3-1.7b's
 # (lm_train_bf16's: the tensor-core pair's row) and smollm-135m's in bf16,
-# and smollm-135m's in float32 (lm_train's, the CUDA-core pair):
-# (name, b, h, kh, s, d, dtype)
-FLASH_BWD_SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, torch.bfloat16),
-                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.bfloat16),
-                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.float32))
-# small cases in both types (bf16 at head dims 64 and 128 on the tensor
-# cores, the rest on the CUDA cores): (case, b, h, kh, sq, sk, d, kwargs);
-# the lengths of "length" are (sk // 3, sk), so rows past a short length
-# stay
+# smollm-135m's in float32 (lm_train's, the CUDA-core pair), phi-3-vision's
+# at head dim 96 (the CUDA-core pair in bf16) and gemma3-1b's at 256 with
+# its 512 window (the tensor-core pair); all causal:
+# (name, b, h, kh, s, d, dtype, window)
+FLASH_BWD_SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, torch.bfloat16, 0),
+                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.bfloat16, 0),
+                    ("smollm-135m", 8, 9, 3, 2048, 64, torch.float32, 0),
+                    ("phi-3-vision-4.2b", 4, 32, 32, 2048, 96,
+                     torch.bfloat16, 0),
+                    ("gemma3-1b", 4, 4, 1, 2048, 256, torch.bfloat16, 512))
+# small cases in both types (bf16 at head dims 64, 128 and 256 on the
+# tensor cores, the rest on the CUDA cores): (case, b, h, kh, sq, sk, d,
+# kwargs); the lengths of "length" are (sk // 3, sk), so rows past a short
+# length stay; at head dim 256 an MQA group of 16 at a ragged Sq (its dK/dV
+# blocks split over the heads) and each mode's edge
 FLASH_BWD_SMALL = (
     ("window", 2, 4, 2, 512, 512, 64, dict(mode="causal", window=128)),
     ("length", 2, 4, 2, 256, 700, 64, dict(mode="length")),
@@ -3667,6 +3691,14 @@ FLASH_BWD_SMALL = (
     ("d96", 1, 8, 2, 256, 256, 96, dict(mode="causal")),
     ("d256", 1, 4, 1, 256, 256, 256, dict(mode="causal")),
     ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)),
+    ("mqa16_d256", 1, 16, 1, 200, 200, 256, dict(mode="causal")),
+    ("window_d256", 1, 4, 1, 200, 200, 256, dict(mode="causal", window=64)),
+    ("length_d256", 2, 4, 2, 130, 300, 256, dict(mode="length")),
+    ("offset_d256", 2, 4, 1, 77, 333, 256, dict(mode="causal",
+                                                q_offset=256)),
+    ("full_d256", 2, 4, 2, 130, 384, 256, dict(mode="full")),
+    ("no_key_rows_d256", 1, 2, 1, 200, 100, 256, dict(mode="causal",
+                                                      window=16)),
     ("no_key_rows_d128", 1, 2, 1, 200, 100, 128, dict(mode="causal",
                                                       window=16)))
 # the tensor-core pair's kernels and head dims, which the SASS must show
@@ -3686,8 +3718,9 @@ def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
     ``time_it``, each shape's backward by device time beside its bound
     (operations: ``flash_bwd_ops`` at the float32 or bf16 peak), the plain
     backward and SDPA's backward (SDPA forward plus backward less its
-    forward); a bf16 shape also on the CUDA-core pair (``fma_ms``).  The
-    first shape's numbers are the backward's row."""
+    forward; a window as a boolean mask); a bf16 shape on the
+    tensor-core pair also on the CUDA-core pair (``fma_ms``).  The first
+    shape's numbers are the backward's row."""
     errs, timed = {}, {}
     hgmma = None
     if torch.device(device).type == "cuda":
@@ -3704,39 +3737,28 @@ def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
             key = f"{case}/{str(dtype)[6:]}"
             errs[key] = flash_bwd_check(device, dtype, b, h, kh, sq, sk, d,
                                         kw, 40 + i, f"flash bwd {key}")[0]
-    for name, b, h, kh, s, d, dtype in shapes:
+    for name, b, h, kh, s, d, dtype, window in shapes:
         key = f"{name}/causal/{str(dtype)[6:]}"
+        kw = dict(mode="causal", window=window)
         errs[key], (q, k, v, out, lse, do) = flash_bwd_check(
-            device, dtype, b, h, kh, s, s, d, {}, 7, f"flash bwd {key}")
-        flops = flash_bwd_ops(b, h, s, s, d, True)
+            device, dtype, b, h, kh, s, s, d, kw, 7, f"flash bwd {key}")
+        flops = flash_bwd_ops(b, h, s, s, d, True, window)
         peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
         nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
                   + 4 * lse.numel())     # q, out, dO, dQ; k, v, dK, dV
-        r = dict(shape=(b, h, kh, s, s, d, str(dtype)[6:]), flops=flops,
-                 pair=errs[key]["pair"],
+        r = dict(shape=(b, h, kh, s, s, d, str(dtype)[6:]), window=window,
+                 flops=flops, pair=errs[key]["pair"],
                  bound_ms=max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
                  bound_by=("operations" if flops / peak
                            >= nbytes / HBM_BYTES_PER_S else "bytes"))
         if time_it:
-            t = device_time(lambda: fa_ops.flash_attention_backward(
-                q, k, v, out, lse, do), 3, FLASH_BWD_KERNELS)
-            r.update(ms=t["device_ms"], timed_by=t["timed_by"],
-                     by_kernel_ms=t["by_kernel_ms"])
-            r["tflop_per_s"] = flops / (r["ms"] * 1e-3) / 1e12
-            if r["pair"] == "wgmma":
-                f = device_time(lambda: cuda_core_backward(
-                    q, k, v, out, lse, do), 3, FLASH_BWD_KERNELS)
-                r.update(fma_ms=f["device_ms"],
-                         fma_by_kernel_ms=f["by_kernel_ms"])
-            r["plain_ms"] = cuda_ms(
-                lambda: fa_ref.attention_backward_reference(
-                    q, k, v, out, lse, do), reps=2)
-            r["library_ms"] = sdpa_backward_ms(q, k, v, do)
+            r.update(flash_bwd_times(q, k, v, out, lse, do, kw, r["pair"],
+                                     flops))
         timed[f"{name}/{str(dtype)[6:]}"] = r
         del q, k, v, out, lse, do
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
-    name, *_, dtype = shapes[0]
+    name, *_, dtype, _ = shapes[0]
     first = f"{name}/{str(dtype)[6:]}"
     return dict(timed[first], max_abs_err=errs[f"{name}/causal/"
                                                f"{str(dtype)[6:]}"]["dq"],
@@ -3745,24 +3767,65 @@ def phase_flash_bwd_kernel(device, shapes=FLASH_BWD_SHAPES,
 
 FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                      "flash_bwd_dq_wgmma_kernel",
-                     "flash_bwd_dkdv_wgmma_kernel")
+                     "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_sum_kernel")
 
 
-def sdpa_backward_ms(q, k, v, do) -> float:
-    """SDPA's backward at this shape (causal, GQA): the time of SDPA's
-    forward plus backward less that of its forward (the yardstick; the
-    port never calls it)."""
+def flash_bwd_times(q, k, v, out, lse, do, kw, pair, flops) -> dict:
+    """A backward case's times: the wrapper's pair by device time (and
+    by kernel), on the tensor cores also the CUDA-core pair's
+    (``fma_ms``), the plain backward's, and SDPA's backward's (causal; a
+    window narrower than Sk as a boolean mask)."""
+    t = device_time(lambda: fa_ops.flash_attention_backward(
+        q, k, v, out, lse, do, **kw), 3, FLASH_BWD_KERNELS)
+    r = dict(ms=t["device_ms"], timed_by=t["timed_by"],
+             by_kernel_ms=t["by_kernel_ms"],
+             tflop_per_s=flops / (t["device_ms"] * 1e-3) / 1e12)
+    if pair == "wgmma":
+        f = device_time(lambda: cuda_core_backward(
+            q, k, v, out, lse, do, **kw), 3, FLASH_BWD_KERNELS)
+        r.update(fma_ms=f["device_ms"], fma_by_kernel_ms=f["by_kernel_ms"])
+    r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_backward_reference(
+        q, k, v, out, lse, do, **kw), reps=2)
+    r["library_ms"], r["library_kernels"] = sdpa_backward_ms(
+        q, k, v, do, kw.get("window", 0))
+    return r
+
+
+def sdpa_backward_ms(q, k, v, do, window=0):
+    """SDPA's backward at this shape (causal, GQA; a window narrower than
+    Sk as a boolean ``attn_mask``, the plain backward's visible pairs):
+    the time of SDPA's forward plus backward less that of its forward (the
+    yardstick; the port never calls it), and the names of the kernels its
+    forward plus backward launch (which backend SDPA took)."""
+    from torch.profiler import ProfilerActivity, profile
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sq, sk = q.shape[2], k.shape[2]
+    if 0 < window < sk:
+        mask = dict(attn_mask=fa_ref.visible_mask(sq, sk, q.device,
+                                                  window=window))
+    else:
+        mask = dict(is_causal=True)
 
     def fwd():
         with torch.no_grad():
-            sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            sdpa(q, k, v, enable_gqa=True, **mask)
 
     def fwd_bwd():
-        o = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+        o = sdpa(qg, kg, vg, enable_gqa=True, **mask)
         torch.autograd.grad(o, (qg, kg, vg), do)
-    return cuda_ms(fwd_bwd, reps=5) - cuda_ms(fwd, reps=5)
+    ms = cuda_ms(fwd_bwd, reps=5) - cuda_ms(fwd, reps=5)
+    names = []
+    for _ in range(3):      # a trace now and then holds no device activity
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        names = sorted({e.key[:60] for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return ms, names
 
 
 class PlainAttentionFn(torch.autograd.Function):
@@ -4360,7 +4423,8 @@ def recurrent_train_launches(cfg, device) -> dict:
     """``train_launches`` of ``cfg`` and the recurrences' launches of one
     train step: each forward kernel once per layer and again under remat,
     of the kernel ``variant`` picks for RG-LRU, and each backward kernel
-    once per layer (none on the CPU)."""
+    once per layer (none on the CPU).  recurrentgemma-9b's local layers
+    take the flash backward's tensor-core pair (bf16 at head dim 256)."""
     prefill = path_launches(cfg, device)[0]
     again = 1 if cfg.remat == "none" else 2
     return {**train_launches(cfg, device),
@@ -4373,15 +4437,17 @@ def recurrent_train_launches(cfg, device) -> dict:
 
 # The recurrent drives' witness, at sequence WITNESS_SEQ on the card: the
 # loss and gradients with the kernels against the same call with the plain
-# recurrences (float32 forward), the loss within BF16_LOSS_REL.  Both
-# compute the recurrence in float32 (the backward in float64) on the same
-# bf16 operands and differ in the order of the forward's sums, which flips
-# bf16 roundings of its outputs that the next layers carry: the kernels'
-# worst gradient error (of its leaf's largest magnitude) may be
-# REC_WITNESS_K times that of the plain recurrences with a float64 forward,
-# which differ from the float32 ones by just that rounding.  (A first
-# fixed limit of 5e-2 read 0.0566 on rwkv6-7b's decoder.0.mix.wo, of a
-# leaf whose largest magnitude is 0.011.)
+# recurrences (float32 forward) and the plain attention (forward and
+# backward), the loss within BF16_LOSS_REL.  Both compute the recurrence
+# in float32 (the backward in float64) on the same bf16 operands and
+# differ in the order of the forward's sums, which flips bf16 roundings of
+# its outputs that the next layers carry: the kernels' worst gradient
+# error (of its leaf's largest magnitude) may be REC_WITNESS_K times that
+# of the yardstick, the plain recurrences with a float64 forward and the
+# flash backward's CUDA-core pair (float32 sums of the same bf16
+# operands), which differ from the plain arm by just such roundings.  (A
+# first fixed limit of 5e-2 read 0.0566 on rwkv6-7b's decoder.0.mix.wo, of
+# a leaf whose largest magnitude is 0.011.)
 WITNESS_SEQ = 512
 REC_WITNESS_K = BF16_WITNESS_K
 # rwkv6-7b at 8 of its 32 layers (2.29 G parameters, 36.6 GB of parameter,
@@ -4401,14 +4467,16 @@ def phase_lm_train_recurrent(device, cfg, ocfg=None, batch=4, seq=2048,
     ``TokenPipeline`` (seed 0), the launcher's AdamW settings unless
     ``ocfg`` is given: the gradient witness at ``witness_seq`` (the loss
     and gradients, ``loss_and_grads``, against the same call with the
-    plain recurrences); a step's launches by kernel, with no plain call;
+    plain recurrences and the plain attention, beside the float64
+    recurrences with the flash backward's CUDA-core pair); a step's
+    launches by kernel, with no plain call;
     ``steps`` steps on LEARN_VOCAB data, each loss finite and the last
     below the first; with ``time_it``, ms a step, tokens/s, peak memory, a
     traced step's idle share and device time by kernel group.  A model
     with attention layers (recurrentgemma-9b's local ones), also the flash
     backward at the drive's shape (its D 256 pair) against the plain
-    backward, timed beside its bound, the plain backward and SDPA's
-    backward."""
+    backward, timed beside its bound, the CUDA-core pair, the plain
+    backward and SDPA's backward."""
     ocfg = ocfg or train_opt.AdamWConfig(lr=3e-3, warmup_steps=10,
                                          total_steps=steps)
     if cfg.dtype != "bfloat16":
@@ -4427,16 +4495,18 @@ def phase_lm_train_recurrent(device, cfg, ocfg=None, batch=4, seq=2048,
                   batch=batch, seq=seq, remat=cfg.remat, dtype=cfg.dtype,
                   witness_seq=witness_seq, init_s=time.perf_counter() - t0)
 
-    # the witness: kernels against the plain recurrences, at witness_seq,
-    # beside the plain recurrences with a float64 forward
+    # the witness: kernels against the plain recurrences and the plain
+    # attention, at witness_seq, beside the plain recurrences with a
+    # float64 forward and the flash backward's CUDA-core pair
     wb = batch_at(0, TokenPipeline(cfg.vocab_size, witness_seq, batch,
                                    seed=0))
     loss, g_kernel = train_loop.loss_and_grads(params, wb, cfg)[::2]
     sync(device)
     reset_launches()
-    with plain_recurrences():
+    with plain_recurrences(), plain_attention():
         plain_loss, g_plain = train_loop.loss_and_grads(params, wb, cfg)[::2]
-    with plain_recurrences(Float64WKV6Fn, Float64RGLRUFn):
+    with plain_recurrences(Float64WKV6Fn, Float64RGLRUFn), \
+            plain_attention(CudaCoreBackwardFn):
         f64_loss, g_f64 = train_loop.loss_and_grads(params, wb, cfg)[::2]
     sync(device)
     ran = {k: n for k, n in read_launches().items()
@@ -4472,8 +4542,15 @@ def phase_lm_train_recurrent(device, cfg, ocfg=None, batch=4, seq=2048,
         torch.cuda.empty_cache()
 
     # ``steps`` steps on data that can be learned in that many; the first
-    # counted by kernel, with no plain version called
+    # counted by kernel, with no plain version called; on the card also
+    # the D 256 backward's partial sums where its dK/dV blocks split the
+    # heads at this shape
     want = recurrent_train_launches(cfg, device)
+    if torch.device(device).type == "cuda":
+        split = fa_ops.bwd_split(batch, cfg.num_heads, cfg.num_kv_heads, seq,
+                                 cfg.head_dim, fa_ops._sms(device))
+        want["flash_attention.bwd_sum"] = (
+            want["flash_attention.bwd_wgmma"] if split > 1 else 0)
     learn = TokenPipeline(LEARN_VOCAB, seq, batch, seed=0)
     p, params = params, None
     state = train_opt.init(p)
@@ -4535,28 +4612,21 @@ def flash_bwd_at(device, cfg, batch, seq, time_it=True) -> dict:
     head dim and window, causal, its type), through the pair
     ``bwd_variant`` picks, against the plain backward; with ``time_it``
     by device time beside its bound (operations: ``flash_bwd_ops`` at the
-    bf16 peak), the plain backward and SDPA's backward."""
+    bf16 peak), the CUDA-core pair (``fma_ms``), the plain backward and
+    SDPA's backward."""
     dtype = getattr(torch, cfg.dtype)
     b, h, kh, d = batch, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kw = dict(mode="causal", window=cfg.window)
     errs, (q, k, v, out, lse, do) = flash_bwd_check(
         device, dtype, b, h, kh, seq, seq, d, kw, 9,
         f"flash bwd at {cfg.name}'s shape")
-    flops = flash_bwd_ops(b, h, seq, seq, d, True)
+    flops = flash_bwd_ops(b, h, seq, seq, d, True, cfg.window)
     r = dict(shape=(b, h, kh, seq, seq, d, str(dtype)[6:]),
              window=cfg.window, pair=errs["pair"], errs=errs, flops=flops,
              bound_ms=flops / BF16_FLOP_PER_S * 1e3, bound_by="operations")
     if time_it:
-        t = device_time(lambda: fa_ops.flash_attention_backward(
-            q, k, v, out, lse, do, **kw), 3, FLASH_BWD_KERNELS)
-        r.update(ms=t["device_ms"], timed_by=t["timed_by"],
-                 by_kernel_ms=t["by_kernel_ms"],
-                 tflop_per_s=flops / (t["device_ms"] * 1e-3) / 1e12)
-        r["plain_ms"] = cuda_ms(lambda: fa_ref.attention_backward_reference(
-            q, k, v, out, lse, do, **kw), reps=2)
-        # SDPA's causal mask is the window's where the window spans S
-        r["library_ms"] = (sdpa_backward_ms(q, k, v, do)
-                           if cfg.window == 0 or cfg.window >= seq else None)
+        r.update(flash_bwd_times(q, k, v, out, lse, do, kw, r["pair"],
+                                 flops))
     return r
 
 
@@ -4738,6 +4808,19 @@ def ptxas_report(log: str, kernels) -> dict:
     return out
 
 
+def check_ptxas(ptxas: dict, kernels, head_dims) -> None:
+    """Raises unless ``ptxas`` (``ptxas_report``'s) reports registers for
+    each ``kernel<D>`` and no spill in any."""
+    missing = [f"{k}<{d}>" for k in kernels for d in head_dims
+               if "registers" not in ptxas.get(f"{k}<{d}>", {})]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
+    spilled = {k: r for k, r in ptxas.items()
+               if r.get("spill_stores") or r.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"the tensor-core backward spills: {spilled}")
+
+
 def run_phase(phases, key, fn):
     t0 = time.perf_counter()
     phases[key] = fn()
@@ -4771,8 +4854,16 @@ def main() -> int:
                          BWD_WGMMA_KERNELS)
     print(f"[card] flash_attention_bwd: ptxas of the tensor-core pair "
           f"{ptxas}", flush=True)
-    smem = {d: _build.load("flash_attention_bwd", fa_ops._declare_bwd)
-            .flash_attention_wgmma_bwd_smem(d) for d in BWD_WGMMA_HEAD_DIMS}
+    check_ptxas(ptxas, BWD_WGMMA_KERNELS, BWD_WGMMA_HEAD_DIMS)
+    lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
+    if lib.flash_attention_wgmma_bwd_keys(256) != fa_ops.BWD_KEYS_256:
+        raise AssertionError(
+            f"a D 256 dK/dV block owns "
+            f"{lib.flash_attention_wgmma_bwd_keys(256)} keys, bwd_split "
+            f"counts {fa_ops.BWD_KEYS_256}")
+    smem = {d: {kname: lib.flash_attention_wgmma_bwd_smem(d, which)
+                for which, kname in enumerate(("dq", "dkdv"))}
+            for d in BWD_WGMMA_HEAD_DIMS}
     print(f"[card] flash_attention_bwd: the tensor-core pair's dynamic "
           f"shared memory a block by head dim: {smem} bytes", flush=True)
 
@@ -4988,18 +5079,20 @@ def main() -> int:
     phases["flash_bwd_kernel"]["shapes"]["recurrentgemma-9b/bfloat16"] = \
         phases["lm_train_griffin"]["flash_backward"]
     # the backward's launches are those of the training drives' steps:
-    # lm_train's and lm_train_griffin's on the CUDA-core pair,
-    # lm_train_bf16's on the tensor cores; the forward's there join its
-    # launches by phase
+    # lm_train's on the CUDA-core pair, lm_train_bf16's (D 128) and
+    # lm_train_griffin's (D 256, with the partial sums' kernel where its
+    # dK/dV blocks split the heads, which that drive gated) on the tensor
+    # cores; the forward's there join its launches by phase
     trains = {key: phases[key]["launches"]
               for key in ("lm_train", "lm_train_bf16", "lm_train_griffin")}
     phases["flash_bwd_kernel"]["launches"] = sum(
         n["flash_attention.bwd"] for n in trains.values())
     phases["flash_bwd_kernel"]["kernel_launches"] = {
-        k: sum(n[f"flash_attention.{k}"] for n in trains.values())
-        for k in ("bwd_wgmma", "bwd_fma", "bwd_dq", "bwd_dkdv")}
+        k: sum(n.get(f"flash_attention.{k}", 0) for n in trains.values())
+        for k in ("bwd_wgmma", "bwd_fma", "bwd_dq", "bwd_dkdv", "bwd_sum")}
     phases["flash_bwd_kernel"]["launches_by_phase"] = {
-        key: {k: n[f"flash_attention.{k}"] for k in ("bwd_wgmma", "bwd_fma")}
+        key: {k: n.get(f"flash_attention.{k}", 0)
+              for k in ("bwd_wgmma", "bwd_fma", "bwd_sum")}
         for key, n in trains.items()}
     for pair in ("bwd_wgmma", "bwd_fma"):
         if phases["flash_bwd_kernel"]["kernel_launches"][pair] < 1:

@@ -26,36 +26,56 @@
 // dQ scratch summed by atomics.
 //
 // flash_bwd_dq_wgmma_kernel / flash_bwd_dkdv_wgmma_kernel — bfloat16 at head
-// dims 64 and 128: the tensor cores.  Blocks of three warpgroups, as the
-// forward's: warpgroup 0 gives its registers away (`setmaxnreg`) and one of
-// its threads loads every tile by TMA into a 3-stage ring with full and
-// empty mbarriers (the out-of-bounds zero fill gives the ragged edges);
-// warpgroups 1 and 2 each own 64 rows of the block's 128 and run the
-// products by `wgmma`, bf16 operands and float32 accumulators.  dQ: a block
-// per (128 query rows, h, b) holds its Q and dO tiles and streams K and V
-// tiles of 64 keys (128 at D 64): S = Q K^T and dP = dO V^T (both
-// K-major), P = exp2(S scale log2 e - lse log2 e) with S scaled exactly as
-// the forward scales it, dS = P (dP - delta) converted in registers to
-// the bf16 A operand (as the forward turns S into P), dQ += dS K with K
-// read MN-major; the thread's two rows' delta comes from O and dO in
-// global memory (a quad a row), and the kernel writes delta and lse2 =
-// lse log2 e (+inf where lse is -1e30 or the row lies past Sq, so p = 0
-// there) for the second kernel.  dK/dV: a block per (128 keys, KV head,
-// b) holds K and V and streams Q and dO tiles of 64 rows (128 at D 64)
+// dims 64, 128 and 256: the tensor cores.  Warpgroup 0 of a block gives
+// its registers away (`setmaxnreg`) and one of its threads loads every
+// tile by TMA into a ring with full and empty mbarriers (the out-of-bounds
+// zero fill gives the ragged edges); the consumer warpgroups run the
+// products by `wgmma`, bf16 operands and float32 accumulators.  dQ: a
+// block per (query rows, h, b) holds its Q and dO tiles and streams K and
+// V tiles, S = Q K^T and dP = dO V^T (both K-major), P = exp2(S scale
+// log2 e - lse log2 e) with S scaled exactly as the forward scales it, dS
+// = P (dP - delta) converted in registers to the bf16 A operand (as the
+// forward turns S into P), dQ += dS K with K read MN-major; the thread's
+// two rows' delta comes from O and dO in global memory (a quad a row), and
+// the kernel writes delta and lse2 = lse log2 e (+inf where lse is -1e30
+// or the row lies past Sq, so p = 0 there) for the second kernel.  dK/dV:
+// a block per (keys, KV head, b) holds K and V and streams Q and dO tiles
 // with their lse2 and delta (1-D bulk copies); keys are the accumulators'
 // rows, so S^T = K Q^T and dP^T = V dO^T, lse2 and delta apply per column,
-// and dV += P^T dO, dK += dS^T Q read dO and Q MN-major.  At D 128 a
-// consumer thread holds dK and dV (128 float32 registers) beside S^T and
-// dP^T (64): 64 keys a warpgroup and 64-row streamed tiles keep that
-// within the 240 registers that `setmaxnreg` gives; at D 64 the same
-// registers hold 128-row tiles.  A warpgroup skips the products of a tile
-// in which none of its pairs is visible, and masks only tiles that
-// straddle a mask edge.  Float32 stays on the CUDA cores: TF32 would round
-// past its 2e-5 tolerance; D 96 and 256 (whose dK and dV tiles do not fit
-// the same registers) are later work.
+// and dV += P^T dO, dK += dS^T Q read dO and Q MN-major.  A warpgroup
+// skips the products of a tile in which none of its pairs is visible, and
+// masks only tiles that straddle a mask edge.
+//
+// At D 64 and 128 a block owns 128 rows, 64 a consumer
+// warpgroup, in a 3-stage ring: at D 128 a thread holds dK and dV (128
+// float32 registers) beside S^T and dP^T (64), within the 240 that
+// `setmaxnreg` gives, with 64-row streamed tiles; at D 64 the same
+// registers hold 128-row tiles.  At D 256 that design breaks three ways,
+// and the kernels answer each:
+//  - registers: 64 keys' dK and dV at 256 columns are 256 registers a
+//    thread.  The dK/dV block's two consumer warpgroups share its 64 keys
+//    instead: warpgroup 0 computes S^T, P^T and dV, warpgroup 1 dP^T, dS^T
+//    and dK, each 128 accumulator registers.  dS^T needs P^T: warpgroup 0
+//    writes it in float32, in its accumulator order (conflict-free), to one
+//    of two 16 KB slots, and the two meet on named barriers (kPFull,
+//    kPFree) instead of a block-wide one.  The dQ kernel's warpgroups own
+//    64 query rows each (dQ 128 registers, S and dP 16 or 32);
+//  - shared memory: 64-row tiles at D 256 are 32 KB, so the dK/dV block
+//    holds 64 keys (64 KB) and a 2-stage ring of 64-row Q and dO tiles
+//    (128 KB) beside the slots; the dQ block holds 128 query rows (128 KB)
+//    and a 3-stage ring of 32-key K and V tiles (96 KB);
+//  - the grid under MQA: a block per 64 keys gives B KH Sk / 64 blocks
+//    (64 at recurrentgemma-9b's training shape, KH 1, for 132 SMs).  The
+//    wrapper splits each group's query heads into `split` slices over
+//    blocks (the fewest that fill the card; ops.bwd_split); each slice's
+//    block writes float32 partial dK and dV, and flash_bwd_sum_kernel adds
+//    them in slice order and rounds once.
+// No atomics anywhere: every output element is summed in one fixed order,
+// bit-equal run to run.  Float32 stays on the CUDA cores: TF32 would round
+// past its 2e-5 tolerance; bf16 at D 32 and 96 too (later work).
 //
 // flash_bwd_dq_kernel / flash_bwd_dkdv_kernel — float32 at every head dim
-// and bfloat16 at 32, 96 and 256: CUDA-core float32 FMAs on tiles staged
+// and bfloat16 at 32 and 96: CUDA-core float32 FMAs on tiles staged
 // in shared memory as float32 (bfloat16 widened on the way in), with the
 // forward's 16 x 16 thread grid and its rows padded by one float; the
 // scale multiplies q before Q K^T, and dQ once more at the end.  They read
@@ -513,42 +533,100 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core pair (bfloat16, head dims 64 and 128)
+// The tensor-core pair (bfloat16, head dims 64, 128 and 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 384;      // producer warpgroup + 2 consumers
-constexpr int kBwdRows = 128;         // a block's own rows: queries or keys
+constexpr int kBwdRows = 128;         // the scratch's rows: Sq rounded up
 constexpr int kProducerRegs = 24;     // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;    //   fits the SM's 65,536 registers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kSmemLimit = 232448;    // a block's 227 KB
+// the D 256 dK/dV kernel's named barriers between its two warpgroups:
+// P^T slot s written (kPFull + s) and read (kPFree + s); 0 is
+// __syncthreads'
+constexpr int kPFull = 1, kPFree = 3;
 
-// Shared memory of either kernel: the block's two 128-row tiles (Q and dO,
-// or K and V), the ring of streamed 64-row pairs (K and V, or Q and dO),
-// the dK/dV kernel's ring of lse2 and delta vectors (64 floats each a
-// stage), then the mbarriers.  Every tile is D / 64 boxes of 64 columns
-// (128-byte rows under the 128-byte swizzle), box c at c * rows * 128.
+// The pair's tile constants (the variant tool sets these two lines).
+// kStep, the rows of a streamed tile of both kernels at D 64 and 128 and
+// of the dK/dV kernel at D 256: at D 128 a thread's dK and dV (or dQ)
+// leave room for 64-column S and dP accumulators, at D 64 for 128-column
+// ones; kStages, the ring's depth at D 64 and 128.  Measured on the card
+// against 64 rows at D 64 and 2 or 4 stages (PERF.md): 3 stages of these
+// ran fastest, and at D 64 ptxas spilled the dK/dV kernel's registers at
+// 2 and 4.
 template <int D>
 struct BwdTile {
-  static_assert(D == 64 || D == 128, "the tensor-core backward's head dims");
-  static constexpr int kBoxes = D / 64;
-  // the rows of a streamed tile: at D 128 a thread's dK and dV (or dQ)
-  // leave room for 64-column S and dP accumulators, at D 64 for 128-column
-  // ones; and the ring's depth.  Measured on the card against 64 rows at
-  // D 64 and 2 or 4 stages (PERF.md): 3 stages of these ran fastest, and
-  // at D 64 ptxas spilled the dK/dV kernel's registers at 2 and 4.
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the tensor-core backward's head dims");
   static constexpr int kStep = D == 64 ? 128 : 64;
   static constexpr int kStages = 3;
-  static constexpr int kOwnBytes = kBwdRows * D * 2;
+};
+
+// the most ring stages, up to 3, of `stage` bytes each that fit a block
+// beside `fixed` bytes, the mbarriers and the 1 KB of alignment
+constexpr int ring_stages(int fixed, int stage) {
+  return (kSmemLimit - 1024 - 64 - fixed) / stage < 3
+             ? (kSmemLimit - 1024 - 64 - fixed) / stage : 3;
+}
+
+// The dQ kernel's shared memory: its own Q and dO tiles (kRows rows), the
+// ring of streamed K and V tiles (kStep keys), then the mbarriers.  Every
+// tile is D / 64 boxes of 64 columns (128-byte rows under the 128-byte
+// swizzle), box c at c * rows * 128.  Two consumer warpgroups own 64 rows
+// each; at D 256 they stream 32-key tiles, so that 128 rows and 3 stages
+// fit 227 KB.  One warpgroup of 64 rows against 64-key tiles (2 stages)
+// ran 6% slower on the card (PERF.md: dQ 0.399 against 0.360 ms at
+// recurrentgemma-9b's shape): here a K and V tile serves 128 rows, and one
+// warpgroup's products overlap the other's softmax.
+template <int D>
+struct DqTile {
+  static constexpr int kRows = 128;
+  static constexpr int kStep = D == 256 ? 32 : BwdTile<D>::kStep;
+  static constexpr int kOwnBytes = kRows * D * 2;
   static constexpr int kStepBytes = kStep * D * 2;
-  static constexpr int kVecBytes = 2 * kStep * 4;          // lse2, delta
   static constexpr int kRingOffset = 2 * kOwnBytes;
-  static constexpr int kVecOffset = kRingOffset + kStages * 2 * kStepBytes;
-  static constexpr int kBarOffset = kVecOffset + kStages * kVecBytes;
+  static constexpr int kStages =
+      D == 256 ? ring_stages(kRingOffset, 2 * kStepBytes)
+               : BwdTile<D>::kStages;
+  static constexpr int kBarOffset = kRingOffset + kStages * 2 * kStepBytes;
   // own_full, then full[kStages], empty[kStages]; + 1 KB to align
   static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages)
                                        + 1024;
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit,
+                "past a block's 227 KB");
+};
+
+// The dK/dV kernel's: its own K and V tiles (kRows keys), the ring of
+// streamed Q and dO tiles (kStep rows), the ring of lse2 and delta vectors
+// (kStep floats each a stage), at D 256 the two slots of P^T that its
+// warpgroups exchange (kHalves), then the mbarriers.  At D 64 and 128 each
+// consumer warpgroup owns 64 of the block's 128 keys at all D columns; at
+// D 256 (kHalves) both own the block's 64 keys, warpgroup 0 their dV and
+// warpgroup 1 their dK (64 x 256 float32 accumulators = 128 registers a
+// thread either way).
+template <int D>
+struct DkdvTile {
+  static constexpr bool kHalves = D == 256;
+  static constexpr int kRows = kHalves ? 64 : 128;
+  static constexpr int kStep = BwdTile<D>::kStep;
+  static constexpr int kOwnBytes = kRows * D * 2;
+  static constexpr int kStepBytes = kStep * D * 2;
+  static constexpr int kVecBytes = 2 * kStep * 4;          // lse2, delta
+  static constexpr int kSlotFloats = 64 * kStep;           // a P^T slot
+  static constexpr int kXBytes = kHalves ? 2 * kSlotFloats * 4 : 0;
+  static constexpr int kRingOffset = 2 * kOwnBytes;
+  static constexpr int kStages =
+      kHalves ? ring_stages(kRingOffset + kXBytes, 2 * kStepBytes + kVecBytes)
+              : BwdTile<D>::kStages;
+  static constexpr int kVecOffset = kRingOffset + kStages * 2 * kStepBytes;
+  static constexpr int kXOffset = kVecOffset + kStages * kVecBytes;
+  static constexpr int kBarOffset = kXOffset + kXBytes;
+  static constexpr size_t kSmemBytes = kBarOffset + 8 * (1 + 2 * kStages)
+                                       + 1024;
   static_assert(kBwdRows % kStep == 0, "streamed tiles cover the rows");
-  static_assert(kSmemBytes <= 232448, "past a block's 227 KB");
+  static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit,
+                "past a block's 227 KB");
 };
 
 // every (q, k) pair with q in [qa, qb] and k in [k0, k0 + bk) visible: the
@@ -637,6 +715,22 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int row,
   }
 }
 
+// the same rows as float32 (a partial sum for flash_bwd_sum_kernel)
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* dst, int row,
+                                               int n_rows, int col,
+                                               const float (&acc)[D / 2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int at = row + 8 * r;
+    if (at >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + (size_t)at * D + 8 * j + col) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
@@ -650,10 +744,11 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return acc;
 }
 
-// dQ (and the vectors the dK/dV kernel reads): one block per (128 query
-// rows, h, b), heaviest (last) rows first.  vec holds lse2 = lse log2 e
-// (+inf for a row that sees no key or lies past Sq) at [b H + h][row] and
-// delta = rowsum(dO O) at [B H + b H + h][row], sq_pad rows a head.
+// dQ (and the vectors the dK/dV kernel reads): one block per (kRows query
+// rows, h, b), heaviest (last) rows first; each consumer warpgroup owns 64
+// rows.  vec holds lse2 = lse log2 e (+inf for a row that sees no key or
+// lies past Sq) at [b H + h][row] and delta = rowsum(dO O) at [B H + b H +
+// h][row], sq_pad rows a head.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -669,7 +764,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           int KH, int Sq, int Sk, int sq_pad, int mode,
                           int window, int q_offset, float scale,
                           float scale_log2) {
-  using G = BwdTile<D>;
+  using G = DqTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -681,11 +776,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t empty = full + 8 * G::kStages;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBwdRows;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * G::kRows;
   const int bh = b * H + h;
   const int len = lengths[b];
   int k_lo, k_hi;
-  key_range(mode, q0, min(q0 + kBwdRows, Sq) - 1, len, window, q_offset, Sk,
+  key_range(mode, q0, min(q0 + G::kRows, Sq) - 1, len, window, q_offset, Sk,
             &k_lo, &k_hi);
   const int t0 = (k_lo / G::kStep) * G::kStep;
   const int n_tiles =
@@ -707,9 +802,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int kvm = b * KH + h / (H / KH);
       mbar_expect_tx(own_full, 2 * G::kOwnBytes);
 #pragma unroll
-      for (int c = 0; c < G::kBoxes; ++c) {
-        tma_load3(s_q + c * kBwdRows * 128, &tq, own_full, 64 * c, q0, bh);
-        tma_load3(s_do + c * kBwdRows * 128, &tdo, own_full, 64 * c, q0, bh);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load3(s_q + c * G::kRows * 128, &tq, own_full, 64 * c, q0, bh);
+        tma_load3(s_do + c * G::kRows * 128, &tdo, own_full, 64 * c, q0, bh);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % G::kStages;
@@ -718,7 +813,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int k0 = t0 + i * G::kStep;
         mbar_expect_tx(full + 8 * st, 2 * G::kStepBytes);
 #pragma unroll
-        for (int c = 0; c < G::kBoxes; ++c) {
+        for (int c = 0; c < D / 64; ++c) {
           tma_load3(k_st + c * G::kStep * 128, &tk, full + 8 * st, 64 * c,
                     k0, kvm);
           tma_load3(k_st + G::kStepBytes + c * G::kStep * 128, &tv,
@@ -779,12 +874,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<G::kStep>::ss(s, kmajor(s_q, kBwdRows, 64 * g, kk),
+          Wgmma<G::kStep>::ss(s, kmajor(s_q, G::kRows, 64 * g, kk),
                               kmajor(k_st, G::kStep, 0, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<G::kStep>::ss(dp, kmajor(s_do, kBwdRows, 64 * g, kk),
+          Wgmma<G::kStep>::ss(dp, kmajor(s_do, G::kRows, 64 * g, kk),
                               kmajor(v_st, G::kStep, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
@@ -826,9 +921,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// dK and dV: one block per (128 keys, KV head, b); each consumer warpgroup
-// holds 64 keys' dK and dV in registers over every query head of the group
-// and every 64-row query tile that sees a key of the block, in that order.
+// dK and dV: one block per (kRows keys, KV head, b, slice of the group's
+// query heads: `split` slices of H / KH / split heads, the slice fastest),
+// walking each query head of its slice and every kStep-row query tile that
+// sees a key of the block, in that order.  At D 64 and 128 (split 1) each
+// consumer warpgroup holds 64 keys' dK and dV in registers.  At D 256 both
+// warpgroups take the block's 64 keys: warpgroup 0 computes S^T = K Q^T,
+// P^T and dV += P^T dO; warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T -
+// delta) and dK += dS^T Q, reading P^T in float32 from the slot that
+// warpgroup 0 wrote (two slots, named barriers kPFull / kPFree); with
+// split > 1 each writes its float32 sum to part (dK's, then dV's: [2]
+// [split][B KH][Sk][D]) for flash_bwd_sum_kernel.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -838,11 +941,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ vec,
                             const int* __restrict__ lengths,
                             __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int B, int H,
+                            __nv_bfloat16* __restrict__ dv,
+                            float* __restrict__ part, int B, int H,
                             int KH, int Sq, int Sk, int sq_pad, int mode,
-                            int window, int q_offset, float scale,
-                            float scale_log2) {
-  using G = BwdTile<D>;
+                            int window, int q_offset, int split,
+                            float scale, float scale_log2) {
+  using G = DkdvTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -856,15 +960,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t empty = full + 8 * G::kStages;
 
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * kBwdRows;        // causal: the heaviest first
-  const int group = H / KH;
+  const int k0 = (blockIdx.z / split) * G::kRows;  // causal: heaviest first
+  const int slice = blockIdx.z % split;
+  const int group = H / KH, heads = group / split;
+  const int h0 = kvh * group + slice * heads;      // the slice's first head
   const int len = lengths[b];
   int q_lo, q_hi;
-  query_range(mode, k0, min(k0 + kBwdRows, Sk) - 1, len, window, q_offset,
+  query_range(mode, k0, min(k0 + G::kRows, Sk) - 1, len, window, q_offset,
               Sq, &q_lo, &q_hi);
   const int t0 = (q_lo / G::kStep) * G::kStep;
   const int n_q = q_hi > t0 ? (q_hi - t0 + G::kStep - 1) / G::kStep : 0;
-  const int n_tiles = group * n_q;
+  const int n_tiles = heads * n_q;
 
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
@@ -882,20 +988,20 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int kvm = b * KH + kvh;
       mbar_expect_tx(own_full, 2 * G::kOwnBytes);
 #pragma unroll
-      for (int c = 0; c < G::kBoxes; ++c) {
-        tma_load3(s_k + c * kBwdRows * 128, &tk, own_full, 64 * c, k0, kvm);
-        tma_load3(s_v + c * kBwdRows * 128, &tv, own_full, 64 * c, k0, kvm);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load3(s_k + c * G::kRows * 128, &tk, own_full, 64 * c, k0, kvm);
+        tma_load3(s_v + c * G::kRows * 128, &tv, own_full, 64 * c, k0, kvm);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % G::kStages;
-        const int bh = b * H + kvh * group + i / n_q;
+        const int bh = b * H + h0 + i / n_q;
         const int q0 = t0 + (i % n_q) * G::kStep;
         mbar_wait(empty + 8 * st, ((i / G::kStages) & 1) ^ 1);
         const uint32_t q_st = s_ring + st * 2 * G::kStepBytes;
         const uint32_t v_st = s_vec + st * G::kVecBytes;
         mbar_expect_tx(full + 8 * st, 2 * G::kStepBytes + G::kVecBytes);
 #pragma unroll
-        for (int c = 0; c < G::kBoxes; ++c) {
+        for (int c = 0; c < D / 64; ++c) {
           tma_load3(q_st + c * G::kStep * 128, &tq, full + 8 * st, 64 * c,
                     q0, bh);
           tma_load3(q_st + G::kStepBytes + c * G::kStep * 128, &tdo,
@@ -907,6 +1013,102 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   vec + ((size_t)B * H + bh) * sq_pad + q0, G::kStep * 4,
                   full + 8 * st);
       }
+    }
+  } else if constexpr (G::kHalves) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = threadIdx.x - 128;
+    const int g = ct / 128, t = ct % 128, warp = t / 32, lane = ct % 32;
+    const int row = k0 + 16 * warp + lane / 4;   // the thread's keys: row
+    const int col = 2 * (lane % 4);              //   and row + 8
+    float* slots = reinterpret_cast<float*>(smem + G::kXOffset);
+
+    float acc[D / 2];                            // g 0: dV, g 1: dK
+    zero(acc);
+    if (n_tiles > 0) mbar_wait(own_full, 0);
+    int done = 0;                                // tiles not skipped
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % G::kStages;
+      const int q0 = t0 + (i % n_q) * G::kStep;
+      const uint32_t q_st = s_ring + st * 2 * G::kStepBytes;
+      const uint32_t do_st = q_st + G::kStepBytes;
+      const float* lse2 = vec_s + st * (G::kVecBytes / 4);
+      const float* delta = lse2 + G::kStep;
+      mbar_wait(full + 8 * st, (i / G::kStages) & 1);
+      // both warpgroups skip the same tiles: they hold the same keys
+      if (!tile_empty(mode, q0, q0 + G::kStep - 1, k0, k0 + 63, len, window,
+                      q_offset, Sq, Sk)) {
+        const int slot = done & 1;
+        float* x = slots + slot * G::kSlotFloats;
+        // g 0: S^T = K Q^T; g 1: dP^T = V dO^T (keys are the rows)
+        float s[G::kStep / 2];
+        zero(s);
+        fence_regs(s);
+        wgmma_fence();
+        const uint32_t a_own = g == 0 ? s_k : s_v;
+        const uint32_t b_st = g == 0 ? q_st : do_st;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<G::kStep>::ss(s, kmajor(a_own, G::kRows, 0, kk),
+                              kmajor(b_st, G::kStep, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (g == 0) {
+          // P^T = exp2(S^T scale log2 e - lse2 of the column), to the slot
+          const bool masked = !tile_unmasked(mode, q0, q0 + G::kStep - 1,
+                                             k0, 64, len, window, q_offset,
+                                             Sk);
+#pragma unroll
+          for (int j = 0; j < G::kStep / 2; ++j) {
+            const int c = 8 * (j / 4) + col + (j % 2);
+            const float y = s[j] * scale_log2;
+            s[j] = masked && !visible(mode, q0 + c, row + 8 * ((j % 4) / 2),
+                                      len, window, q_offset, Sq, Sk)
+                       ? 0.f : exp2f(y - lse2[c]);
+          }
+          // warpgroup 1 has read what this slot held two tiles ago
+          if (done >= 2) named_bar_sync(kPFree + slot, 256);
+#pragma unroll
+          for (int j = 0; j < G::kStep / 2; ++j) x[j * 128 + t] = s[j];
+          named_bar_arrive(kPFull + slot, 256);
+        } else {
+          // dS^T = P^T (dP^T - delta of the column), P^T from the slot
+          named_bar_sync(kPFull + slot, 256);
+#pragma unroll
+          for (int j = 0; j < G::kStep / 2; ++j)
+            s[j] = x[j * 128 + t] *
+                   (s[j] - delta[8 * (j / 4) + col + (j % 2)]);
+          named_bar_arrive(kPFree + slot, 256);
+        }
+        // g 0: dV += P^T dO; g 1: dK += dS^T Q (dO and Q read MN-major)
+        uint32_t a[G::kStep / 16][4];
+        pack_a<G::kStep>(a, s);
+        const uint32_t b_mn = g == 0 ? do_st : q_st;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::kStep / 16; ++kk)
+          Wgmma<D>::rs(acc, a[kk], mnmajor(b_mn, G::kStep, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        ++done;
+      }
+      mbar_arrive(empty + 8 * st);
+    }
+    // take warpgroup 1's last two reads off their barriers, so none is
+    // left part-way at exit
+    if (g == 0)
+      for (int d = max(done - 2, 0); d < done; ++d)
+        named_bar_sync(kPFree + (d & 1), 256);
+    const size_t base = (size_t)(b * KH + kvh) * Sk * D;
+    if (split == 1) {
+      store_rows<D>((g == 0 ? dv : dk) + base, row, Sk, col, acc,
+                    g == 0 ? 1.f : scale);
+    } else {
+      const size_t n = (size_t)B * KH * Sk * D;
+      store_rows_f32<D>(part + ((size_t)(1 - g) * split + slice) * n + base,
+                        row, Sk, col, acc);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -939,12 +1141,12 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<G::kStep>::ss(s, kmajor(s_k, kBwdRows, 64 * g, kk),
+          Wgmma<G::kStep>::ss(s, kmajor(s_k, G::kRows, 64 * g, kk),
                               kmajor(q_st, G::kStep, 0, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<G::kStep>::ss(dp, kmajor(s_v, kBwdRows, 64 * g, kk),
+          Wgmma<G::kStep>::ss(dp, kmajor(s_v, G::kRows, 64 * g, kk),
                               kmajor(do_st, G::kStep, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
@@ -992,41 +1194,73 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dK and dV from the D 256 dK/dV kernel's float32 partials ([2][split][n],
+// dK's then dV's), each element summed over the split in slice order and
+// rounded once (dK times `scale`): n / 4 groups of 4 elements, a thread a
+// group at a time.
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_kernel(const float* __restrict__ part,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, size_t n, int split,
+                     float scale) {
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+       i < n; i += (size_t)gridDim.x * blockDim.x * 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+    for (int s = 0; s < split; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(part + s * n + i);
+      const float4 y =
+          *reinterpret_cast<const float4*>(part + (split + s) * n + i);
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+    }
+    *reinterpret_cast<uint2*>(dk + i) =
+        make_uint2(pack_bf16(a.x * scale, a.y * scale),
+                   pack_bf16(a.z * scale, a.w * scale));
+    *reinterpret_cast<uint2*>(dv + i) =
+        make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
+  }
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* out, const void* dout, const void* lse,
-                         const void* lengths, void* vec, void* dq, void* dk,
-                         void* dv, int B, int H, int KH, int Sq, int Sk,
-                         int mode, int window, int q_offset, float scale,
-                         cudaStream_t stream) {
-  using G = BwdTile<D>;
+                         const void* lengths, void* vec, void* part,
+                         void* dq, void* dk, void* dv, int B, int H, int KH,
+                         int Sq, int Sk, int mode, int window, int q_offset,
+                         int split, float scale, cudaStream_t stream) {
+  using Q = DqTile<D>;
+  using K = DkdvTile<D>;
+  // the head split: D 256 only, a divisor of the group, partials for > 1
+  if (split < 1 || (H / KH) % split != 0 ||
+      (split > 1 && (!K::kHalves || part == nullptr)))
+    return cudaErrorInvalidValue;
   const int sq_pad = (Sq + kBwdRows - 1) / kBwdRows * kBwdRows;
-  // the dQ kernel's maps: Q and dO in 128-row boxes, K and V in 64-row
-  // ones; the dK/dV kernel's the other way round
+  // the dQ kernel's maps: Q and dO in boxes of its own rows, K and V in
+  // its streamed ones; the dK/dV kernel's the other way round
   CUtensorMap tq_own, tdo_own, tk_step, tv_step, tq_step, tdo_step, tk_own,
       tv_own;
-  if (!encode_map(&tq_own, q, D, Sq, B * H, kBwdRows, 64) ||
-      !encode_map(&tdo_own, dout, D, Sq, B * H, kBwdRows, 64) ||
-      !encode_map(&tk_step, k, D, Sk, B * KH, G::kStep, 64) ||
-      !encode_map(&tv_step, v, D, Sk, B * KH, G::kStep, 64) ||
-      !encode_map(&tq_step, q, D, Sq, B * H, G::kStep, 64) ||
-      !encode_map(&tdo_step, dout, D, Sq, B * H, G::kStep, 64) ||
-      !encode_map(&tk_own, k, D, Sk, B * KH, kBwdRows, 64) ||
-      !encode_map(&tv_own, v, D, Sk, B * KH, kBwdRows, 64))
+  if (!encode_map(&tq_own, q, D, Sq, B * H, Q::kRows, 64) ||
+      !encode_map(&tdo_own, dout, D, Sq, B * H, Q::kRows, 64) ||
+      !encode_map(&tk_step, k, D, Sk, B * KH, Q::kStep, 64) ||
+      !encode_map(&tv_step, v, D, Sk, B * KH, Q::kStep, 64) ||
+      !encode_map(&tq_step, q, D, Sq, B * H, K::kStep, 64) ||
+      !encode_map(&tdo_step, dout, D, Sq, B * H, K::kStep, 64) ||
+      !encode_map(&tk_own, k, D, Sk, B * KH, K::kRows, 64) ||
+      !encode_map(&tv_own, v, D, Sk, B * KH, K::kRows, 64))
     return cudaErrorInvalidValue;
   auto dq_kernel = flash_bwd_dq_wgmma_kernel<D>;
   auto dkdv_kernel = flash_bwd_dkdv_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::kSmemBytes);
+      (int)Q::kSmemBytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(dkdv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)G::kSmemBytes);
+                             (int)K::kSmemBytes);
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * kLog2e;     // as the forward scales S
   // dQ and the vectors first: the dK/dV pass reads them
-  dq_kernel<<<dim3(H, B, sq_pad / kBwdRows), kBwdThreads, G::kSmemBytes,
+  dq_kernel<<<dim3(H, B, sq_pad / Q::kRows), kBwdThreads, Q::kSmemBytes,
               stream>>>(
       tq_own, tdo_own, tk_step, tv_step,
       static_cast<const __nv_bfloat16*>(out),
@@ -1036,12 +1270,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       Sq, Sk, sq_pad, mode, window, q_offset, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<<<dim3(KH, B, (Sk + kBwdRows - 1) / kBwdRows), kBwdThreads,
-                G::kSmemBytes, stream>>>(
+  dkdv_kernel<<<dim3(KH, B, (Sk + K::kRows - 1) / K::kRows * split),
+                kBwdThreads, K::kSmemBytes, stream>>>(
       tq_step, tdo_step, tk_own, tv_own, static_cast<const float*>(vec),
       static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), B, H, KH, Sq, Sk, sq_pad, mode,
-      window, q_offset, scale, scale_log2);
+      static_cast<__nv_bfloat16*>(dv), static_cast<float*>(part), B, H, KH,
+      Sq, Sk, sq_pad, mode, window, q_offset, split, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return err;
+  const size_t n = (size_t)B * KH * Sk * D;
+  const size_t blocks = (n / 4 + 255) / 256;
+  flash_bwd_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                         stream>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n, split, scale);
   return cudaGetLastError();
 }
 
@@ -1074,36 +1316,59 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core pair: bfloat16 q, k, v, out, dout (16-byte aligned) at D =
-// 64 or 128; Sq, Sk, B, H >= 1.  `vec` is a float32 scratch of 2 x B x H x
-// roundup(Sq, 128).  Returns the launches' CUDA error code.
+// 64, 128 or 256; Sq, Sk, B, H >= 1.  `vec` is a float32 scratch of 2 x B x
+// H x roundup(Sq, 128).  `split` slices each KV head's group of query heads
+// over dK/dV blocks (D 256 only; it divides H / KH); with split > 1, `part`
+// is a float32 scratch of 2 x split x B x KH x Sk x D (else unused).
+// Returns the launches' CUDA error code.
 int flash_attention_wgmma_bwd(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
                               const void* lse, const void* lengths,
-                              void* vec, void* dq, void* dk, void* dv, int B,
-                              int H, int KH, int Sq, int Sk, int D, int mode,
-                              int window, int q_offset, float scale,
-                              void* stream) {
+                              void* vec, void* part, void* dq, void* dk,
+                              void* dv, int B, int H, int KH, int Sq, int Sk,
+                              int D, int mode, int window, int q_offset,
+                              int split, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (KH <= 0 || H % KH != 0 || mode < kCausal || mode > kFull || B <= 0 ||
       Sq <= 0 || Sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64: return static_cast<int>(launch_wgmma<64>(
-        q, k, v, out, dout, lse, lengths, vec, dq, dk, dv, B, H, KH, Sq, Sk,
-        mode, window, q_offset, scale, s));
+        q, k, v, out, dout, lse, lengths, vec, part, dq, dk, dv, B, H, KH,
+        Sq, Sk, mode, window, q_offset, split, scale, s));
     case 128: return static_cast<int>(launch_wgmma<128>(
-        q, k, v, out, dout, lse, lengths, vec, dq, dk, dv, B, H, KH, Sq, Sk,
-        mode, window, q_offset, scale, s));
+        q, k, v, out, dout, lse, lengths, vec, part, dq, dk, dv, B, H, KH,
+        Sq, Sk, mode, window, q_offset, split, scale, s));
+    case 256: return static_cast<int>(launch_wgmma<256>(
+        q, k, v, out, dout, lse, lengths, vec, part, dq, dk, dv, B, H, KH,
+        Sq, Sk, mode, window, q_offset, split, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// the tensor-core pair's dynamic shared memory a block at head dim D (0 for
-// a head dim it does not take)
-int flash_attention_wgmma_bwd_smem(int D) {
+// the tensor-core pair's dynamic shared memory a block at head dim D, of
+// the dQ kernel (which 0) or the dK/dV kernel (1); 0 for a head dim it
+// does not take
+int flash_attention_wgmma_bwd_smem(int D, int which) {
   switch (D) {
-    case 64: return static_cast<int>(BwdTile<64>::kSmemBytes);
-    case 128: return static_cast<int>(BwdTile<128>::kSmemBytes);
+    case 64: return static_cast<int>(which ? DkdvTile<64>::kSmemBytes
+                                           : DqTile<64>::kSmemBytes);
+    case 128: return static_cast<int>(which ? DkdvTile<128>::kSmemBytes
+                                            : DqTile<128>::kSmemBytes);
+    case 256: return static_cast<int>(which ? DkdvTile<256>::kSmemBytes
+                                            : DqTile<256>::kSmemBytes);
+    default: return 0;
+  }
+}
+
+// the keys a tensor-core dK/dV block owns at head dim D (ops.BWD_KEYS_256
+// copies the D 256 value to count the split's blocks); 0 for a head dim it
+// does not take
+int flash_attention_wgmma_bwd_keys(int D) {
+  switch (D) {
+    case 64: return DkdvTile<64>::kRows;
+    case 128: return DkdvTile<128>::kRows;
+    case 256: return DkdvTile<256>::kRows;
     default: return 0;
   }
 }

@@ -117,6 +117,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define WGMMA_O16(d, i) \
   WGMMA_O4(d, i), WGMMA_O4(d, i + 4), WGMMA_O4(d, i + 8), WGMMA_O4(d, i + 12)
 #define WGMMA_O32(d, i) WGMMA_O16(d, i), WGMMA_O16(d, i + 16)
+#define WGMMA_OUT16(d) WGMMA_O16(d, 0)
 #define WGMMA_OUT32(d) WGMMA_O32(d, 0)
 #define WGMMA_OUT48(d) WGMMA_O32(d, 0), WGMMA_O16(d, 32)
 #define WGMMA_OUT64(d) WGMMA_O32(d, 0), WGMMA_O32(d, 32)
@@ -126,6 +127,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // m64nNk16, bf16 in, float32 accumulators (N / 2 a thread).  _ss: A and B
 // from shared-memory descriptors, both K-major; scale_d = 0 overwrites d.
 // _rs: A from registers (4 x bf16x2 a thread), B transposed (MN-major).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_OUT16(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                                 uint64_t b, int scale_d) {
   asm volatile(
@@ -227,6 +240,13 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N>
 struct Wgmma;
 template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  }
+};
+template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int scale_d) {
@@ -266,6 +286,17 @@ struct Wgmma<256> {
     wgmma_rs_n256(d, a, b);
   }
 };
+
+// named barriers (ids 1-15; 0 is __syncthreads'): `threads` of the block,
+// a multiple of 32, meet at barrier `id`.  arrive does not wait; sync waits
+// until all have come, and orders the shared-memory writes made before
+// either by the threads that meet
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);

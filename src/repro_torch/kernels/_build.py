@@ -53,25 +53,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def build_log(name: str) -> Path:
+    """Where :func:`build` keeps the compiler output of ``name``'s
+    library."""
+    out = library_path(name)
+    return out.with_name(f"{out.name}.log")
+
+
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together.  Returns each compiler's output (its
-    ``-Xptxas -v`` register and spill report); raises on a failed build."""
+    source, all started together.  Returns each named source's compiler
+    output (its ``-Xptxas -v`` register and spill report), kept beside
+    its library (``build_log``) so that a source built earlier gives it
+    too; raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = build_log(name)
+            logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    logs, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            log = build_log(name)
+            log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+            log_tmp.write_text(logs[name])
+            os.replace(log_tmp, log)
             os.replace(tmp, out)
         else:
             failed.append(name)

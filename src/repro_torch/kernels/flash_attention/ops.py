@@ -6,14 +6,16 @@ CUDA-core one (``flash_fwd_kernel``: float32, and bfloat16 at head dim
 32), as ``variant`` says; the backward (``csrc/flash_attention_bwd.cu``) is
 a pair of kernels, a dQ kernel then a dK/dV kernel, on the tensor cores
 (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkdv_wgmma_kernel``: bfloat16
-at head dims 64 and 128) or the CUDA cores (``flash_bwd_dq_kernel``,
+at head dims 64, 128 and 256; at 256 the dK/dV kernel may split a KV
+head's query heads over blocks, ``bwd_split``, and ``flash_bwd_sum_kernel``
+then adds their partial sums) or the CUDA cores (``flash_bwd_dq_kernel``,
 ``flash_bwd_dkdv_kernel``: the rest), as ``bwd_variant`` says, behind
 :class:`FlashAttentionFn`, which :func:`flash_attention` goes through when
 autograd needs the gradient.  There is no fallback: a launch or tensor
 map the card refuses raises.  ``launches`` counts kernel launches, in all
 and by kernel (the backward's calls as ``flash_attention.bwd``, by pair as
-``.bwd_wgmma`` and ``.bwd_fma``, its kernels as ``.bwd_dq`` and
-``.bwd_dkdv``)."""
+``.bwd_wgmma`` and ``.bwd_fma``, its kernels as ``.bwd_dq``,
+``.bwd_dkdv`` and ``.bwd_sum``)."""
 from __future__ import annotations
 
 import ctypes
@@ -28,7 +30,8 @@ from .ref import (attention_backward_reference, attention_reference,
 launches = {"flash_attention": 0, "flash_attention.wgmma": 0,
             "flash_attention.fma": 0, "flash_attention.bwd": 0,
             "flash_attention.bwd_wgmma": 0, "flash_attention.bwd_fma": 0,
-            "flash_attention.bwd_dq": 0, "flash_attention.bwd_dkdv": 0}
+            "flash_attention.bwd_dq": 0, "flash_attention.bwd_dkdv": 0,
+            "flash_attention.bwd_sum": 0}
 
 MODES = {"causal": 0, "length": 1, "full": 2}
 
@@ -50,16 +53,20 @@ VARIANTS = {
 
 
 # The backward pair for each (type, head dim) the forward takes: "wgmma"
-# (the tensor cores) for bfloat16 at head dims 64 and 128; "fma" (CUDA-core
-# float32) for float32, which TF32 would round past its tolerance, and for
-# bfloat16 at 32, 96 and 256 (a D-256 tile of dK and dV does not fit a
-# warpgroup's registers in the same design).
+# (the tensor cores) for bfloat16 at head dims 64, 128 and 256 (at 256 the
+# dK/dV kernel's two warpgroups share a block's keys, one holding dV and
+# the other dK); "fma" (CUDA-core float32) for float32, which TF32 would
+# round past its tolerance, and for bfloat16 at 32 and 96.
 BWD_VARIANTS = {key: "wgmma" if key in ((torch.bfloat16, 64),
-                                        (torch.bfloat16, 128)) else "fma"
+                                        (torch.bfloat16, 128),
+                                        (torch.bfloat16, 256)) else "fma"
                 for key in VARIANTS}
-# the tensor-core pair's blocks own 128 rows: its float32 scratch holds
-# lse2 and delta for Sq rounded up to them
+# the tensor-core pair's float32 scratch holds lse2 and delta for Sq
+# rounded up to 128 rows (a multiple of every block's and tile's rows)
 BWD_ROWS = 128
+# the keys of a D 256 dK/dV block, as the library's
+# flash_attention_wgmma_bwd_keys(256) gives them (checked on the card)
+BWD_KEYS_256 = 64
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
@@ -77,6 +84,26 @@ def bwd_variant(dtype: torch.dtype, d: int) -> str:
     ``d`` on the card."""
     variant(dtype, d)
     return BWD_VARIANTS[(dtype, d)]
+
+
+def bwd_split(b: int, h: int, kh: int, sk: int, d: int, sms: int) -> int:
+    """The slices of each KV head's group of query heads that the
+    tensor-core dK/dV kernel spreads over blocks: at head dim 256 the
+    fewest, a divisor of the group H / KH, that give at least one block an
+    SM (``sms``), else the whole group; 1 where the blocks of B x KH x
+    key tiles already fill the card, and at the other head dims.  Each
+    slice's block writes float32 partials that a last kernel adds in slice
+    order."""
+    if d != 256:
+        return 1
+    blocks = b * kh * -(-sk // BWD_KEYS_256)
+    group = h // kh
+    return next((s for s in range(1, group + 1)
+                 if group % s == 0 and blocks * s >= sms), group)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -97,11 +124,13 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 10 + [
         ctypes.c_float, p]
     lib.flash_attention_bwd.restype = i
-    lib.flash_attention_wgmma_bwd.argtypes = [p] * 11 + [i] * 9 + [
+    lib.flash_attention_wgmma_bwd.argtypes = [p] * 12 + [i] * 10 + [
         ctypes.c_float, p]
     lib.flash_attention_wgmma_bwd.restype = i
-    lib.flash_attention_wgmma_bwd_smem.argtypes = [i]
+    lib.flash_attention_wgmma_bwd_smem.argtypes = [i, i]
     lib.flash_attention_wgmma_bwd_smem.restype = i
+    lib.flash_attention_wgmma_bwd_keys.argtypes = [i]
+    lib.flash_attention_wgmma_bwd_keys.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -167,6 +196,33 @@ def flash_attention_lse(q, k, v, *, mode: str = "causal", window: int = 0,
     return _forward(q, k, v, lengths, mode, window, q_offset, scale, True)
 
 
+def wgmma_backward(lib, q, k, v, out, do, lse, lengths, dq, dk, dv,
+                   mode: int, window: int, q_offset: int, scale: float,
+                   split: Optional[int] = None) -> int:
+    """The tensor-core pair of ``lib`` (the built ``flash_attention_bwd``
+    library, or a variant of it) on prepared bf16 inputs, writing dq, dk
+    and dv: allocates the lse2 / delta scratch and, where the split gives
+    more than one slice, the float32 partials; raises on a refused launch.
+    ``split`` is ``bwd_split``'s unless given (the variant tool times
+    others against it).  Returns the split."""
+    b, h, sq, d = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    if split is None:
+        split = bwd_split(b, h, kh, sk, d, _sms(q.device))
+    # lse2 and delta, each (B, H, Sq rounded up to BWD_ROWS)
+    rows = -(-sq // BWD_ROWS) * BWD_ROWS
+    vec = torch.empty((2, b, h, rows), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, split, b, kh, sk, d), dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
+    code = lib.flash_attention_wgmma_bwd(
+        *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths, vec)),
+        None if part is None else _build.pointer(part),
+        *(_build.pointer(t) for t in (dq, dk, dv)), b, h, kh, sq, sk, d,
+        mode, window, q_offset, split, scale, _build.stream())
+    _build.check(lib, code, "flash_attention_bwd")
+    return split
+
+
 def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
                              window: int = 0,
                              lengths: Optional[torch.Tensor] = None,
@@ -196,23 +252,19 @@ def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
     kh, sk = k.shape[1], k.shape[2]
     kind = bwd_variant(q.dtype, d)
     lib = _build.load("flash_attention_bwd", _declare_bwd)
-    dims = (b, h, kh, sq, sk, d, MODES[mode], window, q_offset,
-            _scale(scale, d), _build.stream())
     if kind == "wgmma":
-        # lse2 and delta, each (B, H, Sq rounded up to BWD_ROWS)
-        rows = -(-sq // BWD_ROWS) * BWD_ROWS
-        vec = torch.empty((2, b, h, rows), dtype=torch.float32,
-                          device=q.device)
-        code = lib.flash_attention_wgmma_bwd(
-            *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths,
-                                           vec, dq, dk, dv)), *dims)
+        split = wgmma_backward(lib, q, k, v, out, do, lse, lengths, dq, dk,
+                               dv, MODES[mode], window, q_offset,
+                               _scale(scale, d))
+        launches["flash_attention.bwd_sum"] += int(split > 1)
     else:
         delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         code = lib.flash_attention_bwd(
             *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths,
                                            delta, dq, dk, dv)),
-            _build.DTYPES[q.dtype], *dims)
-    _build.check(lib, code, "flash_attention_bwd")
+            _build.DTYPES[q.dtype], b, h, kh, sq, sk, d, MODES[mode], window,
+            q_offset, _scale(scale, d), _build.stream())
+        _build.check(lib, code, "flash_attention_bwd")
     launches["flash_attention.bwd"] += 1
     launches[f"flash_attention.bwd_{kind}"] += 1
     launches["flash_attention.bwd_dq"] += 1

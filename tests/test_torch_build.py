@@ -46,11 +46,12 @@ def test_the_sources_include_only_headers_that_exist():
 
 def test_flash_backward_variant_table_is_pinned():
     """Every (type, head dim) of the forward's table has a backward pair:
-    the tensor cores for bf16 at head dims 64 and 128, the CUDA cores for
-    the rest (float32, and bf16 at 32, 96 and 256)."""
+    the tensor cores for bf16 at head dims 64, 128 and 256, the CUDA cores
+    for the rest (float32, and bf16 at 32 and 96)."""
     assert set(fa_ops.BWD_VARIANTS) == set(fa_ops.VARIANTS)
     wgmma = {k for k, v in fa_ops.BWD_VARIANTS.items() if v == "wgmma"}
-    assert wgmma == {(torch.bfloat16, 64), (torch.bfloat16, 128)}
+    assert wgmma == {(torch.bfloat16, 64), (torch.bfloat16, 128),
+                     (torch.bfloat16, 256)}
     assert set(fa_ops.BWD_VARIANTS.values()) == {"wgmma", "fma"}
     for (dtype, d), kind in fa_ops.BWD_VARIANTS.items():
         assert fa_ops.bwd_variant(dtype, d) == kind
@@ -59,13 +60,16 @@ def test_flash_backward_variant_table_is_pinned():
     with pytest.raises(ValueError, match="head dim 48"):
         fa_ops.bwd_variant(torch.bfloat16, 48)
     assert set(fa_ops.launches) >= {"flash_attention.bwd_wgmma",
-                                    "flash_attention.bwd_fma"}
+                                    "flash_attention.bwd_fma",
+                                    "flash_attention.bwd_sum"}
 
 
 def test_the_variant_tool_sets_the_tile_constants():
-    """``tools/flash_bwd_variants.py`` rewrites the tensor-core pair's two
-    tile constants in a copy of the source: the committed values give the
-    source back, others change exactly those two lines."""
+    """``tools/flash_bwd_variants.py`` rewrites the tensor-core pair's
+    two tile constants in a copy of the source: the committed values
+    give the source back, others change exactly those two lines, and
+    every variant it builds is a distinct source; at head dim 256 it
+    times every split of the group, the rule's among them."""
     import importlib.util
     path = _build.CSRC.parents[2] / "tools" / "flash_bwd_variants.py"
     spec = importlib.util.spec_from_file_location("flash_bwd_variants", path)
@@ -79,8 +83,14 @@ def test_the_variant_tool_sets_the_tile_constants():
     assert [b.strip() for _, b in changed] == [
         "static constexpr int kStep = D == 64 ? 64 : 64;",
         "static constexpr int kStages = 2;"]
+    assert len({tool.variant_source(text, *key)
+                for key in tool.VARIANTS}) == len(tool.VARIANTS)
     with pytest.raises(ValueError, match="matches 0 times"):
         tool.variant_source("int x;", 64, 2)
+    for _, b, h, kh, s, d, _ in tool.SHAPES:
+        assert fa_ops.bwd_split(b, h, kh, s, d, 132) in tool.splits(h, kh, d)
+    assert tool.splits(16, 1, 256) == (1, 2, 4, 8, 16)
+    assert tool.splits(16, 8, 128) == (1,)
 
 
 def test_the_wkv6_backward_tool_sets_the_walks_unroll():
@@ -102,3 +112,22 @@ def test_the_wkv6_backward_tool_sets_the_walks_unroll():
     with pytest.raises(ValueError, match="matches 0 times"):
         tool.variant_source("int x;", 2)
     assert {"wkv6_bwd", "rglru_bwd"} <= set(_build.SOURCES)
+
+
+@pytest.mark.parametrize("shape,split", [
+    ((2, 16, 1, 2048, 256), 4),    # recurrentgemma-9b's training shape
+    ((4, 4, 1, 2048, 256), 2),     # gemma3-1b's
+    ((1, 16, 1, 200, 256), 16),    # too few key tiles: the whole group
+    ((2, 4, 4, 2048, 256), 1),     # a group of 1 cannot split
+    ((4, 16, 8, 2048, 128), 1),    # the other head dims never split
+    ((3, 8, 1, 4096, 256), 1),     # 192 key tiles already fill the card
+    ((1, 12, 1, 1024, 256), 12)])  # 16 tiles x 6 < 132: the group
+def test_the_head_dim_256_split_fills_the_card(shape, split):
+    """``bwd_split``: the fewest slices of a KV head's query heads, a
+    divisor of the group, that give the D 256 dK/dV kernel one block an SM
+    of the H100's 132; each slice owns a contiguous run of the group."""
+    b, h, kh, sk, d = shape
+    got = fa_ops.bwd_split(b, h, kh, sk, d, 132)
+    assert got == split and (h // kh) % got == 0
+    blocks = b * kh * -(-sk // fa_ops.BWD_KEYS_256) * got
+    assert blocks >= 132 or got == h // kh or d != 256

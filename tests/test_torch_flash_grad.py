@@ -2,9 +2,10 @@
 with its plain forward and backward) against ``jax.vjp`` of the JAX
 package's blocked flash attention (its flash backward, ``_make_blocked_vjp``),
 on the same seeded numpy inputs: causal, sliding window, length (rows past
-the length), full, q_offset, GQA groups of 1 and more, and Sk not a
-multiple of the JAX key block.  Float32, held at 2e-5 of each gradient's
-largest magnitude (test_kernels.py's float32 tolerance)."""
+the length), full, q_offset, GQA groups of 1 and more (MQA at head dim
+256), head dims 32 to 256, and Sk not a multiple of the JAX key block.
+Float32, held at 2e-5 of each gradient's largest magnitude
+(test_kernels.py's float32 tolerance)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +39,11 @@ CASES = {
     "length_window": (2, 2, 2, 8, 70, 64, "length", 8, 0, (5, 61), 32),
     "full_ragged": (2, 2, 1, 33, 70, 64, "full", 0, 0, None, 64),
     "causal_d96": (1, 6, 2, 40, 40, 96, "causal", 0, 0, None, 16),
+    # head dim 256 (recurrentgemma-9b's, gemma3-1b's): an MQA group of 4,
+    # causal with a window, length with rows past a short length
+    "mqa4_d256": (1, 4, 1, 40, 40, 256, "causal", 0, 0, None, 16),
+    "window_d256": (1, 2, 1, 48, 48, 256, "causal", 12, 0, None, 16),
+    "length_d256": (2, 2, 1, 30, 64, 256, "length", 0, 0, (20, 64), 32),
 }
 
 

@@ -20,6 +20,7 @@ import torch
 import _chain_images as hazards
 from repro_torch.core import faults, isa, machine, programs, turing
 from repro_torch.core.engine import ChainEngine
+from repro_torch.kernels import _build
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -875,7 +876,9 @@ def test_cuckoo_lookup_on_the_card_matches_the_cpu(cuda):
 # (b, h, kh, sq, sk, d, kwargs): causal GQA, window, q_offset with Sq < Sk,
 # length with rows past the length and a window, full with Sk 384, G 1,
 # head dims 32, 96, 128, 256, and rows that see no key (window, Sq > Sk);
-# in bf16 the cases at head dims 64 and 128 take the tensor-core pair
+# at head dim 256 also an MQA group of 16 at a ragged Sq (its dK/dV blocks
+# split over the heads) and each mode's edge; in bf16 the cases at head
+# dims 64, 128 and 256 take the tensor-core pair
 FLASH_BWD_CASES = {
     "causal_gqa3": (2, 9, 3, 256, 256, 64, dict(mode="causal")),
     "causal_d128": (2, 8, 2, 320, 320, 128, dict(mode="causal")),
@@ -888,6 +891,15 @@ FLASH_BWD_CASES = {
     "d256": (1, 4, 1, 96, 96, 256, dict(mode="causal")),
     "no_key_rows": (1, 2, 1, 200, 100, 64, dict(mode="causal", window=16)),
     "no_key_rows_d128": (1, 2, 1, 200, 100, 128, dict(mode="causal",
+                                                      window=16)),
+    "mqa16_d256": (1, 16, 1, 200, 200, 256, dict(mode="causal")),
+    "window_d256": (1, 4, 1, 200, 200, 256, dict(mode="causal", window=64)),
+    "length_d256": (2, 4, 2, 130, 300, 256, dict(mode="length")),
+    "offset_d256": (2, 4, 1, 77, 333, 256, dict(mode="causal",
+                                                q_offset=256)),
+    "full_384_d256": (2, 4, 2, 130, 384, 256, dict(mode="full")),
+    "g1_d256": (2, 2, 2, 100, 100, 256, dict(mode="causal")),
+    "no_key_rows_d256": (1, 2, 1, 200, 100, 256, dict(mode="causal",
                                                       window=16)),
 }
 
@@ -935,18 +947,24 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
     v, out, lse, dO) — the kernel forward's out and lse — at the float32
     (2e-5) and bf16 (2e-2) tolerances, scaled by each gradient's largest
     magnitude, through the pair ``bwd_variant`` picks (the tensor cores
-    for bf16 at head dims 64 and 128); and through autograd, against the
-    plain backward of the plain forward."""
+    for bf16 at head dims 64, 128 and 256, with the partial sums' kernel
+    where ``bwd_split`` slices the heads); and through autograd, against
+    the plain backward of the plain forward."""
     q, k, v, do, kw = _bwd_inputs(cuda, case, dtype)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
     before = dict(fa_ops.launches)
     got = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
     pair = fa_ops.bwd_variant(dtype, q.shape[-1])
     assert pair == ("wgmma" if dtype == torch.bfloat16
-                    and q.shape[-1] in (64, 128) else "fma")
+                    and q.shape[-1] in (64, 128, 256) else "fma")
     for key in ("bwd", f"bwd_{pair}", "bwd_dq", "bwd_dkdv"):
         assert fa_ops.launches[f"flash_attention.{key}"] == \
             before[f"flash_attention.{key}"] + 1
+    b, h, _, d = q.shape
+    split = fa_ops.bwd_split(b, h, k.shape[1], k.shape[2], d,
+                             fa_ops._sms(q.device))
+    assert fa_ops.launches["flash_attention.bwd_sum"] == \
+        before["flash_attention.bwd_sum"] + (pair == "wgmma" and split > 1)
     other = {"wgmma": "fma", "fma": "wgmma"}[pair]
     assert fa_ops.launches[f"flash_attention.bwd_{other}"] == \
         before[f"flash_attention.bwd_{other}"]
@@ -964,17 +982,50 @@ def test_flash_backward_matches_plain(cuda, case, dtype):
         assert (qa.grad[:, :, 115:] == 0).all()
 
 
-@pytest.mark.parametrize("case,dtype", [("causal_gqa3", torch.float32),
-                                        ("causal_d128", torch.bfloat16)])
+@pytest.mark.parametrize("case,dtype", [
+    ("causal_gqa3", torch.float32), ("causal_d128", torch.bfloat16),
+    *((c, torch.bfloat16) for c in sorted(FLASH_BWD_CASES)
+      if c.endswith("_d256"))])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two calls, bit-equal: the CUDA-core pair in float32 and the
-    tensor-core pair in bf16 at head dim 128 (no atomics)."""
+    tensor-core pair in bf16 at head dims 128 and 256, the latter with
+    its heads split over blocks and without (no atomics: the partial sums
+    are added in a fixed order)."""
     q, k, v, do, kw = _bwd_inputs(cuda, case, dtype, 3)
     out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
     a = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
     b = fa_ops.flash_attention_backward(q, k, v, out, lse, do, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_flash_backward_at_head_dim_256_raises_without_fallback(
+        cuda, monkeypatch):
+    # bf16 at D 256 launches the tensor-core pair or raises: a grid the
+    # card refuses (B past 65,535) reaches neither the CUDA-core pair nor
+    # the plain backward, and nothing is counted
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain backward ran on the card")
+    monkeypatch.setattr(fa_ops, "attention_backward_reference", plain)
+    b, d = 65536, 256
+    q, k, v, out, do = (torch.zeros(b, 1, 1, d, dtype=torch.bfloat16,
+                                    device=cuda) for _ in range(5))
+    lse = torch.zeros(b, 1, 1, device=cuda)
+    assert fa_ops.bwd_variant(torch.bfloat16, d) == "wgmma"
+    before = dict(fa_ops.launches)
+    with pytest.raises(RuntimeError,
+                       match="flash_attention_bwd launch failed"):
+        fa_ops.flash_attention_backward(q, k, v, out, lse, do)
+    assert fa_ops.launches == before
+
+
+def test_the_split_counts_the_dkdv_blocks_keys(cuda):
+    # bwd_split counts a D 256 dK/dV block's keys from BWD_KEYS_256: the
+    # library's blocks own that many (and 128 at D 64 and 128)
+    lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
+    assert lib.flash_attention_wgmma_bwd_keys(256) == fa_ops.BWD_KEYS_256
+    assert [lib.flash_attention_wgmma_bwd_keys(d) for d in (64, 128, 96)] \
+        == [128, 128, 0]
 
 
 def test_kernels_without_a_backward_refuse_grad(cuda):

@@ -178,16 +178,18 @@ def test_hgmma_check_counts_each_head_dim(smoke):
         smoke.hgmma_by_head_dim(_sass_listing(bodies + [fma]))
     with pytest.raises(AssertionError, match=r"head dims \[64, 96\]"):
         smoke.hgmma_by_head_dim(_sass_listing(bodies[2:] + [fma]))
-    # the backward's tensor-core pair, each kernel at head dims 64 and 128
+    # the backward's tensor-core pair, each kernel at head dims 64, 128
+    # and 256
+    assert smoke.BWD_WGMMA_HEAD_DIMS == (64, 128, 256)
     bwd = [(f"_ZN12_GLOBAL__N_125{k}ILi{d}EEEv14CUtensorMap_", [hg] * 3)
-           for k in smoke.BWD_WGMMA_KERNELS for d in (64, 128)]
+           for k in smoke.BWD_WGMMA_KERNELS for d in (64, 128, 256)]
     for k in smoke.BWD_WGMMA_KERNELS:
         assert smoke.hgmma_by_head_dim(_sass_listing(bwd), k,
                                        smoke.BWD_WGMMA_HEAD_DIMS) == {
-            64: 3, 128: 3}
+            64: 3, 128: 3, 256: 3}
     with pytest.raises(AssertionError, match=r"dkdv_wgmma_kernel at head "
                                              r"dims \[128\]"):
-        smoke.hgmma_by_head_dim(_sass_listing(bwd[:3]), "flash_bwd_dkdv_"
+        smoke.hgmma_by_head_dim(_sass_listing(bwd[:4]), "flash_bwd_dkdv_"
                                 "wgmma_kernel", (64, 128))
 
 
@@ -630,7 +632,7 @@ def test_phase_flash_bwd_kernel_cpu(smoke, one_thread):
     """The backward phase at small shapes on the CPU: the plain versions
     stand in on both sides, so every error is 0 and nothing launches."""
     r = smoke.phase_flash_bwd_kernel(
-        "cpu", shapes=(("tiny", 2, 4, 2, 64, 32, torch.float32),),
+        "cpu", shapes=(("tiny", 2, 4, 2, 64, 32, torch.float32, 0),),
         small=smoke.FLASH_BWD_SMALL[:2] + smoke.FLASH_BWD_SMALL[-1:],
         time_it=False)
     assert r["max_abs_err"] == 0 and len(r["errs"]) == 7
@@ -694,6 +696,24 @@ def test_ptxas_report_reads_each_instantiation(smoke):
     assert smoke.ptxas_report(log, smoke.BWD_WGMMA_KERNELS) == {
         "flash_bwd_dq_wgmma_kernel<128>": dict(
             registers=168, spill_stores=8, spill_loads=4)}
+
+
+@pytest.mark.parametrize("report,error", [
+    ({"k<64>": dict(registers=168, spill_stores=0, spill_loads=0),
+      "k<256>": dict(registers=168, spill_stores=0, spill_loads=0)}, None),
+    # a build read from nowhere: the gate has nothing to pass
+    ({}, "no ptxas report"),
+    ({"k<64>": dict(registers=168, spill_stores=0, spill_loads=0)},
+     r"no ptxas report for \['k<256>'\]"),
+    ({"k<64>": dict(registers=168, spill_stores=0, spill_loads=0),
+      "k<256>": dict(registers=255, spill_stores=8, spill_loads=4)},
+     "spills")])
+def test_ptxas_gate_needs_every_instantiation(smoke, report, error):
+    if error is None:
+        smoke.check_ptxas(report, ("k",), (64, 256))
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_ptxas(report, ("k",), (64, 256))
 
 
 def test_train_launches_count_the_remat(smoke):
@@ -796,7 +816,7 @@ def test_phase_lm_train_recurrent_cpu(smoke, one_thread, arch):
 def test_recurrent_train_launches_count_the_remat(smoke):
     """A step of the drives' cuts: each recurrence's forward once a layer
     and again under remat, its backward once a layer; griffin's local
-    layer one flash forward twice and one CUDA-core backward pair (D
+    layer one flash forward twice and one tensor-core backward pair (D
     256)."""
     cfg = dataclasses.replace(registry.get_config("rwkv6-7b"), num_layers=8)
     want = smoke.recurrent_train_launches(cfg, "cuda")
@@ -811,7 +831,7 @@ def test_recurrent_train_launches_count_the_remat(smoke):
         wkv6=0, wkv6_bwd=0)
     assert {k: want[f"flash_attention{k}"] for k in (
         "", ".wgmma", ".bwd", ".bwd_fma", ".bwd_wgmma")} == {
-        "": 2, ".wgmma": 2, ".bwd": 1, ".bwd_fma": 1, ".bwd_wgmma": 0}
+        "": 2, ".wgmma": 2, ".bwd": 1, ".bwd_fma": 0, ".bwd_wgmma": 1}
     assert set(smoke.recurrent_train_launches(cfg, "cpu").values()) == {0}
     assert [(k, a, n, b) for k, a, n, b in smoke.RECURRENT_TRAIN] == [
         ("lm_train_rwkv", "rwkv6-7b", 8, 4),

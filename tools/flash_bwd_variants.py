@@ -1,17 +1,21 @@
 """Tile variants of the flash backward's tensor-core pair, on the card.
 
-``csrc/flash_attention_bwd.cu`` fixes two tile constants of its tensor-core
-pair (``BwdTile``): the rows of a streamed tile at head dim 64 (``kStep``;
-64 at head dim 128) and the depth of the streamed ring (``kStages``).  This
-script builds a copy of the source for each (rows at D 64, stages) pair in
-``VARIANTS``, one ``nvcc`` each, all started together, into
-``build/variants/``; prints each build's ptxas registers and spills; holds
-each variant against the plain backward on small cases (bf16, D 64 and
-128, every mask mode, ragged edges) and two calls against each other (bit
-for bit); then times each at qwen3-1.7b's and smollm-135m's bf16 training
-shapes by CUDA events, in turns (every variant, then in reverse, twice),
-and by a profiler trace per kernel.  Run from the root of a checkout on a
-machine with an H100:
+``csrc/flash_attention_bwd.cu`` fixes two tile constants of its
+tensor-core pair (``BwdTile``): the rows of a streamed tile at head dim 64
+(``kStep``; 64 at head dims 128 and 256) and the depth of the streamed ring
+at D 64 and 128 (``kStages``).  This script builds a copy of the source for
+each (rows at D 64, stages) in ``VARIANTS``, one ``nvcc`` each, all started
+together, into ``build/variants/``; prints each build's ptxas registers and
+spills; holds each variant against the plain backward on small cases
+(bf16, D 64, 128 and 256, every mask mode, ragged edges, an MQA group of
+16; at D 256 at every split of the group's heads, a divisor of it) and two
+calls against each other (bit for bit); then times each at qwen3-1.7b's
+and smollm-135m's bf16 training shapes and at recurrentgemma-9b's and
+gemma3-1b's (D 256, their windows; there at every split, against the one
+``ops.bwd_split`` picks) by CUDA events, in turns (every variant and split,
+then in reverse, twice), and by a profiler trace per kernel.  (Earlier
+variants of both constants, and of the D 256 dQ block, are timed in
+PERF.md.)  Run from the root of a checkout on a machine with an H100:
 
     python3 tools/flash_bwd_variants.py
 """
@@ -26,7 +30,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-VARIANTS = ((64, 2), (64, 3), (128, 2), (128, 3), (128, 4))
+VARIANTS = ((128, 3),)
 CONSTANTS = (r"static constexpr int kStep = D == 64 \? (\d+) : 64;",
              r"static constexpr int kStages = (\d+);")
 # (case, b, h, kh, sq, sk, d, kwargs): the lengths of "length" modes are
@@ -40,9 +44,19 @@ CASES = (
                                                   window=200)),
     ("full_sk384", 2, 4, 2, 200, 384, 64, dict(mode="full")),
     ("offset", 2, 4, 2, 77, 333, 128, dict(mode="causal", q_offset=256)),
-    ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)))
-SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128),
-          ("smollm-135m", 8, 9, 3, 2048, 64))
+    ("no_key_rows", 1, 4, 2, 300, 160, 64, dict(mode="causal", window=32)),
+    ("mqa16_d256", 1, 16, 1, 200, 200, 256, dict(mode="causal")),
+    ("window_d256", 2, 4, 1, 300, 300, 256, dict(mode="causal", window=64)),
+    ("length_d256", 2, 4, 2, 96, 300, 256, dict(mode="length")),
+    ("offset_d256", 2, 4, 1, 77, 333, 256, dict(mode="causal",
+                                                q_offset=256)),
+    ("no_key_rows_d256", 1, 2, 1, 200, 100, 256, dict(mode="causal",
+                                                      window=16)))
+# (name, b, h, kh, s, d, window), causal
+SHAPES = (("qwen3-1.7b", 4, 16, 8, 2048, 128, 0),
+          ("smollm-135m", 8, 9, 3, 2048, 64, 0),
+          ("recurrentgemma-9b", 2, 16, 1, 2048, 256, 2048),
+          ("gemma3-1b", 4, 4, 1, 2048, 256, 512))
 TOL = 2e-2      # bf16, of each gradient's largest magnitude
 
 
@@ -53,9 +67,18 @@ def variant_source(text: str, step64: int, stages: int) -> str:
         found = re.findall(pattern, text)
         if len(found) != 1:
             raise ValueError(f"{pattern!r} matches {len(found)} times")
-        text = re.sub(pattern, lambda m: m.group(0).replace(
-            m.group(1), str(value)), text)
+        text = re.sub(pattern, lambda m: m.string[m.start(0):m.start(1)]
+                      + str(value) + m.string[m.end(1):m.end(0)], text)
     return text
+
+
+def splits(h: int, kh: int, d: int) -> tuple:
+    """The head splits the D 256 dK/dV kernel can take for a group of
+    H / KH query heads (the divisors of the group); (1,) at the other head
+    dims."""
+    group = h // kh
+    return (tuple(s for s in range(1, group + 1) if group % s == 0)
+            if d == 256 else (1,))
 
 
 def build(_build, variants):
@@ -66,11 +89,12 @@ def build(_build, variants):
     out_dir.mkdir(parents=True, exist_ok=True)
     text = (src_dir / "flash_attention_bwd.cu").read_text()
     procs = {}
-    for step64, stages in variants:
-        src = out_dir / f"bwd_{step64}_{stages}.cu"
-        src.write_text(variant_source(text, step64, stages))
-        lib = out_dir / f"libbwd_{step64}_{stages}.so"
-        procs[(step64, stages)] = (subprocess.Popen(
+    for key in variants:
+        tag = "_".join(map(str, key))
+        src = out_dir / f"bwd_{tag}.cu"
+        src.write_text(variant_source(text, *key))
+        lib = out_dir / f"libbwd_{tag}.so"
+        procs[key] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{src_dir}", "-o",
              str(lib), str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), lib)
@@ -108,19 +132,14 @@ def main() -> int:
         fa_ops._declare_bwd(lib)
 
     def run(lib, q, k, v, out, lse, do, mode="causal", window=0,
-            lengths=None, q_offset=0):
-        b, h, sq, d = q.shape
-        kh, sk = k.shape[1], k.shape[2]
+            lengths=None, q_offset=0, split=None):
+        b, sk = q.shape[0], k.shape[2]
         if lengths is None:
             lengths = torch.full((b,), sk, dtype=torch.int32, device=dev)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        rows = -(-sq // fa_ops.BWD_ROWS) * fa_ops.BWD_ROWS
-        vec = torch.empty((2, b, h, rows), dtype=torch.float32, device=dev)
-        _build.check(lib, lib.flash_attention_wgmma_bwd(
-            *(_build.pointer(t) for t in (q, k, v, out, do, lse, lengths,
-                                           vec, dq, dk, dv)),
-            b, h, kh, sq, sk, d, fa_ops.MODES[mode], window, q_offset,
-            d ** -0.5, _build.stream()), "variant")
+        fa_ops.wgmma_backward(lib, q, k, v, out, do, lse, lengths, dq, dk, dv,
+                              fa_ops.MODES[mode], window, q_offset,
+                              q.shape[-1] ** -0.5, split)
         return dq, dk, dv
 
     def inputs(b, h, kh, sq, sk, d):
@@ -142,29 +161,33 @@ def main() -> int:
                 kw["lengths"] = torch.tensor([sk // 3, sk], dtype=torch.int32,
                                              device=dev)
             out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
-            got = run(lib, q, k, v, out, lse, do, **kw)
-            again = run(lib, q, k, v, out, lse, do, **kw)
             want = fa_ref.attention_backward_reference(q, k, v, out, lse, do,
                                                        **kw)
-            for g, w, a in zip(got, want, again):
-                err = float((g.float() - w.float()).abs().max()
-                            / w.float().abs().max())
-                worst = max(worst, err if torch.isfinite(g).all()
-                            else float("inf"))
-                equal &= torch.equal(g, a)
+            for split in splits(h, kh, d):
+                got = run(lib, q, k, v, out, lse, do, split=split, **kw)
+                again = run(lib, q, k, v, out, lse, do, split=split, **kw)
+                for g, w, a in zip(got, want, again):
+                    err = float((g.float() - w.float()).abs().max()
+                                / w.float().abs().max())
+                    worst = max(worst, err if torch.isfinite(g).all()
+                                else float("inf"))
+                    equal &= torch.equal(g, a)
         sound[key] = worst <= TOL and equal
         print(f"{key}: worst error {worst} of the largest magnitude, "
               f"bit-equal {equal}: {'sound' if sound[key] else 'WRONG'}",
               flush=True)
 
     from torch.profiler import ProfilerActivity, profile
-    for name, b, h, kh, s, d in SHAPES:
+    for name, b, h, kh, s, d, window in SHAPES:
         q, k, v, do = inputs(b, h, kh, s, s, d)
-        out, lse = fa_ops.flash_attention_lse(q, k, v)
-        times = {key: [] for key in libs if sound[key]}
+        out, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
+        rule = fa_ops.bwd_split(b, h, kh, s, d, fa_ops._sms(dev))
+        times = {(key, split): [] for key in libs if sound[key]
+                 for split in splits(h, kh, d)}
         order = list(times) + list(times)[::-1]
-        for key in order * 2:
-            fn = lambda: run(libs[key], q, k, v, out, lse, do)  # noqa: E731
+        for key, split in order * 2:
+            fn = lambda: run(libs[key], q, k, v, out, lse, do,  # noqa: E731
+                             window=window, split=split)
             fn()
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -174,17 +197,22 @@ def main() -> int:
                 fn()
             end.record()
             end.synchronize()
-            times[key].append(start.elapsed_time(end) / 10)
-        for key, ts in times.items():
+            times[key, split].append(start.elapsed_time(end) / 10)
+        for (key, split), ts in times.items():
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
-                    run(libs[key], q, k, v, out, lse, do)
+                    run(libs[key], q, k, v, out, lse, do, window=window,
+                        split=split)
                 torch.cuda.synchronize()
-            kernels = {re.search(r"(flash_bwd_\w+_wgmma_kernel)", e.key)
+            kernels = {re.search(r"(flash_bwd_\w+_kernel)", e.key)
                        .group(1): getattr(e, "self_device_time_total", 0)
                        / e.count / 1e3
-                       for e in prof.key_averages() if "wgmma" in e.key}
-            print(f"{name} {key}: ms by events {[round(t, 4) for t in ts]}"
+                       for e in prof.key_averages()
+                       if re.search(r"flash_bwd_(\w+_wgmma|sum)_kernel",
+                                    e.key)}
+            which = " (bwd_split's)" if split == rule else ""
+            print(f"{name} {key} split {split}{which}: ms by events "
+                  f"{[round(t, 4) for t in ts]}"
                   f", min {min(ts):.4f}; by trace {kernels}", flush=True)
     return 0 if all(sound.values()) else 1
 

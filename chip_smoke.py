@@ -221,22 +221,32 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``rglru.variant`` picks it.  The recurrentgemma-9b
                          drives' 26 launches a prefill must all be the
                          ring kernel's.
-14b. ``wkv6_bwd_kernel`` — the WKV6 backward kernel (two passes over
-                         time, float64 states) against its plain backward
-                         at the ``wkv6_kernel`` cases (prefill shape, T /
-                         2 + 1, T 1; bf16 and float32), with a final-
-                         state gradient, and at decays in [0.01, 0.115]:
-                         dr, dk, dv at REC_TOL, dw and du within STATE_TOL
-                         of their largest magnitude, each case bit-equal
-                         run to run; timed beside its bound (operations)
-                         and the plain backward.
-14c. ``rglru_bwd_kernel`` — the RG-LRU backward kernel likewise at the
+14b. ``wkv6_bwd_kernel`` — the WKV6 backward kernel
+                         (``wkv6_bwd_chunk_kernel``: chunks of 16 steps,
+                         float32 states, dw with no division by a decay)
+                         against its plain backward at the
+                         ``wkv6_kernel`` cases (prefill shape, T / 2 + 1,
+                         T 1; bf16 and float32), with a final-state
+                         gradient, at decays in [0.01, 0.115] and with
+                         half the channels at decays in [1e-12, 1e-10]
+                         and [1e-30, 1e-20] (both types): dr, dk, dv at
+                         REC_TOL, dw and du within STATE_TOL of their
+                         largest magnitude, each case bit-equal run to
+                         run; timed beside its bound (operations) and the
+                         plain backward; its ptxas registers, no spill.
+14c. ``rglru_bwd_kernel`` — the RG-LRU backward kernels likewise at the
                          ``rglru_kernel`` cases on the forward kernel's h,
-                         with and without a final-state gradient: float32
+                         with and without a final-state gradient, each
+                         case's launch by kernel as ``rglru.variant`` picks
+                         it (``rglru_bwd_ring_kernel``, a TMA ring walked
+                         from the last step to the first, at the prefill
+                         shape, T / 2 + 1 and T 1; ``rglru_bwd_kernel``
+                         where no TMA copy can move a row): float32
                          bit-equal to the plain backward, du at REC_TOL,
                          da within STATE_TOL of its largest magnitude,
-                         bit-equal run to run; timed beside its bytes
-                         bound.
+                         bit-equal run to run; the ring and the direct
+                         kernel timed at the prefill shape beside the
+                         bytes bound, in both types; no ptxas spill.
 15. ``flash_bwd_kernel`` — the flash backward's two pairs, a dQ kernel
                          then a dK/dV kernel: on the tensor cores
                          (``flash_bwd_dq_wgmma_kernel``,
@@ -309,18 +319,19 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          plain recurrences (plain forward and plain
                          backward functions) on the card, beside the
                          same with their forward in float64; 16 WKV6
-                         forward and 8 backward launches a step and no
-                         plain call; 8 steps (on data over 512 tokens) whose
-                         losses are finite and fall; ms a step, tokens/s,
-                         peak memory, a traced step's idle share and its
-                         device time by kernel group.
+                         forward and 8 backward (``wkv6_bwd_chunk_kernel``)
+                         launches a step and no plain call; 8 steps (on
+                         data over 512 tokens) whose losses are finite and
+                         fall; ms a step, tokens/s, peak memory, a traced
+                         step's idle share and its device time by kernel
+                         group and by backward kernel.
 19. ``lm_train_griffin`` — recurrentgemma-9b at full width and one
                          pattern (2 recurrent layers and 1 local-attention
                          layer, 2.76 G parameters), bf16, batch 2 x 2,048:
                          the same, the plain arm and the yardstick with
                          the plain attention and the CUDA-core backward
                          pair too; 4 RG-LRU forward (ring) and 2 backward
-                         launches, 2 flash forward (tensor cores) and 1 +
+                         (ring) launches, 2 flash forward (tensor cores) and 1 +
                          1 tensor-core backward launches a step (and the
                          partial sums' kernel once where the heads are
                          split); then the flash backward at its shape (2,
@@ -351,6 +362,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -366,6 +378,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory bandwidth (data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12             # H100 SXM float32 peak, no tensor cores
+# H100 SXM dense TF32 tensor-core peak over three: a float32 product taken
+# as three TF32 products of split operands (hi hi, hi lo, lo hi)
+TF32X3_FLOP_PER_S = 495e12 / 3
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py's
 # Last logits of prefill + decode against one forward over the same tokens
 # (different shapes, so different bf16 roundings): bf16 keeps 8 significant
@@ -3439,19 +3454,28 @@ def phase_rglru_kernel(device, b=4, t=2048, d=4096, time_it=True):
 # ---------------------------------------------------------------------------
 
 WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du")
+# half the channels' decays in the tiny-decay cases, log-uniform
+WKV_TINY_DECAYS = {"1e-12": (1e-12, 1e-10), "1e-30": (1e-30, 1e-20)}
 
 
 def wkv6_bwd_inputs(device, seed, dtype, b, h, t, n, decays=None,
-                    with_ds=False):
+                    with_ds=False, tiny=None):
     """``wkv6_inputs`` (decays drawn as the model's, or uniform in
-    ``decays``), an output gradient do of r's type and, ``with_ds``, a
-    float32 final-state gradient."""
+    ``decays``, or with ``tiny`` = (lo, hi) half the channels log-uniform
+    in [lo, hi] and the rest in [0.9, 0.999]), an output gradient do of
+    r's type and, ``with_ds``, a float32 final-state gradient."""
     args = list(wkv6_inputs(device, seed, dtype, b, h, t, n))
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     if decays is not None:
         lo, hi = decays
         args[3] = lo + (hi - lo) * torch.rand((b, h, t, n), generator=gen,
                                               device=device)
+    if tiny is not None:
+        lo, hi = math.log(tiny[0]), math.log(tiny[1])
+        x = torch.rand((b, h, t, n), generator=gen, device=device)
+        args[3] = torch.cat([0.9 + 0.099 * x[..., :n // 2],
+                             torch.exp(lo + (hi - lo) * x[..., n // 2:])],
+                            -1)
     do = torch.randn((b, h, t, n), generator=gen, device=device).to(dtype)
     ds = (torch.randn((b, h, n, n), generator=gen, device=device)
           if with_ds else None)
@@ -3479,12 +3503,15 @@ def check_wkv6_backward(args, do, ds, what) -> dict:
 
 
 def phase_wkv6_bwd_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
-    """The WKV6 backward kernel against its plain backward at the
-    ``wkv6_kernel`` phase's shapes and cases (the prefill shape, T / 2 + 1
-    and T 1, bf16 and float32), with a given final-state gradient, and
-    with decays in [0.01, 0.115], below the chunked form's range; each
-    case twice, bit-equal.  With ``time_it``, the kernel (CUDA events)
-    beside its bound and the plain backward at the prefill shape."""
+    """The WKV6 backward kernel (``wkv6_bwd_chunk_kernel``) against its
+    plain backward at the ``wkv6_kernel`` phase's shapes and cases (the
+    prefill shape, T / 2 + 1 and T 1, bf16 and float32), with a given
+    final-state gradient, with decays in [0.01, 0.115], below the chunked
+    form's range, and with half the channels at decays in [1e-12, 1e-10]
+    and [1e-30, 1e-20] (where the walk it replaced lost dw), both types;
+    each case twice, bit-equal.  With ``time_it``, the kernel (CUDA
+    events) beside its bound and the plain backward at the prefill
+    shape."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for tt in (t, t // 2 + 1, 1):
@@ -3499,18 +3526,26 @@ def phase_wkv6_bwd_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
         *wkv6_bwd_inputs(device, 6, torch.float32, b, h, t // 2 + 1, n,
                          decays=(0.01, 0.115), with_ds=True),
         "wkv6 bwd small_decays/float32")
+    for i, (name, tiny) in enumerate(WKV_TINY_DECAYS.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"tiny_{name}/{str(dtype)[6:]}"
+            errs[key] = check_wkv6_backward(
+                *wkv6_bwd_inputs(device, 7 + i, dtype, b, h, t // 2 + 1, n,
+                                 with_ds=dtype == torch.float32, tiny=tiny),
+                f"wkv6 bwd {key}")
     args, do, _ = wkv6_bwd_inputs(device, 0, torch.bfloat16, b, h, t, n)
     r = args[0]
     # r, k, v, do, w in; dr, dk, dv, dw out; u and du
     nbytes = (r.numel() * (7 * r.element_size() + 2 * 4)
               + 2 * args[4].numel() * 4)
-    flops = 10.0 * b * h * t * n * n       # pass A 4 N^2, pass B 6 N^2
+    # pass A 4 N^2, pass B 6 N^2, at the rate of the kernel's products
+    flops = 10.0 * b * h * t * n * n
     result = dict(max_abs_err=max(errs[f"T{t}/bfloat16"][k]
                                   for k in ("dr", "dk", "dv")),
                   errs=errs, shape=(b, h, t, n), bytes=nbytes, flops=flops,
                   bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                               flops / F32_FLOP_PER_S) * 1e3,
-                  bound_by=("operations" if flops / F32_FLOP_PER_S
+                               flops / TF32X3_FLOP_PER_S) * 1e3,
+                  bound_by=("operations" if flops / TF32X3_FLOP_PER_S
                             > nbytes / HBM_BYTES_PER_S else "bytes"))
     if time_it:
         result["ms"] = cuda_ms(lambda: wkv_ops.wkv6_backward(*args, do),
@@ -3524,16 +3559,35 @@ def phase_wkv6_bwd_kernel(device, b=4, h=64, t=2048, n=64, time_it=True):
     return result
 
 
+def direct_rglru_backward(a, h, dh):
+    """The direct backward kernel (``rglru_bwd_kernel``) through the
+    library's C entry point, at any D: the kernel the ring replaced at the
+    prefill shape, timed beside it (not counted: no wrapper launches it
+    there)."""
+    lib = _build.load("rglru_bwd", rg_ops._declare_bwd)
+    da, du = torch.empty_like(a), torch.empty_like(a)
+    b, t, d = a.shape
+    _build.check(lib, lib.rglru_backward(
+        _build.pointer(a), _build.pointer(h), _build.pointer(dh), None,
+        _build.pointer(da), _build.pointer(du), _build.DTYPES[a.dtype], b, t,
+        d, _build.stream()), "rglru_bwd direct")
+    return da, du
+
+
 def phase_rglru_bwd_kernel(device, b=4, t=2048, d=4096, time_it=True):
-    """The RG-LRU backward kernel against its plain backward at the
+    """The RG-LRU backward kernels against their plain backward at the
     ``rglru_kernel`` phase's cases, float32 and bf16, on the forward
-    kernel's own h, every other case with a final-state gradient: du at
-    REC_TOL, da within STATE_TOL of its largest magnitude, float32 bit-equal
-    to the plain backward (both round each multiply and add alone), and a
-    second run bit-equal.  With ``time_it``, the kernel at the prefill
-    shape (CUDA events) beside its bytes bound and the plain backward."""
+    kernel's own h, every other case with a final-state gradient: the ring
+    kernel (``rglru_bwd_ring_kernel``) at the prefill shape, at T 1 and at
+    a T that ends in a part of its 32-step chunk, the direct one where
+    ``variant`` says (each case's launch by kernel checked); du at
+    REC_TOL, da within STATE_TOL of its largest magnitude, float32
+    bit-equal to the plain backward (both round each multiply and add
+    alone), and a second run bit-equal.  With ``time_it``, the ring kernel
+    and the direct one at the prefill shape (CUDA events) beside the bytes
+    bound and the plain backward, in float32 and bf16."""
     on = int(torch.device(device).type == "cuda")
-    errs = {}
+    errs, kinds = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (bb, tt, dd) in enumerate(rglru_cases(b, t, d)):
             key = f"{bb}x{tt}x{dd}/{str(dtype)[6:]}"
@@ -3544,10 +3598,17 @@ def phase_rglru_bwd_kernel(device, b=4, t=2048, d=4096, time_it=True):
                              device=device).to(dtype)
             last = (torch.randn((bb, dd), generator=gen, device=device)
                     if i % 2 == 0 else None)
-            before = read_launches()["rglru_bwd"]
+            kind = rg_ops.variant(dtype, dd)
+            before = read_launches()
             da, du = rg_ops.rglru_backward(a, h, dh, last)
-            if read_launches()["rglru_bwd"] != before + on:
-                raise AssertionError(f"rglru bwd {key}: no launch counted")
+            got = {k: n - before[k] for k, n in read_launches().items()
+                   if k.startswith("rglru_bwd")}
+            want = {"rglru_bwd": on, **{f"rglru_bwd.{v}": on * (v == kind)
+                                        for v in ("ring", "direct")}}
+            if got != want:
+                raise AssertionError(f"rglru bwd {key} launched {got}, "
+                                     f"expected {want}")
+            kinds[key] = kind
             pda, pdu = rg_ref.rglru_backward_reference(a, h, dh, last)
             if dtype == torch.float32 and not (torch.equal(da, pda) and
                                                torch.equal(du, pdu)):
@@ -3567,17 +3628,28 @@ def phase_rglru_bwd_kernel(device, b=4, t=2048, d=4096, time_it=True):
     dh = torch.randn_like(h)
     nbytes = 5 * a.numel() * 4               # a, h, dh in; da, du out
     result = dict(max_abs_err=errs[f"du/{b}x{t}x{d}/float32"], errs=errs,
-                  shape=(b, t, d), bytes=nbytes,
+                  variants=kinds, shape=(b, t, d), bytes=nbytes,
                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     if time_it:
+        if rg_ops.variant(a.dtype, d) != "ring":
+            raise AssertionError(f"rglru bwd at {(b, t, d)}: not the ring")
+        if not all(torch.equal(x, y) for x, y in zip(
+                direct_rglru_backward(a, h, dh),
+                rg_ops.rglru_backward(a, h, dh))):
+            raise AssertionError("rglru bwd: the direct kernel and the ring"
+                                 " differ")
         result["ms"] = cuda_ms(lambda: rg_ops.rglru_backward(a, h, dh),
                                reps=10)
+        result["direct_ms"] = cuda_ms(lambda: direct_rglru_backward(a, h, dh),
+                                      reps=10)
         result["plain_ms"] = cuda_ms(
             lambda: rg_ref.rglru_backward_reference(a, h, dh), reps=1)
         result["gb_per_s"] = nbytes / (result["ms"] * 1e-3) / 1e9
         a, h, dh = a.bfloat16(), h.bfloat16(), dh.bfloat16()
         result["bf16_ms"] = cuda_ms(lambda: rg_ops.rglru_backward(a, h, dh),
                                     reps=10)
+        result["bf16_direct_ms"] = cuda_ms(
+            lambda: direct_rglru_backward(a, h, dh), reps=10)
         result["bf16_bound_ms"] = nbytes / 2 / HBM_BYTES_PER_S * 1e3
     return result
 
@@ -4422,17 +4494,19 @@ def counted_plain_calls(calls: dict):
 def recurrent_train_launches(cfg, device) -> dict:
     """``train_launches`` of ``cfg`` and the recurrences' launches of one
     train step: each forward kernel once per layer and again under remat,
-    of the kernel ``variant`` picks for RG-LRU, and each backward kernel
-    once per layer (none on the CPU).  recurrentgemma-9b's local layers
+    and each backward kernel once per layer, for RG-LRU both of the kernel
+    ``variant`` picks (none on the CPU).  recurrentgemma-9b's local layers
     take the flash backward's tensor-core pair (bf16 at head dim 256)."""
     prefill = path_launches(cfg, device)[0]
     again = 1 if cfg.remat == "none" else 2
+    by_kind = rglru_variant_launches(cfg, device)
     return {**train_launches(cfg, device),
             "wkv6": again * prefill["wkv6"], "wkv6_bwd": prefill["wkv6"],
             "rglru": again * prefill["rglru"],
-            **{k: again * n for k, n in
-               rglru_variant_launches(cfg, device).items()},
-            "rglru_bwd": prefill["rglru"]}
+            **{k: again * n for k, n in by_kind.items()},
+            "rglru_bwd": prefill["rglru"],
+            **{k.replace("rglru.", "rglru_bwd."): n
+               for k, n in by_kind.items()}}
 
 
 # The recurrent drives' witness, at sequence WITNESS_SEQ on the card: the
@@ -4634,13 +4708,17 @@ def flash_bwd_at(device, cfg, batch, seq, time_it=True) -> dict:
 # where the LM path's device time goes
 # ---------------------------------------------------------------------------
 
-RECURRENT_BWD_KERNELS = ("wkv6_bwd_kernel", "rglru_bwd_kernel")
+# the recurrences' backward kernels (a name is matched as a substring:
+# rglru_bwd_kernel is not one of rglru_bwd_ring_kernel)
+WKV6_BWD_KERNELS = ("wkv6_bwd_chunk_kernel",)
+RGLRU_BWD_KERNELS = ("rglru_bwd_ring_kernel", "rglru_bwd_kernel")
+RECURRENT_BWD_KERNELS = WKV6_BWD_KERNELS + RGLRU_BWD_KERNELS
 KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",
                                       "flash_wgmma_kernel")),
                  ("flash_backward", FLASH_BWD_KERNELS),
                  ("decode_attention", DECODE_KERNELS),
-                 ("wkv6_bwd", ("wkv6_bwd_kernel",)),
-                 ("rglru_bwd", ("rglru_bwd_kernel",)),
+                 ("wkv6_bwd", WKV6_BWD_KERNELS),
+                 ("rglru_bwd", RGLRU_BWD_KERNELS),
                  ("wkv6", ("wkv6_kernel",)),
                  ("rglru", ("rglru_kernel", "rglru_ring_kernel")),
                  ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
@@ -4686,35 +4764,40 @@ def device_profile(fn, steps: int, kernels=()) -> dict:
 # ---------------------------------------------------------------------------
 
 KERNELS = (
-    # name, phase, source, replaces
+    # name, phase, source, replaces, the CUDA kernels behind the wrapper
     ("chain_vm.run_managed", "chain_kernel",
      "src/repro_torch/csrc/chain_vm.cu",
-     "src/repro/kernels/chain_vm/kernel.py:66"),
+     "src/repro/kernels/chain_vm/kernel.py:66",
+     ("managed_whole_kernel", "managed_window_kernel")),
     ("chain_vm.run_chains", "chain_straight",
      "src/repro_torch/csrc/chain_vm.cu",
-     "src/repro/kernels/chain_vm/kernel.py:30"),
+     "src/repro/kernels/chain_vm/kernel.py:30", ("run_chains_kernel",)),
     ("hopscotch.hopscotch_lookup", "hopscotch_probe",
      "src/repro_torch/csrc/hopscotch.cu",
-     "src/repro/kernels/hopscotch/kernel.py:31"),
+     "src/repro/kernels/hopscotch/kernel.py:31", ("probe_kernel",)),
     ("flash_attention.flash_attention", "flash_kernel",
      "src/repro_torch/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention/kernel.py:31"),
+     "src/repro/kernels/flash_attention/kernel.py:31",
+     ("flash_wgmma_kernel", "flash_fwd_kernel")),
     ("decode_attention.decode_partial", "decode_kernel",
      "src/repro_torch/csrc/decode_attention.cu",
-     "src/repro/kernels/decode_attention/kernel.py:24"),
+     "src/repro/kernels/decode_attention/kernel.py:24", DECODE_KERNELS),
     ("rwkv6.wkv6", "wkv6_kernel", "src/repro_torch/csrc/wkv6.cu",
-     "src/repro/kernels/rwkv6/kernel.py:61"),
+     "src/repro/kernels/rwkv6/kernel.py:61", ("wkv6_kernel",)),
     ("rglru.rglru", "rglru_kernel", "src/repro_torch/csrc/rglru.cu",
-     "src/repro/kernels/rglru/kernel.py:32"),
+     "src/repro/kernels/rglru/kernel.py:32",
+     ("rglru_ring_kernel", "rglru_kernel")),
     # no TPU kernel: the JAX package's flash backward is plain JAX
     ("flash_attention.backward", "flash_bwd_kernel",
      "src/repro_torch/csrc/flash_attention_bwd.cu",
-     "src/repro/kernels/flash_attention/ops.py:166"),
+     "src/repro/kernels/flash_attention/ops.py:166", FLASH_BWD_KERNELS),
     # no TPU kernel: the JAX package differentiates its chunked forms
     ("rwkv6.wkv6_backward", "wkv6_bwd_kernel",
-     "src/repro_torch/csrc/wkv6_bwd.cu", "src/repro/kernels/rwkv6/ops.py:15"),
+     "src/repro_torch/csrc/wkv6_bwd.cu", "src/repro/kernels/rwkv6/ops.py:15",
+     WKV6_BWD_KERNELS),
     ("rglru.rglru_backward", "rglru_bwd_kernel",
-     "src/repro_torch/csrc/rglru_bwd.cu", "src/repro/kernels/rglru/ops.py:14"),
+     "src/repro_torch/csrc/rglru_bwd.cu", "src/repro/kernels/rglru/ops.py:14",
+     RGLRU_BWD_KERNELS),
 )
 # the phases in the order main() runs them
 PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
@@ -4781,16 +4864,43 @@ def hgmma_by_head_dim(sass: str, kernel: str = "flash_wgmma_kernel",
     return counts
 
 
+def template_args(mangled: str) -> list:
+    """The template arguments of a mangled kernel name's instantiation,
+    from its name's ``I ... E`` list: ints (``Li64E``) as they are,
+    float as ``float``, __nv_bfloat16 as ``bf16``."""
+    args, i = [], 1
+    if not mangled.startswith("I"):
+        return args
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled.startswith("Li", i):
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled[i] == "f":
+            args.append("float")
+            i += 1
+        elif mangled[i].isdigit():
+            m = re.match(r"\d+", mangled[i:])
+            j = i + len(m.group(0)) + int(m.group(0))
+            name = mangled[i + len(m.group(0)):j]
+            args.append("bf16" if "bfloat16" in name else name)
+            i = j
+        else:
+            break
+    return args
+
+
 def ptxas_report(log: str, kernels) -> dict:
-    """Registers and spills of each instantiation ``kernel<D>`` of the
-    named kernels, from a ``-Xptxas -v`` build log."""
+    """Registers and spills of each instantiation of the named kernels,
+    from a ``-Xptxas -v`` build log, by ``kernel<args>`` (``kernel<D>``
+    for the flash kernels, templated on the head dim alone)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = next((k for k in kernels if k in m.group(1)), None)
-            d = re.search(r"(?:ILi|<)(\d+)", m.group(1))
-            name = f"{k}<{d.group(1)}>" if k and d else None
+            args = template_args(m.group(1).split(k, 1)[1]) if k else []
+            name = f"{k}<{','.join(args)}>" if args else None
             if name:
                 out[name] = {}
             continue
@@ -4806,6 +4916,21 @@ def ptxas_report(log: str, kernels) -> dict:
             out[name]["registers"] = int(m.group(1))
             name = None
     return out
+
+
+def check_spill_free(ptxas: dict, kernels) -> None:
+    """Raises unless ``ptxas`` (``ptxas_report``'s) reports registers for
+    at least one instantiation of each kernel and for every one it holds,
+    and no spill in any."""
+    missing = [k for k in kernels
+               if not any(n.startswith(k + "<") for n in ptxas)]
+    missing += [n for n, r in ptxas.items() if "registers" not in r]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
+    spilled = {k: r for k, r in ptxas.items()
+               if r.get("spill_stores") or r.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"ptxas spills: {spilled}")
 
 
 def check_ptxas(ptxas: dict, kernels, head_dims) -> None:
@@ -4855,6 +4980,12 @@ def main() -> int:
     print(f"[card] flash_attention_bwd: ptxas of the tensor-core pair "
           f"{ptxas}", flush=True)
     check_ptxas(ptxas, BWD_WGMMA_KERNELS, BWD_WGMMA_HEAD_DIMS)
+    rec_ptxas = {**ptxas_report(logs.get("wkv6_bwd", ""), WKV6_BWD_KERNELS),
+                 **ptxas_report(logs.get("rglru_bwd", ""),
+                                RGLRU_BWD_KERNELS)}
+    print(f"[card] the recurrences' backward kernels: ptxas {rec_ptxas}",
+          flush=True)
+    check_spill_free(rec_ptxas, RECURRENT_BWD_KERNELS)
     lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
     if lib.flash_attention_wgmma_bwd_keys(256) != fa_ops.BWD_KEYS_256:
         raise AssertionError(
@@ -5074,6 +5205,15 @@ def main() -> int:
         "launches"]["wkv6_bwd"]
     phases["rglru_bwd_kernel"]["launches"] = phases["lm_train_griffin"][
         "launches"]["rglru_bwd"]
+    phases["rglru_bwd_kernel"]["kernel_launches"] = {
+        k: phases["lm_train_griffin"]["launches"][f"rglru_bwd.{k}"]
+        for k in ("ring", "direct")}
+    if phases["rglru_bwd_kernel"]["kernel_launches"]["ring"] < 1:
+        raise AssertionError("rglru_bwd.ring: no launch on the training path")
+    for key, kernels in (("wkv6_bwd_kernel", WKV6_BWD_KERNELS),
+                         ("rglru_bwd_kernel", RGLRU_BWD_KERNELS)):
+        phases[key]["ptxas"] = {k: r for k, r in rec_ptxas.items()
+                                if k.startswith(kernels)}
     # the flash backward at recurrentgemma-9b's shape (D 256, on the pair
     # bwd_variant picks) joins the backward's timed shapes
     phases["flash_bwd_kernel"]["shapes"]["recurrentgemma-9b/bfloat16"] = \
@@ -5174,12 +5314,13 @@ def main() -> int:
         "steps_max", "loop_guest_ms", "loop_guest_cycles_per_step")}
 
     rows = []
-    for kname, phase, source, replaces in KERNELS:
+    for kname, phase, source, replaces, cuda_kernels in KERNELS:
         r = phases[phase]
         if r["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its path")
         rows.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
+            cuda_kernels=list(cuda_kernels),
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r.get("bound_by", "bytes"),
@@ -5190,6 +5331,8 @@ def main() -> int:
             rows[-1]["launches_by_phase"] = r["launches_by_phase"]
         if "addleq_guests" in r:
             rows[-1]["addleq_guests"] = r["addleq_guests"]
+        if "ptxas" in r:
+            rows[-1]["ptxas"] = r["ptxas"]
         if "shapes" in r:
             rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms",

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile loads
-// and tensor maps, wgmma descriptors and the m64nNk16 bf16 products with
-// float32 accumulators.  Each source that includes it gets its own copy
-// (an anonymous namespace); kernels/_build.py hashes it with each source
-// that includes it, so an edit here rebuilds both.
+// (flash_attention.cu, flash_attention_bwd.cu) and the RG-LRU backward
+// (rglru_bwd.cu): mbarriers, TMA tile loads and tensor maps, wgmma
+// descriptors and the m64nNk16 bf16 products with float32 accumulators.
+// Each source that includes it gets its own copy (an anonymous
+// namespace); kernels/_build.py hashes it with each source that includes
+// it, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>

@@ -1,11 +1,12 @@
 """RG-LRU wrappers: the plain scan and its plain backward for tensors on
 the CPU, CUDA kernels for tensors on the card: the forward
-(``csrc/rglru.cu``, the ring kernel or the direct one, as ``variant``
-says) and the backward (``csrc/rglru_bwd.cu``), joined by
+(``csrc/rglru.cu``) and the backward (``csrc/rglru_bwd.cu``), each the
+ring kernel or the direct one as ``variant`` says, joined by
 :class:`RGLRUFn`, which :func:`rglru` goes through when autograd needs
 the gradient.  There is no fallback: a launch the card refuses raises.
 ``launches`` counts kernel launches, in all and by kernel (the
-backward's as ``rglru_bwd``).  The decode step stays plain, as in the JAX
+backward's as ``rglru_bwd``, ``rglru_bwd.ring`` and
+``rglru_bwd.direct``).  The decode step stays plain, as in the JAX
 package."""
 from __future__ import annotations
 
@@ -17,18 +18,20 @@ from .. import _build
 from .ref import (rglru_backward_reference,  # noqa: F401
                   rglru_decode_step, rglru_reference)
 
-launches = {"rglru": 0, "rglru.ring": 0, "rglru.direct": 0, "rglru_bwd": 0}
+launches = {"rglru": 0, "rglru.ring": 0, "rglru.direct": 0, "rglru_bwd": 0,
+            "rglru_bwd.ring": 0, "rglru_bwd.direct": 0}
 
-# The kernel for each type: "ring" (the steps fed from a shared-memory ring
-# that TMA copies fill) when a row of D elements is a whole number of
-# 16-byte units, as a TMA tensor map's rows must be; "direct" (each thread
-# loads its own steps from device memory) for every other D.
+# The kernel for each type, forward and backward alike: "ring" (the steps
+# fed from a shared-memory ring that TMA copies fill; the backward's runs
+# from the last step to the first) when a row of D elements is a whole
+# number of 16-byte units, as a TMA tensor map's rows must be; "direct"
+# (each thread loads its own steps from device memory) for every other D.
 ROW_UNIT = {torch.float32: 4, torch.bfloat16: 8}   # elements in 16 bytes
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
     """"ring" or "direct": the kernel that runs the scan of a and u of
-    ``dtype`` over ``d`` channels on the card."""
+    ``dtype`` over ``d`` channels on the card, and its backward."""
     if dtype not in ROW_UNIT:
         raise ValueError(f"no RG-LRU kernel for {dtype}")
     return "ring" if d % ROW_UNIT[dtype] == 0 else "direct"
@@ -45,8 +48,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rglru_backward.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.rglru_backward.restype = i
+    for fn in (lib.rglru_backward, lib.rglru_ring_backward):
+        fn.argtypes = [p] * 6 + [i] * 4 + [p]
+        fn.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -92,8 +96,8 @@ def rglru_backward(a, h, dh, dh_last=None):
     """(da, du) of :func:`rglru` from a, its output h (in a's dtype), the
     output gradient ``dh`` (B, T, D) and optionally the final state's
     ``dh_last`` (B, D), as :func:`.ref.rglru_backward_reference` computes
-    them: the plain version on the CPU, the backward kernel on the card
-    (both in a's dtype)."""
+    them: the plain version on the CPU, the backward kernel ``variant``
+    picks on the card (both in a's dtype)."""
     if a.device.type == "cpu":
         return rglru_backward_reference(a, h, dh, dh_last)
     _check(a, h)
@@ -110,13 +114,16 @@ def rglru_backward(a, h, dh, dh_last=None):
     da, du = torch.empty_like(a), torch.empty_like(a)
     if b * t * d == 0:
         return da, du
+    kind = variant(a.dtype, d)
     lib = _build.load("rglru_bwd", _declare_bwd)
-    _build.check(lib, lib.rglru_backward(
+    fn = lib.rglru_ring_backward if kind == "ring" else lib.rglru_backward
+    _build.check(lib, fn(
         _build.pointer(a), _build.pointer(h), _build.pointer(dh),
         None if dh_last is None else _build.pointer(dh_last),
         _build.pointer(da), _build.pointer(du), _build.DTYPES[a.dtype], b, t,
         d, _build.stream()), "rglru_bwd")
     launches["rglru_bwd"] += 1
+    launches[f"rglru_bwd.{kind}"] += 1
     return da, du
 
 

@@ -32,6 +32,8 @@ def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_backward.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.wkv6_backward.restype = i
+    lib.wkv6_backward_chunk.argtypes = []
+    lib.wkv6_backward_chunk.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -85,9 +87,10 @@ def wkv6_backward(r, k, v, w, u, do, ds=None):
     """(dr, dk, dv, dw, du) of :func:`wkv6` from its inputs, the output
     gradient ``do`` (B, H, T, N) and optionally the final state's ``ds``
     (B, H, N, N), as :func:`.ref.wkv6_backward_reference` computes them:
-    the plain version on the CPU, the backward kernel on the card (dr, dk,
-    dv in r's dtype, dw and du float32; du summed over B from the kernel's
-    per-(b, h) partials)."""
+    the plain version on the CPU, the backward kernel
+    (``wkv6_bwd_chunk_kernel``) on the card (dr, dk, dv in r's dtype, dw
+    and du float32; du summed over B from the kernel's per-(b, h)
+    partials)."""
     if r.device.type == "cpu":
         return wkv6_backward_reference(r, k, v, w, u, do, ds)
     _check(r, k, v, w, u)
@@ -105,13 +108,16 @@ def wkv6_backward(r, k, v, w, u, do, ds=None):
     if b * h * t == 0:
         return (*(torch.zeros_like(x) for x in (dr, dk, dv, dw)),
                 torch.zeros_like(u))
-    # pass A's a_t, which pass B reads back
-    a = torch.empty((b, h, t, n), dtype=torch.float64, device=r.device)
     lib = _build.load("wkv6_bwd", _declare_bwd)
+    # the state before every chunk but the first, which pass A keeps for
+    # pass B
+    kept = -(-t // lib.wkv6_backward_chunk()) - 1
+    states = torch.empty((max(b * h * kept, 1), n, n), dtype=torch.float32,
+                         device=r.device)
     _build.check(lib, lib.wkv6_backward(
         *(_build.pointer(x) for x in (r, k, v, w, u, do)),
         None if ds is None else _build.pointer(ds),
-        *(_build.pointer(x) for x in (dr, dk, dv, dw, du, a)),
+        *(_build.pointer(x) for x in (dr, dk, dv, dw, du, states)),
         _build.DTYPES[r.dtype], b, h, t, n, _build.stream()), "wkv6_bwd")
     launches["wkv6_bwd"] += 1
     return dr, dk, dv, dw, du.sum(0)

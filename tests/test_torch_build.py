@@ -93,25 +93,54 @@ def test_the_variant_tool_sets_the_tile_constants():
     assert tool.splits(16, 8, 128) == (1,)
 
 
-def test_the_wkv6_backward_tool_sets_the_walks_unroll():
-    """``tools/wkv6_bwd_variants.py`` sets the unroll pragma of both of
-    the WKV6 backward's walks in a copy of the source (the committed 4
-    gives the source back, others change exactly those two lines); the
-    recurrences' backward sources are built."""
+def _wkv6_tool():
     import importlib.util
     path = _build.CSRC.parents[2] / "tools" / "wkv6_bwd_variants.py"
     spec = importlib.util.spec_from_file_location("wkv6_bwd_variants", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def test_the_wkv6_backward_tool_times_the_kernel_beside_the_walk():
+    """``tools/wkv6_bwd_variants.py`` builds the WKV6 backward kernel's
+    source as committed (its chunk fixed at 16 steps, no template over it)
+    beside the walk it replaced, from the commit it names; the
+    recurrences' backward sources are built."""
+    tool = _wkv6_tool()
     text = (_build.CSRC / "wkv6_bwd.cu").read_text()
-    assert tool.variant_source(text, 4) == text
-    other = tool.variant_source(text, 2)
-    changed = [(a, b) for a, b in zip(text.splitlines(),
-                                      other.splitlines()) if a != b]
-    assert [b for _, b in changed] == ["#pragma unroll 2"] * 2
-    with pytest.raises(ValueError, match="matches 0 times"):
-        tool.variant_source("int x;", 2)
+    sources = tool.variant_sources(text, "// walk")
+    assert sources["chunk"] == text and sources["walk"] == "// walk"
+    assert set(sources) == {"chunk", "walk"} | {
+        f"cut_{name}" for name in tool.CUTS}
+    assert tool.WALK.parent == tool.OUT and tool.WALK_COMMIT == "6836214"
+    assert len(re.findall(r"^constexpr int kChunk = 16;", text, re.M)) == 1
+    assert "template <typename T, int N>\n__global__" in text
+    assert "wkv6_bwd_chunk_kernel" in text and "double" not in text
     assert {"wkv6_bwd", "rglru_bwd"} <= set(_build.SOURCES)
+
+
+@pytest.mark.parametrize("name", ["walk", "products", "g_update", "dv",
+                                  "states"])
+def test_the_wkv6_backward_tool_cuts_one_part(name):
+    """Each of the tool's cuts removes code from the WKV6 backward
+    kernel's pass (every span once), keeps its braces balanced and leaves
+    the other parts; the chunk states' cut drops both sides of their round
+    trip through device memory."""
+    tool = _wkv6_tool()
+    text = (_build.CSRC / "wkv6_bwd.cu").read_text()
+    got = tool.cut_source(text, name)
+    assert len(got) < len(text)
+    assert got.count("{") - got.count("}") == text.count("{") - text.count(
+        "}")
+    for other in set(tool.CUTS) - {name}:
+        assert all(first in got for first, _ in tool.CUTS[other])
+    if name == "states":
+        assert "store2(dst" not in got and "src + 4 * e" not in got
+    if name == "walk":
+        assert "walk_step<N>(t" not in got
+    with pytest.raises(ValueError, match="matches 0 times"):
+        tool.cut_source("int x;", name)
 
 
 @pytest.mark.parametrize("shape,split", [

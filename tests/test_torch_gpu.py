@@ -13,6 +13,8 @@ skip without a card.  On the card
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1072,8 +1074,18 @@ def test_a_gradient_through_the_recurrences_launches_their_backward(cuda):
 
 
 def _wkv_bwd_case(cuda, seed, dtype, b, h, t, n, w_lo, w_hi, with_ds):
-    r, k, v, w, u = _wkv_inputs(cuda, seed, dtype, b, h, t, n, w_lo)
-    w = w_lo + (w - w_lo) * (w_hi - w_lo) / (0.999 - w_lo)
+    """Seeded WKV6 inputs, decays uniform in [w_lo, w_hi]; with w_hi below
+    1e-3, half the channels decay in [0.9, 0.999] and the other half
+    log-uniformly in [w_lo, w_hi]."""
+    r, k, v, w, u = _wkv_inputs(cuda, seed, dtype, b, h, t, n, 0.0)
+    if w_hi < 1e-3:
+        w = 0.9 + 0.099 * w
+        lo, hi = math.log(w_lo), math.log(w_hi)
+        gen = torch.Generator(device=cuda).manual_seed(seed + 200)
+        w[..., n // 2:] = torch.exp(lo + (hi - lo) * torch.rand(
+            (b, h, t, n - n // 2), generator=gen, device=cuda))
+    else:
+        w = w_lo + w * (w_hi - w_lo) / 0.999
     gen = torch.Generator(device=cuda).manual_seed(seed + 100)
     do = torch.randn((b, h, t, n), generator=gen, device=cuda).to(dtype)
     ds = (torch.randn((b, h, n, n), generator=gen, device=cuda)
@@ -1085,12 +1097,15 @@ def _wkv_bwd_case(cuda, seed, dtype, b, h, t, n, w_lo, w_hi, with_ds):
 @pytest.mark.parametrize("n", [32, 64])
 def test_wkv6_backward_kernel_matches_plain(cuda, dtype, n):
     """The backward kernel against the plain backward: T 1, T that end in
-    a part of its 16-step chunk, a long T; decays down to 0.01 and in
-    [0.01, 0.115]; with and without dS_T.  dr, dk, dv at REC_TOL, dw and
-    du within STATE_TOL of their largest magnitude; two runs bit-equal."""
+    a part of its chunk, a long T; decays down to 0.01, in [0.01, 0.115]
+    and, on half the channels, in [1e-12, 1e-10] and [1e-30, 1e-20]; with
+    and without dS_T.  dr, dk, dv at REC_TOL, dw and du within STATE_TOL of
+    their largest magnitude; two runs bit-equal."""
     cases = ((1, 1, 1, 0.01, 0.999, False), (1, 2, 1, 0.5, 0.9, True),
              (2, 3, 33, 0.01, 0.999, True), (2, 2, 65, 0.01, 0.115, True),
-             (1, 2, 2048, 0.01, 0.115, False), (2, 3, 31, 0.3, 0.99, True))
+             (1, 2, 2048, 0.01, 0.115, False), (2, 3, 31, 0.3, 0.99, True),
+             (1, 2, 40, 1e-12, 1e-10, True), (2, 2, 77, 1e-30, 1e-20, False),
+             (1, 3, 300, 1e-30, 1e-20, True))
     for i, (b, h, t, lo, hi, with_ds) in enumerate(cases):
         args, do, ds = _wkv_bwd_case(cuda, i, dtype, b, h, t, n, lo, hi,
                                      with_ds)
@@ -1115,21 +1130,30 @@ def test_wkv6_backward_kernel_matches_plain(cuda, dtype, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rglru_backward_kernel_matches_plain(cuda, dtype):
-    """The backward kernel on the forward kernel's h against the plain
-    backward, bit for bit (both round each multiply and add alone, and
-    bf16 outputs once), with and without dh_last; two runs bit-equal."""
+    """The backward kernel ``variant`` picks, on the forward kernel's h,
+    against the plain backward, bit for bit (both round each multiply and
+    add alone, and bf16 outputs once), with and without dh_last; two runs
+    bit-equal.  The ring kernel at T 1, at T that end in a part of its
+    32-step chunk and at a D that ends in a part of its 64-channel tile;
+    the direct kernel at D whose rows no TMA copy can move."""
     for i, (b, t, d) in enumerate(((1, 1, 1), (3, 1, 7), (2, 37, 4099),
-                                   (4, 300, 130), (4, 2048, 4096))):
+                                   (4, 300, 130), (4, 2048, 4096),
+                                   (1, 1, 64), (3, 1, 4160), (2, 45, 4160),
+                                   (2, 65, 4100))):
         a, u, h, _ = _rglru_case(cuda, i, dtype, b, t, d)
         gen = torch.Generator(device=cuda).manual_seed(i + 50)
         dh = torch.randn((b, t, d), generator=gen, device=cuda).to(dtype)
         last = (torch.randn((b, d), generator=gen, device=cuda)
                 if i % 2 else None)
-        before = rg_ops.launches["rglru_bwd"]
+        kind = rg_ops.variant(dtype, d)
+        before = dict(rg_ops.launches)
         da, du = rg_ops.rglru_backward(a, h, dh, last)
         da2, du2 = rg_ops.rglru_backward(a, h, dh, last)
         torch.cuda.synchronize()
-        assert rg_ops.launches["rglru_bwd"] == before + 2
+        assert {v: rg_ops.launches[v] - before[v] for v in (
+            "rglru_bwd", "rglru_bwd.ring", "rglru_bwd.direct")} == {
+            "rglru_bwd": 2, f"rglru_bwd.{kind}": 2,
+            "rglru_bwd." + ("direct" if kind == "ring" else "ring"): 0}
         pda, pdu = rg_ref.rglru_backward_reference(a, h, dh, last)
         assert da.dtype == du.dtype == dtype and da.shape == a.shape
         assert torch.equal(da, pda) and torch.equal(du, pdu), (b, t, d)

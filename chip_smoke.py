@@ -373,6 +373,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory bandwidth (data sheet)
@@ -452,6 +453,7 @@ from repro_torch.kernels.rglru import ref as rg_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.kvstore import cuckoo, fsck, hopscotch, store  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -678,6 +680,86 @@ def phase_kv_get(device, n_shards=4, buckets=65536, n_keys=157286, batch=64,
         result["redn_breakdown"] = redn_breakdown(
             dk, dv, torch.from_numpy(batches[0]).to(device))
     return result, kv, dk, dv
+
+
+GET_FIELDS = ("found", "values", "ok", "dropped", "deferred")
+
+
+def phase_kv_get_group(device, kv, dk, dv, n_keys=157286, batch=64,
+                       n_batches=4, time_it=True):
+    """The ``kv_get`` store and batches through the store's process-group
+    arm: a group of one rank (NCCL on the card, gloo on the CPU; a
+    ``HashStore``) on ``make_host_mesh(1, 1)``, the rank holding all the
+    shards.  Every path's results are held bit-equal to the one-device
+    arm's on the same batches; gets/s of both arms are timed in turns, and
+    one all-to-all exchange of the redn dispatch window by CUDA events.
+    The group is destroyed at the end."""
+    dev = torch.device(device)
+    n_shards = dk.shape[0]
+    batches = [torch.from_numpy(q).to(dev) for q in kv_batches(
+        n_shards, n_keys, batch, n_batches)]
+    kw = (dict(device_id=torch.device("cuda", torch.cuda.current_device()
+                                      if dev.index is None else dev.index))
+          if dev.type == "cuda" else {})
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            **kw)
+    try:
+        mesh = launch_mesh.make_host_mesh(1, 1, device_type=dev.type)
+        group = mesh.get_group("data")
+        gk, gv = kv.device_arrays(dev, group=group)
+        result = dict(backend=dist.get_backend(group),
+                      ranks=dist.get_world_size(group),
+                      shards_per_rank=int(gk.shape[0]),
+                      mesh=dict(zip(mesh.mesh_dim_names,
+                                    map(int, mesh.mesh.shape))),
+                      batches=n_batches, batch=batch, checked={},
+                      gets_per_s={})
+        for method in ("redn", "one_sided", "two_sided"):
+            n = 0
+            for q in batches:
+                one = store.sharded_get(dk, dv, q, method=method,
+                                        device=dev)
+                grp = store.sharded_get(gk, gv, q, method=method,
+                                        device=dev, group=group)
+                for f in GET_FIELDS:
+                    a, b = getattr(one, f), getattr(grp, f)
+                    if a.dtype != b.dtype or not torch.equal(a, b):
+                        raise AssertionError(
+                            f"kv_get_group {method}: {f} differs from the "
+                            f"one-device arm")
+                n += q.numel()
+            result["checked"][method] = n
+            if time_it:
+                arms = dict(one_device=lambda: [store.sharded_get(
+                    dk, dv, q, method=method, device=dev) for q in batches],
+                    group=lambda: [store.sharded_get(
+                        gk, gv, q, method=method, device=dev, group=group)
+                        for q in batches])
+                ms = {}
+                for turn in ("one_device", "group", "group", "one_device"):
+                    ms.setdefault(turn, []).append(
+                        cuda_ms(arms[turn], reps=1, warmup=1))
+                result["gets_per_s"][method] = {
+                    arm: n_batches * n_shards * batch
+                    / (float(np.mean(t)) * 1e-3) for arm, t in ms.items()}
+        srv = programs.build_hopscotch_server(dk.shape[1], dv.shape[2], 8,
+                                              device=dev)
+        q = batches[0]
+        pay = srv.device_payloads(q, hopscotch.bucket_of(q, dk.shape[1]))
+        window = pay.new_zeros((n_shards, n_shards, batch, pay.shape[-1]))
+        if not torch.equal(transport.exchange(window, group),
+                           window.transpose(0, 1)):
+            raise AssertionError("exchange of one rank is not the swap")
+        result["exchange_shape"] = list(window.shape)
+        result["exchange_bytes"] = window.numel() * window.element_size()
+        if time_it:
+            result["exchange_ms"] = cuda_ms(
+                lambda: transport.exchange(window, group), reps=20)
+            result["card"] = card_line()
+    finally:
+        dist.destroy_process_group()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -2796,11 +2878,12 @@ class recorded_routes:
     (T, k)), call by call."""
 
     def __enter__(self):
-        self.routes, self.saved = [], moe.route
+        self.routes, self.dropped, self.saved = [], [], moe.route
 
         def route(logits, cfg):
             r = self.saved(logits, cfg)
             self.routes.append(r.idx_k)
+            self.dropped.append(int((~r.ok).sum()))
             return r
         moe.route = route
         return self
@@ -2825,6 +2908,12 @@ def route_agreement(cfg, params, toks, prompt: int, s_max: int) -> dict:
     pre = torch.stack([r.reshape(b, prompt, -1)
                        for r in dec.routes[:n_moe]])
     steps = torch.stack(dec.routes[n_moe:]).reshape(n - prompt, n_moe, b, -1)
+    # (token, expert) pairs past their expert's capacity, which the layer
+    # drops: forward's, prefill's, and the decode steps' in all
+    dropped = dict(forward=sum(fwd.dropped),
+                   prefill=sum(dec.dropped[:n_moe]),
+                   decode=sum(dec.dropped[n_moe:]),
+                   forward_pairs=b * n * cfg.experts_per_token * n_moe)
     same = (steps == want[:, :, prompt:].permute(2, 0, 1, 3)).all(-1)
     clean = same.all(1).int().cumprod(0).bool()        # (steps, B)
     err = (decoded - full[:, prompt:].float()).abs().amax(-1).T
@@ -2836,7 +2925,7 @@ def route_agreement(cfg, params, toks, prompt: int, s_max: int) -> dict:
         max_abs_err_agreeing=float(err[clean].max()) if clean.any()
         else None,
         max_abs_err_after_flip=float(err[~clean].max()) if (~clean).any()
-        else None)
+        else None, dropped=dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -4800,13 +4889,14 @@ KERNELS = (
      RGLRU_BWD_KERNELS),
 )
 # the phases in the order main() runs them
-PHASES = ("kv_get", "chain_kernel", "chain_faults", "chain_straight",
+PHASES = ("kv_get", "kv_get_group", "chain_kernel", "chain_faults", "chain_straight",
           "hopscotch_probe", "kv_write", "kv_faults", "kv_resize",
           "kv_contend", "kv_service", "chain_programs", "cuckoo_get",
           "lm_prefill", "lm_serve",
           "lm_float32", "flash_kernel", "decode_kernel", "lm_rwkv",
           "lm_griffin", "lm_gemma3", "lm_gemma3_cache", "lm_mixtral",
-          "lm_phi3v", "lm_seamless", "wkv6_kernel", "rglru_kernel",
+          "lm_phi3v", "lm_seamless", "lm_llama4", "lm_llama4_nope",
+          "wkv6_kernel", "rglru_kernel",
           "wkv6_bwd_kernel", "rglru_bwd_kernel", "flash_bwd_kernel",
           "lm_train", "lm_train_bf16", "lm_train_rwkv", "lm_train_griffin")
 LM_ARCH = "qwen3-1.7b"
@@ -4819,13 +4909,19 @@ FLASH_DRIVE_LAUNCHES = {"lm_prefill": ("wgmma", 28),
                         "lm_gemma3_cache": ("wgmma", 26),
                         "lm_mixtral": ("wgmma", 4),
                         "lm_phi3v": ("wgmma", 32),
-                        "lm_seamless": ("wgmma", 36)}
+                        "lm_seamless": ("wgmma", 36),
+                        "lm_llama4": ("wgmma", 1),
+                        "lm_llama4_nope": ("wgmma", 1)}
 RECURRENT_ARCHS = (("lm_rwkv", "rwkv6-7b"), ("lm_griffin", "recurrentgemma-9b"))
 # the other archs' drives: (phase, arch, config changes, prompt tokens).
 # gemma3-1b whole (its 512 window binds at 2,048), then with the rolling
 # int8 caches on the same weights; mixtral-8x7b at 4 of its 32 layers
 # (about 12 GB), drop-free as its own router is; phi-3-vision's 576 patch
-# positions before 1,472 tokens; seamless with 2,048 frames.
+# positions before 1,472 tokens; seamless with 2,048 frames; llama4-maverick
+# at 1 of its 48 layers (128 experts, ~36.7 GB of weights) with the
+# capacity its config defines, its pattern's first layer (local, window
+# 8,192) and then, on fresh weights, one NoPE layer (causal, no RoPE),
+# each with phi-3-vision's 576 patch positions before 1,472 tokens.
 ARCH_DRIVES = (
     ("lm_gemma3", "gemma3-1b", {}, 2048),
     ("lm_gemma3_cache", "gemma3-1b", dict(window_cache=True, kv_quant=True),
@@ -4833,7 +4929,10 @@ ARCH_DRIVES = (
     ("lm_mixtral", "mixtral-8x7b", dict(num_layers=4, capacity_factor=8.0),
      1024),
     ("lm_phi3v", "phi-3-vision-4.2b", {}, 1472),
-    ("lm_seamless", "seamless-m4t-medium", {}, 2048))
+    ("lm_seamless", "seamless-m4t-medium", {}, 2048),
+    ("lm_llama4", "llama4-maverick-400b-a17b", dict(num_layers=1), 1472),
+    ("lm_llama4_nope", "llama4-maverick-400b-a17b",
+     dict(num_layers=1, layer_pattern=("nope",)), 1472))
 
 
 # the head dims of the tensor-core flash kernel's instantiations
@@ -5003,6 +5102,15 @@ def main() -> int:
     kv_res, kv, dk, dv = phase_kv_get(device)
     phases["kv_get"] = kv_res
     print(f"[kv_get] {time.perf_counter() - t0:.1f} s: {kv_res}", flush=True)
+    run_phase(phases, "kv_get_group",
+              lambda: phase_kv_get_group(device, kv, dk, dv))
+    g_ = phases["kv_get_group"]
+    print(f"[times] kv_get_group ({card}): gets/s by path, one device / "
+          f"group of {g_['ranks']} ({g_['backend']}): " + ", ".join(
+              f"{m} {x['one_device']:.1f} / {x['group']:.1f}"
+              for m, x in g_["gets_per_s"].items())
+          + f"; all-to-all exchange of {g_['exchange_bytes']} bytes "
+          f"{g_['exchange_ms']:.4f} ms", flush=True)
     run_phase(phases, "chain_kernel", lambda: phase_chain_kernel(device))
     run_phase(phases, "chain_faults", lambda: phase_chain_faults(device))
     run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
@@ -5113,13 +5221,14 @@ def main() -> int:
     params, shape = None, None
     for key, arch, changes, prompt in ARCH_DRIVES:
         cfg = dataclasses.replace(registry.get_config(arch), **changes)
-        if (arch, cfg.num_layers) != shape:    # the cache arms share weights
+        # the cache arms share weights; another layer pattern draws anew
+        if (arch, cfg.num_layers, cfg.layer_pattern) != shape:
             del params
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             params = model_lib.init_params(cfg, seed=0, device=device)
             sync(device)
-            shape = (arch, cfg.num_layers)
+            shape = (arch, cfg.num_layers, cfg.layer_pattern)
             print(f"[{key}] {arch}: "
                   f"{sum(p.numel() for p in params.parameters())} "
                   f"parameters ({cfg.dtype}, {cfg.num_layers} layers) "
@@ -5131,8 +5240,8 @@ def main() -> int:
         print(f"[times] {key} ({card}): prefill {d['prefill_s']:.4f} s "
               f"({d['prefill_tokens_per_s']:.1f} positions/s), decode step "
               f"median {d['decode_ms_per_step_median']:.2f} ms, peak memory "
-              f"{d['max_memory_allocated']} bytes, aux {d['forward_aux']}",
-              flush=True)
+              f"{d['max_memory_allocated']} bytes, aux {d['forward_aux']}, "
+              f"routes {d.get('routes')}", flush=True)
     del params
     torch.cuda.empty_cache()
     run_phase(phases, "wkv6_kernel", lambda: phase_wkv6_kernel(device))

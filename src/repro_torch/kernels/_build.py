@@ -137,6 +137,14 @@ def kernel_input(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its plain version for ``t``: on CPU tensors,
+    and on meta tensors, whose ops carry shapes and no data (the dry run
+    of ``launch/dryrun.py``; the recurrences' wrappers give meta tensors
+    their outputs' shapes alone).  A CUDA tensor takes the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise when autograd would need a gradient through ``kernel``, a
     forward kernel with no backward kernel (decode attention, which only

@@ -69,7 +69,7 @@ def decode_partial(q, k, v, lengths, *, window: int = 0,
     """q (B, H, 1, D); k, v (B, KH, S, D), one shard whose row j is global
     position j + kpos_offset; lengths (B,) global.  Returns the float32
     partial acc (B, H, 1, D), m (B, H, 1, 1), l (B, H, 1, 1)."""
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return decode_partial_reference(q, k, v, lengths, window=window,
                                         kpos_offset=kpos_offset, scale=scale)
     _build.check_attention_inputs(q, k, v, "decode-attention")

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ...distributed.sharding import shard
 from .. import _build
 from .ref import (attention_backward_reference, attention_reference,
                   attention_reference_lse)
@@ -188,7 +189,7 @@ def flash_attention_lse(q, k, v, *, mode: str = "causal", window: int = 0,
                         q_offset: int = 0, scale: Optional[float] = None):
     """The forward and its log-sum-exp: (out, lse (B, H, Sq) float32), as
     :func:`.ref.attention_reference_lse` gives them."""
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return attention_reference_lse(q, k, v, mode=mode, window=window,
                                        lengths=lengths, q_offset=q_offset,
                                        scale=scale)
@@ -232,7 +233,7 @@ def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
     output gradient ``do``, as :func:`.ref.attention_backward_reference`
     computes them: the plain version on the CPU, the backward kernels on
     the card."""
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return attention_backward_reference(
             q, k, v, out, lse, do, mode=mode, window=window, lengths=lengths,
             q_offset=q_offset, scale=scale)
@@ -272,6 +273,19 @@ def flash_attention_backward(q, k, v, out, lse, do, *, mode: str = "causal",
     return dq, dk, dv
 
 
+def _pin(x):
+    """The batch axis pinned (under an active mesh, on a DTensor)."""
+    return shard(x, "batch", *([None] * (x.ndim - 1)))
+
+
+def _pin_h(x):
+    """(batch, heads) pinned on rank-4 (B, H, S, D) tensors: the heads
+    shard only where the 'heads' rule maps to a mesh axis."""
+    if x.ndim == 4:
+        return shard(x, "batch", "heads", None, None)
+    return _pin(x)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with the flash backward: the forward saves (q, k, v,
     lengths, out, lse) and the backward recomputes p from lse, as the JAX
@@ -282,7 +296,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, mode, window, q_offset, scale):
-        if q.device.type == "cpu":
+        q, k, v = _pin_h(q), _pin_h(k), _pin_h(v)
+        if _build.plain(q):
             out, lse = attention_reference_lse(
                 q, k, v, mode=mode, window=window, lengths=lengths,
                 q_offset=q_offset, scale=scale)
@@ -290,6 +305,7 @@ class FlashAttentionFn(torch.autograd.Function):
             q, k, v, lengths = _prepare(q, k, v, mode, lengths)
             out, lse = _forward(q, k, v, lengths, mode, window, q_offset,
                                 scale, True)
+        out = _pin_h(out)
         ctx.save_for_backward(q, k, v, lengths, out, lse)
         ctx.args = dict(mode=mode, window=window, q_offset=q_offset,
                         scale=scale)
@@ -298,9 +314,11 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lengths, out, lse = ctx.saved_tensors
+        do, lse = _pin_h(do), _pin(lse)
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do,
                                               lengths=lengths, **ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return (_pin_h(dq), _pin(dk), _pin(dv), None, None, None, None,
+                None)
 
 
 def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
@@ -314,7 +332,7 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, lengths, mode, window,
                                       q_offset, scale)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return attention_reference(q, k, v, mode=mode, window=window,
                                    lengths=lengths, q_offset=q_offset,
                                    scale=scale)

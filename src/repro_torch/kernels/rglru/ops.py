@@ -71,7 +71,12 @@ def _check(a, u) -> None:
 
 def _forward(a, u):
     """The forward: the plain scan on the CPU, a kernel on the card."""
-    if a.device.type == "cpu":
+    if a.device.type == "meta":
+        # the dry run: the launch's outputs by shape (the plain scan would
+        # step T times over no data)
+        return (torch.empty_like(a, memory_format=torch.contiguous_format),
+                torch.empty_like(a[:, 0], dtype=torch.float32))
+    if _build.plain(a):
         return rglru_reference(a, u)
     _check(a, u)
     b, t, d = a.shape
@@ -98,7 +103,10 @@ def rglru_backward(a, h, dh, dh_last=None):
     ``dh_last`` (B, D), as :func:`.ref.rglru_backward_reference` computes
     them: the plain version on the CPU, the backward kernel ``variant``
     picks on the card (both in a's dtype)."""
-    if a.device.type == "cpu":
+    if a.device.type == "meta":          # the dry run: shapes alone
+        return tuple(torch.empty_like(a, memory_format=torch.contiguous_format)
+                     for _ in range(2))
+    if _build.plain(a):
         return rglru_backward_reference(a, h, dh, dh_last)
     _check(a, h)
     b, t, d = a.shape

@@ -64,7 +64,13 @@ def _check(r, k, v, w, u) -> None:
 
 def _forward(r, k, v, w, u):
     """The forward: the plain scan on the CPU, the kernel on the card."""
-    if r.device.type == "cpu":
+    if r.device.type == "meta":
+        # the dry run: the launch's outputs by shape (the plain scan would
+        # step T times over no data)
+        return (torch.empty_like(r, memory_format=torch.contiguous_format),
+                torch.empty_like(w[:, :, :1, :1]).expand(
+                    r.shape[:2] + (r.shape[3],) * 2))
+    if _build.plain(r):
         return wkv6_reference(r, k, v, w, u)
     _check(r, k, v, w, u)
     b, h, t, n = r.shape
@@ -91,7 +97,10 @@ def wkv6_backward(r, k, v, w, u, do, ds=None):
     (``wkv6_bwd_chunk_kernel``) on the card (dr, dk, dv in r's dtype, dw
     and du float32; du summed over B from the kernel's per-(b, h)
     partials)."""
-    if r.device.type == "cpu":
+    if r.device.type == "meta":          # the dry run: shapes alone
+        return (*(torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for x in (r, k, v, w)), torch.empty_like(u))
+    if _build.plain(r):
         return wkv6_backward_reference(r, k, v, w, u, do, ds)
     _check(r, k, v, w, u)
     b, h, t, n = r.shape

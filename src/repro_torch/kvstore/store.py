@@ -16,7 +16,12 @@ write path (the port's ``repro.kvstore.store``, steady state).
 
 All three return identical values on served requests.  The store's S
 shards are a leading tensor dim on one device (see
-:mod:`repro_torch.rdma.transport`).  Every path returns a
+:mod:`repro_torch.rdma.transport`) or, with ``group=`` (a
+``torch.distributed`` process group), blocks of ``S_local`` shards on the
+group's ranks: each rank passes its block (global shard ``rank * S_local
++ local index``) and the requests its shards issue, and gets back its
+block's results, bit for bit what the one-device arm gives for those
+shards.  Every path returns a
 :class:`GetResult` whose ``ok`` mask says whether a response is
 authoritative: a request dropped at the transport's capacity limit, or
 deferred by ``live``, has ``ok=False`` and must never be read as a miss.
@@ -54,6 +59,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as device_mod
 from ..core import faults as faults_mod
@@ -171,25 +177,46 @@ class ShardedKV:
         return self.tables[int(shard_of(key, self.n_shards))].insert(
             key, value)
 
-    def device_arrays(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def block(self, group=None) -> range:
+        """The global shards this rank holds under ``group`` (all of them
+        without one)."""
+        if group is None:
+            return range(self.n_shards)
+        if not dist.is_initialized():
+            raise RuntimeError("group= given, but no process group is "
+                               "initialised")
+        world = dist.get_world_size(group)
+        if self.n_shards % world:
+            raise ValueError(f"{self.n_shards} shards do not split over "
+                             f"{world} ranks")
+        n = self.n_shards // world
+        rank = dist.get_rank(group)
+        return range(rank * n, (rank + 1) * n)
+
+    def device_arrays(self, device=None, group=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(keys (S, n), vals (S, n, V)) on ``device``: every shard, or
+        with ``group`` this rank's block."""
         dev = device_mod.resolve(device)
-        keys = torch.from_numpy(np.stack([t.keys for t in self.tables]))
-        vals = torch.from_numpy(np.stack([t.values for t in self.tables]))
+        tables = [self.tables[s] for s in self.block(group)]
+        keys = torch.from_numpy(np.stack([t.keys for t in tables]))
+        vals = torch.from_numpy(np.stack([t.values for t in tables]))
         return keys.to(dev), vals.to(dev)     # (S, B), (S, B, V)
 
-    def sync_from_device(self, keys, vals):
-        """Refresh the host tables from the authoritative device arrays."""
+    def sync_from_device(self, keys, vals, group=None):
+        """Refresh the host tables (with ``group``, this rank's block) from
+        the authoritative device arrays."""
         kk, vv = keys.cpu().numpy(), vals.cpu().numpy()
-        for s, t in enumerate(self.tables):
-            t.keys = kk[s].copy()
-            t.values = vv[s].copy()
+        for i, s in enumerate(self.block(group)):
+            self.tables[s].keys = kk[i].copy()
+            self.tables[s].values = vv[i].copy()
 
 
 # ---------------------------------------------------------------------------
 # the three get paths, over all S shards at once
 # ---------------------------------------------------------------------------
 
-def _redn_get(keys, vals, queries, live, *, n_shards, capacity,
+def _redn_get(keys, vals, queries, live, *, n_shards, capacity, group,
               neighborhood, val_words):
     """RedN path: the pre-posted chain VM program executes at the owner —
     1 RTT, the hash probing done by verbs, not the host."""
@@ -202,12 +229,12 @@ def _redn_get(keys, vals, queries, live, *, n_shards, capacity,
                                                                n_buckets))
     resp, ok = transport.triggered_chain_engine(
         srv.engine, state, srv.recv_wq, srv.resp_region, srv.resp_words,
-        payload, dest, n_shards, capacity, live)
+        payload, dest, n_shards, capacity, live, group=group)
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
 def _redn_get_ttl(keys, vals, exp, now, queries, live, *, n_shards,
-                  capacity, neighborhood, val_words):
+                  capacity, group, neighborhood, val_words):
     """TTL-aware redn path: the server chain built with ``ttl=True`` ADDs
     the client's negated clock onto each probed deadline and gates the
     response write on the Calc-verb compare — an expired hit quiesces
@@ -221,11 +248,11 @@ def _redn_get_ttl(keys, vals, exp, now, queries, live, *, n_shards,
         queries, hopscotch.bucket_of(queries, n_buckets), now)
     resp, ok = transport.triggered_chain_engine(
         srv.engine, state, srv.recv_wq, srv.resp_region, srv.resp_words,
-        payload, dest, n_shards, capacity, live)
+        payload, dest, n_shards, capacity, live, group=group)
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
-def _one_sided_get(keys, vals, queries, live, *, n_shards, capacity,
+def _one_sided_get(keys, vals, queries, live, *, n_shards, capacity, group,
                    neighborhood, val_words):
     """FaRM-style: READ the neighborhood metadata, match locally, READ the
     value — 2 RTTs, and H-fold metadata amplification."""
@@ -237,7 +264,7 @@ def _one_sided_get(keys, vals, queries, live, *, n_shards, capacity,
     remote_window = torch.stack(
         [torch.roll(keys, -d, dims=1) for d in range(neighborhood)], dim=2)
     window, ok = transport.one_sided_read(remote_window, dest, home,
-                                          n_shards, capacity, live)
+                                          n_shards, capacity, live, group)
     hit = window == queries[..., None].to(window.dtype)
     # a query of EMPTY (0) compares equal to every empty bucket
     found = hit.any(dim=-1) & (queries != hopscotch.EMPTY)
@@ -245,12 +272,13 @@ def _one_sided_get(keys, vals, queries, live, *, n_shards, capacity,
     row = torch.remainder(home + slot, n_buckets)
 
     # RTT 2: fetch the value row (same dest/live -> same ok mask)
-    v, _ = transport.one_sided_read(vals, dest, row, n_shards, capacity, live)
+    v, _ = transport.one_sided_read(vals, dest, row, n_shards, capacity, live,
+                                    group)
     v = v * found[..., None].to(v.dtype)
     return found, v, ok
 
 
-def _two_sided_get(keys, vals, queries, live, *, n_shards, capacity,
+def _two_sided_get(keys, vals, queries, live, *, n_shards, capacity, group,
                    neighborhood, val_words):
     """RPC: identical wire pattern to redn, but the lookup runs as a plain
     host function at each owner."""
@@ -259,14 +287,15 @@ def _two_sided_get(keys, vals, queries, live, *, n_shards, capacity,
 
     def host_lookup(reqs):
         out = []
-        for s in range(n_shards):
+        for s in range(reqs.shape[0]):          # the local shards
             found, v = hopscotch.lookup(keys[s], vals[s], reqs[s, :, 0],
                                         neighborhood)
             out.append(torch.cat([found[:, None].to(torch.int32), v], dim=1))
         return torch.stack(out)
 
     resp, ok = transport.triggered_chain(
-        host_lookup, payload, dest, n_shards, capacity, val_words + 1, live)
+        host_lookup, payload, dest, n_shards, capacity, val_words + 1, live,
+        group)
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
@@ -318,7 +347,7 @@ def _bind_args(fname: str, names: Tuple[str, ...], args, kwargs) -> dict:
 
 def sharded_get(table_or_resize_state, *args,
                 isolation: Optional[Admission] = None, device=None,
-                **kwargs):
+                group=None, **kwargs):
     """Batched distributed get over the store's S shards — the one serving
     entry point.  The first argument selects the store's mode:
 
@@ -335,7 +364,9 @@ def sharded_get(table_or_resize_state, *args,
     per-client token-bucket stage to *produce* that mask (composed with
     any explicit ``live``) and returns ``(GetResult, new BucketState)``
     instead of a bare :class:`GetResult`.  Runs on ``device`` (default
-    CUDA; see :func:`repro_torch.device.resolve`).
+    CUDA; see :func:`repro_torch.device.resolve`).  With ``group`` the
+    arrays and queries are this rank's block of shards (see the module
+    docstring).
     """
     if isinstance(table_or_resize_state, ResizeState):
         bound = _bind_args(
@@ -347,6 +378,7 @@ def sharded_get(table_or_resize_state, *args,
             "sharded_get", ("vals", "queries", "method", "neighborhood",
                             "capacity", "live", "exp", "now"), args, kwargs)
         run = _get_table
+    bound["group"] = group
     if isolation is None:
         return run(table_or_resize_state, device=device, **bound)
     adm = isolation
@@ -383,9 +415,15 @@ def sharded_get_isolated(keys, vals, queries, clients,
         device=device, **kwargs)
 
 
+def _world(group, dev) -> int:
+    """1, or the size of ``group`` (which must carry ``dev``)."""
+    return 1 if group is None else transport.check_group(group, dev)
+
+
 def _get_table(keys, vals, queries, method: str = "redn",
                neighborhood: int = 8, capacity: Optional[int] = None,
-               live=None, exp=None, now=None, *, device=None) -> GetResult:
+               live=None, exp=None, now=None, *, device=None,
+               group=None) -> GetResult:
     """Steady-state get.
 
     keys: (S, n) int32 device keys array; vals: (S, n, V); queries:
@@ -416,9 +454,10 @@ def _get_table(keys, vals, queries, method: str = "redn",
     if live is not None:
         live = torch.as_tensor(live, device=dev).to(torch.bool)
     _check_key_batch(queries, what="query", allow_zero=True, live=live)
-    n_shards = keys.shape[0]
-    if queries.ndim != 2 or queries.shape[0] != n_shards:
-        raise ValueError(f"queries must be (S={n_shards}, B), got "
+    n_local = keys.shape[0]
+    n_shards = n_local * _world(group, dev)
+    if queries.ndim != 2 or queries.shape[0] != n_local:
+        raise ValueError(f"queries must be (S={n_local}, B), got "
                          f"{tuple(queries.shape)}")
     b_local = queries.shape[1]
     # an explicit capacity=0 is a legal (drop-everything) limit
@@ -438,11 +477,11 @@ def _get_table(keys, vals, queries, method: str = "redn",
         found, v, ok = _redn_get_ttl(
             keys, vals, torch.as_tensor(exp, device=dev).to(torch.int32),
             now, queries, live, n_shards=n_shards, capacity=capacity,
-            neighborhood=neighborhood, val_words=vals.shape[-1])
+            group=group, neighborhood=neighborhood, val_words=vals.shape[-1])
     else:
         found, v, ok = _PATHS[method](
             keys, vals, queries, live, n_shards=n_shards,
-            capacity=capacity, neighborhood=neighborhood,
+            capacity=capacity, group=group, neighborhood=neighborhood,
             val_words=vals.shape[-1])
     return GetResult(
         found=found, values=v, ok=ok,
@@ -580,7 +619,7 @@ def _counts(live, real, ok):
 
 def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
                 neighborhood, val_words, max_steps, max_search, max_moves,
-                frows=None, n_writers=1):
+                frows=None, n_writers=1, group=None):
     """Owner-side SET serving: the pre-posted writer chain CAS-claims /
     updates buckets, each owner's requests serialized so each chain
     observes its predecessors' writes.
@@ -611,24 +650,24 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
     home = hopscotch.bucket_of(qk, n_buckets).reshape(-1)
     q, v = qk.reshape(-1), qv.reshape(-1, val_words)
     if n_writers > 1:
-        group = programs.build_multi_writer_group(
+        mw = programs.build_multi_writer_group(
             n_buckets, val_words, neighborhood, n_writers,
             device=keys.device)
-        payload = group.device_payloads(q, home, v).reshape(
+        payload = mw.device_payloads(q, home, v).reshape(
             qk.shape + (-1,))
         # fair interleave: quantum-16 rounds while lanes are busy, then the
         # drain round completes stragglers; fuel bounds any schedule's run
         sched = machine.Schedule.round_robin(n_writers, quantum=16,
                                              n_rounds=8, device=keys.device)
-        gsteps = max(max_steps, group.fuel)
+        gsteps = max(max_steps, mw.fuel)
 
         def group_fn(carry, laps):
-            status, nk, nv = group.run_group(*carry, laps, sched, gsteps)
+            status, nk, nv = mw.run_group(*carry, laps, sched, gsteps)
             return (nk, nv), status[..., None]
 
         resp, ok, (nk, nv) = transport.triggered_chain_group(
             group_fn, (keys, vals), payload, dest, n_shards, capacity, 1,
-            n_writers, live, stage="writer-group")
+            n_writers, live, stage="writer-group", group=group)
     else:
         writer = programs.build_hopscotch_writer(
             n_buckets, val_words, neighborhood, device=keys.device)
@@ -639,7 +678,7 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
                           None if frows is None
                           else writer.run_rows_faulted),
             (keys, vals), payload, dest, n_shards, capacity, 1, live,
-            stage="writer", faults=frows)
+            stage="writer", faults=frows, group=group)
     status = resp[..., 0]
     live2 = ok & (status == programs.SET_NEEDS_DISPLACEMENT)
     if frows is not None:
@@ -652,7 +691,9 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
         # bounded oracle's SET_NEEDS_RESIZE
         return (torch.where(live2, programs.SET_NEEDS_RESIZE, status), ok,
                 nk, nv)
-    if not bool(live2.any()):
+    if group is None and not bool(live2.any()):
+        # (across ranks every rank takes the displacer stage: its exchange
+        # is collective)
         return status, ok, nk, nv
 
     # --- escalation: the displacement bubble, still on-chain --------------
@@ -664,7 +705,7 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
     disp_steps = max(max_steps, disp.fuel)
     resp2, ok2, (nk, nv) = transport.triggered_chain_stateful(
         _guarded_step(disp.run_rows, disp_steps), (nk, nv), payload2, dest,
-        n_shards, capacity, 1, live2, stage="displacer")
+        n_shards, capacity, 1, live2, stage="displacer", group=group)
     return torch.where(live2 & ok2, resp2[..., 0], status), ok, nk, nv
 
 
@@ -721,7 +762,8 @@ def relocate_exp(old_keys, old_exp, new_keys, req_keys=None,
     return torch.where(hit, rd[order[jc]], out).reshape(s, m)
 
 
-def sharded_set(table_or_resize_state, *args, device=None, **kwargs):
+def sharded_set(table_or_resize_state, *args, device=None, group=None,
+                **kwargs):
     """Batched chain-offloaded distributed SET — the one entry point.  The
     first argument selects the store's mode:
 
@@ -737,20 +779,23 @@ def sharded_set(table_or_resize_state, *args, device=None, **kwargs):
       frame, returns ``(SetResult, new ResizeState)`` (see
       :func:`_set_resize`).
 
-    Runs on ``device`` (default CUDA).
+    Runs on ``device`` (default CUDA); with ``group`` on this rank's block
+    of shards.
     """
     if isinstance(table_or_resize_state, ResizeState):
         bound = _bind_args(
             "sharded_set", ("set_keys", "set_vals", "neighborhood",
                             "capacity", "live", "max_steps", "max_search",
                             "max_moves"), args, kwargs)
-        return _set_resize(table_or_resize_state, device=device, **bound)
+        return _set_resize(table_or_resize_state, device=device,
+                           group=group, **bound)
     bound = _bind_args(
         "sharded_set", ("vals", "set_keys", "set_vals", "neighborhood",
                         "capacity", "live", "max_steps", "max_search",
                         "max_moves", "faults", "n_writers", "exp",
                         "deadlines"), args, kwargs)
-    return _set_table(table_or_resize_state, device=device, **bound)
+    return _set_table(table_or_resize_state, device=device, group=group,
+                      **bound)
 
 
 def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
@@ -759,7 +804,7 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
                max_search: int = hopscotch.DEFAULT_MAX_SEARCH,
                max_moves: int = hopscotch.DEFAULT_MAX_MOVES,
                faults=None, n_writers: int = 1, exp=None, deadlines=None,
-               *, device=None):
+               *, device=None, group=None):
     """Steady-state SET, displacement included.
 
     keys: (S, n) int32 device keys array; vals: (S, n, V); set_keys:
@@ -803,7 +848,7 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
                                                     set_keys, live)
     set_vals = torch.as_tensor(set_vals, device=dev).to(torch.int32)
     _check_key_batch(set_keys, what="set", allow_zero=True, live=live)
-    n_shards = keys.shape[0]
+    n_shards = keys.shape[0] * _world(group, dev)
     # the displacer's search window cannot exceed the shard's bucket count
     max_search = min(max_search, int(keys.shape[1]))
     capacity = set_keys.shape[1] if capacity is None else capacity
@@ -821,7 +866,7 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
             capacity=capacity, neighborhood=neighborhood,
             val_words=vals.shape[-1], max_steps=max_steps,
             max_search=max_search, max_moves=max_moves, frows=frows,
-            n_writers=n_writers)
+            n_writers=n_writers, group=group)
     applied = ok & ((status == programs.SET_UPDATED)
                     | (status == programs.SET_INSERTED)
                     | (status == programs.SET_DISPLACED))
@@ -838,7 +883,8 @@ def _set_table(keys, vals, set_keys, set_vals, neighborhood: int = 8,
 
 def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
                    capacity: Optional[int] = None, live=None,
-                   max_steps: int = 512, exp=None, *, device=None):
+                   max_steps: int = 512, exp=None, *, device=None,
+                   group=None):
     """Batched chain-offloaded distributed DELETE.
 
     del_keys: (S, B) int32 (0 marks an unused slot — never dispatched,
@@ -850,12 +896,13 @@ def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
     Returns ``(DeleteResult, new_keys, new_vals)``; with a deadline
     column ``exp`` (S, n), also its update (a vacated bucket's deadline
     resets to NO_TTL) as a 4th element.  Runs on ``device`` (default
-    CUDA).
+    CUDA); with ``group`` on this rank's block of shards.
     """
     dev, keys, vals, del_keys, live = _write_inputs(device, keys, vals,
                                                     del_keys, live)
     _check_key_batch(del_keys, what="delete", allow_zero=True, live=live)
     n_shards, n_buckets = keys.shape
+    n_shards *= _world(group, dev)
     capacity = del_keys.shape[1] if capacity is None else capacity
     real = del_keys != hopscotch.EMPTY
     live = live & real
@@ -873,7 +920,7 @@ def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
         resp, ok, (nk, nv) = transport.triggered_chain_stateful(
             _guarded_step(deleter.run_rows, max_steps), (keys, vals),
             payload, shard_of(del_keys, n_shards), n_shards, capacity, 1,
-            live, stage="deleter")
+            live, stage="deleter", group=group)
         status = resp[..., 0]
     applied = ok & (status == programs.DEL_DELETED)
     result = DeleteResult(status, applied, ok, *_counts(live, real, ok))
@@ -886,7 +933,7 @@ def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
 
 
 def sharded_sweep(keys, vals, exp, hand, now, count: int = 16, *,
-                  device=None):
+                  device=None, group=None):
     """Advance the CLOCK sweeper by ``count`` buckets per shard.
 
     Every lap is the sweeper chain
@@ -896,8 +943,11 @@ def sharded_sweep(keys, vals, exp, hand, now, count: int = 16, *,
     an expired bucket (deadline reset to NO_TTL).  ``hand``: (S,) int32
     per-shard CLOCK hands; ``now``: the clock.  Returns ``(SweepReport,
     new_keys, new_vals, new_exp)``.  Runs on ``device`` (default CUDA).
+    The sweeper is loopback: with ``group`` a rank sweeps its own block
+    and exchanges nothing.
     """
     dev = device_mod.resolve(device)
+    _world(group, dev)
     keys = torch.as_tensor(keys, device=dev).to(torch.int32)
     vals = torch.as_tensor(vals, device=dev).to(torch.int32)
     exp = torch.as_tensor(exp, device=dev).to(torch.int32)
@@ -1038,7 +1088,7 @@ def _shard_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
                    max_search: int = hopscotch.DEFAULT_MAX_SEARCH,
                    max_moves: int = hopscotch.DEFAULT_MAX_MOVES,
-                   faults=None, *, device=None
+                   faults=None, *, device=None, group=None
                    ) -> Tuple[ResizeState, MigrateReport]:
     """Advance the migration by up to ``step`` source buckets per shard.
 
@@ -1057,8 +1107,12 @@ def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
     commits its torn image and never escalates, and the watermark stops
     at the first lap whose fault fired: a lap on an EMPTY source bucket
     runs no chain, so its fault never fires.
+
+    The migrator is loopback: with ``group`` a rank drains its own block
+    and exchanges nothing.
     """
     dev = device_mod.resolve(device)
+    _world(group, dev)
     ok, ov, nk, nv, wm = rs.to(dev)
     s, n = ok.shape
     v = ov.shape[-1]
@@ -1132,9 +1186,19 @@ def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
                           count(placed), count(stuck)))
 
 
+def _owner_watermarks(wm: torch.Tensor, group) -> torch.Tensor:
+    """Every owner's watermark, in global shard order: the clients' cached
+    migration progress (one all-gather across ranks)."""
+    if group is None:
+        return wm
+    parts = [torch.empty_like(wm) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wm, group=group)
+    return torch.cat(parts)
+
+
 def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
                 capacity: Optional[int] = None, live=None, *,
-                device=None) -> GetResult:
+                device=None, group=None) -> GetResult:
     """Batched distributed get against a store mid-growth (the redn
     path), served from the double frame: stage 1 is the chain server
     against the doubled frame; stage 2 re-dispatches the *misses* against
@@ -1150,6 +1214,7 @@ def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
         live = torch.as_tensor(live, device=dev).to(torch.bool)
     _check_key_batch(queries, what="query", allow_zero=True, live=live)
     n_shards, n = ok_.shape
+    n_shards *= _world(group, dev)
     v = ov.shape[-1]
     capacity = queries.shape[1] if capacity is None else capacity
     if live is None:
@@ -1171,12 +1236,12 @@ def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
         srv_new.resp_region, srv_new.resp_words,
         srv_new.device_payloads(queries,
                                 hopscotch.bucket_of(queries, 2 * n)),
-        dest, n_shards, capacity, live)
+        dest, n_shards, capacity, live, group=group)
     found1 = resp1[..., 0] > 0
 
     # the client caches the owners' migration progress
     h_old = hopscotch.bucket_of(queries, n)
-    owner_w = wm[dest.long()]
+    owner_w = _owner_watermarks(wm, group)[dest.long()]
     mig_done = ((h_old + neighborhood <= owner_w)
                 & (h_old + neighborhood <= n))
     live2 = live & ok1 & ~found1 & ~mig_done
@@ -1186,7 +1251,7 @@ def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
         srv_old.engine, srv_old.device_state(ok_, ov), srv_old.recv_wq,
         srv_old.resp_region, srv_old.resp_words,
         srv_old.device_payloads(queries, h_old), dest, n_shards, capacity,
-        live2)
+        live2, group=group)
     found2 = resp2[..., 0] > 0
     return GetResult(
         found=found1 | found2,
@@ -1203,7 +1268,7 @@ def _set_resize(rs: ResizeState, set_keys, set_vals, neighborhood: int = 8,
                 max_steps: int = 512,
                 max_search: int = hopscotch.DEFAULT_MAX_SEARCH,
                 max_moves: int = hopscotch.DEFAULT_MAX_MOVES, *,
-                device=None) -> Tuple[SetResult, ResizeState]:
+                device=None, group=None) -> Tuple[SetResult, ResizeState]:
     """Watermark-routed double-frame SET (up to three chain stages).
 
     A key whose old home bucket is behind the owner's watermark — or whose
@@ -1225,6 +1290,7 @@ def _set_resize(rs: ResizeState, set_keys, set_vals, neighborhood: int = 8,
     set_vals = torch.as_tensor(set_vals, device=dev).to(torch.int32)
     _check_key_batch(set_keys, what="set", allow_zero=True, live=live)
     n_shards, n = ok_.shape
+    n_shards *= _world(group, dev)
     v, h = ov.shape[-1], neighborhood
     capacity = set_keys.shape[1] if capacity is None else capacity
     real = set_keys != hopscotch.EMPTY
@@ -1238,14 +1304,15 @@ def _set_resize(rs: ResizeState, set_keys, set_vals, neighborhood: int = 8,
     dest = shard_of(set_keys, n_shards)
     q, qv = set_keys.reshape(-1), set_vals.reshape(-1, v)
     h_old = hopscotch.bucket_of(set_keys, n)
-    route_new = (h_old < wm[dest.long()]) | (h_old + h > n)
+    route_new = (h_old < _owner_watermarks(wm, group)[dest.long()]) \
+        | (h_old + h > n)
 
     def stage(prog, carry, live_s, budget, name, home):
         pay = prog.device_payloads(q, home.reshape(-1), qv).reshape(
             set_keys.shape + (-1,))
         resp, ok_s, carry = transport.triggered_chain_stateful(
             _guarded_step(prog.run_rows, budget), carry, pay, dest,
-            n_shards, capacity, 1, live_s, stage=name)
+            n_shards, capacity, 1, live_s, stage=name, group=group)
         return resp[..., 0], ok_s, carry
 
     # stage 1: old-frame writer (match/update or claim >= watermark)
@@ -1266,8 +1333,9 @@ def _set_resize(rs: ResizeState, set_keys, set_vals, neighborhood: int = 8,
     ms = min(max(max_search, h), 2 * n)
     if h < 2 or ms < h:
         status = torch.where(live3, programs.SET_NEEDS_RESIZE, status)
-    elif bool(live3.any()):
-        # stage 3: the displacement bubble, on the doubled frame
+    elif group is not None or bool(live3.any()):
+        # stage 3: the displacement bubble, on the doubled frame (every
+        # rank takes it across ranks: its exchange is collective)
         disp = programs.build_hopscotch_displacer(2 * n, v, h, ms,
                                                   max_moves, device=dev)
         st3, ok3, (gk, gv) = stage(disp, (gk, gv), live3,

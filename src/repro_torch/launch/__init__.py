@@ -1,1 +1,2 @@
-"""Command-line launchers."""
+"""Command-line launchers (serve, train, the meta-device dry run), the
+production meshes, and the roofline analysis."""

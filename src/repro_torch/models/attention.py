@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..distributed.sharding import is_dtensor, shard, split_last
 from ..kernels.decode_attention import ops as dec_ops
 from ..kernels.flash_attention import ops as fa_ops
 from . import layers
@@ -70,9 +71,9 @@ def rolling(cfg, kind: str, s_max: int) -> bool:
 
 def _project(p: Attention, x, cfg):
     b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = split_last(x @ p.wq, (b, s, cfg.num_heads, cfg.head_dim))
+    k = split_last(x @ p.wk, (b, s, cfg.num_kv_heads, cfg.head_dim))
+    v = split_last(x @ p.wv, (b, s, cfg.num_kv_heads, cfg.head_dim))
     if cfg.qk_norm:
         q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = layers.rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -98,7 +99,9 @@ def apply_attention(p: Attention, x, cfg, kind: str, *,
         q = layers.apply_rope(q, sin, cos, cfg.rope_fraction)
         k = layers.apply_rope(k, sin, cos, cfg.rope_fraction)
 
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qh = shard(q.transpose(1, 2), "batch", "heads", None, None)
+    kh = shard(k.transpose(1, 2), "batch", "kv_heads", None, None)
+    vh = shard(v.transpose(1, 2), "batch", "kv_heads", None, None)
     window = cfg.window if kind == "local" else 0
     o = fa_ops.flash_attention(qh, kh, vh,
                                mode="causal" if mode == "causal" else "full",
@@ -108,7 +111,9 @@ def apply_attention(p: Attention, x, cfg, kind: str, *,
     if not return_cache:
         return out, None
     sm = s_max or s
+    seq_axis = "long_seq" if sm >= (1 << 19) else "kv_seq"
     if rolling(cfg, kind, sm):
+        seq_axis = None
         # only the last `window` positions are live, position p at slot
         # p % window (k carries its RoPE, so a slot is position-free)
         w = cfg.window
@@ -116,21 +121,23 @@ def apply_attention(p: Attention, x, cfg, kind: str, *,
         slots = torch.arange(s - take, s, device=x.device) % w
         cache = {}
         for name, t in (("k", kh), ("v", vh)):
-            c = torch.zeros((b, cfg.num_kv_heads, w, cfg.head_dim),
-                            dtype=t.dtype, device=x.device)
-            c[:, :, slots] = t[:, :, s - take:]
-            cache[name] = c
+            c = t.new_zeros((b, cfg.num_kv_heads, w, cfg.head_dim))
+            cache[name] = c.index_copy(2, slots, t[:, :, s - take:])
     else:
         if s > sm:
             raise ValueError(f"{s} prompt positions do not fit s_max={sm}")
-        shape = (b, cfg.num_kv_heads, sm, cfg.head_dim)
-        cache = {"k": torch.zeros(shape, dtype=kh.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=vh.dtype, device=x.device)}
-        cache["k"][:, :, :s] = kh
-        cache["v"][:, :, :s] = vh
+        # the s positions at the front of an s_max-long zero cache
+        pad = (b, cfg.num_kv_heads, sm - s, cfg.head_dim)
+        cache = {"k": torch.cat([kh, kh.new_zeros(pad)], dim=2),
+                 "v": torch.cat([vh, vh.new_zeros(pad)], dim=2)}
+    cache["k"] = shard(cache["k"], "batch", "kv_heads", seq_axis, None)
+    cache["v"] = shard(cache["v"], "batch", "kv_heads", seq_axis, None)
     if cfg.kv_quant:
-        (cache["k"], cache["ks"]), (cache["v"], cache["vs"]) = (
-            quantize_kv(cache["k"]), quantize_kv(cache["v"]))
+        (kq, ks), (vq, vs) = quantize_kv(cache["k"]), quantize_kv(cache["v"])
+        cache = {"k": shard(kq, "batch", "kv_heads", seq_axis, None),
+                 "v": shard(vq, "batch", "kv_heads", seq_axis, None),
+                 "ks": shard(ks, "batch", "kv_heads", seq_axis, None),
+                 "vs": shard(vs, "batch", "kv_heads", seq_axis, None)}
     return out, cache
 
 
@@ -142,6 +149,14 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor,
     them.  cache (B, KH, S, X), new (B, KH, X).  Only the B written rows
     move, not the cache."""
     b, _, s, _ = cache.shape
+    if is_dtensor(cache):
+        # a cache sharded over its positions: each shard keeps its rows
+        # and takes the new entry where the one-hot of the slot says
+        hit = (torch.arange(s, device=cache.device)[None, :]
+               == slot.long()[:, None])[:, None, :, None]
+        cache.copy_(torch.where(hit, new.to(cache.dtype)[:, :, None],
+                                cache))
+        return
     rows = torch.arange(b, device=cache.device)
     ok = ((slot >= 0) & (slot < s))[:, None, None]
     pos = torch.clamp(slot.long(), 0, s - 1)
@@ -204,8 +219,11 @@ def init_cross_cache(p: Attention, enc_out, cfg) -> Dict:
     """The cross-attention K/V of the encoder output enc_out (B, S, D):
     {'k', 'v'} (B, KH, S, hd)."""
     b, s, _ = enc_out.shape
-    k = (enc_out @ p.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ p.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    k = split_last(enc_out @ p.wk, (b, s, cfg.num_kv_heads, cfg.head_dim))
+    v = split_last(enc_out @ p.wv, (b, s, cfg.num_kv_heads, cfg.head_dim))
     if cfg.qk_norm:
         k = layers.rms_norm(k, p.k_norm, cfg.norm_eps)
-    return {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
+    return {"k": shard(k.transpose(1, 2), "batch", "kv_heads", "kv_seq",
+                       None),
+            "v": shard(v.transpose(1, 2), "batch", "kv_heads", "kv_seq",
+                       None)}

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..distributed.sharding import shard
 from ..kernels.rglru import ops as rg_ops
 from . import layers
 
@@ -80,7 +81,7 @@ def apply_recurrent(p: Recurrent, x, cfg, conv_state=None, h_state=None):
     package, the given states are not read: the prefill starts from
     zero."""
     gate = layers.act_fn("gelu")(x @ p.w_gate)
-    xb = x @ p.w_x
+    xb = shard(x @ p.w_x, "batch", None, "ff")
     xc, new_conv = _causal_conv(xb, p.conv)
     a, u = _gates(p, xc)
     h, h_last = rg_ops.rglru(a.float(), u)

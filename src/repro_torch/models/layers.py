@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import sharding
+
 
 def dtype_of(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -36,7 +38,7 @@ def init_dense(w: torch.Tensor, gen: torch.Generator,
     scale = scale if scale is not None else w.shape[0] ** -0.5
     x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                     device=w.device)
-    w.copy_(x * scale)
+    w.copy_(x.mul_(scale))        # in place: one float32 draw at a time
 
 
 def init_normal(w: torch.Tensor, gen: torch.Generator, std: float,
@@ -44,7 +46,7 @@ def init_normal(w: torch.Tensor, gen: torch.Generator, std: float,
     """Fill ``w`` with N(mean, std^2), drawn in float32 and cast."""
     x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                     device=w.device)
-    w.copy_(x * std + mean)
+    w.copy_(x.mul_(std).add_(mean))
 
 
 def init_uniform(w: torch.Tensor, gen: torch.Generator, lo: float,
@@ -52,7 +54,7 @@ def init_uniform(w: torch.Tensor, gen: torch.Generator, lo: float,
     """Fill ``w`` with U(lo, hi), drawn in float32 and cast."""
     x = torch.rand(w.shape, generator=gen, dtype=torch.float32,
                    device=w.device)
-    w.copy_(x * (hi - lo) + lo)
+    w.copy_(x.mul_(hi - lo).add_(lo))
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -118,6 +120,7 @@ def init_ffn(p: FFN, cfg, gen: torch.Generator) -> None:
 
 def apply_ffn(p: FFN, x, cfg):
     h = act_fn(cfg.act)(x @ p.w_gate) * (x @ p.w_up)
+    h = sharding.shard(h, "batch", None, "ff")
     return h @ p.w_down
 
 
@@ -141,10 +144,10 @@ def init_embed(p: Embed, cfg, gen: torch.Generator) -> None:
 
 
 def embed_tokens(p: Embed, tokens, cfg):
-    x = F.embedding(tokens, p.embedding)
+    x = F.embedding(tokens, sharding.replicated(p.embedding))
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrent"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
-    return x
+    return sharding.shard(x, "batch", "seq", None)
 
 
 def logits_fn(p: Embed, x, cfg):
@@ -153,7 +156,7 @@ def logits_fn(p: Embed, x, cfg):
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return sharding.shard(logits, "batch", "seq", "vocab")
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -167,9 +170,15 @@ def cross_entropy(logits, labels, mask=None):
     lse = torch.logsumexp(logits, -1)
     v = logits.shape[-1]
     inside = (labels >= 0) & (labels < v)
-    lab = torch.gather(logits, -1,
-                       labels.long().clamp(0, v - 1)[..., None])[..., 0]
-    nll = lse - torch.where(inside, lab, torch.zeros_like(lab))
+    idx = labels.long().clamp(0, v - 1)
+    if sharding.is_dtensor(logits):
+        # a row gather across vocabulary shards: the one-hot sum, exact
+        # as the gather is (every other term adds a zero)
+        lab = (logits * F.one_hot(idx, v).to(logits.dtype)).sum(-1)
+    else:
+        lab = torch.gather(logits, -1, idx[..., None])[..., 0]
+    nll = sharding.shard(lse - torch.where(inside, lab, torch.zeros_like(lab)),
+                         "batch", "seq")
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

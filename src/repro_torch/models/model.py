@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from .. import device as device_mod
+from ..distributed.sharding import shard
 from . import attention, layers, transformer
 from .config import ModelConfig
 
@@ -81,7 +82,7 @@ def _encode(params: Model, batch: Dict, cfg: ModelConfig):
     """The encoder over batch['frames'] (B, T_src, frontend_dim):
     bidirectional (flash, mode full), RoPE on."""
     proj = params.frontend_proj
-    x = batch["frames"].to(proj.dtype) @ proj
+    x = shard(batch["frames"].to(proj.dtype) @ proj, "batch", "seq", None)
     x, _, _ = transformer.apply_stack(params.encoder, x, cfg, mode="full",
                                       group=len(ENCODER_PATTERN))
     return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import (as_replicated, is_dtensor, replicated,
+                                   shard)
 from . import layers
 
 
@@ -57,7 +59,14 @@ class Routing(NamedTuple):
 
 
 def route(logits: torch.Tensor, cfg) -> Routing:
-    """The routing of T tokens from their float32 router logits (T, E)."""
+    """The routing of T tokens from their float32 router logits (T, E).
+    Logits that are a DTensor are routed whole on every rank (a sort over
+    all tokens), and the gates and the auxiliary loss come back as
+    replicated DTensors."""
+    mesh = None
+    if is_dtensor(logits):
+        mesh = logits.device_mesh
+        logits = replicated(logits).to_local()
     t, e = logits.shape
     k = cfg.experts_per_token
     gates_all = torch.softmax(logits, dim=-1)
@@ -81,8 +90,11 @@ def route(logits: torch.Tensor, cfg) -> Routing:
                                    torch.arange(e, device=logits.device))
     pos = torch.arange(t * k, device=logits.device) - seg_start[e_sorted]
     ok = pos < capacity
-    return Routing(idx_k, e_sorted, flat_tok[order],
-                   gate_k.reshape(-1)[order],
+    gate_sorted = gate_k.reshape(-1)[order]
+    if mesh is not None:
+        gate_sorted, aux = (as_replicated(gate_sorted, mesh),
+                            as_replicated(aux, mesh))
+    return Routing(idx_k, e_sorted, flat_tok[order], gate_sorted,
                    torch.where(ok, pos, torch.full_like(pos, capacity)), ok,
                    capacity, aux)
 
@@ -93,16 +105,15 @@ def apply_moe(p: MoE, x, cfg):
     xf = x.reshape(b * s, d)
     r = route((xf @ p.router).float(), cfg)
     # one spare row takes the slots past capacity, and is dropped
-    buf = torch.zeros((cfg.num_experts, r.capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
+    buf = xf.new_zeros((cfg.num_experts, r.capacity + 1, d))
     buf[r.e_sorted, r.slot] = xf[r.tok_sorted]
-    buf = buf[:, :r.capacity]
+    buf = shard(buf[:, :r.capacity], "experts", None, None)
     h = F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    h = shard(h, "experts", None, "ff")
     out = torch.bmm(h, p.w_down)                              # (E, C, D)
     gathered = out[r.e_sorted, torch.clamp(r.slot, max=r.capacity - 1)]
     gathered = gathered * (r.gate_sorted * r.ok)[:, None].to(gathered.dtype)
-    y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, r.tok_sorted, gathered)
+    y = xf.new_zeros((b * s, d)).index_add(0, r.tok_sorted, gathered)
     y = y.reshape(b, s, d)
     if p.shared is not None:
         y = y + layers.apply_ffn(p.shared, x, cfg)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import shard
 from ..kernels.rwkv6 import ops as wkv_ops
 from . import layers
 
@@ -104,6 +105,8 @@ def time_mix(p: RWKV, x, cfg, state=None, x_prev=None):
     JAX package, ``state`` is not read: the recurrence starts from zero."""
     b, t, d = x.shape
     r, k, v, w, g = time_mix_inputs(p, x, cfg, x_prev)
+    r, k, v, w = (shard(z, "batch", "heads", None, None)
+                  for z in (r, k, v, w))
     o, new_state = wkv_ops.wkv6(r, k, v, w, p.u)
     o = o.transpose(1, 2).reshape(b, t, d)
     o = layers.rms_norm(o, p.ln_x, cfg.norm_eps) * g
@@ -133,5 +136,6 @@ def channel_mix(p: RWKV, x, cfg, x_prev=None, decode: bool = False):
     xk = _mix(x, xx, p.mu_cm[0])
     xr = _mix(x, xx, p.mu_cm[1])
     kk = torch.square(torch.relu(xk @ p.ck))
+    kk = shard(kk, "batch", None, "ff")
     out = torch.sigmoid(xr @ p.cr) * (kk @ p.cv)
     return out, x[:, -1:]

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..distributed.sharding import shard
 from ..kernels.flash_attention import ops as fa_ops
 from . import attention, griffin, layers, moe, rwkv
 
@@ -120,7 +121,8 @@ def apply_block(p: Block, x, cfg, *, mode: str = "causal", enc_out=None,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         o, aux = _ffn(p, h2, cfg)
-    return x + o, (cache if return_cache else None), aux
+    x = shard(x + o, "batch", "seq", None)
+    return x, (cache if return_cache else None), aux
 
 
 def apply_block_decode(p: Block, x, cfg, cache: Dict, *, lengths,

@@ -6,10 +6,19 @@ owner executes the offload chain against its memory, and the response
 travels back (combine): one dispatch/combine pair is one network RTT in
 the paper's latency structure.
 
-All S shards live on one device as a leading tensor dim.  Every source
-shard ``s`` fills a send window ``(S_dst, capacity, W)``; the windows stack
-into ``(S_src, S_dst, capacity, W)``, and the all-to-all exchange of the
-JAX reference becomes a swap of the two leading dims.
+Without a process group all S shards live on one device as a leading
+tensor dim.  Every source shard ``s`` fills a send window ``(S_dst,
+capacity, W)``; the windows stack into ``(S_src, S_dst, capacity, W)``,
+and the all-to-all exchange of the JAX reference becomes a swap of the two
+leading dims.  With ``group=`` (a ``torch.distributed`` process group)
+each rank holds a block of ``S_local`` shards, global shard ``rank *
+S_local + local index``, and that swap is ``all_to_all_single`` over the
+group: :func:`dispatch` and :func:`combine` are the only places where
+requests cross shards, so every path below carries the store across
+ranks with no other change.  Shard indices (``dest``, ``n_shards``) are
+global; the tensors a rank passes and gets hold its own block.  A group
+whose backend cannot carry the tensors' device raises: nothing falls back
+to one device or goes through the host.
 
 The dispatch is fixed-capacity: each source shard sends up to ``capacity``
 requests to each destination per step, and the rest are dropped and
@@ -36,9 +45,48 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: None, or a list that each stateful stage appends a record to
 trace: Optional[list] = None
+
+# the device type each backend carries
+_CARRIES = {"gloo": "cpu", "nccl": "cuda"}
+
+
+def check_group(group, device) -> int:
+    """The group's size; raises unless ``group`` is initialised and its
+    backend carries tensors on ``device``."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("group= given, but no process group is "
+                           "initialised")
+    kind = torch.device(device).type
+    backend = str(dist.get_backend(group))
+    carries = {}
+    for part in backend.split(","):
+        dev, _, name = part.rpartition(":")
+        carries.update({dev: name} if dev else {_CARRIES.get(name): name})
+    if kind not in carries:
+        raise RuntimeError(f"the group's backend {backend!r} cannot carry "
+                           f"{kind} tensors")
+    return dist.get_world_size(group)
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all swap of the two leading dims across the group.
+
+    x: (A, world * B, ...) on this rank, dim 1 indexing global shards in
+    blocks of B a rank.  Returns (B, world * A, ...): out[b, r * A + a] is
+    rank r's x[a, rank * B + b].  With one rank it is
+    ``x.transpose(0, 1)``."""
+    world = check_group(group, x.device)
+    a, rest = x.shape[0], tuple(x.shape[2:])
+    b = x.shape[1] // world
+    blocks = x.reshape((a, world, b) + rest).transpose(0, 1).contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=group)
+    return out.permute((2, 0, 1) + tuple(range(3, out.ndim))).reshape(
+        (b, world * a) + rest)
 
 
 def rank_within_dest(dest: torch.Tensor,
@@ -65,14 +113,17 @@ def rank_within_dest(dest: torch.Tensor,
 
 
 def dispatch(payload: torch.Tensor, dest: torch.Tensor, n_shards: int,
-             capacity: int, live: Optional[torch.Tensor] = None):
+             capacity: int, live: Optional[torch.Tensor] = None,
+             group=None):
     """Route every source shard's requests to their destination shards.
 
     payload: (S, B, W) int32; dest: (S, B) in [0, n_shards); live: (S, B)
     bool — requests an admission stage deferred (not dispatched, no slot
-    consumed).  Returns (recv, pos, ok):
+    consumed).  With ``group`` S is this rank's block and ``n_shards``
+    the global count.  Returns (recv, pos, ok):
       recv : (S_dst, S_src, capacity, W) — slot [d, s, c] = c-th live
-             request from source s to d (zero-padded);
+             request from source s to d (zero-padded; with ``group``, d
+             local and s global);
       pos  : (S, B) each request's slot at its destination;
       ok   : (S, B) bool — True iff the request was dispatched (live and
              within capacity); a False row's response is not authoritative.
@@ -81,8 +132,8 @@ def dispatch(payload: torch.Tensor, dest: torch.Tensor, n_shards: int,
     # one stable sort over (source, destination) groups ranks every source
     # shard's requests at once, in batch order within each source
     src = torch.arange(s, device=dest.device)[:, None]
-    group = (src * n_shards + dest).reshape(-1)
-    pos = rank_within_dest(group, None if live is None
+    key = (src * n_shards + dest).reshape(-1)
+    pos = rank_within_dest(key, None if live is None
                            else live.reshape(-1)).reshape(s, b)
     ok = pos < capacity
     if live is not None:
@@ -91,19 +142,23 @@ def dispatch(payload: torch.Tensor, dest: torch.Tensor, n_shards: int,
     send = payload.new_zeros((s, n_shards, capacity + 1, w))
     slot = torch.where(ok, pos, capacity).long()
     send[src.expand(s, b), dest.long(), slot] = payload
-    recv = send[:, :, :capacity].transpose(0, 1).contiguous()
-    return recv, pos, ok
+    send = send[:, :, :capacity]
+    if group is not None:
+        return exchange(send, group), pos, ok
+    return send.transpose(0, 1).contiguous(), pos, ok
 
 
 def combine(responses: torch.Tensor, dest: torch.Tensor, pos: torch.Tensor,
-            ok: torch.Tensor) -> torch.Tensor:
+            ok: torch.Tensor, group=None) -> torch.Tensor:
     """Return responses to their source shards and gather per request.
 
     responses: (S_dst, S_src, capacity, V) — slot [d, s, c] answers source
-    s's c-th request to d.  Returns (S, B, V) aligned with the original
-    requests; rows with ``ok == False`` are zeroed.
+    s's c-th request to d (with ``group``, d local and s global).
+    Returns (S, B, V) aligned with the original requests; rows with
+    ``ok == False`` are zeroed.
     """
-    back = responses.transpose(0, 1)              # (S_src, S_dst, cap, V)
+    back = (responses.transpose(0, 1) if group is None
+            else exchange(responses, group))      # (S_src, S_dst, cap, V)
     capacity = back.shape[2]
     s, b = dest.shape
     src = torch.arange(s, device=dest.device)[:, None].expand(s, b)
@@ -114,7 +169,7 @@ def combine(responses: torch.Tensor, dest: torch.Tensor, pos: torch.Tensor,
 
 def one_sided_read(remote: torch.Tensor, shard: torch.Tensor,
                    rows: torch.Tensor, n_shards: int, capacity: int,
-                   live: Optional[torch.Tensor] = None
+                   live: Optional[torch.Tensor] = None, group=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RDMA READ: fetch ``remote[shard][rows]`` from the shard owning them.
 
@@ -123,37 +178,38 @@ def one_sided_read(remote: torch.Tensor, shard: torch.Tensor,
     side executes no logic.  Returns (data (S, B, W), ok (S, B)).
     """
     req = torch.stack([rows, torch.ones_like(rows)], dim=-1).to(torch.int32)
-    recv, pos, ok = dispatch(req, shard, n_shards, capacity, live)
-    rrows = recv[..., 0].reshape(n_shards, -1)
-    filled = recv[..., 1].reshape(n_shards, -1)
-    dst = torch.arange(n_shards, device=remote.device)[:, None]
+    recv, pos, ok = dispatch(req, shard, n_shards, capacity, live, group)
+    n_dst = recv.shape[0]
+    rrows = recv[..., 0].reshape(n_dst, -1)
+    filled = recv[..., 1].reshape(n_dst, -1)
+    dst = torch.arange(n_dst, device=remote.device)[:, None]
     data = remote[dst, rrows.clamp(0, remote.shape[1] - 1).long()]
     data = data * filled[..., None].to(data.dtype)
-    data = data.reshape(n_shards, n_shards, capacity, -1)
-    return combine(data, shard, pos, ok), ok
+    data = data.reshape(recv.shape[:3] + (-1,))
+    return combine(data, shard, pos, ok, group), ok
 
 
 def triggered_chain(remote_fn: Callable, payload: torch.Tensor,
                     dest: torch.Tensor, n_shards: int, capacity: int,
-                    resp_words: int, live: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    resp_words: int, live: Optional[torch.Tensor] = None,
+                    group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """SEND triggers a *function* at the owner (the RPC baseline).
 
     ``remote_fn(requests (S_dst, N, W)) -> responses (S_dst, N,
     resp_words)`` stands for the owner hosts' CPUs doing the work.
     Returns (responses (S, B, resp_words), ok (S, B)).
     """
-    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
-    flat = recv.reshape(n_shards, -1, recv.shape[-1])
-    resp = remote_fn(flat).reshape(n_shards, n_shards, capacity, resp_words)
-    return combine(resp, dest, pos, ok), ok
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
+    resp = remote_fn(flat).reshape(recv.shape[:3] + (resp_words,))
+    return combine(resp, dest, pos, ok, group), ok
 
 
 def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
                            resp_words: int, payload: torch.Tensor,
                            dest: torch.Tensor, n_shards: int, capacity: int,
                            live: Optional[torch.Tensor] = None,
-                           max_steps: int = 256
+                           max_steps: int = 256, group=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RedN pattern: SEND triggers a pre-posted chain VM program.
 
@@ -166,12 +222,12 @@ def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
     answer.  Returns (responses (S, B, resp_words), ok (S, B)); each
     response is the context's ``resp_region`` after its chain quiesced.
     """
-    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
-    flat = recv.reshape(n_shards, -1, recv.shape[-1])
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
     out = engine.run_many(state, recv_wq, flat, max_steps)
     resp = out.mem[:, resp_region:resp_region + resp_words]
-    resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
-    return combine(resp, dest, pos, ok), ok
+    resp = resp.reshape(recv.shape[:3] + (resp_words,))
+    return combine(resp, dest, pos, ok, group), ok
 
 
 def note_steps(steps: torch.Tensor) -> None:
@@ -234,7 +290,8 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
                              capacity: int, resp_words: int,
                              live: Optional[torch.Tensor] = None,
                              stage: str = "stateful",
-                             faults: Optional[torch.Tensor] = None):
+                             faults: Optional[torch.Tensor] = None,
+                             group=None):
     """SEND-triggered chains that *mutate* owner state (the §3.5 read-write
     offload — the SET and DELETE wire pattern).
 
@@ -273,12 +330,12 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
     if faults is not None:
         payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
         step_fn = _with_faults(step_fn, width)
-    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
-    flat = recv.reshape(n_shards, -1, recv.shape[-1])
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
     run = (flat[..., 0] != 0).cpu().numpy()
     resp, carry = _walk(step_fn, carry, flat, run, resp_words, stage)
-    resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
-    return combine(resp, dest, pos, ok), ok, carry
+    resp = resp.reshape(recv.shape[:3] + (resp_words,))
+    return combine(resp, dest, pos, ok, group), ok, carry
 
 
 def local_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
@@ -330,7 +387,7 @@ def triggered_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
                           dest: torch.Tensor, n_shards: int, capacity: int,
                           resp_words: int, n_writers: int,
                           live: Optional[torch.Tensor] = None,
-                          stage: str = "group"):
+                          stage: str = "group", group=None):
     """:func:`triggered_chain_stateful` with each owner's receive window
     partitioned into **racing writer QPs** (the §3.5 multi-writer wire
     pattern).
@@ -351,12 +408,12 @@ def triggered_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
     rows, responses (G, n_writers, resp_words))``.  Returns
     ``(responses (S, B, resp_words), ok (S, B), final carry)``.
     """
-    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live)
-    flat = recv.reshape(n_shards, -1, recv.shape[-1])
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
     resp, carry = _walk_laps(group_fn, carry, flat, n_writers, resp_words,
                              stage)
-    resp = resp.reshape(n_shards, n_shards, capacity, resp_words)
-    return combine(resp, dest, pos, ok), ok, carry
+    resp = resp.reshape(recv.shape[:3] + (resp_words,))
+    return combine(resp, dest, pos, ok, group), ok, carry
 
 
 def local_chain_group(group_fn: Callable, carry, payload: torch.Tensor,

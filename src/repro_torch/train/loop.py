@@ -5,14 +5,22 @@ The JAX package jits these closures; PyTorch runs them eagerly.  The
 train step differentiates ``model.loss_fn`` with ``torch.autograd.grad``
 (the attention gradient from the flash backward kernels on the card) and
 updates the parameters in place (:func:`..train.optimizer.update`).
+
+On a mesh the parameters (and optimizer state) are DTensors placed by
+:mod:`..distributed.specs` and the batch's tensors DTensors sharded over
+the batch axes: the step then runs on them as it is, under the active
+``sharding.use_mesh`` rules (the model's ``shard`` calls redistribute
+activations), plain tensors it makes taken as replicated, and each
+gradient placed as its parameter is before the update.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
-from ..distributed import compression
+from ..distributed import compression, sharding
 from ..models import model as model_lib
 from ..models.config import ModelConfig
 from . import optimizer as opt_lib
@@ -26,14 +34,32 @@ def loss_and_grads(params, batch, cfg: ModelConfig):
     ps = opt_lib.named(params)
     for p in ps.values():
         p.requires_grad_(True)
-    with torch.enable_grad():
+    with torch.enable_grad(), on_mesh(ps):
         loss, metrics = model_lib.loss_fn(params, batch, cfg)
         grads = torch.autograd.grad(loss, list(ps.values()),
                                     allow_unused=True)
-    grads = {n: torch.zeros_like(p) if g is None else g
+    grads = {n: torch.zeros_like(p) if g is None else placed_as(g, p)
              for (n, p), g in zip(ps.items(), grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def on_mesh(named_params):
+    """Within: plain tensors that meet DTensors count as replicated, when
+    the parameters are DTensors (a no-op otherwise)."""
+    if not any(sharding.is_dtensor(p) for p in named_params.values()):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def placed_as(g, p):
+    """A DTensor gradient redistributed to its parameter's placements (a
+    partial sum reduced, a replicated one sliced); anything else as it
+    is."""
+    if sharding.is_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, *,
@@ -101,15 +127,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, *,
             loss, metrics, grads = grads_of(params, batch)
             grads, error, ratio = compression.compress_with_feedback(
                 grads, error)
-            params, opt_state, om = opt_lib.update(
-                opt_cfg, grads, opt_state, params)
+            with on_mesh(opt_lib.named(params)):
+                params, opt_state, om = opt_lib.update(
+                    opt_cfg, grads, opt_state, params)
             metrics = dict(metrics, loss=loss, wire_ratio=ratio, **om)
             return params, opt_state, error, metrics
     else:
         def train_step(params, opt_state, batch):
             loss, metrics, grads = grads_of(params, batch)
-            params, opt_state, om = opt_lib.update(
-                opt_cfg, grads, opt_state, params)
+            with on_mesh(opt_lib.named(params)):
+                params, opt_state, om = opt_lib.update(
+                    opt_cfg, grads, opt_state, params)
             metrics = dict(metrics, loss=loss, **om)
             return params, opt_state, metrics
 

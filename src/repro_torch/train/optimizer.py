@@ -79,8 +79,8 @@ def init(params, cfg: Optional[AdamWConfig] = None) -> AdamWState:
     with torch.no_grad():
         if cfg.moments_dtype == "int8":
             def zq(sd):
-                return {n: _q8(torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), sqrt_domain=sd)
+                return {n: _q8(torch.zeros_like(p, dtype=torch.float32),
+                               sqrt_domain=sd)
                         for n, p in ps.items()}
             master = ({n: p.float().clone() for n, p in ps.items()}
                       if cfg.master else None)

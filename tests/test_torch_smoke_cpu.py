@@ -41,6 +41,36 @@ def test_phase_kv_get_cpu(small_store):
     assert hits["redn"] == hits["one_sided"] == hits["two_sided"] > 0
 
 
+KV_GET_GROUP_CPU = """
+import sys, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+torch.set_num_threads(1)
+_, kv, dk, dv = cs.phase_kv_get("cpu", n_shards=2, buckets=128, n_keys=150,
+                                batch=16, n_batches=2, time_it=False)
+r = cs.phase_kv_get_group("cpu", kv, dk, dv, n_keys=150, batch=16,
+                          n_batches=2, time_it=False)
+print(r)
+assert r["backend"] == "gloo" and r["ranks"] == 1
+assert r["shards_per_rank"] == 2 and r["mesh"] == {{"data": 1, "model": 1}}
+assert r["checked"] == {{m: 64 for m in ("redn", "one_sided", "two_sided")}}
+assert not torch.distributed.is_initialized()
+print("KV_GET_GROUP_OK")
+"""
+
+
+def test_phase_kv_get_group_cpu():
+    """The group arm's phase on a one-rank gloo group, in a process of its
+    own (this one initialises no process group): every path bit-equal to
+    the one-device arm, the exchange of one rank the swap, the group
+    destroyed at the end."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c",
+                        KV_GET_GROUP_CPU.format(root=str(ROOT))],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert "KV_GET_GROUP_OK" in r.stdout, r.stdout + r.stderr
+
+
 def test_phase_chain_kernel_cpu(smoke):
     r = smoke.phase_chain_kernel("cpu", time_it=False, n_buckets=64,
                                  mem_words=1024, n_keys=40, batch=16,
@@ -318,7 +348,8 @@ def test_phase_lm_recurrent_cpu(smoke, arch):
 
 
 @pytest.mark.parametrize("key", ["lm_gemma3", "lm_gemma3_cache",
-                                 "lm_mixtral", "lm_phi3v", "lm_seamless"])
+                                 "lm_mixtral", "lm_phi3v", "lm_seamless",
+                                 "lm_llama4", "lm_llama4_nope"])
 def test_phase_lm_arch_cpu(smoke, key):
     """Each of the other archs' drives at its smoke config with the
     drive's cache and routing changes: the prefill against ``forward``,
@@ -334,20 +365,29 @@ def test_phase_lm_arch_cpu(smoke, key):
     assert r["max_abs_err_prefill"] <= r["logit_tol"] == 2e-3
     # float32 decode continues forward; an int8 cache within its error
     assert r["max_abs_err_decode"] <= (0.05 if cfg.kv_quant else 2e-3)
-    assert r["frontend_positions"] == (8 if key == "lm_phi3v" else 0)
-    assert (r["forward_aux"] > 0) == (key == "lm_mixtral")
+    assert r["frontend_positions"] == (cfg.frontend_tokens
+                                       if cfg.frontend == "vision" else 0)
+    assert r["frontend_positions"] == (8 if key in ("lm_phi3v", "lm_llama4",
+                                                    "lm_llama4_nope") else 0)
+    assert (r["forward_aux"] > 0) == cfg.is_moe
+    assert cfg.is_moe == (key in ("lm_mixtral", "lm_llama4",
+                                  "lm_llama4_nope"))
     errs = r["cache_decode_errs"]
     # a last local layer's full cache is read through the 16 window, a
     # rolling one (20 + 3 positions in 16 slots) with none
     local = cfg.layer_type(cfg.num_layers - 1) == "local"
     assert errs["window"] == (16 if local and not cfg.window_cache else 0)
     assert r["config"]["kv_quant"] == (key == "lm_gemma3_cache")
-    if key == "lm_mixtral":         # float32: every route as forward's
+    if cfg.is_moe:                  # float32: every route as forward's
         routes = r["routes"]
         assert routes["prefill_agree"] == routes["decode_agree"] == 1.0
         assert routes["decode_flips"] == 0
         assert routes["max_abs_err_agreeing"] <= 2e-3
         assert routes["max_abs_err_after_flip"] is None
+        dropped = routes["dropped"]
+        assert dropped["forward_pairs"] == 2 * 23 * cfg.experts_per_token \
+            * cfg.num_layers
+        assert 0 <= dropped["prefill"] <= dropped["forward_pairs"]
     else:
         assert "routes" not in r
 
@@ -484,7 +524,10 @@ def test_phases_run_in_order(smoke):
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 33
+    assert len(p) == len(set(p)) == 36
+    assert p.index("kv_get") + 1 == p.index("kv_get_group")
+    assert p.index("lm_seamless") + 1 == p.index("lm_llama4")
+    assert p.index("lm_llama4") + 1 == p.index("lm_llama4_nope")
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
     assert p.index("kv_write") + 1 == p.index("kv_faults")
     assert p.index("kv_faults") + 1 == p.index("kv_resize")

@@ -18,7 +18,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
-``nvcc`` per source, all started together), then runs thirty-three phases
+``nvcc`` per source, all started together), then runs thirty-seven phases
 (``PHASES``, in this order) and raises on any mismatch:
 
 1. ``card``            — the card's name and power limit, the kernel build;
@@ -29,7 +29,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          store (4 x 65,536 buckets, 157,286 keys, 60% load)
                          answers zipf GET batches through ``sharded_get`` on
                          the redn, one_sided and two_sided paths, each row
-                         checked against the host oracle ``reference_get``.
+                         checked against the host oracle ``reference_get``;
+                         the redn path's chains run on the interpreter
+                         kernel, one launch a window.
 3. ``chain_kernel``    — the recycled get server (65,536 buckets, 2^19-word
                          image) through ``ChainEngine(spec, "kernel")``
                          against the interpreter and the plain loop; again
@@ -43,6 +45,25 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``tests/test_faults.py`` (1 shard, 32 buckets, 12
                          requests, all four kinds) on the card against
                          the same drill on the CPU, bit for bit.
+3c. ``chain_interp``   — the chain interpreter kernel
+                         (``chain_interp_kernel``: every row of a batched
+                         VMState run to its own stop in one launch)
+                         against its plain loop on the card, each run's
+                         14 fields bit-equal, clocks included: the hazard
+                         corpus of ``tests/_interp_images.py`` (plain,
+                         fault rows, two-writer schedules); the ``kv_get``
+                         store's redn window (4 x 4 x 64 contexts, one
+                         launch, again with any host read inside made an
+                         error by ``torch.cuda.set_sync_debug_mode``); a
+                         (4, 8) SET batch (writer and displacer); a 4-lane
+                         SET of hot keys and the 2-writer cut sweep as one
+                         batch; the recycled server under a storm of all
+                         four fault kinds; 512 ADDLEQ guests on the
+                         interpreter image.  Each timed (CUDA events)
+                         beside the plain loop and its serial floor (four
+                         L2 round trips a step).  Its launches in the JSON
+                         are those of the paths whose chains run on it
+                         (``INTERP_PATHS``).
 4. ``chain_straight``  — the straight-line chain kernel against its plain
                          version on 1,024 seeded random programs; timed
                          by device time from a trace.
@@ -59,8 +80,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          TTL SET, TTL gets before and after the deadlines
                          and a CLOCK sweep.  Every status and array is held
                          bit for bit to the host oracles, and the touched
-                         keys are read back on all three get paths.  It
-                         runs on the chain interpreter: no kernel.
+                         keys are read back on all three get paths.  Its
+                         chains run on the interpreter kernel.
 6b. ``kv_faults``      — the recovery drill on the ``kv_get`` store: a
                          (4, 8) SET batch of updates, inserts and forced
                          displacements under a seeded storm of all four
@@ -79,7 +100,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          frames; 256 gets and 8 sets through the
                          ResizeState arms against the double-frame
                          oracle; a 4 x 32-bucket store grown to the end
-                         against ``grow``.  On the interpreter: no kernel.
+                         against ``grow``.  On the interpreter kernel.
 6d. ``kv_contend``     — racing writers and isolation (§3.5, §5.5) on the
                          same store: ``sharded_set`` with 1, 2 and 4
                          writer lanes on a (4, 8) batch whose homes lie
@@ -95,7 +116,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          to the same run on the CPU, clocks included; the
                          ``isolation=`` arm of ``sharded_get`` with a
                          greedy client, its admitted mask and buckets
-                         bit-equal to the CPU's.  On the interpreter.
+                         bit-equal to the CPU's.  On the interpreter kernel.
 6e. ``kv_service``     — the §5.6 services with the host driver crashed:
                          256 Zipf gets through a ``DeviceResidentService``;
                          ``ShardedKVService`` over the same store's tensors
@@ -104,7 +125,7 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``set_reliable`` under a kill plan, fsck clean;
                          a 1-shard, 8-bucket service grown by its own
                          SETs, and the chained second growth, every key
-                         served throughout.  On the interpreter.
+                         served throughout.  On the interpreter kernel.
 6f. ``chain_programs`` — the chain-program toolchain: the static
                          verifier's sweep of its 18 registered programs,
                          built on the card, equal to ``BENCH_chains.json``
@@ -361,6 +382,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import re
@@ -433,6 +455,7 @@ def _import_port():
 
 
 _import_port()
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import analysis, turing  # noqa: E402
 from repro_torch.core import faults, isa, machine, programs  # noqa: E402
@@ -441,6 +464,7 @@ from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
 from repro_torch.distributed import fault  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.chain_interp import ops as interp_ops  # noqa: E402
 from repro_torch.kernels.chain_vm import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.chain_vm import ref as chain_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
@@ -508,8 +532,9 @@ def timed_call(device, fn):
     return value, start.elapsed_time(end)
 
 
-LAUNCH_COUNTS = (chain_ops.launches, hop_ops.launches, fa_ops.launches,
-                 dec_ops.launches, wkv_ops.launches, rg_ops.launches)
+LAUNCH_COUNTS = (chain_ops.launches, interp_ops.launches, hop_ops.launches,
+                 fa_ops.launches, dec_ops.launches, wkv_ops.launches,
+                 rg_ops.launches)
 
 
 def reset_launches():
@@ -923,7 +948,8 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
     per context) against the interpreter under the same rows, on the
     ``chain_kernel`` phase's recycled server: a batch under a seeded storm
     of kill rows, and ``cut_keys`` keys cut at every step from 0 to the
-    fuel.  A suppress row must be refused.  Then the storm drill on this
+    fuel; the interpreter's runs are held to the plain loop on the same
+    inputs.  A suppress row must be refused.  Then the storm drill on this
     device against the same drill on the CPU, bit for bit."""
     srv = recycled_server(device, n_buckets, mem_words, n_keys)
     keys = mixed_keys(batch, range(1, n_keys + 1, max(1, n_keys // batch)))
@@ -943,9 +969,14 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
             for pay, plan in cases]
     launches = read_launches()["run_managed"]
     err, truncated = 0, 0
-    for (pay, plan), out_k in zip(cases, outs):
-        out_i = ChainEngine(srv.spec, "interp").run_many(
+    with captured_runs() as runs:
+        outs_i = [ChainEngine(srv.spec, "interp").run_many(
             srv.state, srv.loop_wq, pay, max_steps, plan)
+            for pay, plan in cases]
+    # the plain loop witnesses both kernels on the same inputs
+    plain = check_interp_runs(device, "killed interp", runs, 0.0)
+    del runs
+    for (pay, plan), out_k, out_i in zip(cases, outs, outs_i):
         for f in _FAULT_FIELDS:
             err = max(err, require_equal(getattr(out_k, f),
                                          getattr(out_i, f),
@@ -968,6 +999,9 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
     else:
         raise AssertionError("the kernel backend ran a suppress fault")
     result = dict(launches=launches, max_abs_err=err,
+                  interp_vs_plain=dict(
+                      max_abs_err=plain["max_abs_err"], ms=plain["ms"],
+                      plain_ms=plain["plain_ms"], runs=plain["runs"]),
                   contexts=[int(p.shape[0]) for p, _ in cases],
                   storm_armed=int(storm_plan.active().sum()),
                   truncated=truncated, chain_steps=full)
@@ -985,6 +1019,241 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
                 require_equal(here[k], v, f"storm drill {k} vs the CPU")
         result.update(drill_violations=len(cpu["report"]),
                       drill_retried=int((cpu["status2"] != 0).sum()))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the chain interpreter kernel against its plain loop
+# ---------------------------------------------------------------------------
+
+# dependent L2 round trips a step of the interpreter kernel takes at least:
+# the head WRs' words (eligibility), the chosen WR's fields, the
+# read-modify-write (or the copy's or scatter's reads), the store
+INTERP_STEP_TRIPS = 4
+
+
+def interp_images():
+    """``tests/_interp_images.py`` (numpy only: the interpreter's hazard
+    corpus) from this checkout."""
+    spec = importlib.util.spec_from_file_location(
+        "_interp_images", ROOT / "tests" / "_interp_images.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def captured_runs():
+    """Every interpreter run inside the block, as it reaches the wrapper:
+    the spec, a copy of the state before and after the launch, and the
+    run's arguments."""
+    runs, real = [], interp_ops.run_interp
+
+    def capture(spec, s, max_steps=4096, faults=None, quota=None,
+                writer_slices=None):
+        dev = s.mem.device
+        plan = None if faults is None else type(faults)(*(
+            torch.as_tensor(leaf, device=dev).to(torch.int32).clone()
+            for leaf in faults))
+        before = machine._clone(s)
+        out = real(spec, s, max_steps, faults, quota, writer_slices)
+        runs.append(dict(spec=spec, before=before, after=machine._clone(out),
+                         kw=dict(max_steps=max_steps, faults=plan,
+                                 quota=None if quota is None
+                                 else quota.clone(),
+                                 writer_slices=writer_slices)))
+        return out
+
+    interp_ops.run_interp = capture
+    try:
+        yield runs
+    finally:
+        interp_ops.run_interp = real
+
+
+def check_interp_runs(device, what: str, runs, step_ms: float) -> dict:
+    """Each captured run's kernel result against the plain loop
+    (``machine.plain_run``) on a copy of the same input on the card, all 14
+    fields bit-equal; the kernel (again, on another copy) and the plain
+    loop timed by CUDA events.  ``step_ms``: the serial floor of one step.
+    The bytes bound counts what the run's data needs: each executed WR's 8
+    words read, each changed word of the images and message queues
+    written, each WQ's counters and clocks read and written."""
+    if not runs:
+        raise AssertionError(f"{what}: no interpreter run")
+    out = dict(runs=len(runs), rows=0, wqs=sorted({r["spec"].num_wqs
+                                                    for r in runs}),
+               steps_max=0, steps_total=0, ms=0.0, plain_ms=0.0,
+               serial_floor_ms=0.0, bytes=0, max_abs_err=0.0)
+    for r in runs:
+        spec, before, after, kw = r["spec"], r["before"], r["after"], r["kw"]
+        x = machine._clone(before)
+        plain, plain_ms = timed_call(device, lambda: machine.plain_run(
+            spec, x, **kw))
+        out["max_abs_err"] = max(out["max_abs_err"], require_states(
+            after, plain, f"{what}: kernel vs plain loop"))
+        x = machine._clone(before)
+        _, ms = timed_call(device, lambda: interp_ops.run_interp(spec, x,
+                                                                 **kw))
+        require_states(x, after, f"{what}: kernel run to run")
+        steps = after.steps - before.steps
+        b, n = before.head.shape
+        changed = int((after.mem != before.mem).sum()) + int(
+            (after.msg_buf != before.msg_buf).sum())
+        out["rows"] += b
+        out["steps_max"] = max(out["steps_max"], int(steps.max()))
+        out["steps_total"] += int(steps.sum())
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["serial_floor_ms"] += int(steps.max()) * step_ms
+        out["bytes"] += 4 * (8 * int(steps.sum()) + changed + 2 * b * 9 * n)
+        del x, plain
+    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def redn_under_sync_check(device, run) -> int:
+    """The captured redn run again, through ``machine.run_batch_in_place``
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any host read inside
+    raises): returns the launches it made."""
+    x = machine._clone(run["before"])
+    torch.cuda.synchronize()
+    before = interp_ops.launches["run_interp"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        machine.run_batch_in_place(run["spec"], x, run["kw"]["max_steps"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n = interp_ops.launches["run_interp"] - before
+    require_states(x, run["after"], "redn under the sync check")
+    return n
+
+
+def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
+                       set_rows=(3, 3, 2), server=(65536, 1 << 19, 40000),
+                       server_batch=256, guests=512, budget=100,
+                       seed=20261018):
+    """The interpreter kernel (``chain_interp_kernel``) against its plain
+    loop on the card, every run's 14 fields bit-equal, clocks included:
+    the hazard corpus (plain, under fault rows, under two-writer
+    schedules); a redn GET window of the ``kv_get`` store (S x S x batch
+    contexts, one launch, which again passes with any host read inside
+    made an error); a (S, 8) SET batch (updates, inserts, displacements:
+    the writer and displacer chains); a 4-lane SET of hot keys (the racing
+    writers' group, scheduled) and the 2-writer cut sweep as one batch;
+    the recycled get server under a storm of all four fault kinds; and
+    ADDLEQ guests on the interpreter image.  Each timed beside the plain
+    loop and its serial floor."""
+    dev = torch.device(device)
+    images = interp_images()
+    on_card = dev.type == "cuda"
+    if on_card:
+        cycles = chain_ops.chase_cycles("l2", device)
+        step_ms = INTERP_STEP_TRIPS * cycles / max_sm_clock_hz() * 1e3
+    else:
+        cycles, step_ms = None, 0.0
+    result = dict(l2_cycles=cycles, step_floor_ms=step_ms, cases={})
+    s_, n = dk.shape[0], dk.shape[1]
+    h, v = kv.neighborhood, dv.shape[2]
+    rng = np.random.RandomState(seed)
+
+    def case(name, fn):
+        with captured_runs() as runs:
+            fn()
+        result["cases"][name] = check_interp_runs(device, name, runs,
+                                                  step_ms)
+        return runs
+
+    # the hazard corpus
+    spec = convert.spec_from_tuple(images.SPEC)
+    corpus = convert.vmstate_from_numpy(images.corpus(seed % 1000), dev)
+    b = corpus.mem.shape[0]
+    plan = faults.FaultPlan.from_row(torch.from_numpy(
+        images.fault_rows(seed % 1000 + 1, b)).to(dev))
+    quota = torch.from_numpy(images.quotas(seed % 1000 + 2, b)).to(dev)
+    case("corpus", lambda: (
+        machine.run_batch(spec, corpus, images.MAX_STEPS),
+        machine.run_batch(spec, corpus, 4096),
+        machine.run_batch(spec, corpus, images.MAX_STEPS, plan),
+        machine.run_scheduled(spec, corpus, machine.Schedule(quota),
+                              images.SLICES, images.MAX_STEPS)))
+
+    # a redn GET window: one launch for the whole window
+    q = torch.from_numpy(kv_batches(s_, n_keys, batch, 1)[0]).to(dev)
+    runs = case("redn", lambda: store.sharded_get(dk, dv, q, method="redn",
+                                                  device=device))
+    if len(runs) != 1:
+        raise AssertionError(f"a redn batch made {len(runs)} interpreter "
+                             f"runs, not one")
+    result["redn_contexts"] = int(runs[0]["before"].mem.shape[0])
+    if on_card:
+        result["redn_sync_checked_launches"] = redn_under_sync_check(
+            device, runs[0])
+        if result["redn_sync_checked_launches"] != 1:
+            raise AssertionError("the redn run is not one launch")
+    del runs
+
+    # a (S, 8) SET batch: updates, inserts and displacements
+    loaded = np.concatenate([t.keys[t.keys != 0] for t in kv.tables])
+    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
+              for t in kv.tables]
+    n_update, n_insert, n_disp = set_rows
+    fresh = int(loaded.max()) + 7000
+    disp = displacement_keys(tables, s_, fresh + (1 << 21), s_ * n_disp)
+    upd = rng.choice(loaded, s_ * n_update, replace=False)
+    rows = []
+    for o in range(s_):
+        rows.append(rng.permutation(np.concatenate([
+            upd[o * n_update:(o + 1) * n_update],
+            np.arange(fresh, fresh + n_insert),
+            disp[o * n_disp:(o + 1) * n_disp]])))
+        fresh += n_insert
+    sk = np.stack(rows).astype(np.int32)
+    sv = new_values(sk, v)
+    case("set", lambda: store.sharded_set(
+        dk, dv, torch.from_numpy(sk).to(dev), torch.from_numpy(sv).to(dev),
+        device=device))
+    result["set_batch"] = tuple(sk.shape)
+
+    # racing writers: a 4-lane SET of hot keys, the 2-writer cut sweep
+    hk, _ = hot_keys(kv, rng, sk.shape[1], int(loaded.max()) + 1)
+    case("contend", lambda: store.sharded_set(
+        dk, dv, torch.from_numpy(hk).to(dev),
+        torch.from_numpy(new_values(hk, v)).to(dev), n_writers=4,
+        device=device))
+    case("cut_sweep", lambda: cut_sweep(device))
+
+    # the recycled get server under a storm of all four fault kinds
+    srv = recycled_server(device, *server)
+    keys = mixed_keys(server_batch, range(1, server[2] + 1,
+                                          max(1, server[2] // server_batch)))
+    pay = np.asarray([srv._payload(k) for k in keys], np.int32)
+    storm = faults.storm(len(keys), p_fault=0.5, max_step=64, seed=seed,
+                         device=device)
+    case("faults", lambda: ChainEngine(srv.spec).run_many(
+        srv.state, srv.loop_wq, pay, 64, storm))
+    result["faults_armed"] = int(storm.active().sum())
+    del srv
+
+    # ADDLEQ guests on the interpreter image
+    interp = turing.build_interpreter(device=device)
+    host = dataclasses.replace(interp, state0=machine.VMState(
+        *(a.cpu() for a in interp.state0)))
+    states = [host.load(g) for g in addleq_guests(interp, guests, seed)]
+    gb = machine.VMState(*(torch.stack(f).to(dev) for f in zip(*states)))
+    del states
+    case("guests", lambda: ChainEngine(interp.spec).run_batch(
+        gb, interp.lap_words * (budget + 2)))
+    del gb
+
+    # the row of the KERNELS table: the redn window, the paper's path
+    r = result["cases"]["redn"]
+    result.update(max_abs_err=max(c["max_abs_err"]
+                                  for c in result["cases"].values()),
+                  ms=r["ms"], plain_ms=r["plain_ms"],
+                  bound_ms=r["bound_ms"], bound_by="bytes",
+                  serial_floor_ms=r["serial_floor_ms"], library_ms=None,
+                  shape=(result["redn_contexts"], int(dk.shape[1])))
     return result
 
 
@@ -1879,12 +2148,36 @@ def hot_keys(kv, rng, count: int, start: int):
     return np.asarray(rows, np.int32), buckets
 
 
-def require_states(a, b, what: str):
-    """Every field of two machine batches bit-equal (clocks included)."""
+def state_abs_err(a, b) -> float:
+    """The largest absolute difference between two machine batches of one
+    shape, over every field (float64, in slices of 2**24 elements; a clock
+    bit-equal on both sides counts 0, an inf or NaN against another
+    value inf)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        x = x.to(y.device)
+        for xs, ys in zip(x.reshape(-1).split(1 << 24),
+                          y.reshape(-1).split(1 << 24)):
+            d = (xs.double() - ys.double()).abs()
+            if xs.is_floating_point():
+                d = torch.where(xs.view(torch.int32) == ys.view(torch.int32),
+                                0.0, d.nan_to_num(nan=math.inf,
+                                                 posinf=math.inf))
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def require_states(a, b, what: str) -> float:
+    """Every field of two machine batches bit-equal (clocks as their bits),
+    compared on ``b``'s device; returns :func:`state_abs_err` (0)."""
     for f, x, y in zip(machine.VMState._fields, a, b):
-        require_equal(x.cpu().view(torch.int32) if x.dtype == torch.float32
-                      else x, y.cpu().view(torch.int32)
-                      if y.dtype == torch.float32 else y, f"{what} {f}")
+        x = x.to(y.device)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if x.shape != y.shape or not torch.equal(x, y):
+            bad = int((x != y).sum()) if x.shape == y.shape else "shape"
+            raise AssertionError(f"{what}: {f} differs ({bad} elements)")
+    return state_abs_err(a, b)
 
 
 def cut_sweep(device, n=16, v=2, h=4):
@@ -2409,7 +2702,7 @@ def guest_drive(device, n_guests: int, budget: int, seed: int,
                               for f in zip(*states)))
     del states
     max_steps = interp.lap_words * (budget + 2)
-    reset_launches()
+    chain_ops.launches["run_managed"] = 0
     out_k, k_ms = timed_call(device, lambda: ChainEngine(
         interp.spec, "kernel").run_batch(batch, max_steps))
     launches = read_launches()["run_managed"]
@@ -4858,6 +5151,10 @@ KERNELS = (
      "src/repro_torch/csrc/chain_vm.cu",
      "src/repro/kernels/chain_vm/kernel.py:66",
      ("managed_whole_kernel", "managed_window_kernel")),
+    # no TPU kernel: the JAX package's run is a lax.while_loop under jit
+    ("chain_interp.run_interp", "chain_interp",
+     "src/repro_torch/csrc/chain_interp.cu", "src/repro/core/machine.py:447",
+     ("chain_interp_kernel",)),
     ("chain_vm.run_chains", "chain_straight",
      "src/repro_torch/csrc/chain_vm.cu",
      "src/repro/kernels/chain_vm/kernel.py:30", ("run_chains_kernel",)),
@@ -4889,7 +5186,8 @@ KERNELS = (
      RGLRU_BWD_KERNELS),
 )
 # the phases in the order main() runs them
-PHASES = ("kv_get", "kv_get_group", "chain_kernel", "chain_faults", "chain_straight",
+PHASES = ("kv_get", "kv_get_group", "chain_kernel", "chain_faults",
+          "chain_interp", "chain_straight",
           "hopscotch_probe", "kv_write", "kv_faults", "kv_resize",
           "kv_contend", "kv_service", "chain_programs", "cuckoo_get",
           "lm_prefill", "lm_serve",
@@ -4899,6 +5197,9 @@ PHASES = ("kv_get", "kv_get_group", "chain_kernel", "chain_faults", "chain_strai
           "wkv6_kernel", "rglru_kernel",
           "wkv6_bwd_kernel", "rglru_bwd_kernel", "flash_bwd_kernel",
           "lm_train", "lm_train_bf16", "lm_train_rwkv", "lm_train_griffin")
+# the paths whose multi-WQ chains run on the interpreter kernel
+INTERP_PATHS = ("kv_get", "kv_write", "kv_faults", "kv_resize", "kv_contend",
+                "kv_service", "chain_programs")
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -5046,8 +5347,12 @@ def check_ptxas(ptxas: dict, kernels, head_dims) -> None:
 
 
 def run_phase(phases, key, fn):
+    """``phases[key] = fn()``, with the interpreter kernel's launches in
+    the phase (counted from 0) as its ``interp_launches``."""
     t0 = time.perf_counter()
+    interp_ops.launches["run_interp"] = 0
     phases[key] = fn()
+    phases[key]["interp_launches"] = interp_ops.launches["run_interp"]
     shown = {k: v for k, v in phases[key].items() if k != "rows"}
     print(f"[{key}] {time.perf_counter() - t0:.1f} s: {shown}", flush=True)
 
@@ -5097,11 +5402,15 @@ def main() -> int:
     print(f"[card] flash_attention_bwd: the tensor-core pair's dynamic "
           f"shared memory a block by head dim: {smem} bytes", flush=True)
 
-    phases = {}
-    t0 = time.perf_counter()
-    kv_res, kv, dk, dv = phase_kv_get(device)
-    phases["kv_get"] = kv_res
-    print(f"[kv_get] {time.perf_counter() - t0:.1f} s: {kv_res}", flush=True)
+    phases, stored = {}, []
+
+    def kv_get():
+        res, *arrays = phase_kv_get(device)
+        stored.extend(arrays)
+        return res
+
+    run_phase(phases, "kv_get", kv_get)
+    kv, dk, dv = stored
     run_phase(phases, "kv_get_group",
               lambda: phase_kv_get_group(device, kv, dk, dv))
     g_ = phases["kv_get_group"]
@@ -5113,6 +5422,18 @@ def main() -> int:
           f"{g_['exchange_ms']:.4f} ms", flush=True)
     run_phase(phases, "chain_kernel", lambda: phase_chain_kernel(device))
     run_phase(phases, "chain_faults", lambda: phase_chain_faults(device))
+    run_phase(phases, "chain_interp", lambda: phase_chain_interp(
+        device, kv, dk, dv))
+    ci = phases["chain_interp"]
+    print(f"[times] chain_interp ({card}): the kernel against the plain loop"
+          f" (ms, CUDA events), serial floor at {INTERP_STEP_TRIPS} L2 trips "
+          f"of {ci['l2_cycles']:.1f} cycles a step: " + "; ".join(
+              f"{k} {x['runs']} runs of {x['rows']} rows, WQs {x['wqs']}, "
+              f"{x['steps_max']} steps max: kernel {x['ms']:.4f}, plain "
+              f"{x['plain_ms']:.4f}, floor {x['serial_floor_ms']:.4f}, "
+              f"bytes bound {x['bound_ms']:.6f}"
+              for k, x in ci["cases"].items()), flush=True)
+    torch.cuda.empty_cache()
     run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
     run_phase(phases, "hopscotch_probe",
               lambda: phase_hopscotch_probe(device, kv, dk, dv))
@@ -5132,6 +5453,10 @@ def main() -> int:
           f"{f['repairs']} violations {f['repair_ms']:.2f} ms", flush=True)
     run_phase(phases, "kv_resize", lambda: phase_kv_resize(device, kv, dk,
                                                            dv))
+    r_ = phases["kv_resize"]
+    print(f"[times] kv_resize ({card}): quanta of {r_['step']} laps "
+          f"{r_['quantum_ms']} ms, the faulted one "
+          f"{r_['faulted_quantum_ms']} ms", flush=True)
     run_phase(phases, "kv_contend", lambda: phase_kv_contend(device, kv, dk,
                                                              dv))
     c_ = phases["kv_contend"]
@@ -5407,6 +5732,16 @@ def main() -> int:
 
     if tuple(phases) != PHASES:
         raise AssertionError(f"phases ran as {tuple(phases)}, not {PHASES}")
+    # the interpreter kernel's launches are those of the paths whose chains
+    # run on it (its own phase's are comparisons)
+    by_phase = {key: phases[key]["interp_launches"] for key in INTERP_PATHS}
+    print(f"[chain_interp] run_interp launches by phase: {by_phase}",
+          flush=True)
+    for key, count in by_phase.items():
+        if count < 1:
+            raise AssertionError(f"{key}: no run_interp launch")
+    phases["chain_interp"]["launches"] = sum(by_phase.values())
+    phases["chain_interp"]["launches_by_phase"] = by_phase
     # kernel #1 also carries the kill faults of chain_faults' drive and the
     # ADDLEQ guests of chain_programs'
     phases["chain_kernel"]["launches_by_phase"] = dict(
@@ -5442,6 +5777,13 @@ def main() -> int:
             rows[-1]["addleq_guests"] = r["addleq_guests"]
         if "ptxas" in r:
             rows[-1]["ptxas"] = r["ptxas"]
+        if "serial_floor_ms" in r:
+            rows[-1]["serial_floor_ms"] = r["serial_floor_ms"]
+        if "cases" in r:
+            rows[-1]["cases"] = {n: {f: c[f] for f in (
+                "runs", "rows", "wqs", "steps_max", "ms", "plain_ms",
+                "serial_floor_ms", "bound_ms")}
+                for n, c in r["cases"].items()}
         if "shapes" in r:
             rows[-1]["shapes"] = {n: {f: t.get(f) for f in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms",

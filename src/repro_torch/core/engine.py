@@ -56,7 +56,9 @@ class ChainEngine:
     Backends:
 
     * ``"interp"`` (default) — the multi-WQ discrete-event interpreter in
-      :mod:`repro_torch.core.machine` (full ISA, latency clocks).
+      :mod:`repro_torch.core.machine` (full ISA, latency clocks): on the
+      card one launch of the interpreter kernel a batch
+      (:func:`repro_torch.kernels.chain_interp.ops.run_interp`).
     * ``"kernel"`` — the single-WQ managed chain kernel
       (:func:`repro_torch.kernels.chain_vm.ops.run_managed`): the CUDA
       kernel for states on the card, its plain PyTorch version for states

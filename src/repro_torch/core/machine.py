@@ -17,12 +17,15 @@ This is the functional model of what the RNIC's processing units do:
 * a machine stops on quiescence (no WQ eligible), HALT, or fuel exhaustion.
 
 Batches of independent machines (one client context per row) carry a
-leading batch dim on every ``VMState`` field.  :func:`run_batch` is a host
-loop over steps: each step executes one WR on every row that can still
-run, and a row whose own condition is false (nothing eligible, halted, out
-of fuel) is frozen, exactly as a vmapped ``while_loop`` freezes it.  The
-step applies its updates in place, on the running rows only, and reads or
-writes only the words a WR touches — never a full-image select.
+leading batch dim on every ``VMState`` field.  On the card
+:func:`run_batch` is one launch of the interpreter kernel
+(``kernels/chain_interp``), every row run to its own stop.  Its plain
+version, :func:`plain_run`, is a host loop over steps (:func:`_run_rows`):
+each step executes one WR on every row that can still run, and a row whose
+own condition is false (nothing eligible, halted, out of fuel) is frozen,
+exactly as a vmapped ``while_loop`` freezes it.  The step applies its
+updates in place, on the running rows only, and reads or writes only the
+words a WR touches — never a full-image select.
 
 Out-of-range addresses follow the JAX reference bit for bit: a read clamps
 its (negative-wrapped) index into the image, a scalar write past the end
@@ -533,12 +536,43 @@ def run_batch_in_place(spec: MachineSpec, s: VMState,
     machine) arms each row's faults: ``kill_step`` stops the row before
     its cumulative ``steps`` counter reaches it, the others apply inside
     the step (see :func:`_fault_masks`).  A fully disarmed plan is
-    bit-identical to no plan."""
-    geo = _geometry(spec, s.mem.device)
-    rows = torch.arange(s.mem.shape[0], device=s.mem.device)
-    f = (None if faults is None
-         else _fault_columns(faults, rows.numel(), s.mem.device))
-    _run_rows(geo, s, rows, max_steps, f)
+    bit-identical to no plan.
+
+    On the card the whole batch is one launch of the interpreter kernel
+    (:func:`repro_torch.kernels.chain_interp.ops.run_interp`), with no
+    host read inside it, and every field of ``s`` must be contiguous; on
+    the CPU its plain version, :func:`plain_run`."""
+    from ..kernels.chain_interp import ops as interp_ops
+    return interp_ops.run_interp(spec, s, max_steps, faults)
+
+
+def plain_run(spec: MachineSpec, s: VMState, max_steps: int, faults=None,
+              quota: Optional[torch.Tensor] = None,
+              writer_slices=None) -> VMState:
+    """The interpreter kernel's plain version, in place: the host loop
+    :func:`_run_rows` over every row of ``s``.  With ``quota`` (int32
+    ``(B, R, W)``) and ``writer_slices``, rounds and writers advance in
+    lockstep across the batch, and within a (round, writer) each row steps
+    until its own quota, quiescence, HALT or fuel stops it."""
+    dev = s.mem.device
+    b = s.mem.shape[0]
+    geo = _geometry(spec, dev)
+    rows = torch.arange(b, device=dev)
+    if quota is None:
+        f = None if faults is None else _fault_columns(faults, b, dev)
+        _run_rows(geo, s, rows, max_steps, f)
+        return s
+    masks = _writer_masks(spec, writer_slices, dev)
+    on_host = quota.cpu().numpy()
+    for r in range(quota.shape[1]):
+        for w, mask in enumerate(masks):
+            q = on_host[:, r, w]
+            if not q.any():
+                continue                 # nobody may step: skip the sync
+            live = torch.from_numpy(np.flatnonzero(q)).to(dev)
+            _run_rows(geo, s, rows[live] if live.numel() < b else rows,
+                      max_steps, mask=mask,
+                      quota=quota[:, r, w].contiguous())
     return s
 
 
@@ -703,32 +737,25 @@ def run_scheduled_in_place(spec: MachineSpec, s: VMState,
     returning it).  The quota is ``(n_rounds, n_writers)`` for every row,
     or ``(B, n_rounds, n_writers)``: row ``b`` of the batch follows its
     own plan, so the S shards of a lap, or every cut of a cut sweep, run
-    as one batch.  Rounds and writers advance in lockstep across the
-    batch; within a (round, writer) each row steps until its own quota,
-    quiescence, HALT or fuel stops it."""
+    as one batch.  Each row walks its rounds and writers in order, and
+    within a (round, writer) steps until its own quota, quiescence, HALT
+    or fuel stops it; the rows are independent machines.  On the card
+    one launch of the interpreter kernel runs the whole batch through
+    every round, on contiguous fields; on the CPU its plain version,
+    :func:`plain_run`."""
+    from ..kernels.chain_interp import ops as interp_ops
     dev = s.mem.device
     b = s.mem.shape[0]
-    geo = _geometry(spec, dev)
-    masks = _writer_masks(spec, writer_slices, dev)
     quota = schedule.as_rows().to(dev)
     if quota.ndim == 2:
         quota = quota.expand((b,) + tuple(quota.shape))
-    if tuple(quota.shape[:1]) != (b,) or quota.shape[-1] != len(masks):
+    if tuple(quota.shape[:1]) != (b,) or quota.shape[-1] != len(
+            writer_slices):
         raise ValueError(
             f"schedule of shape {tuple(schedule.quota.shape)} does not fit "
-            f"{b} machines of {len(masks)} writers")
-    on_host = quota.cpu().numpy()
-    rows = torch.arange(b, device=dev)
-    for r in range(quota.shape[1]):
-        for w, mask in enumerate(masks):
-            q = on_host[:, r, w]
-            if not q.any():
-                continue                 # nobody may step: skip the sync
-            live = torch.from_numpy(np.flatnonzero(q)).to(dev)
-            _run_rows(geo, s, rows[live] if live.numel() < b else rows,
-                      max_steps, mask=mask,
-                      quota=quota[:, r, w].contiguous())
-    return s
+            f"{b} machines of {len(writer_slices)} writers")
+    return interp_ops.run_interp(spec, s, max_steps, quota=quota,
+                                 writer_slices=writer_slices)
 
 
 def run_scheduled(spec: MachineSpec, state: VMState, schedule: Schedule,

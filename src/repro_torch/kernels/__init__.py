@@ -6,6 +6,9 @@ kernel (``csrc/<name>.cu``, built by :mod:`._build`) for CUDA tensors.
 
 * ``chain_vm`` — batches of single-WQ chains, one client context per block
   (managed WQ and straight-line forms).
+* ``chain_interp`` — the multi-WQ chain interpreter: every context of a
+  batch run to its own stop, one per block, a thread per WQ (its plain
+  version is the machine's host loop, ``core/machine.py::_run_rows``).
 * ``hopscotch`` — the batched hopscotch get, one thread per query.
 * ``flash_attention`` — blocked online-softmax attention, forward, one
   block per (query tile, head, batch row), and its backward (a dQ kernel

@@ -22,8 +22,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("chain_vm", "hopscotch", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "wkv6", "wkv6_bwd", "rglru", "rglru_bwd")
+SOURCES = ("chain_vm", "chain_interp", "hopscotch", "flash_attention",
+           "flash_attention_bwd", "decode_attention", "wkv6", "wkv6_bwd",
+           "rglru", "rglru_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

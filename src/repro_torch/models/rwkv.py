@@ -95,7 +95,10 @@ def time_mix_inputs(p: RWKV, x, cfg, x_prev=None):
     xr, xk, xv, xw, xg = (_mix(x, xx, p.mu[i]) for i in range(5))
 
     def heads(z):
-        return z.reshape(b, t, h, n).transpose(1, 2)
+        # contiguous: a DTensor redistributed by ``shard`` keeps the
+        # transpose's strides over a contiguous local shard, and the
+        # reshape's backward would then view a gradient it cannot view
+        return z.reshape(b, t, h, n).transpose(1, 2).contiguous()
     r, k, v = heads(xr @ p.wr), heads(xk @ p.wk), heads(xv @ p.wv)
     return r, k, v, heads(_decay(p, xw)), F.silu(xg @ p.wg)
 

@@ -5,6 +5,9 @@ decode partial at 2e-5 in both types; the WKV6 and RG-LRU recurrences at
 5e-5 in float32 and 5e-2 on bfloat16 outputs, their float32 final states
 at 5e-5, and also against a float64 scan), the interpreter on the card
 against the interpreter on the CPU (plain and under fault plans), the
+interpreter kernel against its plain loop on the card (the hazard corpus
+of ``_interp_images.py``, fault rows, schedules, machines of up to 1,024
+WQs; all 14 fields bit-equal, clocks included), the
 chain kernel under kill faults against the interpreter, fsck on the
 card against fsck on the CPU, and the scheduled interpreter (a batch of
 cut schedules, the racing-writer SET) on the card against the CPU.  They
@@ -20,9 +23,12 @@ import pytest
 import torch
 
 import _chain_images as hazards
+import _interp_images as interp_images
+from repro_torch import convert
 from repro_torch.core import faults, isa, machine, programs, turing
 from repro_torch.core.engine import ChainEngine
 from repro_torch.kernels import _build
+from repro_torch.kernels.chain_interp import ops as interp_ops
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -316,6 +322,131 @@ def test_hopscotch_kernel_neighborhoods_and_row_widths(cuda, h, v):
     assert got[0][-3:-1].tolist() == [True, True] and not bool(got[0][-1])
     assert got[1][-3].tolist() == [big] * v and got[1][-1].abs().sum() == 0
     assert int(got[0].sum()) > 1000          # most stored keys are hits
+
+
+def _same_states(a, b, what=""):
+    """Every VMState field bit-equal (clocks as their bits)."""
+    for name, x, y in zip(machine.VMState._fields, a, b):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x.cpu(), y.cpu()), (what, name)
+
+
+def _plain_run(spec, s, max_steps, **kw):
+    """The interpreter kernel's plain version on a copy of ``s``."""
+    return machine.plain_run(spec, machine.VMState(*(a.clone() for a in s)),
+                             max_steps, **kw)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_interp_kernel_matches_the_plain_loop(cuda, seed):
+    """The hazard corpus, plain (at two fuels), under fault rows of all
+    four kinds and under two-writer plans (one a row and one for all):
+    one launch each, every field bit-equal to the plain loop's."""
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    s = convert.vmstate_from_numpy(interp_images.corpus(seed), cuda)
+    b, steps = s.mem.shape[0], interp_images.MAX_STEPS
+    for fuel in (steps, 4096):
+        before = interp_ops.launches["run_interp"]
+        got = machine.run_batch(spec, s, fuel)
+        assert interp_ops.launches["run_interp"] == before + 1
+        _same_states(got, _plain_run(spec, s, fuel), f"fuel {fuel}")
+    plan = faults.FaultPlan.from_row(torch.from_numpy(
+        interp_images.fault_rows(seed + 10, b)).to(cuda))
+    _same_states(machine.run_batch(spec, s, steps, plan),
+                 _plain_run(spec, s, steps, faults=plan), "faults")
+    quota = torch.from_numpy(interp_images.quotas(seed, b)).to(cuda)
+    for q in (quota, quota[0]):
+        got = machine.run_scheduled(spec, s, machine.Schedule(q),
+                                    interp_images.SLICES, steps)
+        _same_states(got, _plain_run(
+            spec, s, steps, quota=q.expand(b, -1, -1),
+            writer_slices=interp_images.SLICES), f"schedule {q.ndim}")
+
+
+def _wide_batch(seed, n_wq, b, size=4):
+    """``b`` machines of ``n_wq`` WQs of random WRs (several warps of the
+    kernel's block): random orderings and managed WQs, opcodes up to 255
+    (HALT rare), fields past both ends, messages and clocks."""
+    rng = np.random.RandomState(seed)
+    words = n_wq * size * isa.WR_WORDS
+    spec = machine.MachineSpec(
+        words + 256, tuple(range(0, words, size * isa.WR_WORDS)),
+        (size,) * n_wq, tuple(rng.randint(0, 3, n_wq).tolist()),
+        tuple(bool(x) for x in rng.rand(n_wq) < 0.3), 4)
+    length = spec.mem_words + machine.GUARD_WORDS
+    states = []
+    for _ in range(b):
+        img = rng.randint(-20, length + 20, spec.mem_words).astype(np.int32)
+        wrs = img[:words].reshape(-1, isa.WR_WORDS)
+        # HALT rarely, so that runs are long
+        ops = np.where(rng.rand(len(wrs)) < 0.98, rng.randint(0, 12, len(wrs)),
+                       rng.randint(12, 256, len(wrs)))
+        wrs[:, 0] = (ops.astype(np.uint32) << 24).view(np.int32) \
+            | rng.randint(0, 4, len(wrs))
+        wrs[:, 1] = rng.rand(len(wrs)) < 0.2
+        wrs[:, 4] = rng.randint(-2, 19, len(wrs))
+        wrs[:, 5] = rng.randint(-3, 8, len(wrs))
+        wrs[:, 6] = rng.randint(-2, n_wq + 2, len(wrs))
+        st = machine.init_state(spec, img, rng.randint(0, 9, n_wq),
+                                rng.randint(0, 9, n_wq), "cpu")
+        for _ in range(rng.randint(0, 6)):
+            st = machine.deliver(st, int(rng.randint(0, n_wq)),
+                                 rng.randint(-10, length, rng.randint(1, 17)))
+        states.append(st._replace(clock=torch.from_numpy(
+            rng.choice([0.0, 0.5, 1.21], n_wq).astype(np.float32))))
+    return spec, machine.VMState(*(torch.stack(f) for f in zip(*states)))
+
+
+@pytest.mark.parametrize("n_wq", [33, 70, 263, 1024])
+def test_interp_kernel_on_wide_machines(cuda, n_wq):
+    """Blocks of several warps (the argmin across warps through shared
+    memory): plain, under faults and under a three-writer plan with a
+    negative slice bound, bit-equal to the plain loop."""
+    spec, s = _wide_batch(n_wq, n_wq, 4)
+    s = machine.VMState(*(a.to(cuda) for a in s))
+    b = s.mem.shape[0]
+    _same_states(machine.run_batch(spec, s, 300), _plain_run(spec, s, 300))
+    rows = torch.tensor([[5, 3, 0, 1], [-1, 7, 1, -1], [40, -1, -1, 0],
+                         [-1, -1, 2, 2]], dtype=torch.int32, device=cuda)
+    plan = faults.FaultPlan.from_row(rows[:b])
+    _same_states(machine.run_batch(spec, s, 300, plan),
+                 _plain_run(spec, s, 300, faults=plan))
+    quota = torch.from_numpy(np.random.RandomState(n_wq).choice(
+        [-1, 0, 1, 3, 7], (b, 3, 3)).astype(np.int32)).to(cuda)
+    slices = ((0, n_wq // 3), (n_wq // 3, -5), (-5, n_wq))
+    _same_states(machine.run_scheduled(spec, s, machine.Schedule(quota),
+                                       slices, 300),
+                 _plain_run(spec, s, 300, quota=quota, writer_slices=slices))
+
+
+def test_interp_kernel_runs_a_batch_with_no_host_read(cuda):
+    """One launch, and no device-to-host read inside the run (a
+    synchronising call raises under the sync debug mode)."""
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    s = convert.vmstate_from_numpy(interp_images.corpus(3), cuda)
+    want = machine.run_batch(spec, s, 4096)        # builds, caches tables
+    x = machine.VMState(*(a.clone() for a in s))
+    torch.cuda.synchronize()
+    before = interp_ops.launches["run_interp"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        machine.run_batch_in_place(spec, x, 4096)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert interp_ops.launches["run_interp"] == before + 1
+    _same_states(x, want)
+
+
+def test_interp_kernel_refuses_what_it_cannot_take(cuda):
+    spec, s = _wide_batch(0, 1025, 1, size=1)
+    s = machine.VMState(*(a.to(cuda) for a in s))
+    with pytest.raises(ValueError, match="1025 WQs"):
+        machine.run_batch(spec, s, 10)
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    s = convert.vmstate_from_numpy(interp_images.corpus(0), cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        interp_ops.run_interp(spec, s._replace(clock=s.clock.double()))
 
 
 def test_interpreter_on_the_card_matches_the_cpu(cuda):

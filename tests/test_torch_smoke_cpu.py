@@ -3,6 +3,7 @@ plain versions stand in, since CPU tensors take the plain path), and its
 ``main()`` refuses to run without a CUDA card."""
 import dataclasses
 import importlib.util
+import math
 import os
 import re
 import subprocess
@@ -494,13 +495,14 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    """Ten rows: seven a TPU kernel each; the flash backward, which
+    """Eleven rows: seven a TPU kernel each; the flash backward, which
     replaces the JAX package's plain-JAX backward (``_make_blocked_vjp``'s
-    ``bwd``); and the recurrences' backward kernels, which replace JAX's
-    autodiff of its chunked forms (``_chunked_jax``).  Each row's phase
-    runs, and the guest drive of ``chain_programs`` reaches kernel #1 (its
-    launches join that row's ``launches_by_phase``)."""
-    assert len(smoke.KERNELS) == 10
+    ``bwd``); the recurrences' backward kernels, which replace JAX's
+    autodiff of its chunked forms (``_chunked_jax``); and the interpreter
+    kernel, which replaces ``machine.run``'s device-side while loop.  Each
+    row's phase runs, and the guest drive of ``chain_programs`` reaches
+    kernel #1 (its launches join that row's ``launches_by_phase``)."""
+    assert len(smoke.KERNELS) == 11
     assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
     assert "chain_programs" in smoke.PHASES
     for name, phase, source, replaces, kernels in smoke.KERNELS:
@@ -514,18 +516,21 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         pattern = (r"\s+def bwd\(res, do\):" if name.endswith(".backward")
                    else r"def _chunked_jax\(" if name.endswith("_backward")
+                   else r"def run\(" if name == "chain_interp.run_interp"
                    else r"def _\w+_kernel\(")
         assert re.match(pattern, text), (replaces, text)
 
 
 def test_phases_run_in_order(smoke):
     """The robustness phases sit after the paths they reuse: the kill
-    faults after the chain kernel's own phase, the recovery drill, the
+    faults after the chain kernel's own phase, the interpreter kernel's
+    phase after them (on the ``kv_get`` store), the recovery drill, the
     resize, the racing writers and the services after the write path, on
     its store."""
     p = smoke.PHASES
-    assert len(p) == len(set(p)) == 36
+    assert len(p) == len(set(p)) == 37
     assert p.index("kv_get") + 1 == p.index("kv_get_group")
+    assert p.index("chain_faults") + 1 == p.index("chain_interp")
     assert p.index("lm_seamless") + 1 == p.index("lm_llama4")
     assert p.index("lm_llama4") + 1 == p.index("lm_llama4_nope")
     assert p.index("chain_kernel") + 1 == p.index("chain_faults")
@@ -547,8 +552,62 @@ def test_phase_chain_faults_cpu(smoke):
                                  n_keys=40, batch=16, max_steps=24)
     assert r["max_abs_err"] == 0 and r["launches"] == 0   # plain path
     assert r["contexts"] == [16, 3 * 25]
+    assert r["interp_vs_plain"]["runs"] == 2
+    assert r["interp_vs_plain"]["max_abs_err"] == 0
     assert r["truncated"] > 0 and r["storm_armed"] > 0
     assert r["drill_violations"] >= 0 and r["drill_retried"] > 0
+
+
+def test_phase_chain_interp_cpu(smoke, write_store):
+    """The interpreter kernel's phase at 2 shards x 256 buckets, where the
+    wrapper takes its plain version: every case reaches the interpreter
+    (the redn window in one run) and holds its runs to the plain loop;
+    here the counts show each case ran."""
+    dk, dv = write_store.device_arrays("cpu")
+    r = smoke.phase_chain_interp("cpu", write_store, dk, dv, n_keys=300,
+                                 batch=8, set_rows=(1, 2, 1),
+                                 server=(64, 1024, 40), server_batch=16,
+                                 guests=12)
+    c = r["cases"]
+    assert set(c) == {"corpus", "redn", "set", "contend", "cut_sweep",
+                      "faults", "guests"}
+    assert c["redn"]["runs"] == 1 and r["redn_contexts"] == 2 * 2 * 8
+    assert c["redn"]["wqs"] == [18] and r["max_abs_err"] == 0
+    assert 263 in c["set"]["wqs"] and 113 in c["contend"]["wqs"]
+    assert c["guests"]["steps_max"] == 26 * 102 and r["faults_armed"] > 0
+    assert r["set_batch"] == (2, 4) and r["bound_by"] == "bytes"
+    k, v = write_store.device_arrays("cpu")
+    assert torch.equal(k, dk) and torch.equal(v, dv)
+
+
+@pytest.mark.parametrize("field, a, b, err", [
+    ("mem", 3, -2, 5.0),
+    ("clock", 1.5, math.inf, math.inf),
+    ("clock", math.inf, math.inf, 0.0),
+    ("clock", 0.0, -0.0, None),
+])
+def test_require_states_reports_the_largest_difference(smoke, field, a, b,
+                                                       err):
+    """``require_states`` returns what ``state_abs_err`` measured; any
+    difference, a clock's sign bit included, raises."""
+    s = smoke.machine.VMState(
+        mem=torch.zeros(2, 4, dtype=torch.int32),
+        clock=torch.zeros(2, 3), **{
+            f: torch.zeros(1, dtype=torch.int32)
+            for f in smoke.machine.VMState._fields
+            if f not in ("mem", "clock")})
+    x, y = smoke.machine._clone(s), smoke.machine._clone(s)
+    getattr(x, field)[1, 2] = a
+    getattr(y, field)[1, 2] = b
+    assert smoke.require_states(x, x, "same") == 0.0
+    assert smoke.state_abs_err(y, y) == 0.0
+    if err == 0.0:
+        assert smoke.require_states(x, y, "inf on both sides") == 0.0
+        return
+    with pytest.raises(AssertionError, match=field):
+        smoke.require_states(x, y, "differs")
+    if err is not None:
+        assert smoke.state_abs_err(x, y) == err
 
 
 @pytest.fixture(scope="module")

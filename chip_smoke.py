@@ -31,7 +31,15 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          the redn, one_sided and two_sided paths, each row
                          checked against the host oracle ``reference_get``;
                          the redn path's chains run on the interpreter
-                         kernel, one launch a window.
+                         kernel, one launch a window, as a split batch
+                         (each shard's table and value rows kept once,
+                         each context's private words staged in shared
+                         memory).  Timed: gets/s, the latency of one GET
+                         at a time (the median of 128 by CUDA events) and
+                         the peak bytes a batch, per path; the stages of
+                         a redn batch (``redn_breakdown``: deliver,
+                         dispatch, the run, combine) with the private
+                         words a context and the bytes delivered.
 3. ``chain_kernel``    — the recycled get server (65,536 buckets, 2^19-word
                          image) through ``ChainEngine(spec, "kernel")``
                          against the interpreter and the plain loop; again
@@ -51,19 +59,29 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          against its plain loop on the card, each run's
                          14 fields bit-equal, clocks included: the hazard
                          corpus of ``tests/_interp_images.py`` (plain,
-                         fault rows, two-writer schedules); the ``kv_get``
+                         fault rows, two-writer schedules); its window
+                         machines as split
+                         batches, and each store that would change a
+                         window word refused; the ``kv_get``
                          store's redn window (4 x 4 x 64 contexts, one
-                         launch, again with any host read inside made an
-                         error by ``torch.cuda.set_sync_debug_mode``); a
+                         launch of a split batch, held to the plain loop's
+                         run of full copies; again under
+                         ``torch.cuda.set_sync_debug_mode``, one launch
+                         and one host read, the window flags'); a
                          (4, 8) SET batch (writer and displacer); a 4-lane
                          SET of hot keys and the 2-writer cut sweep as one
                          batch; the recycled server under a storm of all
                          four fault kinds; 512 ADDLEQ guests on the
-                         interpreter image.  Each timed (CUDA events)
-                         beside the plain loop and its serial floor (four
-                         L2 round trips a step).  Its launches in the JSON
-                         are those of the paths whose chains run on it
-                         (``INTERP_PATHS``).
+                         interpreter image.  Full batches run in global
+                         memory, split ones staged in shared memory.  The
+                         kernel timed by device time from a trace, the
+                         wrapper's call by CUDA events, beside the plain
+                         loop and the serial floor (four round trips a
+                         step: L2 hits for an image in global memory,
+                         shared-memory loads for a split batch's private
+                         words, and an L2 hit a READ).  Its
+                         launches in the JSON are those of the paths
+                         whose chains run on it (``INTERP_PATHS``).
 4. ``chain_straight``  — the straight-line chain kernel against its plain
                          version on 1,024 seeded random programs; timed
                          by device time from a trace.
@@ -391,6 +409,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -636,8 +655,13 @@ def kv_batches(n_shards: int, n_keys: int, batch: int, n_batches: int):
 
 def redn_breakdown(dk, dv, q, neighborhood: int = 8) -> dict:
     """Device time of each stage of one redn batch (ms, CUDA events; the
-    second of two passes, so nothing is cold), and the interpreter's step
-    count: where the path's time goes."""
+    second of two passes, so nothing is cold, and each pass's tensors
+    freed before the next, as a serving loop frees a batch before the
+    next: the allocator's cache then serves every stage), and the
+    interpreter's step count: where the path's time goes.  The deliver
+    stage builds the split batch (``deliver_shared``): the words each
+    context copies (its private segment) and the bytes the stage writes
+    are reported beside it."""
     s, n = dk.shape[0], dk.shape[1]
     srv = programs.build_hopscotch_server(n, dv.shape[2], neighborhood,
                                           device=dk.device)
@@ -647,24 +671,60 @@ def redn_breakdown(dk, dv, q, neighborhood: int = 8) -> dict:
         value, out[name + "_ms"] = timed_call(dk.device, fn)
         return value
 
-    for _ in range(2):
+    for i in range(2):
+        if i:
+            out.update(contexts=int(ran.state.mem.shape[0]),
+                       private_words=int(ran.state.mem.shape[1]),
+                       image_words=int(ran.base.shape[1]),
+                       deliver_bytes=sum(t.numel() * t.element_size()
+                                         for t in ran.state),
+                       steps=int(ran.state.steps.max()))
+            del state, recv, pos, ok, batch, ran, resp
+            torch.cuda.synchronize()
         state = timed("device_state", lambda: srv.device_state(dk, dv))
         dest = store.shard_of(q, s)
         pay = srv.device_payloads(q, hopscotch.bucket_of(q, n))
         recv, pos, ok = timed("dispatch", lambda: transport.dispatch(
             pay, dest, s, q.shape[1]))
-        batch = timed("deliver_many", lambda: srv.engine.deliver_many(
-            state, srv.recv_wq, recv.reshape(s, -1, recv.shape[-1])))
-        batch.steps.zero_()
-        ran = timed("step_loop", lambda: machine.run_batch_in_place(
+        batch = timed("deliver", lambda: machine.deliver_shared(
+            state, srv.recv_wq, recv.reshape(s, -1, recv.shape[-1]),
+            srv.shared_window))
+        batch.state.steps.zero_()
+        ran = timed("step_loop", lambda: machine.run_batch_shared_in_place(
             srv.spec, batch, 256))
-        resp = ran.mem[:, srv.resp_region:srv.resp_region + srv.resp_words]
+        resp = timed("response", lambda: machine.words(
+            ran, srv.resp_region, srv.resp_words))
         timed("combine", lambda: transport.combine(
             resp.reshape(s, s, q.shape[1], -1), dest, pos, ok))
-    out["contexts"] = int(ran.mem.shape[0])
-    out["steps"] = int(ran.steps.max())
+    out["full_copy_bytes"] = out["deliver_bytes"] + out["contexts"] * (
+        out["image_words"] - out["private_words"]) * 4
     out["step_ms"] = out["step_loop_ms"] / max(out["steps"], 1)
     return out
+
+
+def get_latency_ms(dk, dv, keys, method: str, reps: int = 128,
+                   warmup: int = 8) -> float:
+    """The median time of one GET, one request at a time: shard 0 asks
+    ``keys[i]`` (cycled), the other shards send nothing (``live`` False);
+    CUDA events around each ``sharded_get`` call, after ``warmup``
+    calls."""
+    s = dk.shape[0]
+    live = torch.zeros((s, 1), dtype=torch.bool, device=dk.device)
+    live[0] = True
+    times = []
+    for i in range(warmup + reps):
+        q = torch.zeros((s, 1), dtype=torch.int32, device=dk.device)
+        q[0, 0] = int(keys[i % len(keys)])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        store.sharded_get(dk, dv, q, method=method, live=live,
+                          device=dk.device)
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def phase_kv_get(device, n_shards=4, buckets=65536, n_keys=157286, batch=64,
@@ -676,12 +736,22 @@ def phase_kv_get(device, n_shards=4, buckets=65536, n_keys=157286, batch=64,
     dk, dv = kv.device_arrays(device)
     batches = kv_batches(n_shards, n_keys, batch, n_batches)
     refs = [store.reference_get(kv, q) for q in batches]
-    if time_it:
-        torch.cuda.reset_peak_memory_stats()
+    peak = 0
     result = dict(shards=n_shards, buckets_per_shard=buckets, keys=n_keys,
                   load_s=load_s, keys_per_shard=per_shard, hits={},
-                  gets_per_s={})
+                  gets_per_s={}, get_latency_ms={}, peak_bytes={})
     for method in ("redn", "one_sided", "two_sided"):
+        if time_it:
+            # the bytes a batch of this path allocates at its peak, over
+            # what the store holds
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            store.sharded_get(dk, dv, torch.from_numpy(batches[0]).to(device),
+                              method=method, device=device)
+            torch.cuda.synchronize()
+            result["peak_bytes"][method] = (torch.cuda.max_memory_allocated()
+                                            - held)
         hits = 0
         for q, (rf, rv) in zip(batches, refs):
             res = store.sharded_get(dk, dv, torch.from_numpy(q),
@@ -700,8 +770,11 @@ def phase_kv_get(device, n_shards=4, buckets=65536, n_keys=157286, batch=64,
                 reps=1, warmup=1)
             result["gets_per_s"][method] = (n_batches * n_shards * batch
                                             / (ms * 1e-3))
+            result["get_latency_ms"][method] = get_latency_ms(
+                dk, dv, batches[0][0][:-2], method)
+            peak = max(peak, torch.cuda.max_memory_allocated())
     if time_it:
-        result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        result["max_memory_allocated"] = peak
         result["redn_breakdown"] = redn_breakdown(
             dk, dv, torch.from_numpy(batches[0]).to(device))
     return result, kv, dk, dv
@@ -974,7 +1047,7 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
             srv.state, srv.loop_wq, pay, max_steps, plan)
             for pay, plan in cases]
     # the plain loop witnesses both kernels on the same inputs
-    plain = check_interp_runs(device, "killed interp", runs, 0.0)
+    plain = check_interp_runs(device, "killed interp", runs, None)
     del runs
     for (pay, plan), out_k, out_i in zip(cases, outs, outs_i):
         for f in _FAULT_FIELDS:
@@ -1026,10 +1099,42 @@ def phase_chain_faults(device, n_buckets=65536, mem_words=1 << 19,
 # phase 3c: the chain interpreter kernel against its plain loop
 # ---------------------------------------------------------------------------
 
-# dependent L2 round trips a step of the interpreter kernel takes at least:
+# dependent round trips a step of the interpreter kernel takes at least:
 # the head WRs' words (eligibility), the chosen WR's fields, the
-# read-modify-write (or the copy's or scatter's reads), the store
+# read-modify-write (or the copy's or scatter's reads), the store.  Each is
+# an L2 trip for an image in global memory and a shared-memory trip for a
+# split batch's private words, staged, whose window reads (a GET's probe
+# READs and value row) still go to L2
 INTERP_STEP_TRIPS = 4
+
+
+def copy_batch(s):
+    """A copy of a full batch or of a :class:`machine.SharedBatch`."""
+    if isinstance(s, machine.SharedBatch):
+        return machine.SharedBatch(machine._clone(s.state), s.base.clone(),
+                                   s.lo, s.hi)
+    return machine._clone(s)
+
+
+def full_batch(s) -> machine.VMState:
+    """A batch's full images: a split batch materialized."""
+    return machine.materialize(s) if isinstance(s, machine.SharedBatch) \
+        else s
+
+
+def run_state(s) -> machine.VMState:
+    """The per-context fields of a run's batch (private words as mem)."""
+    return s.state if isinstance(s, machine.SharedBatch) else s
+
+
+def kernel_device_ms(fn) -> tuple:
+    """``chain_interp_kernel``'s device time a call of ``fn`` from a trace,
+    and how it was timed (CUDA events around the calls where the trace
+    held no device time)."""
+    prof = device_time(fn, 2, ("chain_interp_kernel",))
+    if prof["timed_by"] == "trace":
+        return prof["by_kernel_ms"]["chain_interp_kernel"], "trace"
+    return prof["device_ms"], "events"
 
 
 def interp_images():
@@ -1051,13 +1156,13 @@ def captured_runs():
 
     def capture(spec, s, max_steps=4096, faults=None, quota=None,
                 writer_slices=None):
-        dev = s.mem.device
+        dev = run_state(s).mem.device
         plan = None if faults is None else type(faults)(*(
             torch.as_tensor(leaf, device=dev).to(torch.int32).clone()
             for leaf in faults))
-        before = machine._clone(s)
+        before = copy_batch(s)
         out = real(spec, s, max_steps, faults, quota, writer_slices)
-        runs.append(dict(spec=spec, before=before, after=machine._clone(out),
+        runs.append(dict(spec=spec, before=before, after=copy_batch(out),
                          kw=dict(max_steps=max_steps, faults=plan,
                                  quota=None if quota is None
                                  else quota.clone(),
@@ -1071,52 +1176,110 @@ def captured_runs():
         interp_ops.run_interp = real
 
 
-def check_interp_runs(device, what: str, runs, step_ms: float) -> dict:
+def interp_floor_ms(cycles, split: bool, steps, reads) -> float:
+    """The serial floor of a run, in ms at the card's maximum SM clock:
+    the row that takes longest at ``INTERP_STEP_TRIPS`` dependent trips a
+    step, each an L2 hit (an image in global memory) or a shared-memory
+    load (a split batch's staged private words), plus, when split, one L2
+    hit for each READ (a window read: a GET's probe).  ``cycles``:
+    ``chase_cycles`` by level, or None off the card (floor 0)."""
+    if cycles is None:
+        return 0.0
+    per_step = cycles["shared" if split else "l2"] * INTERP_STEP_TRIPS
+    rows = steps.double() * per_step
+    if split:
+        rows = rows + reads.double() * cycles["l2"]
+    return float(rows.max()) / max_sm_clock_hz() * 1e3
+
+
+def check_interp_runs(device, what: str, runs, cycles) -> dict:
     """Each captured run's kernel result against the plain loop
     (``machine.plain_run``) on a copy of the same input on the card, all 14
-    fields bit-equal; the kernel (again, on another copy) and the plain
-    loop timed by CUDA events.  ``step_ms``: the serial floor of one step.
-    The bytes bound counts what the run's data needs: each executed WR's 8
-    words read, each changed word of the images and message queues
-    written, each WQ's counters and clocks read and written."""
+    fields bit-equal; a split batch's kernel run is materialized and held
+    to the plain loop's run of the full copies.  The wrapper's call
+    (again, on another copy; ``call_ms``, host work and a split run's
+    flag read included) and the plain loop timed by CUDA events; the
+    kernel alone (``ms``) by device time from a trace, beside the serial
+    floor (:func:`interp_floor_ms`).  The bytes bound counts what
+    the run's data needs: each executed WR's 8 words read, each changed
+    word of the images and message queues written, each WQ's counters and
+    clocks read and written."""
     if not runs:
         raise AssertionError(f"{what}: no interpreter run")
     out = dict(runs=len(runs), rows=0, wqs=sorted({r["spec"].num_wqs
                                                     for r in runs}),
-               steps_max=0, steps_total=0, ms=0.0, plain_ms=0.0,
-               serial_floor_ms=0.0, bytes=0, max_abs_err=0.0)
+               steps_max=0, steps_total=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
+               serial_floor_ms=0.0, bytes=0, max_abs_err=0.0, split=[],
+               timed_by=[])
     for r in runs:
         spec, before, after, kw = r["spec"], r["before"], r["after"], r["kw"]
-        x = machine._clone(before)
+        x = machine._clone(full_batch(before))
         plain, plain_ms = timed_call(device, lambda: machine.plain_run(
             spec, x, **kw))
         out["max_abs_err"] = max(out["max_abs_err"], require_states(
-            after, plain, f"{what}: kernel vs plain loop"))
-        x = machine._clone(before)
+            full_batch(after), plain, f"{what}: kernel vs plain loop"))
+        del x, plain
+        x = copy_batch(before)
         _, ms = timed_call(device, lambda: interp_ops.run_interp(spec, x,
                                                                  **kw))
-        require_states(x, after, f"{what}: kernel run to run")
-        steps = after.steps - before.steps
-        b, n = before.head.shape
-        changed = int((after.mem != before.mem).sum()) + int(
-            (after.msg_buf != before.msg_buf).sum())
+        require_states(run_state(x), run_state(after),
+                       f"{what}: kernel run to run")
+        del x
+        kernel_ms, timed_by = ms, "events"
+        if on_card(device):
+            kernel_ms, timed_by = kernel_device_ms(
+                lambda: interp_ops.run_interp(spec, copy_batch(before), **kw))
+        b0, b1 = run_state(before), run_state(after)
+        steps = b1.steps - b0.steps
+        reads = b1.verb_counts[:, isa.READ] - b0.verb_counts[:, isa.READ]
+        b, n = b0.head.shape
+        changed = int((b1.mem != b0.mem).sum()) + int(
+            (b1.msg_buf != b0.msg_buf).sum())
+        split = isinstance(before, machine.SharedBatch)
         out["rows"] += b
         out["steps_max"] = max(out["steps_max"], int(steps.max()))
         out["steps_total"] += int(steps.sum())
-        out["ms"] += ms
+        out["ms"] += kernel_ms
+        out["call_ms"] += ms
+        out["timed_by"].append(timed_by)
         out["plain_ms"] += plain_ms
-        out["serial_floor_ms"] += int(steps.max()) * step_ms
+        out["serial_floor_ms"] += interp_floor_ms(
+            cycles, split, steps, reads)
         out["bytes"] += 4 * (8 * int(steps.sum()) + changed + 2 * b * 9 * n)
-        del x, plain
+        out["split"].append(split)
     out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
     return out
 
 
-def redn_under_sync_check(device, run) -> int:
-    """The captured redn run again, through ``machine.run_batch_in_place``
-    under ``torch.cuda.set_sync_debug_mode("error")`` (any host read inside
-    raises): returns the launches it made."""
-    x = machine._clone(run["before"])
+def on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def redn_under_sync_check(device, run) -> dict:
+    """The captured redn run (a split batch) again, through
+    ``machine.run_batch_shared_in_place`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``, which warns at each host
+    read: the run must make one launch and one host read, the window
+    flags' after the launch.  The full copies of the same run, through
+    ``machine.run_batch_in_place`` under ``"error"`` (any host read
+    raises), must make one launch and none.  Returns the counts."""
+    x = copy_batch(run["before"])
+    torch.cuda.synchronize()
+    before = interp_ops.launches["run_interp"]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            machine.run_batch_shared_in_place(run["spec"], x,
+                                              run["kw"]["max_steps"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = dict(split_launches=interp_ops.launches["run_interp"] - before,
+               split_host_reads=sum("synchroniz" in str(w.message).lower()
+                                    for w in caught))
+    require_states(run_state(x), run_state(run["after"]),
+                   "redn under the sync check")
+    x = machine._clone(full_batch(run["before"]))
     torch.cuda.synchronize()
     before = interp_ops.launches["run_interp"]
     torch.cuda.set_sync_debug_mode("error")
@@ -1124,9 +1287,9 @@ def redn_under_sync_check(device, run) -> int:
         machine.run_batch_in_place(run["spec"], x, run["kw"]["max_steps"])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    n = interp_ops.launches["run_interp"] - before
-    require_states(x, run["after"], "redn under the sync check")
-    return n
+    out["full_launches"] = interp_ops.launches["run_interp"] - before
+    require_states(x, full_batch(run["after"]), "full redn copies")
+    return out
 
 
 def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
@@ -1142,17 +1305,18 @@ def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
     the writer and displacer chains); a 4-lane SET of hot keys (the racing
     writers' group, scheduled) and the 2-writer cut sweep as one batch;
     the recycled get server under a storm of all four fault kinds; and
-    ADDLEQ guests on the interpreter image.  Each timed beside the plain
-    loop and its serial floor."""
+    ADDLEQ guests on the interpreter image.  The redn window runs as a split batch (the shards' tables and
+    value rows kept once, each context's private words staged), held to
+    the plain loop's run of the full copies; the corpus's window
+    machines run split too, and each store that would change a window
+    word must raise.  Each timed beside the plain loop and its serial
+    floor."""
     dev = torch.device(device)
     images = interp_images()
     on_card = dev.type == "cuda"
-    if on_card:
-        cycles = chain_ops.chase_cycles("l2", device)
-        step_ms = INTERP_STEP_TRIPS * cycles / max_sm_clock_hz() * 1e3
-    else:
-        cycles, step_ms = None, 0.0
-    result = dict(l2_cycles=cycles, step_floor_ms=step_ms, cases={})
+    cycles = ({level: chain_ops.chase_cycles(level, device)
+               for level in chain_ops.CHASE_LEVELS} if on_card else None)
+    result = dict(load_cycles=cycles, cases={})
     s_, n = dk.shape[0], dk.shape[1]
     h, v = kv.neighborhood, dv.shape[2]
     rng = np.random.RandomState(seed)
@@ -1161,7 +1325,7 @@ def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
         with captured_runs() as runs:
             fn()
         result["cases"][name] = check_interp_runs(device, name, runs,
-                                                  step_ms)
+                                                  cycles)
         return runs
 
     # the hazard corpus
@@ -1178,20 +1342,50 @@ def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
         machine.run_scheduled(spec, corpus, machine.Schedule(quota),
                               images.SLICES, images.MAX_STEPS)))
 
-    # a redn GET window: one launch for the whole window
+    # the window machines as split batches (two contexts an image), and
+    # each store that would change a window word, refused
+    def split(machines):
+        return machine.split(convert.vmstate_from_numpy(
+            images.stack(images.repeat(machines, 2)), dev), images.WINDOW, 2)
+
+    case("window", lambda: [machine.run_batch_shared_in_place(
+        spec, split(images.window_machines(i)), steps)
+        for i in range(2) for steps in (images.MAX_STEPS, 4096)])
+    refused = 0
+    for bad in images.window_raisers(seed % 1000):
+        try:
+            machine.run_batch_shared_in_place(spec, split([bad]), 4096)
+        except ValueError as e:
+            if "rows [0, 1]" not in str(e):
+                raise AssertionError(f"window raise names other rows: {e}")
+            refused += 1
+    if refused != len(images.window_raisers(0)):
+        raise AssertionError(f"{refused} window stores refused, not all")
+    result["window_refused"] = refused
+
+    # a redn GET window: one launch for the whole window, a split batch
     q = torch.from_numpy(kv_batches(s_, n_keys, batch, 1)[0]).to(dev)
     runs = case("redn", lambda: store.sharded_get(dk, dv, q, method="redn",
                                                   device=device))
-    if len(runs) != 1:
+    if len(runs) != 1 or not isinstance(runs[0]["before"],
+                                        machine.SharedBatch):
         raise AssertionError(f"a redn batch made {len(runs)} interpreter "
-                             f"runs, not one")
-    result["redn_contexts"] = int(runs[0]["before"].mem.shape[0])
+                             f"runs, not one of a split batch")
+    red = runs[0]["before"]
+    result.update(redn_contexts=int(red.state.mem.shape[0]),
+                  redn_private_words=int(red.state.mem.shape[1]),
+                  redn_image_words=int(red.base.shape[1]),
+                  redn_window=(red.lo, red.hi))
+    if red.state.mem.shape[1] >= red.base.shape[1]:
+        raise AssertionError("the redn contexts copy their whole image")
     if on_card:
-        result["redn_sync_checked_launches"] = redn_under_sync_check(
-            device, runs[0])
-        if result["redn_sync_checked_launches"] != 1:
-            raise AssertionError("the redn run is not one launch")
-    del runs
+        result["redn_sync_check"] = chk = redn_under_sync_check(device,
+                                                               runs[0])
+        if chk != dict(split_launches=1, split_host_reads=1,
+                       full_launches=1):
+            raise AssertionError(f"the redn run is not one launch and one "
+                                 f"host read: {chk}")
+    del runs, red
 
     # a (S, 8) SET batch: updates, inserts and displacements
     loaded = np.concatenate([t.keys[t.keys != 0] for t in kv.tables])
@@ -5266,8 +5460,9 @@ def hgmma_by_head_dim(sass: str, kernel: str = "flash_wgmma_kernel",
 
 def template_args(mangled: str) -> list:
     """The template arguments of a mangled kernel name's instantiation,
-    from its name's ``I ... E`` list: ints (``Li64E``) as they are,
-    float as ``float``, __nv_bfloat16 as ``bf16``."""
+    from its name's ``I ... E`` list: ints (``Li64E``) as they are, bools
+    (``Lb1E``) as ``true`` / ``false``, float as ``float``, __nv_bfloat16
+    as ``bf16``."""
     args, i = [], 1
     if not mangled.startswith("I"):
         return args
@@ -5275,6 +5470,10 @@ def template_args(mangled: str) -> list:
         if mangled.startswith("Li", i):
             j = mangled.index("E", i)
             args.append(mangled[i + 2:j])
+            i = j + 1
+        elif mangled.startswith("Lb", i):
+            j = mangled.index("E", i)
+            args.append("true" if mangled[i + 2:j] == "1" else "false")
             i = j + 1
         elif mangled[i] == "f":
             args.append("float")
@@ -5390,6 +5589,14 @@ def main() -> int:
     print(f"[card] the recurrences' backward kernels: ptxas {rec_ptxas}",
           flush=True)
     check_spill_free(rec_ptxas, RECURRENT_BWD_KERNELS)
+    interp_ptxas = ptxas_report(logs.get("chain_interp", ""),
+                                ("chain_interp_kernel",))
+    print(f"[card] chain_interp: ptxas of each <one warp, split> "
+          f"instance {interp_ptxas}", flush=True)
+    check_spill_free(interp_ptxas, ("chain_interp_kernel",))
+    if len(interp_ptxas) != 4:
+        raise AssertionError(f"{len(interp_ptxas)} chain_interp_kernel "
+                             f"instances in the ptxas report, not 4")
     lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
     if lib.flash_attention_wgmma_bwd_keys(256) != fa_ops.BWD_KEYS_256:
         raise AssertionError(
@@ -5411,6 +5618,21 @@ def main() -> int:
 
     run_phase(phases, "kv_get", kv_get)
     kv, dk, dv = stored
+    g_ = phases["kv_get"]
+    bd = g_["redn_breakdown"]
+    print(f"[times] kv_get ({card}): gets/s by path " + ", ".join(
+        f"{m} {x:.1f}" for m, x in g_["gets_per_s"].items())
+          + "; latency a GET (median ms, one request at a time) " + ", ".join(
+              f"{m} {x:.4f}" for m, x in g_["get_latency_ms"].items())
+          + "; peak bytes a batch " + ", ".join(
+              f"{m} {x}" for m, x in g_["peak_bytes"].items())
+          + "; redn stages (ms): " + ", ".join(
+              f"{k[:-3]} {x:.4f}" for k, x in bd.items()
+              if k.endswith("_ms") and k != "step_ms")
+          + f"; {bd['contexts']} contexts of {bd['private_words']} private "
+          f"words (images of {bd['image_words']}), {bd['deliver_bytes']} "
+          f"bytes delivered (full copies: {bd['full_copy_bytes']})",
+          flush=True)
     run_phase(phases, "kv_get_group",
               lambda: phase_kv_get_group(device, kv, dk, dv))
     g_ = phases["kv_get_group"]
@@ -5426,13 +5648,20 @@ def main() -> int:
         device, kv, dk, dv))
     ci = phases["chain_interp"]
     print(f"[times] chain_interp ({card}): the kernel against the plain loop"
-          f" (ms, CUDA events), serial floor at {INTERP_STEP_TRIPS} L2 trips "
-          f"of {ci['l2_cycles']:.1f} cycles a step: " + "; ".join(
+          f" (ms, CUDA events), serial floor at {INTERP_STEP_TRIPS} trips a "
+          f"step (cycles {ci['load_cycles']}; split batches: shared-memory "
+          f"trips and an L2 trip a READ): " + "; ".join(
               f"{k} {x['runs']} runs of {x['rows']} rows, WQs {x['wqs']}, "
-              f"{x['steps_max']} steps max: kernel {x['ms']:.4f}, plain "
-              f"{x['plain_ms']:.4f}, floor {x['serial_floor_ms']:.4f}, "
+              f"split {x['split']}, "
+              f"{x['steps_max']} steps max: kernel {x['ms']:.4f} (by "
+              f"{x['timed_by']}; the wrapper's call {x['call_ms']:.4f}), "
+              f"plain {x['plain_ms']:.4f}, floor {x['serial_floor_ms']:.4f}, "
               f"bytes bound {x['bound_ms']:.6f}"
-              for k, x in ci["cases"].items()), flush=True)
+              for k, x in ci["cases"].items())
+          + f"; redn: {ci['redn_contexts']} contexts of "
+          f"{ci['redn_private_words']} private words (images of "
+          f"{ci['redn_image_words']}, window {ci['redn_window']}), "
+          f"{ci['window_refused']} window stores refused", flush=True)
     torch.cuda.empty_cache()
     run_phase(phases, "chain_straight", lambda: phase_chain_straight(device))
     run_phase(phases, "hopscotch_probe",
@@ -5648,6 +5877,7 @@ def main() -> int:
                          ("rglru_bwd_kernel", RGLRU_BWD_KERNELS)):
         phases[key]["ptxas"] = {k: r for k, r in rec_ptxas.items()
                                 if k.startswith(kernels)}
+    phases["chain_interp"]["ptxas"] = interp_ptxas
     # the flash backward at recurrentgemma-9b's shape (D 256, on the pair
     # bwd_variant picks) joins the backward's timed shapes
     phases["flash_bwd_kernel"]["shapes"]["recurrentgemma-9b/bfloat16"] = \

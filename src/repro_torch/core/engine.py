@@ -4,6 +4,9 @@
 * :meth:`ChainEngine.run_many` — one :func:`machine.deliver_many` (stack N
   payloads into a batch of machines) followed by one batched run: the
   engine behind ``HashLookupOffload.get_many`` and the store's redn path.
+  Given a program's shared window, the interpreter backends deliver a
+  :class:`machine.SharedBatch` instead (:func:`machine.deliver_shared`):
+  each context copies only its private words.
 * :meth:`ChainEngine.serve_stream` — requests chained through *persistent*
   state (the §3.4 recycled-WQ server): the same responses and on-chain lap
   counters as N sequential ``serve()`` calls.
@@ -162,14 +165,27 @@ class ChainEngine:
             state, wq, _pad_payloads(payloads, state.mem.device))
 
     def run_many(self, state: machine.VMState, wq: int, payloads,
-                 max_steps: int = 4096, faults=None) -> machine.VMState:
+                 max_steps: int = 4096, faults=None, window=None):
         """Deliver N payloads to `wq` and run all N contexts, batched.
 
         Every context gets ``max_steps`` of fresh fuel: the cumulative
         ``steps`` counter of a reused persistent state is reset, exactly as
         the single-request ``serve()`` path does.  ``faults`` rows (leading
         dim N) inject per-context faults.
+
+        ``window`` (``(lo, hi)``, the program's words that no chain
+        writes, e.g. ``HopscotchShardServer.shared_window``): on the
+        interpreter backends the contexts share those words of their
+        image and the result is a :class:`machine.SharedBatch` (read it
+        with :func:`machine.words`); the kernel backend takes full
+        images.
         """
+        if window is not None and self.backend in _INTERP_BACKENDS:
+            batch = machine.deliver_shared(
+                state, wq, _pad_payloads(payloads, state.mem.device), window)
+            batch.state.steps.zero_()
+            return machine.run_batch_shared_in_place(self.spec, batch,
+                                                     max_steps, faults)
         batch = self.deliver_many(state, wq, payloads)
         batch.steps.zero_()
         if self.backend in _INTERP_BACKENDS:

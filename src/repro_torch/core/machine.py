@@ -27,6 +27,12 @@ exactly as a vmapped ``while_loop`` freezes it.  The step applies its
 updates in place, on the running rows only, and reads or writes only the
 words a WR touches — never a full-image select.
 
+A batch of contexts that start from a few images may keep each image's
+words that no chain writes once (a :class:`SharedBatch`, made by
+:func:`deliver_shared`): each context then holds only its private words,
+and :func:`run_batch_shared_in_place` runs it bit-equal to the full batch
+(:func:`materialize`), refusing a store that would change a shared word.
+
 Out-of-range addresses follow the JAX reference bit for bit: a read clamps
 its (negative-wrapped) index into the image, a scalar write past the end
 is dropped, and a 16-word block's start is wrapped and clamped into
@@ -192,6 +198,148 @@ def deliver_many(state: VMState, wq: int, payloads) -> VMState:
     return batch
 
 
+class SharedBatch(NamedTuple):
+    """A batch of contexts that start from G images and keep each image's
+    words ``[lo, hi)``, its **shared window**, once.
+
+    ``base`` (G, L) holds the images; rows ``g*N .. g*N+N-1`` of the
+    batch start from ``base[g]`` (N = B / G) and read its window words,
+    which no run may change.  ``state.mem`` (B, P) holds each context's
+    other words, its private segment, in image order (``P = L - (hi -
+    lo)``: the words below ``lo``, then those from ``hi`` up); the other
+    13 fields are per context as in a full batch.  :func:`materialize`
+    gives the full ``(B, L)`` batch, :func:`words` a region of every
+    context's image."""
+    state: VMState
+    base: torch.Tensor
+    lo: int
+    hi: int
+
+    @property
+    def per(self) -> int:
+        """Contexts a base image."""
+        return self.state.mem.shape[0] // max(self.base.shape[0], 1)
+
+
+def deliver_shared(state: VMState, wq: int, payloads,
+                   window) -> SharedBatch:
+    """:func:`deliver_many` into a :class:`SharedBatch`: the words
+    ``window = (lo, hi)`` of every machine's image stay in ``state.mem``,
+    read-only to the run, and each context copies only its private
+    segment and the 13 other fields.
+
+    ``payloads`` is ``(G, N, k)`` against a ``state`` stacked over G
+    machines, or ``(N, k)`` against one machine; row ``g*N + i`` receives
+    ``payloads[g, i]`` on ``wq``, its slot taken from machine ``g``'s
+    ``msg_tail``.  The caller keeps ``state.mem`` unchanged while the
+    batch lives."""
+    p = torch.as_tensor(payloads, device=state.mem.device)
+    if p.ndim == 2 and state.mem.ndim == 1:
+        state, p = _batched(state), p[None]
+    if p.ndim != 3:
+        raise ValueError(
+            f"payloads must be (N, k) against one machine or (G, N, k) "
+            f"against G, got shape {tuple(p.shape)} for mem of shape "
+            f"{tuple(state.mem.shape)}")
+    g, n = p.shape[:2]
+    if state.mem.ndim != 2 or state.mem.shape[0] != g:
+        raise ValueError(
+            f"(G, N, k) payloads need a state stacked over G={g} machines, "
+            f"got mem of shape {tuple(state.mem.shape)}")
+    length = state.mem.shape[1]
+    lo, hi = (int(x) for x in window)
+    if not 0 <= lo <= hi <= length:
+        raise ValueError(f"a window [{lo}, {hi}) outside an image of "
+                         f"{length} words")
+    pays = pad_payload_rows(p.to(torch.int32)).reshape(g * n, isa.MSG_WORDS)
+    base = state.mem.contiguous()
+    private = torch.cat([base[:, :lo], base[:, hi:]], dim=1)
+
+    def rows(a):                         # a fresh (G * N, ...) copy
+        out = a.new_empty((g * n,) + a.shape[1:])
+        out.view((g, n) + a.shape[1:]).copy_(a.unsqueeze(1))
+        return out
+
+    batch = VMState(*(rows(a) for a in state._replace(mem=private)))
+    slot = torch.remainder(batch.msg_tail[:, wq],
+                           state.msg_buf.shape[-2]).long()
+    batch.msg_buf[_arange(g * n, pays.device), wq, slot] = pays
+    batch.msg_tail[:, wq] += 1
+    return SharedBatch(batch, base, lo, hi)
+
+
+def split(state: VMState, window, per: int = 1) -> SharedBatch:
+    """The :class:`SharedBatch` of a full batch whose rows ``g*per ..
+    g*per+per-1`` hold one image's window words ``window = (lo, hi)``
+    alike (raises if they differ): row ``g*per``'s image becomes base
+    ``g``.  The 13 other fields are ``state``'s own tensors."""
+    lo, hi = (int(x) for x in window)
+    b, length = state.mem.shape
+    if per < 1 or b % per or not 0 <= lo <= hi <= length:
+        raise ValueError(f"{b} rows of {length} words do not split into "
+                         f"images of {per} rows and a window [{lo}, {hi})")
+    base = state.mem[::per].contiguous()
+    batch = SharedBatch(state._replace(mem=torch.cat(
+        [state.mem[:, :lo], state.mem[:, hi:]], dim=1)), base, lo, hi)
+    if window_changes(batch, state.mem):
+        raise ValueError(f"rows of one image differ in the window "
+                         f"[{lo}, {hi})")
+    return batch
+
+
+def _base_rows(batch: SharedBatch, lo: int, hi: int) -> torch.Tensor:
+    """Words ``[lo, hi)`` of each context's base image, (B, hi - lo)."""
+    return batch.base[:, lo:hi].repeat_interleave(batch.per, dim=0)
+
+
+def words(batch, addr: int, n: int) -> torch.Tensor:
+    """Words ``[addr, addr + n)`` of every context's image, (B, n): from a
+    :class:`SharedBatch` (private words and window words alike) or from a
+    full batch."""
+    if isinstance(batch, VMState):
+        return batch.mem[:, addr:addr + n]
+    length = batch.base.shape[1]
+    if not 0 <= addr <= addr + n <= length:
+        raise ValueError(f"words [{addr}, {addr + n}) outside an image of "
+                         f"{length} words")
+    lo, hi, end = batch.lo, batch.hi, addr + n
+    win = hi - lo
+    parts = []
+    if addr < lo:
+        parts.append(batch.state.mem[:, addr:min(end, lo)])
+    if max(addr, lo) < min(end, hi):
+        parts.append(_base_rows(batch, max(addr, lo), min(end, hi)))
+    if end > hi:
+        parts.append(batch.state.mem[:, max(addr, hi) - win:end - win])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def materialize(batch: SharedBatch) -> VMState:
+    """The full batch: every context's image ``(B, L)``, its window words
+    from its base image; the other 13 fields are the batch's own
+    tensors."""
+    lo, hi = batch.lo, batch.hi
+    mem = batch.base.repeat_interleave(batch.per, dim=0)
+    mem[:, :lo] = batch.state.mem[:, :lo]
+    mem[:, hi:] = batch.state.mem[:, lo:]
+    return batch.state._replace(mem=mem)
+
+
+def window_changes(batch: SharedBatch, mem: torch.Tensor) -> list:
+    """The rows of full images ``mem`` (B, L) whose window words differ
+    from their base image's."""
+    lo, hi = batch.lo, batch.hi
+    diff = (mem[:, lo:hi] != _base_rows(batch, lo, hi)).any(dim=1)
+    return torch.nonzero(diff).flatten().tolist()
+
+
+def window_error(batch: SharedBatch, rows) -> ValueError:
+    return ValueError(
+        f"rows {list(rows)} would change words of the shared window "
+        f"[{batch.lo}, {batch.hi}), which the batch keeps once for "
+        f"{batch.per} contexts an image: run such a chain on full images")
+
+
 def enable(state: VMState, wq: int, absolute_count: int) -> VMState:
     """Host-side ENABLE (used when the trigger comes from the driver)."""
     en = state.enable_limit.clone()
@@ -223,8 +371,27 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, device=device)
 
 
+class _Watch(NamedTuple):
+    """The window ``[lo, hi)`` of a run's images that no store may change,
+    and a flag per absolute row, set where a store would (a store of the
+    value the word holds changes nothing)."""
+    lo: int
+    hi: int
+    changed: torch.Tensor      # bool[B]
+
+
+def _flag_changes(watch: Optional[_Watch], rows, addr, new, cur) -> None:
+    """Flag the ``rows`` whose store of ``new`` over ``cur`` at image
+    index ``addr`` (per row, or (rows, k)) changes a watched word."""
+    if watch is None:
+        return
+    hit = (addr >= watch.lo) & (addr < watch.hi) & (new != cur)
+    watch.changed[rows] |= hit.any(1) if hit.ndim > 1 else hit
+
+
 def masked_copy(mem: torch.Tensor, rows: torch.Tensor, src: torch.Tensor,
-                dst: torch.Tensor, ln: torch.Tensor) -> None:
+                dst: torch.Tensor, ln: torch.Tensor,
+                watch: Optional[_Watch] = None) -> None:
     """In place, per row: ``mem[r, dst:dst+ln] = mem[r, src:src+ln]`` for
     ln <= MAX_COPY.  Both 16-word blocks are placed by :func:`block_start`
     independently and the source block is read before anything is written;
@@ -237,23 +404,28 @@ def masked_copy(mem: torch.Tensor, rows: torch.Tensor, src: torch.Tensor,
     cd = block_start(dst, L, isa.MAX_COPY)[:, None] + ar
     blk = mem[rc, cs]
     cur = mem[rc, cd]
-    mem[rc, cd] = torch.where(ar < ln[:, None], blk, cur)
+    new = torch.where(ar < ln[:, None], blk, cur)
+    _flag_changes(watch, rows, cd, new, cur)
+    mem[rc, cd] = new
 
 
 def store_where(mem: torch.Tensor, rows: torch.Tensor, addr: torch.Tensor,
-                value: torch.Tensor, pred: torch.Tensor) -> None:
+                value: torch.Tensor, pred: torch.Tensor,
+                watch: Optional[_Watch] = None) -> None:
     """In place, per row: ``mem[r, addr] = value`` where ``pred`` and the
     (non-negative) address lies in the image; dropped otherwise."""
     L = mem.shape[-1]
     a = read_index(addr, L)
     cur = mem[rows, a]
-    mem[rows, a] = torch.where(pred & (addr < L), value, cur)
+    new = torch.where(pred & (addr < L), value, cur)
+    _flag_changes(watch, rows, a, new, cur)
+    mem[rows, a] = new
 
 
 def maybe_store(mem: torch.Tensor, rows: torch.Tensor, addr: torch.Tensor,
-                value: torch.Tensor) -> None:
+                value: torch.Tensor, watch: Optional[_Watch] = None) -> None:
     """mem[addr] = value if addr >= 0 (atomic return-old path)."""
-    store_where(mem, rows, addr.clamp_min(0), value, addr >= 0)
+    store_where(mem, rows, addr.clamp_min(0), value, addr >= 0, watch)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +510,7 @@ def _needs(opcode, opb):
 
 
 def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
-             need, fault=None) -> None:
+             need, fault=None, watch: Optional[_Watch] = None) -> None:
     """Apply one scheduling step to the running ``rows`` of ``s``, in place.
 
     Each verb decomposes into micro-effects applied in the reference's
@@ -351,7 +523,8 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
     running row (see :func:`_fault_masks`): a spurious CAS miss keeps the
     old value (the return-old store still reports it), a zeroed ENABLE
     raises no watermark, and a suppressed WR (already rewritten to NOOP)
-    signals no completion.
+    signals no completion.  ``watch`` flags the rows whose stores would
+    change a watched word (:class:`_Watch`); the stores are made.
     """
     mem = s.mem
     L = mem.shape[-1]
@@ -366,7 +539,8 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
     if need_copy:
         is_copy = ((opcode == isa.WRITE) | (opcode == isa.READ)
                    | ((opcode == isa.SEND) & (opb < 0)))
-        masked_copy(mem, rows, src, dst, torch.where(is_copy, ln, 0))
+        masked_copy(mem, rows, src, dst, torch.where(is_copy, ln, 0),
+                    watch)
         s.responses[rows] += ((opcode == isa.SEND) & (opb < 0)).int()
 
     if need_rmw:
@@ -381,9 +555,10 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
         sval = torch.where(opcode == isa.ADD, old + opa, sval)
         sval = torch.where(opcode == isa.MAX, torch.maximum(old, opa), sval)
         sval = torch.where(opcode == isa.MIN, torch.minimum(old, opa), sval)
-        store_where(mem, rows, d, sval, torch.ones_like(d, dtype=torch.bool))
+        store_where(mem, rows, d, sval, torch.ones_like(d, dtype=torch.bool),
+                    watch)
         ret = torch.where((opcode == isa.CAS) | (opcode == isa.ADD), src, -1)
-        maybe_store(mem, rows, ret, old)
+        maybe_store(mem, rows, ret, old, watch)
 
     if need_recv:
         is_recv = opcode == isa.RECV
@@ -395,7 +570,7 @@ def _execute(geo: _Geometry, s: VMState, rows, w, fields, opcode,
             0, isa.MAX_SCATTER), 0)
         for i in range(isa.MAX_SCATTER):
             sd = mem[rows, read_index(a + (1 + i), L)].clamp_min(0)
-            store_where(mem, rows, sd, payload[:, i], i < n_scatter)
+            store_where(mem, rows, sd, payload[:, i], i < n_scatter, watch)
         s.msg_head[rows, w] += is_recv.int()
 
     if need_send:
@@ -479,7 +654,8 @@ def _fault_masks(f: _Faults, s: VMState, rows, opcode):
 def _run_rows(geo: _Geometry, s: VMState, rows: torch.Tensor,
               max_steps: int, f: Optional[_Faults] = None,
               mask: Optional[torch.Tensor] = None,
-              quota: Optional[torch.Tensor] = None) -> None:
+              quota: Optional[torch.Tensor] = None,
+              watch: Optional[_Watch] = None) -> None:
     """Step the machines ``rows`` of ``s`` in place until none can run.
 
     A row runs while it has an eligible WQ, is not halted and its
@@ -488,7 +664,8 @@ def _run_rows(geo: _Geometry, s: VMState, rows: torch.Tensor,
     :func:`run_batch_in_place`).  ``mask`` (bool[N]) restricts
     eligibility, and so the scheduler, to one writer's WQs; ``quota``
     (int32 per absolute row, negative = unlimited) caps the steps each
-    row takes in this call."""
+    row takes in this call.  ``watch`` (see :func:`_execute`) flags the
+    rows whose stores would change its window."""
     k = None if quota is None else torch.zeros_like(quota)
     while rows.numel():
         eligible, addrs = _eligibility(geo, s, rows)
@@ -519,7 +696,7 @@ def _run_rows(geo: _Geometry, s: VMState, rows: torch.Tensor,
             if masks is not None:
                 masks = tuple(m[sel] for m in masks)
         _execute(geo, s, rows, w, fields, opcode,
-                 tuple(bool(x) for x in flags[:, 1:].any(0)), masks)
+                 tuple(bool(x) for x in flags[:, 1:].any(0)), masks, watch)
         if f is not None:
             f.cas_seen[rows] += (opcode == isa.CAS).int()
             f.enable_seen[rows] += (opcode == isa.ENABLE).int()
@@ -574,6 +751,46 @@ def plain_run(spec: MachineSpec, s: VMState, max_steps: int, faults=None,
                       max_steps, mask=mask,
                       quota=quota[:, r, w].contiguous())
     return s
+
+
+def run_batch_shared_in_place(spec: MachineSpec, batch: SharedBatch,
+                              max_steps: int = 4096,
+                              faults=None) -> SharedBatch:
+    """:func:`run_batch_in_place` on a :class:`SharedBatch`: every context
+    runs to its own stop, updating its private words and its 13 other
+    fields in place, bit-equal to the run of :func:`materialize`'s full
+    batch.  A store that would change a word of the shared window raises
+    ``ValueError`` naming the rows (a store of the value the word holds
+    changes nothing and runs).
+
+    On the card one launch of the interpreter kernel, which stages each
+    context's private words in shared memory; on the CPU its plain
+    version, :func:`plain_run_shared`."""
+    from ..kernels.chain_interp import ops as interp_ops
+    return interp_ops.run_interp(spec, batch, max_steps, faults)
+
+
+def plain_run_shared(spec: MachineSpec, batch: SharedBatch, max_steps: int,
+                     faults=None) -> SharedBatch:
+    """The plain version of the kernel's run of a :class:`SharedBatch`:
+    :func:`plain_run`'s loop over the materialized batch, watching every
+    store as the kernel does, a ``ValueError`` naming the rows with a
+    store that would change a window word (also one a later store
+    restores), and the private words split back."""
+    full = materialize(batch)
+    dev, b = full.mem.device, full.mem.shape[0]
+    watch = _Watch(batch.lo, batch.hi,
+                   torch.zeros(b, dtype=torch.bool, device=dev))
+    f = None if faults is None else _fault_columns(faults, b, dev)
+    _run_rows(_geometry(spec, dev), full, torch.arange(b, device=dev),
+              max_steps, f, watch=watch)
+    changed = torch.nonzero(watch.changed).flatten().tolist()
+    if changed:
+        raise window_error(batch, changed)
+    lo, hi = batch.lo, batch.hi
+    batch.state.mem[:, :lo] = full.mem[:, :lo]
+    batch.state.mem[:, lo:] = full.mem[:, hi:]
+    return batch
 
 
 def _batched(state: VMState) -> VMState:

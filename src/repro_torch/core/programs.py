@@ -351,6 +351,17 @@ class HopscotchShardServer:
         return self.val_len + 1            # [found, value...]
 
     @property
+    def shared_window(self) -> Tuple[int, int]:
+        """``(lo, hi)``: the table and the value rows, which the get chain
+        only reads, contiguous because the data grows down.  A batch of
+        gets keeps these words once a shard
+        (:func:`machine.deliver_shared`); each context copies only the
+        code, the scatter table, the response row and (TTL) the key,
+        ``-now`` and ``e`` cells, which all lie outside."""
+        return (self.table_base,
+                self.values_base + self.n_buckets * (self.val_len + 1))
+
+    @property
     def engine(self) -> ChainEngine:
         return ChainEngine.for_spec(self.spec)
 
@@ -399,13 +410,14 @@ class HopscotchShardServer:
     def get_many(self, keys: torch.Tensor, vals: torch.Tensor,
                  queries: torch.Tensor, home: torch.Tensor,
                  max_steps: int = 96, exp=None, now=None):
-        """Single-machine batched get.  Returns (found bool (B,), values
-        (B, val_len))."""
+        """Single-machine batched get, the contexts sharing the table and
+        value rows (:attr:`shared_window`).  Returns (found bool (B,),
+        values (B, val_len))."""
         st = self.device_state(keys, vals, exp)
         out = self.engine.run_many(
             st, self.recv_wq, self.device_payloads(queries, home, now),
-            max_steps)
-        resp = out.mem[:, self.resp_region:self.resp_region + self.resp_words]
+            max_steps, window=self.shared_window)
+        resp = machine.words(out, self.resp_region, self.resp_words)
         return resp[:, 0] > 0, resp[:, 1:]
 
 
@@ -461,6 +473,7 @@ def _build_hopscotch_server(n_buckets: int, val_len: int, neighborhood: int,
     table = p.alloc(n_buckets * BUCKET_WORDS, tbl_init, "table")
     key_w = p.word(0, "key") if ttl else None
     negnow_w = p.word(0, "negnow") if ttl else None
+    cells = [key_w, negnow_w] if ttl else []     # the TTL cells it writes
 
     rq = p.add_wq(2)
     cas_opa_addrs, read_src_addrs = [], []
@@ -493,6 +506,7 @@ def _build_hopscotch_server(n_buckets: int, val_len: int, neighborhood: int,
         # tester iff expired.  Chained self-enables fence the tester (10)
         # and the response (12) behind the arithmetic.
         e_cell = p.word(0, f"e{pi}")
+        cells.append(e_cell)
         wq1 = p.add_wq(4, ordering=isa.ORD_DOORBELL, managed=True)
         wq2 = p.add_wq(13, ordering=isa.ORD_DOORBELL, managed=True,
                        initial_enable=10)
@@ -538,6 +552,18 @@ def _build_hopscotch_server(n_buckets: int, val_len: int, neighborhood: int,
     tbl = p.scatter_table(
         ([key_w, negnow_w] if ttl else cas_opa_addrs) + read_src_addrs)
     rq.recv(scatter_table=tbl, tag="hs.recv")
+    # the shared window: the table then the value rows, and nothing the
+    # chain writes (code, scatter table, response row, TTL cells) inside
+    lo, hi = table, values + n_buckets * row_stride
+    if table + n_buckets * BUCKET_WORDS != values:
+        raise ValueError(f"the table [{table}, ...) and the value rows at "
+                         f"{values} are not contiguous")
+    written = [(0, p._code_top), (resp, resp + row_stride)]
+    written += [(a, a + 1) for a in cells]
+    for a, b in written:
+        if a < hi and b > lo:
+            raise ValueError(f"words [{a}, {b}) the chain writes lie in "
+                             f"the shared window [{lo}, {hi})")
 
     spec, st0 = p.finalize(device=dev)
     return HopscotchShardServer(

@@ -30,15 +30,35 @@
 //     the image is dropped, a 16-word block's start is wrapped and clamped
 //     into [0, L - 16].
 //
-// Bound: a step is a chain of dependent memory round trips (the head WRs'
-// words for eligibility, the chosen WR's fields, the read-modify-write or
-// scatter, the store), each at best an L2 hit, so a row is bound by its steps
-// times about four L2 latencies: a serial floor, not bytes or operations.
-// Rows are independent machines, one block each, spread over the SMs.
+// The image.  A row's image of L words may be split (machine.SharedBatch):
+// the words [lo, hi), the shared window, are read from its shard's image
+// base[row / per], which every context of the shard reads and none writes;
+// the other P = L - (hi - lo) words are the row's private segment, (B, P).
+// A full batch (P = L) runs the instances without a window.  Every access
+// first applies the index rules above over the virtual length L, then one
+// translation maps the word to the private segment or to base (a copy
+// block straddling lo or hi is translated word by word, a lane a word).  A
+// store that would change a window word is not made: it flags the row, and
+// the wrapper raises; a store of the value the word holds changes nothing.
+// So a run that is not refused equals the full-copy run bit for bit.
+//
+// Staging.  A split batch's private words are copied into shared memory at
+// launch (opted in past 48 KB, with the per-WQ arrays) and back at the
+// end, so the head WRs, the chosen WR and every private read-modify-write
+// are shared-memory trips; only window reads (the probe READs and value
+// rows of a GET) reach L2.  A full batch runs in global memory: its whole
+// images staged the same way ran slower on the card (fewer blocks
+// resident, and an image that small is served from L1 anyway).
+//
+// Bound: a step is a chain of dependent round trips (the head WRs' words
+// for eligibility, the argmin's shuffles, the chosen WR's fields, the
+// read-modify-write or scatter, the store), so a row is bound by its steps
+// times those latencies: a serial floor, not bytes or operations.  Rows are
+// independent machines, one block each, spread over the SMs.
 //
 // Design: one block a row, one thread a WQ (rounded up to warps, at most
 // 1,024).  The per-WQ counters and clocks sit in shared memory for the whole
-// run; the image and the message queues stay in global memory.  A step: each
+// run; the message queues stay in global memory.  A step: each
 // thread tests its own WQ, an argmin over (clock, index) by shuffles (and
 // across warps through shared memory) picks the WR, and warp 0 executes it:
 // 16 lanes for a copy block or a SEND's payload, lane 0 for the scalar
@@ -79,7 +99,9 @@ enum Field { F_CTRL = 0, F_FLAGS = 1, F_SRC = 2, F_DST = 3, F_LEN = 4,
              F_OPA = 5, F_OPB = 6, F_AUX = 7 };
 
 struct InterpArgs {
-  int* mem;                // (B, L)
+  int* mem;                // (B, P): each row's private words
+  const int* base;         // (G, L): the shards' images (the window); or null
+  int* changed;            // (B,): 1 where a store would change the window
   int* head;               // (B, N)
   const int* tail;         // (B, N), never written
   int* enable_limit;       // (B, N)
@@ -102,9 +124,47 @@ struct InterpArgs {
   int n_rounds;
   int n_writers;
   int n_wq;
-  int len;
+  int len;                 // L, the virtual image length
   int cap;
   int max_steps;
+  int per;                 // rows a base image
+  int lo;                  // the window [lo, hi) of base, or L, L
+  int hi;
+  int priv;                // P = L - (hi - lo)
+};
+
+// A row's image: split, words [lo, hi) in its shard's image `base`,
+// read-only, and the rest in `priv` (staged in shared memory), in image
+// order; else all of it in `priv` (global memory).  Indices are in [0, L),
+// after the index rules.
+template <bool kSplit>
+struct Image {
+  int* priv;
+  const int* base;
+  int lo;
+  int hi;
+
+  __device__ __forceinline__ int ld(int i) const {
+    if constexpr (kSplit) {
+      if (i >= hi) return priv[i - (hi - lo)];
+      if (i >= lo) return base[i];
+    }
+    return priv[i];
+  }
+
+  // store v at i; returns whether it would change a window word (then it
+  // is not made)
+  __device__ __forceinline__ bool st(int i, int v) const {
+    if constexpr (kSplit) {
+      if (i >= hi) {
+        priv[i - (hi - lo)] = v;
+        return false;
+      }
+      if (i >= lo) return base[i] != v;
+    }
+    priv[i] = v;
+    return false;
+  }
 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -151,8 +211,9 @@ __device__ __forceinline__ void warp_argmin(float& key, int& idx, int& addr) {
   }
 }
 
-template <bool kOneWarp>
-__global__ void __launch_bounds__(kMaxWqs)
+// kSplit: a split batch, its private words staged in shared memory
+template <bool kOneWarp, bool kSplit>
+__global__ void __launch_bounds__(kMaxWqs, 1)
     chain_interp_kernel(const InterpArgs a) {
   extern __shared__ int wq_s[];
   __shared__ float cost_s[kCostWords];
@@ -179,7 +240,11 @@ __global__ void __launch_bounds__(kMaxWqs)
   int* ord_s = mtail_s + nq;
   float* clock_s = reinterpret_cast<float*>(ord_s + nq);
   float* lct_s = clock_s + nq;
-  int* mem = a.mem + row * L;
+  int* priv_s = reinterpret_cast<int*>(lct_s + nq);
+  int* row_mem = a.mem + row * a.priv;
+  const int* shard = kSplit ? a.base + row / a.per * L : nullptr;
+  const Image<kSplit> img{kSplit ? priv_s : row_mem, shard, a.lo, a.hi};
+  bool dirty = false;                    // a store would change the window
   int* msgs = a.msg_buf + rq * a.cap * kMsgWords;
 
   int base = 0, size = 1, managed = 0;
@@ -211,6 +276,8 @@ __global__ void __launch_bounds__(kMaxWqs)
     zero_enable = a.faults[row * 4 + 3];
   }
   int cas_seen = 0, enable_seen = 0;
+  if (kSplit)
+    for (int i = tid; i < a.priv; i += blockDim.x) priv_s[i] = row_mem[i];
   if (kOneWarp) __syncwarp(); else __syncthreads();
 
   const int segments = a.quota != nullptr ? a.n_rounds * a.n_writers : 1;
@@ -240,9 +307,9 @@ __global__ void __launch_bounds__(kMaxWqs)
         const int h = head_s[tid];
         const int limit = managed ? min(tail_s[tid], en_s[tid]) : tail_s[tid];
         if (h < limit) {
-          const int ctrl = mem[read_index(addr, L)];
-          const int opa = mem[read_index(wrap_add(addr, F_OPA), L)];
-          const int opb = mem[read_index(wrap_add(addr, F_OPB), L)];
+          const int ctrl = img.ld(read_index(addr, L));
+          const int opa = img.ld(read_index(wrap_add(addr, F_OPA), L));
+          const int opb = img.ld(read_index(wrap_add(addr, F_OPB), L));
           const int op = (ctrl >> kIdBits) & 0x7F;
           eligible = (op != WAIT || comp_s[clamp_to(opb, 0, nq - 1)] >= opa)
                      && (op != RECV || mtail_s[tid] > mhead_s[tid]);
@@ -275,7 +342,7 @@ __global__ void __launch_bounds__(kMaxWqs)
         w = __shfl_sync(kFullMask, idx, 0);
         addr = __shfl_sync(kFullMask, addr, 0);
         int word = 0;
-        if (lane < kWrWords) word = mem[read_index(wrap_add(addr, lane), L)];
+        if (lane < kWrWords) word = img.ld(read_index(wrap_add(addr, lane), L));
         const int ctrl = __shfl_sync(kFullMask, word, F_CTRL);
         const int flags = __shfl_sync(kFullMask, word, F_FLAGS);
         const int src = __shfl_sync(kFullMask, word, F_SRC);
@@ -297,23 +364,24 @@ __global__ void __launch_bounds__(kMaxWqs)
           const int cs = block_start(src, L, kMaxCopy);
           const int cd = block_start(dst, L, kMaxCopy);
           int v = 0;
-          if (lane < n) v = mem[cs + lane];
+          if (lane < n) v = img.ld(cs + lane);
           __syncwarp();
-          if (lane < n) mem[cd + lane] = v;
+          if (lane < n) dirty |= img.st(cd + lane, v);
           if (op == SEND) responses = wrap_add(responses, 1);
         } else if (op == WRITE_IMM || op == CAS || op == ADD || op == MAX ||
                    op == MIN) {
           // the read-modify-write store, then the atomics' return-old
           if (lane == 0) {
             const int d = max(dst, 0);
-            const int old = mem[min(d, L - 1)];
+            const int old = img.ld(min(d, L - 1));
             int v = opa;
             if (op == CAS) v = old == opa && !spur ? opb : old;
             if (op == ADD) v = wrap_add(old, opa);
             if (op == MAX) v = max(old, opa);
             if (op == MIN) v = min(old, opa);
-            if (d < L) mem[d] = v;
-            if ((op == CAS || op == ADD) && src >= 0 && src < L) mem[src] = old;
+            if (d < L) dirty |= img.st(d, v);
+            if ((op == CAS || op == ADD) && src >= 0 && src < L)
+              dirty |= img.st(src, old);
           }
         } else if (op == RECV) {
           // the head message scattered through the table at aux, in order
@@ -322,10 +390,10 @@ __global__ void __launch_bounds__(kMaxWqs)
                 msgs + (static_cast<long long>(w) * a.cap +
                         floor_mod(mhead_s[w], a.cap)) * kMsgWords;
             const int at = max(aux, 0);
-            const int n = clamp_to(mem[read_index(at, L)], 0, kMaxScatter);
+            const int n = clamp_to(img.ld(read_index(at, L)), 0, kMaxScatter);
             for (int i = 0; i < n; ++i) {
-              const int sd = max(mem[read_index(wrap_add(at, 1 + i), L)], 0);
-              if (sd < L) mem[sd] = pay[i];
+              const int sd = max(img.ld(read_index(wrap_add(at, 1 + i), L)), 0);
+              if (sd < L) dirty |= img.st(sd, pay[i]);
             }
             mhead_s[w] = wrap_add(mhead_s[w], 1);
           }
@@ -335,7 +403,7 @@ __global__ void __launch_bounds__(kMaxWqs)
           const int slot = floor_mod(mtail_s[tgt], a.cap);
           if (lane < kMsgWords)
             msgs[(static_cast<long long>(tgt) * a.cap + slot) * kMsgWords +
-                 lane] = mem[ps + lane];
+                 lane] = img.ld(ps + lane);
           __syncwarp();
           if (lane == 0) mtail_s[tgt] = wrap_add(mtail_s[tgt], 1);
         }
@@ -379,6 +447,10 @@ __global__ void __launch_bounds__(kMaxWqs)
   }
 
   if (kOneWarp) __syncwarp(); else __syncthreads();
+  if (kSplit)
+    for (int i = tid; i < a.priv; i += blockDim.x) row_mem[i] = priv_s[i];
+  // only warp 0 stores
+  if (kSplit && warp == 0) dirty = __any_sync(kFullMask, dirty);
   if (tid < nq) {
     a.head[rq + tid] = head_s[tid];
     a.enable_limit[rq + tid] = en_s[tid];
@@ -393,7 +465,49 @@ __global__ void __launch_bounds__(kMaxWqs)
     a.steps[row] = steps;
     a.halted[row] = halted;
     a.responses[row] = responses;
+    if (kSplit) a.changed[row] = dirty;
   }
+}
+
+template <bool kSplit>
+cudaError_t launch(const InterpArgs& a, int batch, int threads, size_t smem,
+                   cudaStream_t s) {
+  if (threads == 32)
+    chain_interp_kernel<true, kSplit><<<batch, threads, smem, s>>>(a);
+  else
+    chain_interp_kernel<false, kSplit><<<batch, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// past 48 KB a block's dynamic shared memory needs the attribute
+cudaError_t allow_smem(int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_interp_kernel<true, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chain_interp_kernel<false, true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// the dynamic shared memory a split block may take: the device's opt-in
+// limit less the kernel's static arrays (alike in every instance)
+cudaError_t staged_budget(int* out) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes one, many;
+  err = cudaFuncGetAttributes(&one, chain_interp_kernel<true, true>);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncGetAttributes(&many, chain_interp_kernel<false, true>);
+  if (err != cudaSuccess) return err;
+  const size_t fixed = one.sharedSizeBytes > many.sharedSizeBytes
+                           ? one.sharedSizeBytes : many.sharedSizeBytes;
+  *out = optin - static_cast<int>(fixed);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -406,14 +520,20 @@ int chain_interp_run(void* mem, void* head, const void* tail,
                      void* msg_tail, void* clock, void* steps, void* halted,
                      void* verb_counts, void* responses, const void* geometry,
                      const void* costs, const void* faults, const void* quota,
-                     const void* slices, int quota_stride, int n_rounds,
-                     int n_writers, int batch, int n_wq, int len, int cap,
-                     int max_steps, void* stream) {
+                     const void* slices, const void* base, void* changed,
+                     int quota_stride, int n_rounds, int n_writers, int batch,
+                     int n_wq, int len, int cap, int max_steps, int per,
+                     int lo, int hi, void* stream) {
   if (batch <= 0) return 0;
-  if (n_wq < 1 || n_wq > kMaxWqs)
+  // split: a base image every `per` rows, a window, a flag a row
+  const bool split = base != nullptr;
+  if (n_wq < 1 || n_wq > kMaxWqs || per < 1 || lo < 0 || lo > hi ||
+      hi > len || split != (changed != nullptr) || (!split && lo != hi))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int priv = len - (hi - lo);
   const InterpArgs a{
-      static_cast<int*>(mem), static_cast<int*>(head),
+      static_cast<int*>(mem), static_cast<const int*>(base),
+      static_cast<int*>(changed), static_cast<int*>(head),
       static_cast<const int*>(tail), static_cast<int*>(enable_limit),
       static_cast<int*>(completions), static_cast<float*>(last_comp_time),
       static_cast<int*>(msg_buf), static_cast<int*>(msg_head),
@@ -423,15 +543,35 @@ int chain_interp_run(void* mem, void* head, const void* tail,
       static_cast<const int*>(geometry), static_cast<const float*>(costs),
       static_cast<const int*>(faults), static_cast<const int*>(quota),
       static_cast<const int*>(slices), quota_stride, n_rounds, n_writers,
-      n_wq, len, cap, max_steps};
+      n_wq, len, cap, max_steps, per, lo, hi, priv};
   const int threads = (n_wq + 31) / 32 * 32;
-  const size_t smem = static_cast<size_t>(n_wq) * kWqWords * 4;
+  size_t smem = static_cast<size_t>(n_wq) * kWqWords * 4;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads == 32)
-    chain_interp_kernel<true><<<batch, threads, smem, s>>>(a);
-  else
-    chain_interp_kernel<false><<<batch, threads, smem, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (!split) return static_cast<int>(launch<false>(a, batch, threads, smem,
+                                                    s));
+  // the split instances may take the whole budget, set once a device
+  static int budget[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (budget[dev] == 0) {
+    int b = 0;
+    err = staged_budget(&b);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = allow_smem(b);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    budget[dev] = b;
+  }
+  smem += static_cast<size_t>(priv) * 4;
+  if (smem > static_cast<size_t>(budget[dev]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<true>(a, batch, threads, smem, s));
+}
+
+// the dynamic shared memory a split block may take on the current device
+int chain_interp_staged_budget(int* out) {
+  return static_cast<int>(staged_budget(out));
 }
 
 const char* cuda_error_string(int code) {

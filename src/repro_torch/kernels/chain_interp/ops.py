@@ -1,12 +1,16 @@
-"""The chain interpreter's wrapper: every row of a batched ``VMState`` run to
-its own stop, in place.
+"""The chain interpreter's wrapper: every row of a batched ``VMState``, or
+of a :class:`repro_torch.core.machine.SharedBatch`, run to its own stop,
+in place.
 
 :func:`run_interp` takes the plain version, the host loop
-:func:`repro_torch.core.machine.plain_run` (``machine._run_rows``), for
-states on the CPU, and launches the CUDA kernel (``csrc/chain_interp.cu``)
-for states on the card: one launch for the whole batch, with no host read
-inside it.  ``launches`` counts kernel launches.  There is no fallback: a
-state or plan the kernel cannot take raises.
+:func:`repro_torch.core.machine.plain_run` (``machine._run_rows``; for a
+split batch :func:`machine.plain_run_shared`), for states on the CPU, and
+launches the CUDA kernel (``csrc/chain_interp.cu``) for states on the
+card: one launch for the whole batch, with no host read inside it (a
+split batch then reads its rows' window flags once).  A split batch's
+private words are staged in shared memory; a full batch runs in global
+memory.  ``launches`` counts kernel launches.
+There is no fallback: a state or plan the kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ _FLOAT_FIELDS = ("last_comp_time", "clock")
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.chain_interp_run.argtypes = [p] * 19 + [i] * 8 + [p]
+    lib.chain_interp_run.argtypes = [p] * 21 + [i] * 11 + [p]
     lib.chain_interp_run.restype = i
+    lib.chain_interp_staged_budget.argtypes = [ctypes.POINTER(i)]
+    lib.chain_interp_staged_budget.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
 
@@ -65,11 +71,30 @@ def _slices(writer_slices: tuple, n_wq: int, dev: torch.device):
                         device=dev).reshape(len(rows), 2)
 
 
+@functools.lru_cache(maxsize=16)
+def staged_budget(dev: torch.device) -> int:
+    """Bytes of dynamic shared memory a split batch's block may take on
+    ``dev``: the opt-in limit less the kernel's static arrays."""
+    lib = _build.load("chain_interp", _declare)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.check(lib, lib.chain_interp_staged_budget(ctypes.byref(out)),
+                     "chain_interp_staged_budget")
+    return out.value
+
+
+def staged_bytes(n_wq: int, private_words: int) -> int:
+    """A split batch's block's dynamic shared memory: the per-WQ arrays
+    and the row's private words, staged."""
+    return 4 * (n_wq * 9 + private_words)
+
+
 def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
-          quota=None, writer_slices=None) -> None:
+          quota=None, writer_slices=None, length=None) -> None:
     """Raise ``ValueError`` unless the kernel can take ``s`` (batched, every
     field contiguous on one CUDA device, of the interpreter's dtypes and
-    shapes for ``spec``), the plan and the schedule."""
+    shapes for ``spec``), the plan and the schedule.  ``length``: the
+    image's virtual length when ``s.mem`` holds private segments."""
     n = spec.num_wqs
     if not 1 <= n <= MAX_WQS:
         raise ValueError(f"a spec of {n} WQs: the interpreter kernel runs "
@@ -82,9 +107,10 @@ def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
     if s.mem.ndim != 2:
         raise ValueError(f"a batched state (mem (B, L)), got mem of shape "
                          f"{tuple(s.mem.shape)}")
-    b, length = s.mem.shape
+    b, width = s.mem.shape
+    length = width if length is None else length
     cap = s.msg_buf.shape[2] if s.msg_buf.ndim == 4 else 0
-    shapes = dict(mem=(b, length), msg_buf=(b, n, cap, isa.MSG_WORDS),
+    shapes = dict(mem=(b, width), msg_buf=(b, n, cap, isa.MSG_WORDS),
                   steps=(b,), halted=(b,), responses=(b,),
                   verb_counts=(b, isa.NUM_OPCODES))
     for name, t in zip(machine.VMState._fields, s):
@@ -128,31 +154,69 @@ def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
                          f"the plain path)")
 
 
-def run_interp(spec: machine.MachineSpec, s: machine.VMState,
-               max_steps: int = 4096, faults=None, quota=None,
-               writer_slices=None) -> machine.VMState:
+def _check_shared(batch: machine.SharedBatch) -> int:
+    """Raise ``ValueError`` unless the kernel can take ``batch``'s base
+    images and window; returns the images' length L."""
+    base, s = batch.base, batch.state
+    if base.ndim != 2 or base.dtype != torch.int32 or \
+            not base.is_contiguous() or base.device != s.mem.device:
+        raise ValueError(f"base images must be contiguous int32 (G, L) on "
+                         f"{s.mem.device}; got {tuple(base.shape)} "
+                         f"{base.dtype} on {base.device}")
+    g, length = base.shape
+    b = s.mem.shape[0] if s.mem.ndim == 2 else -1
+    if g < 1 or b % g:
+        raise ValueError(f"{b} contexts do not split over {g} base images")
+    if not 0 <= batch.lo <= batch.hi <= length:
+        raise ValueError(f"a window [{batch.lo}, {batch.hi}) outside an "
+                         f"image of {length} words")
+    want = length - (batch.hi - batch.lo)
+    if s.mem.ndim == 2 and s.mem.shape[1] != want:
+        raise ValueError(f"private segments of {s.mem.shape[1]} words, "
+                         f"expected {want} (L {length} less the window)")
+    return length
+
+
+def run_interp(spec: machine.MachineSpec, s, max_steps: int = 4096,
+               faults=None, quota=None, writer_slices=None):
     """Run every row of the batched state ``s`` to its own stop, updating
     ``s`` in place (and returning it), as :func:`machine.run_batch_in_place`
     does; with ``quota`` (int32 (B, R, W)) and ``writer_slices``, each
     row walks its rounds and writers as
     :func:`machine.run_scheduled_in_place` does.  ``faults``: a
     :class:`repro_torch.core.faults.FaultPlan`, one row a machine (or
-    scalar leaves for all).
+    scalar leaves for all).  ``s`` may be a
+    :class:`machine.SharedBatch` (no schedule): a store that would change
+    a window word raises ``ValueError`` naming the rows.
 
-    On the CPU the plain version, :func:`machine.plain_run`; on the card
-    one launch of ``chain_interp_kernel``, which needs ``_check``'s
-    layout."""
-    if s.mem.device.type == "cpu":
+    On the CPU the plain version, :func:`machine.plain_run` (or
+    :func:`machine.plain_run_shared`); on the card one launch of
+    ``chain_interp_kernel``, which needs ``_check``'s layout and, for a
+    split batch, private segments within :func:`staged_budget`."""
+    shared = isinstance(s, machine.SharedBatch)
+    state = s.state if shared else s
+    if shared and quota is not None:
+        raise ValueError("a split batch runs without a schedule")
+    if state.mem.device.type == "cpu":
+        if shared:
+            return machine.plain_run_shared(spec, s, max_steps, faults)
         return machine.plain_run(spec, s, max_steps, faults, quota,
                                  writer_slices)
     if faults is not None:
         faults = type(faults)(*(torch.as_tensor(
-            leaf, device=s.mem.device).to(torch.int32) for leaf in faults))
-    _check(spec, s, faults, quota, writer_slices)
-    b, length = s.mem.shape
+            leaf, device=state.mem.device).to(torch.int32) for leaf in faults))
+    length = _check_shared(s) if shared else None
+    _check(spec, state, faults, quota, writer_slices, length)
+    b, width = state.mem.shape
+    length = width if length is None else length
+    dev = state.mem.device
+    if shared and staged_bytes(spec.num_wqs, width) > staged_budget(dev):
+        raise ValueError(
+            f"private segments of {width} words with {spec.num_wqs} WQs "
+            f"take {staged_bytes(spec.num_wqs, width)} bytes of shared "
+            f"memory, over the {staged_budget(dev)} a block may take")
     if b == 0:
         return s
-    dev = s.mem.device
     geometry, costs = _tables(spec, dev)
     plan = slices = None
     if faults is not None:
@@ -168,15 +232,25 @@ def run_interp(spec: machine.MachineSpec, s: machine.VMState,
             stride = rounds * writers
         slices = _slices(tuple((int(lo), int(hi)) for lo, hi in writer_slices),
                          spec.num_wqs, dev)
+    # every row's flag is written by the kernel
+    changed = (torch.empty(b, dtype=torch.int32, device=dev) if shared
+               else None)
     lib = _build.load("chain_interp", _declare)
     ptr = _build.pointer
     _build.check(lib, lib.chain_interp_run(
-        *(ptr(t) for t in s), ptr(geometry), ptr(costs),
+        *(ptr(t) for t in state), ptr(geometry), ptr(costs),
         None if plan is None else ptr(plan),
         None if quota is None else ptr(quota),
-        None if slices is None else ptr(slices), stride, rounds, writers,
-        b, spec.num_wqs, length, s.msg_buf.shape[2],
+        None if slices is None else ptr(slices),
+        ptr(s.base) if shared else None,
+        None if changed is None else ptr(changed), stride, rounds, writers,
+        b, spec.num_wqs, length, state.msg_buf.shape[2],
         max(min(int(max_steps), 2 ** 31 - 1), -2 ** 31),
-        _build.stream()), "chain_interp_run")
+        s.per if shared else 1, s.lo if shared else length,
+        s.hi if shared else length, _build.stream()), "chain_interp_run")
     launches["run_interp"] += 1
+    if shared:
+        rows = np.flatnonzero(changed.cpu().numpy()).tolist()
+        if rows:
+            raise machine.window_error(s, rows)
     return s

@@ -229,7 +229,8 @@ def _redn_get(keys, vals, queries, live, *, n_shards, capacity, group,
                                                                n_buckets))
     resp, ok = transport.triggered_chain_engine(
         srv.engine, state, srv.recv_wq, srv.resp_region, srv.resp_words,
-        payload, dest, n_shards, capacity, live, group=group)
+        payload, dest, n_shards, capacity, live, group=group,
+        window=srv.shared_window)
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
@@ -248,7 +249,8 @@ def _redn_get_ttl(keys, vals, exp, now, queries, live, *, n_shards,
         queries, hopscotch.bucket_of(queries, n_buckets), now)
     resp, ok = transport.triggered_chain_engine(
         srv.engine, state, srv.recv_wq, srv.resp_region, srv.resp_words,
-        payload, dest, n_shards, capacity, live, group=group)
+        payload, dest, n_shards, capacity, live, group=group,
+        window=srv.shared_window)
     return resp[..., 0] > 0, resp[..., 1:], ok
 
 
@@ -1236,7 +1238,8 @@ def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
         srv_new.resp_region, srv_new.resp_words,
         srv_new.device_payloads(queries,
                                 hopscotch.bucket_of(queries, 2 * n)),
-        dest, n_shards, capacity, live, group=group)
+        dest, n_shards, capacity, live, group=group,
+        window=srv_new.shared_window)
     found1 = resp1[..., 0] > 0
 
     # the client caches the owners' migration progress
@@ -1251,7 +1254,7 @@ def _get_resize(rs: ResizeState, queries, neighborhood: int = 8,
         srv_old.engine, srv_old.device_state(ok_, ov), srv_old.recv_wq,
         srv_old.resp_region, srv_old.resp_words,
         srv_old.device_payloads(queries, h_old), dest, n_shards, capacity,
-        live2, group=group)
+        live2, group=group, window=srv_old.shared_window)
     found2 = resp2[..., 0] > 0
     return GetResult(
         found=found1 | found2,

@@ -47,6 +47,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import machine
+
 #: None, or a list that each stateful stage appends a record to
 trace: Optional[list] = None
 
@@ -209,23 +211,26 @@ def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
                            resp_words: int, payload: torch.Tensor,
                            dest: torch.Tensor, n_shards: int, capacity: int,
                            live: Optional[torch.Tensor] = None,
-                           max_steps: int = 256, group=None
+                           max_steps: int = 256, group=None, window=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RedN pattern: SEND triggers a pre-posted chain VM program.
 
     ``state`` is stacked over the S owner shards (every field with a
     leading dim S).  Every arriving request — one slot of an owner's
     ``(S_src, capacity)`` receive window — is delivered as a client SEND to
-    ``recv_wq`` of an independent context copied from its owner's machine,
-    and all S * S * capacity contexts run in one batched
-    ``ChainEngine.run_many`` call: the chain, not the host, computes the
-    answer.  Returns (responses (S, B, resp_words), ok (S, B)); each
-    response is the context's ``resp_region`` after its chain quiesced.
+    ``recv_wq`` of an independent context of its owner's machine, and all
+    S * S * capacity contexts run in one batched ``ChainEngine.run_many``
+    call: the chain, not the host, computes the answer.  ``window``, the
+    program's words no chain writes (a get server's table and value
+    rows), is kept once a shard and each context copies only the rest
+    (:func:`machine.deliver_shared`).  Returns (responses (S, B,
+    resp_words), ok (S, B)); each response is the context's
+    ``resp_region`` after its chain quiesced.
     """
     recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
     flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
-    out = engine.run_many(state, recv_wq, flat, max_steps)
-    resp = out.mem[:, resp_region:resp_region + resp_words]
+    out = engine.run_many(state, recv_wq, flat, max_steps, window=window)
+    resp = machine.words(out, resp_region, resp_words)
     resp = resp.reshape(recv.shape[:3] + (resp_words,))
     return combine(resp, dest, pos, ok, group), ok
 

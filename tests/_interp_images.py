@@ -13,7 +13,13 @@ numpy only (the card's tests use it too):
   image's end, wrapping ADDs, CAS returning the old value onto itself;
 * recycled WQs (tail past the ring) over WRs the chain rewrote;
 * fault rows of all four kinds, and two-writer schedules with quotas,
-  skipped writers and drains.
+  skipped writers and drains;
+* the shared window (:data:`WINDOW`, the words a split batch keeps once an
+  image): copy blocks that straddle its ends, negative addresses that wrap
+  into it, stores past the image, return-old and plain stores of the value
+  a window word holds (:func:`window_machines`), and stores that would
+  change a window word, one of them taken back by a later store
+  (:func:`window_raisers`).
 
 Every machine has one geometry, :data:`SPEC` (so each entry point of the
 JAX package compiles once).  A machine is a dict of the ``VMState``
@@ -43,6 +49,8 @@ DATA = 256
 # the schedules' writers: WQs 0-1 and 2-3
 SLICES = ((0, 2), (2, 4))
 MAX_STEPS = 40
+# a split batch's shared window: data words only
+WINDOW = (300, 400)
 
 
 def i32(x: int) -> int:
@@ -232,3 +240,89 @@ def quotas(seed: int, n: int, rounds: int = 4) -> np.ndarray:
 def corpus(seed: int = 0, n_random: int = 24) -> dict:
     """The hazards and ``n_random`` random machines, stacked."""
     return stack(hazards(seed) + random_machines(seed, n_random))
+
+
+def window_machines(seed: int = 0) -> list:
+    """Machines whose runs read the words of :data:`WINDOW` and change
+    none of them: copy blocks straddling ``lo`` and ``hi`` (read, and
+    copied onto themselves), negative addresses wrapping into the window,
+    stores past the image, a WRITE_IMM, a CAS's and an ADD's return-old
+    store of the value the window word holds, RECV tables and a SEND
+    payload in the window."""
+    rng = np.random.RandomState(seed)
+    lo, hi = WINDOW
+    out = []
+    out.append(machine(rng, [
+        [wr(WRITE, src=lo - 8, dst=440, ln=16),
+         wr(READ, src=hi - 8, dst=456, ln=16),
+         wr(WRITE, src=lo - 4, dst=lo - 4, ln=16),
+         wr(WRITE, src=hi - 8, dst=hi - 8, ln=16),
+         wr(WRITE, src=472, dst=lo - 16, ln=16),
+         wr(WRITE_IMM, dst=L + 3, opa=9)],
+        [wr(READ, src=305 - L, dst=480, ln=8),
+         wr(WRITE, src=320 - L, dst=320 - L, ln=5),
+         wr(WRITE_IMM, dst=330, opa=41),
+         wr(CAS, dst=488, opa=77, opb=5, src=350),
+         wr(ADD, dst=489, opa=3, src=351),
+         wr(MAX, dst=L + 100, opa=1)],
+        [wr(RECV, aux=360), wr(RECV, aux=370),
+         wr(WRITE, src=L + 100, dst=L + 50, ln=16)],
+        [wr(SEND, src=hi - 5, opb=2), wr(READ, src=lo - 3, dst=-L - 9,
+                                         ln=16)]],
+        tails=(6, 6, 3, 2), enables=(0, 6, 0, 2),
+        messages=[(2, [1000, 1001, 1002])],
+        data=[(330, [41]), (350, [77, 12]), (488, [77, 12]),
+              (360, [2, 490, 491]), (370, [1, 495])]))
+    # the same reads under other clocks, and an eligible WAIT on a window
+    # word's completion count (the WR fields all private)
+    out.append(machine(rng, [
+        [wr(WRITE, src=hi - 1, dst=505, ln=4), wr(ADD, dst=501, opa=-7)],
+        [wr(WAIT, opa=1, opb=0), wr(WRITE, src=lo, dst=lo, ln=16)],
+        [wr(CAS, dst=502, opa=0, opb=1, src=lo + 2)],
+        [wr(WRITE_IMM, dst=hi, opa=3), wr(WRITE_IMM, dst=lo - 1, opa=4)]],
+        tails=(2, 2, 1, 2), enables=(0, 2, 0, 2),
+        data=[(lo + 2, [0]), (502, [0])],
+        clock=[0.5, 0.0, 1.21, 0.0]))
+    return out
+
+
+def window_raisers(seed: int = 0) -> list:
+    """Machines each of whose runs makes a store that would change a word
+    of :data:`WINDOW`, in its first step: an ADD's return-old store, a RECV
+    scatter, a copy straddling ``hi``, a CAS that swaps, and a WRITE_IMM
+    whose change the next WRITE_IMM takes back (the window ends as it
+    began, and the run is refused all the same)."""
+    rng = np.random.RandomState(seed)
+    lo, hi = WINDOW
+    nothing = [[], [], [], []]
+    cases = [
+        ([wr(ADD, dst=450, opa=1, src=352)], [(352, [5]), (450, [9])]),
+        ([wr(RECV, aux=460)], [(460, [1, 350]), (350, [7])]),
+        ([wr(WRITE, src=440, dst=hi - 4, ln=10)],
+         [(440, list(range(1, 11))), (hi - 4, [0] * 10)]),
+        ([wr(CAS, dst=lo + 40, opa=6, opb=8, src=470)], [(lo + 40, [6])]),
+        ([wr(WRITE_IMM, dst=lo + 60, opa=99), wr(WRITE_IMM, dst=lo + 60,
+                                                  opa=5)],
+         [(lo + 60, [5])]),
+    ]
+    out = []
+    for wrs, data in cases:
+        queues = [list(q) for q in nothing]
+        queues[2 if wrs[0][0] >> 24 == RECV else 0] = wrs
+        out.append(machine(rng, queues, tails=(len(queues[0]), 0,
+                                               len(queues[2]), 0),
+                           enables=(0, 0, 0, 0), data=data,
+                           messages=[(2, [123])]))
+    return out
+
+
+def repeat(machines, per: int) -> list:
+    """Each machine ``per`` times, the copies at other clocks (rows of one
+    image in a split batch)."""
+    out = []
+    for m in machines:
+        for i in range(per):
+            c = {f: np.array(a, copy=True) for f, a in m.items()}
+            c["clock"] = c["clock"] + np.float32(0.25 * i)
+            out.append(c)
+    return out

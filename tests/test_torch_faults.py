@@ -495,12 +495,6 @@ def test_displacer_cutpoint_sweep_smoke():
     assert _sweep_writer_like(_displacer_scenario, cuts) > 0
 
 
-@pytest.mark.slow
-def test_displacer_cutpoint_sweep_full():
-    fuel = _displacer_scenario(tp, device="cpu")[0].fuel
-    assert _sweep_writer_like(_displacer_scenario, range(fuel + 1)) > 0
-
-
 def _migrator_scenario(mod, **kw):
     n, v, h = 8, 2, 4
     m = mod.build_hopscotch_migrator(n, v, neighborhood=h, **kw)

@@ -7,7 +7,10 @@ at 5e-5, and also against a float64 scan), the interpreter on the card
 against the interpreter on the CPU (plain and under fault plans), the
 interpreter kernel against its plain loop on the card (the hazard corpus
 of ``_interp_images.py``, fault rows, schedules, machines of up to 1,024
-WQs; all 14 fields bit-equal, clocks included), the
+WQs, full batches in global memory, split batches staged in shared
+memory and the raise on a changed window word, split GETs of both
+server builds;
+all 14 fields bit-equal, clocks included), the
 chain kernel under kill faults against the interpreter, fsck on the
 card against fsck on the CPU, and the scheduled interpreter (a batch of
 cut schedules, the racing-writer SET) on the card against the CPU.  They
@@ -447,6 +450,140 @@ def test_interp_kernel_refuses_what_it_cannot_take(cuda):
     s = convert.vmstate_from_numpy(interp_images.corpus(0), cuda)
     with pytest.raises(ValueError, match="dtype"):
         interp_ops.run_interp(spec, s._replace(clock=s.clock.double()))
+
+
+def _split_on(device, machines, per):
+    """``machines`` (``_interp_images`` dicts), each ``per`` times, as a
+    split batch over :data:`interp_images.WINDOW` on ``device``."""
+    full = convert.vmstate_from_numpy(
+        interp_images.stack(interp_images.repeat(machines, per)), device)
+    return machine.split(full, interp_images.WINDOW, per)
+
+
+def _clone_split(b):
+    return machine.SharedBatch(machine.VMState(*(a.clone() for a in b.state)),
+                               b.base.clone(), b.lo, b.hi)
+
+
+@pytest.mark.parametrize("max_steps", [interp_images.MAX_STEPS, 7, 4096])
+def test_interp_kernel_split_matches_the_plain_loop(cuda, max_steps):
+    """Split batches (the window machines of two seeds, two a base image)
+    staged in shared memory: one launch each, the private words and every
+    other field bit-equal to the plain loop over the materialized batch,
+    plain and under fault rows; no store changed a window word, so
+    nothing raises; the base images are untouched."""
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    for machines in (interp_images.window_machines(0),
+                     interp_images.window_machines(1)):
+        b = _split_on(cuda, machines, 2)
+        base = b.base.clone()
+        want = machine.plain_run(spec, machine.materialize(_clone_split(b)),
+                                 max_steps)
+        before = interp_ops.launches["run_interp"]
+        machine.run_batch_shared_in_place(spec, b, max_steps)
+        assert interp_ops.launches["run_interp"] == before + 1
+        _same_states(machine.materialize(b), want, f"fuel {max_steps}")
+        assert torch.equal(b.base, base)
+        plan = faults.FaultPlan.from_row(torch.from_numpy(
+            interp_images.fault_rows(max_steps, b.state.mem.shape[0])).to(
+                cuda))
+        b = _split_on(cuda, machines, 2)
+        want = machine.plain_run(spec, machine.materialize(_clone_split(b)),
+                                 max_steps, plan)
+        machine.run_batch_shared_in_place(spec, b, max_steps, plan)
+        _same_states(machine.materialize(b), want, "faults")
+
+
+def test_interp_kernel_refuses_a_changed_window_word(cuda):
+    """Each store that would change a window word (a return-old store, a
+    RECV scatter, a straddling copy, a swapping CAS, a change a later
+    store takes back) raises on the card, as on the CPU, naming the rows;
+    mixed into the window machines, only its own rows are named."""
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    good = interp_images.window_machines(0)
+    for i, bad in enumerate(interp_images.window_raisers(0)):
+        for device in (cuda, "cpu"):
+            b = _split_on(device, [bad], 2)
+            with pytest.raises(ValueError, match=r"rows \[0, 1\]"):
+                machine.run_batch_shared_in_place(spec, b, 4096)
+            b = _split_on(device, good + [bad], 1)
+            with pytest.raises(ValueError, match=rf"rows \[{len(good)}\]"):
+                machine.run_batch_shared_in_place(spec, b, 4096)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_interp_kernel_runs_whole_images_in_global_memory(cuda, seed):
+    """A full batch runs in global memory, one launch a run: the corpus,
+    plain, under fault rows and under a schedule, bit-equal to the plain
+    loop; so do the same machines in 60,016-word images, whose private
+    words could not be staged.  A split batch whose private segments pass
+    the shared-memory budget is refused before any launch."""
+    spec = convert.spec_from_tuple(interp_images.SPEC)
+    s = convert.vmstate_from_numpy(interp_images.corpus(seed), cuda)
+    b = s.mem.shape[0]
+    budget = interp_ops.staged_budget(s.mem.device)
+    plan = faults.FaultPlan.from_row(torch.from_numpy(
+        interp_images.fault_rows(seed, b)).to(cuda))
+    quota = torch.from_numpy(interp_images.quotas(seed, b)).to(cuda)
+    runs = [dict(), dict(faults=plan),
+            dict(quota=quota, writer_slices=interp_images.SLICES)]
+    for kw in runs:
+        want = _plain_run(spec, s, interp_images.MAX_STEPS, **kw)
+        x = machine.VMState(*(a.clone() for a in s))
+        before = interp_ops.launches["run_interp"]
+        interp_ops.run_interp(spec, x, interp_images.MAX_STEPS, **kw)
+        assert interp_ops.launches["run_interp"] == before + 1
+        _same_states(x, want, f"{sorted(kw)}")
+    big = spec._replace(mem_words=60000)
+    mem = torch.zeros(b, 60016, dtype=torch.int32, device=cuda)
+    mem[:, :s.mem.shape[1]] = s.mem
+    s = s._replace(mem=mem)
+    assert interp_ops.staged_bytes(spec.num_wqs, 60016) > budget
+    _same_states(machine.run_batch(big, s, 4096), _plain_run(big, s, 4096))
+    split = machine.split(s, (100, 110), 1)
+    before = interp_ops.launches["run_interp"]
+    with pytest.raises(ValueError, match="over the"):
+        machine.run_batch_shared_in_place(big, split, 10)
+    assert interp_ops.launches["run_interp"] == before
+
+
+@pytest.mark.parametrize("ttl", [False, True])
+def test_interp_kernel_runs_split_gets(cuda, ttl):
+    """A hopscotch server's get window (4 shards x 256 buckets, H 8) as a
+    split batch through ``run_many``: bit-equal to the plain loop over the
+    full copies, and ``sharded_get`` on the card equal to the CPU's."""
+    n, s_ = 256, 4
+    srv = programs.build_hopscotch_server(n, 4, 8, ttl=ttl, device=cuda)
+    rng = np.random.RandomState(7)
+    keys = np.zeros((s_, n), np.int32)
+    for sh in range(s_):
+        keys[sh, rng.choice(n, 150, replace=False)] = rng.randint(
+            1, 1 << 20, 150)
+    vals = rng.randint(-99, 99, (s_, n, 4)).astype(np.int32)
+    exp = rng.randint(0, 100, (s_, n)).astype(np.int32) if ttl else None
+    q = np.stack([np.concatenate([rng.choice(keys[sh][keys[sh] != 0], 12),
+                                  [5, 0, 77, 1]]) for sh in range(s_)])
+    q = torch.from_numpy(q.astype(np.int32))
+    now = 50 if ttl else None
+    dk, dv = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    de = None if exp is None else torch.from_numpy(exp).to(cuda)
+    st = srv.device_state(dk, dv, de)
+    pay = srv.device_payloads(q.to(cuda), hopscotch.bucket_of(q, n).to(cuda),
+                              now).reshape(s_, -1, 8 + (2 if ttl else 8))
+    out = srv.engine.run_many(st, srv.recv_wq, pay, 256,
+                              window=srv.shared_window)
+    assert isinstance(out, machine.SharedBatch)
+    assert out.state.mem.shape[1] < st.mem.shape[1]
+    batch = srv.engine.deliver_many(st, srv.recv_wq, pay)
+    batch.steps.zero_()
+    want = machine.plain_run(srv.spec, batch, 256)
+    _same_states(machine.materialize(out), want)
+    got = store.sharded_get(dk, dv, q.to(cuda), device=cuda, exp=de, now=now)
+    ref = store.sharded_get(torch.from_numpy(keys), torch.from_numpy(vals),
+                            q, device="cpu", now=now,
+                            exp=None if exp is None else torch.from_numpy(exp))
+    for f in ("found", "values", "ok"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
 
 
 def test_interpreter_on_the_card_matches_the_cpu(cuda):

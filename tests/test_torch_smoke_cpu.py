@@ -14,19 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from _smoke_fixtures import smoke, write_store  # noqa: F401
 from repro_torch.configs import registry
 from repro_torch.models import model as model_lib
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(scope="module")
-def smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.fixture(scope="module")
@@ -558,28 +550,6 @@ def test_phase_chain_faults_cpu(smoke):
     assert r["drill_violations"] >= 0 and r["drill_retried"] > 0
 
 
-def test_phase_chain_interp_cpu(smoke, write_store):
-    """The interpreter kernel's phase at 2 shards x 256 buckets, where the
-    wrapper takes its plain version: every case reaches the interpreter
-    (the redn window in one run) and holds its runs to the plain loop;
-    here the counts show each case ran."""
-    dk, dv = write_store.device_arrays("cpu")
-    r = smoke.phase_chain_interp("cpu", write_store, dk, dv, n_keys=300,
-                                 batch=8, set_rows=(1, 2, 1),
-                                 server=(64, 1024, 40), server_batch=16,
-                                 guests=12)
-    c = r["cases"]
-    assert set(c) == {"corpus", "redn", "set", "contend", "cut_sweep",
-                      "faults", "guests"}
-    assert c["redn"]["runs"] == 1 and r["redn_contexts"] == 2 * 2 * 8
-    assert c["redn"]["wqs"] == [18] and r["max_abs_err"] == 0
-    assert 263 in c["set"]["wqs"] and 113 in c["contend"]["wqs"]
-    assert c["guests"]["steps_max"] == 26 * 102 and r["faults_armed"] > 0
-    assert r["set_batch"] == (2, 4) and r["bound_by"] == "bytes"
-    k, v = write_store.device_arrays("cpu")
-    assert torch.equal(k, dk) and torch.equal(v, dv)
-
-
 @pytest.mark.parametrize("field, a, b, err", [
     ("mem", 3, -2, 5.0),
     ("clock", 1.5, math.inf, math.inf),
@@ -610,17 +580,6 @@ def test_require_states_reports_the_largest_difference(smoke, field, a, b,
         assert smoke.state_abs_err(x, y) == err
 
 
-@pytest.fixture(scope="module")
-def write_store(smoke):
-    """2 shards x 256 buckets, 300 random keys (59% load): the sequential
-    keys of ``build_store`` leave no neighborhood full at this size."""
-    kv = smoke.store.ShardedKV.build(2, 256, 4)
-    rng = np.random.RandomState(0)
-    for k in rng.choice(np.arange(1, 1 << 20), 300, replace=False).tolist():
-        assert kv.set(k, [k, 2 * k, 3 * k, 5 * k])
-    return kv
-
-
 def test_phase_kv_faults_cpu(smoke, write_store):
     dk, dv = write_store.device_arrays("cpu")
     r = smoke.phase_kv_faults("cpu", write_store, dk, dv)
@@ -642,46 +601,6 @@ def test_plant_tears_names_each_kind_once(smoke, write_store):
     assert [(x.kind, x.shard, x.bucket, x.key)
             for x in rep.violations] == want
     assert len({w[0] for w in want}) == 5
-
-
-def test_phase_kv_resize_cpu(smoke, write_store):
-    dk, dv = write_store.device_arrays("cpu")
-    r = smoke.phase_kv_resize("cpu", write_store, dk, dv, step=8,
-                              small_buckets=16, small_keys=8)
-    assert r["killed_lap"] >= 2 and r["gets"] == 2 * 64
-    assert r["sets"] == 4 and r["small_quanta"] == 2
-    assert r["get_hits"] > 0
-
-
-def test_phase_kv_contend_cpu(smoke, write_store):
-    """The racing-writer phase at 2 shards x 256 buckets: its gates hold
-    the uniform batch at every writer count to n_writers=1 and the host
-    oracle, the hammer to fsck and read-back, the cut sweep and the
-    fairness run to the oracles, and the isolation arm to the CPU path;
-    here the counts show each part ran."""
-    dk, dv = write_store.device_arrays("cpu")
-    r = smoke.phase_kv_contend("cpu", write_store, dk, dv, per_owner=4,
-                               n_gets=16, burst=8.0)
-    assert set(r["sets_per_s"]) == {"uniform/1", "uniform/2", "uniform/4",
-                                    "hot/2", "hot/4"}
-    assert "writer-group" in r["set_stages"]["hot/2"]
-    assert r["cuts"] > 100 and set(r["cut_oracles"]) == {"AB", "BA"}
-    assert r["fairness_ratio"] <= 2.0 and r["fair_steps"] > 0
-    assert r["isolation_deferred"][0] > 0
-    k, v = write_store.device_arrays("cpu")
-    assert torch.equal(k, dk) and torch.equal(v, dv)
-
-
-def test_phase_kv_service_cpu(smoke, write_store):
-    dk, dv = write_store.device_arrays("cpu")
-    r = smoke.phase_kv_service("cpu", write_store, dk, dv,
-                               recycled_buckets=64, recycled_words=1024,
-                               n_stream=16, per_owner=4)
-    assert r["resident_gets"] == 16 and r["reliable_attempts"] >= 2
-    assert r["deleted"] > 0 and r["small_resizes"] >= 1
-    assert r["chained_buckets_after"] == 32
-    k, v = write_store.device_arrays("cpu")
-    assert torch.equal(k, dk) and torch.equal(v, dv)
 
 
 def test_phase_chain_programs_cpu(smoke):

@@ -99,7 +99,20 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          and a CLOCK sweep.  Every status and array is held
                          bit for bit to the host oracles, and the touched
                          keys are read back on all three get paths.  Its
-                         chains run on the interpreter kernel.
+                         single-chain stages (writer, displacer, deleter,
+                         sweeper) run on the walk kernel
+                         (``chain_walk_kernel``: a stage's windows walked
+                         in one launch, a block an owner), each held bit
+                         for bit to ``_walk`` (the earlier route, an
+                         interpreter launch a window position) on the same
+                         inputs in responses, steps and carry; the SET,
+                         DELETE and sweep batches timed by host clock on
+                         both routes, the SET batch traced on both (the
+                         walk kernel's device time beside ``_walk``'s
+                         interpreter time, the device's idle share); the
+                         walk kernel replayed on the SET batch's stages
+                         against its plain walk, beside its serial floor.
+                         The GETs' chains run on the interpreter kernel.
 6b. ``kv_faults``      — the recovery drill on the ``kv_get`` store: a
                          (4, 8) SET batch of updates, inserts and forced
                          displacements under a seeded storm of all four
@@ -110,6 +123,8 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          repairable kinds and a neighborhood breach): the
                          report names exactly those, and repair mends the
                          five.  Times fsck and repair at 262,144 buckets.
+                         Each SET stage (fault rows on the writer) walks
+                         and is held to ``_walk``.
 6c. ``kv_resize``      — online growth of the same store: two 16-lap
                          ``sharded_resize`` quanta against the host oracle;
                          again with shard 0 killed inside a lap (a torn
@@ -118,7 +133,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          frames; 256 gets and 8 sets through the
                          ResizeState arms against the double-frame
                          oracle; a 4 x 32-bucket store grown to the end
-                         against ``grow``.  On the interpreter kernel.
+                         against ``grow``.  Every migrator, displacer and
+                         writer stage walks and is held to ``_walk``; the
+                         quanta timed by host clock on both routes.
 6d. ``kv_contend``     — racing writers and isolation (§3.5, §5.5) on the
                          same store: ``sharded_set`` with 1, 2 and 4
                          writer lanes on a (4, 8) batch whose homes lie
@@ -143,7 +160,9 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``set_reliable`` under a kill plan, fsck clean;
                          a 1-shard, 8-bucket service grown by its own
                          SETs, and the chained second growth, every key
-                         served throughout.  On the interpreter kernel.
+                         served throughout.  The single-chain stages walk,
+                         each held to ``_walk``; the 2-lane SET's laps and
+                         the GETs run on the interpreter kernel.
 6f. ``chain_programs`` — the chain-program toolchain: the static
                          verifier's sweep of its 18 registered programs,
                          built on the card, equal to ``BENCH_chains.json``
@@ -484,6 +503,7 @@ from repro_torch.data.pipeline import kv_request_stream  # noqa: E402
 from repro_torch.distributed import fault  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chain_interp import ops as interp_ops  # noqa: E402
+from repro_torch.kernels.chain_interp import ref as walk_ref  # noqa: E402
 from repro_torch.kernels.chain_vm import ops as chain_ops  # noqa: E402
 from repro_torch.kernels.chain_vm import ref as chain_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
@@ -1404,9 +1424,12 @@ def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
         fresh += n_insert
     sk = np.stack(rows).astype(np.int32)
     sv = new_values(sk, v)
-    case("set", lambda: store.sharded_set(
-        dk, dv, torch.from_numpy(sk).to(dev), torch.from_numpy(sv).to(dev),
-        device=device))
+    # (the SET's stages walk on the walk kernel: the rows route runs their
+    # chains here)
+    with rows_route():
+        case("set", lambda: store.sharded_set(
+            dk, dv, torch.from_numpy(sk).to(dev),
+            torch.from_numpy(sv).to(dev), device=device))
     result["set_batch"] = tuple(sk.shape)
 
     # racing writers: a 4-lane SET of hot keys, the 2-writer cut sweep
@@ -1627,6 +1650,230 @@ def run_traced(device, fn):
     return value, ms, stages
 
 
+# launches made to compare: the rows route's interpreter launches (the
+# walk's yardstick) and the walk kernel's replays against its plain
+# version; no path's
+YARDSTICK = {"run_interp": 0, "walk": 0}
+# the walk kernel's ptxas instances (one warp, several)
+WALK_KERNEL = "chain_walk_kernel"
+
+
+@contextlib.contextmanager
+def rows_route():
+    """The single-chain write stages on the earlier route inside the block
+    (``transport.rows_stage``: ``_walk`` over the program's ``run_rows``,
+    an interpreter launch a window position), the walk's yardstick,
+    called by this script: the package has no switch for it.  Its
+    interpreter launches count in ``YARDSTICK``, not in a path's."""
+    walk = transport.walk_stage
+    before = interp_ops.launches["run_interp"]
+    transport.walk_stage = transport.rows_stage
+    try:
+        yield
+    finally:
+        transport.walk_stage = walk
+        YARDSTICK["run_interp"] += interp_ops.launches["run_interp"] - before
+
+
+@contextlib.contextmanager
+def walk_records():
+    """The transport's trace of the block: a record a stateful stage, a
+    walked stage's with its arguments and output (copies)."""
+    prev = transport.trace
+    transport.trace = []
+    try:
+        yield transport.trace
+    finally:
+        transport.trace = prev
+
+
+def recorded(records: list, fn):
+    """``fn()`` with the transport's trace on, its records added to
+    ``records``."""
+    with walk_records() as recs:
+        value = fn()
+    records.extend(recs)
+    return value
+
+
+def host_ms(device, fn):
+    """``(fn(), ms)`` by host clock, the card synchronised before and
+    after."""
+    sync(device)
+    t0 = time.perf_counter()
+    value = fn()
+    sync(device)
+    return value, (time.perf_counter() - t0) * 1e3
+
+
+def require_same(a, b, what: str) -> None:
+    """Raise unless two results (tensors, arrays, scalars and tuples of
+    them, named or not) are equal, integers bit for bit."""
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        require_equal(a, b, what)
+    elif isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} vs {len(b)} parts")
+        for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+            require_same(x, y, f"{what}.{name}")
+    elif a != b:
+        raise AssertionError(f"{what}: {a} vs {b}")
+
+
+def require_walked(device, what: str, records) -> list:
+    """Every walked stage of ``records`` again on the rows route from its
+    recorded arguments: responses, steps per request and carry bit-equal
+    to ``_walk``'s; on the card each stage one ``chain_walk_kernel``
+    launch and no interpreter launch.  Returns a dict a stage: depth,
+    runs, steps, and the walk's and the rows route's ms (CUDA events,
+    None on the CPU)."""
+    walked = [r for r in records if "args" in r]
+    if not walked:
+        raise AssertionError(f"{what}: no stage walked")
+    want = {"run_interp": 0, "walk": 1 if on_card(device) else 0}
+    out = []
+    for r in walked:
+        stage = r["stage"]
+        if r["launches"] != want:
+            raise AssertionError(f"{what} {stage}: launches {r['launches']}"
+                                 f", not {want}")
+        before = interp_ops.launches["run_interp"]
+        with walk_records() as yard:
+            transport.rows_stage(*r["args"])
+        YARDSTICK["run_interp"] += interp_ops.launches["run_interp"] - before
+        y = yard[-1]
+        for name, a, b in zip(("responses", "steps"), r["out"], y["out"]):
+            require_equal(a, b, f"{what} {stage}: {name} vs _walk")
+        for i, (a, b) in enumerate(zip(r["out"][2], y["out"][2])):
+            require_equal(a, b, f"{what} {stage}: carry[{i}] vs _walk")
+        sync(device)
+        steps = r["out"][1]
+        out.append(dict(
+            stage=stage, depth=r["depth"], runs=r["runs"],
+            steps_max=int(steps.max()),
+            steps_median=float(np.median(steps[steps > 0].cpu().numpy()))
+            if bool((steps > 0).any()) else 0.0,
+            ms=r["start"].elapsed_time(r["end"]) if "start" in r else None,
+            rows_ms=y["start"].elapsed_time(y["end"]) if "start" in y
+            else None))
+    return out
+
+
+def walk_vs_rows(device, what: str, fn):
+    """``fn()`` (store calls whose single-chain stages walk) from the same
+    inputs three times: traced, each walked stage then held to the rows
+    route (``require_walked``); untraced, by host clock; and on the rows
+    route by host clock, its whole result equal to the walk's.  Returns
+    ``(the traced run's value, dict(ms, rows_ms, stages, records))``."""
+    with walk_records() as recs:
+        value = fn()
+    stages = require_walked(device, what, recs)
+    _, ms = host_ms(device, fn)
+    with rows_route():
+        rows_value, rows_ms = host_ms(device, fn)
+    require_same(value, rows_value, f"{what}: the walk vs _walk")
+    return value, dict(ms=ms, rows_ms=rows_ms, stages=stages,
+                       records=[r for r in recs if "args" in r])
+
+
+def stage_summary(stages) -> dict:
+    """``require_walked``'s stages by name (a repeated name: the last),
+    as ``run_traced`` reports them."""
+    return {st["stage"]: {k: st[k] for k in ("ms", "rows_ms", "depth",
+                                             "runs", "steps_max",
+                                             "steps_median")}
+            for st in stages}
+
+
+def walk_profile(device, fn, kernels) -> dict:
+    """A call of ``fn`` on the card by host clock, then one traced: the
+    device ms of the traced call, its named kernels' ms, and the
+    device's idle share of the call (1 - device ms / the untraced call's
+    ms, as the training drives take it); all None off the card or when
+    the trace holds no device time."""
+    none = dict(wall_ms=None, device_ms=None, idle_share=None,
+                by_kernel_ms={k: None for k in kernels})
+    if not on_card(device):
+        return none
+    fn()
+    _, wall_ms = host_ms(device, fn)
+    for _ in range(3):
+        prof = device_profile(fn, 1, kernels)
+        if prof["device_ms"] > 0:
+            return dict(wall_ms=wall_ms, device_ms=prof["device_ms"],
+                        idle_share=1.0 - prof["device_ms"] / wall_ms,
+                        by_kernel_ms=prof["by_kernel_ms"])
+    return none
+
+
+def walk_floor_ms(cycles, steps) -> dict:
+    """The walk's serial floor at the card's maximum SM clock, a step
+    ``INTERP_STEP_TRIPS`` dependent L2 trips: an owner's positions in
+    order (the most steps any owner's window sums), and beside it the
+    lockstep sum (each position's most steps, summed over positions, the
+    depth the earlier route ran owners in).  0 off the card."""
+    if cycles is None:
+        return dict(owner=0.0, lockstep=0.0)
+    per = cycles["l2"] * INTERP_STEP_TRIPS / max_sm_clock_hz() * 1e3
+    return dict(owner=float(steps.sum(1).max()) * per,
+                lockstep=float(steps.max(0).values.sum()) * per)
+
+
+def walk_kernel_row(device, records, cycles) -> dict:
+    """The walk kernel on the stages of ``records`` (a batch's), each
+    replayed from its recorded arguments: the kernel's device time from a
+    trace (the sum over the stages, one launch each), the plain version
+    (``ref.plain_walk``, on the card) by host clock and bit-equal, the
+    serial floor and the bytes bound: each executed WR's 8 words, each
+    run row's window and fault words, its 9 counters a WQ restored and
+    its response and steps written, and each changed carry word of the
+    image and its shadow.  The plain version's steps agree by
+    construction."""
+    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, bytes=0,
+               serial_floor_ms=0.0, lockstep_floor_ms=0.0, timed_by=[],
+               stages=[r["stage"] for r in records])
+    before = interp_ops.launches["walk"]
+    for r in records:
+        prog, budget, carry, rows, frows, resp_words, _ = r["args"]
+
+        def run(prog=prog, carry=carry, rows=rows, budget=budget,
+                frows=frows, resp_words=resp_words):
+            return interp_ops.run_walk(prog, carry, rows, budget, frows,
+                                       resp_words)
+
+        got = run()
+        plain, plain_ms = host_ms(device, lambda: walk_ref.plain_walk(
+            prog, carry, rows, budget, frows, resp_words))
+        for i, (a, b) in enumerate(zip(got[:2] + got[2],
+                                       plain[:2] + plain[2])):
+            out["max_abs_err"] = max(out["max_abs_err"], require_equal(
+                a, b, f"walk kernel vs plain walk {r['stage']} [{i}]"))
+        ms, timed_by = plain_ms, "plain"
+        if on_card(device):
+            prof = device_time(run, 2, (WALK_KERNEL,))
+            timed_by = prof["timed_by"]
+            ms = (prof["by_kernel_ms"][WALK_KERNEL] if timed_by == "trace"
+                  else prof["device_ms"])
+        steps = r["out"][1]
+        runs = int((rows[..., 0] != 0).sum())
+        changed = sum(int((a != b).sum()) for a, b in zip(r["out"][2],
+                                                          carry))
+        width = rows.shape[-1] + (0 if frows is None else frows.shape[-1])
+        out["bytes"] += 4 * (8 * int(steps.sum()) + runs * (
+            width + 9 * prog.spec.num_wqs + resp_words + 1) + 2 * changed)
+        floor = walk_floor_ms(cycles, steps)
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["timed_by"].append(timed_by)
+        out["serial_floor_ms"] += floor["owner"]
+        out["lockstep_floor_ms"] += floor["lockstep"]
+    YARDSTICK["walk"] += interp_ops.launches["walk"] - before
+    out["bytes_bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    out.update(bound_ms=out["bytes_bound_ms"], bound_by="bytes",
+               library_ms=None)
+    return out
+
+
 def window_oracle(tables, keys, live, fn, values=None):
     """A batch applied to the host tables the way the store serializes it:
     per owner shard, its live rows in window order (source-major, then
@@ -1800,9 +2047,13 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
         fresh += n_insert + 1
     sk, live = np.stack(rows).astype(np.int32), np.asarray(live)
     sv = new_values(sk, v)
-    (res, wk, wv), set_ms, set_stages = run_traced(
-        device, lambda: store.sharded_set(dk, dv, dev(sk), dev(sv),
-                                          live=dev(live), device=device))
+
+    def set_batch():
+        return store.sharded_set(dk, dv, dev(sk), dev(sv), live=dev(live),
+                                 device=device)
+
+    (res, wk, wv), set_walk = walk_vs_rows(device, "set", set_batch)
+    set_ms, set_stages = set_walk["ms"], stage_summary(set_walk["stages"])
     want = window_oracle(tables, sk, live, hopscotch.insert_many_displaced,
                          sv)
     require_mutation("set", res, want, sk, live, SET_TERMINAL)
@@ -1814,7 +2065,27 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
     n_sets = int((live & (sk != 0)).sum())
     result = dict(shards=s_, buckets_per_shard=n, set_batch=sk.shape,
                   set_statuses=statuses, set_ms=set_ms,
+                  set_rows_ms=set_walk["rows_ms"],
                   sets_per_s=n_sets / (set_ms * 1e-3), set_stages=set_stages)
+    # the walk kernel beside _walk's interpreter launches on the same
+    # batch, by device time from a trace; the device's idle share
+    walk_prof = walk_profile(device, set_batch, (WALK_KERNEL,))
+    with rows_route():
+        rows_prof = walk_profile(device, set_batch, ("chain_interp_kernel",))
+    cycles = ({level: chain_ops.chase_cycles(level, device)
+               for level in chain_ops.CHASE_LEVELS} if on_card(device)
+              else None)
+    result.update(
+        set_walk_kernel_ms=walk_prof["by_kernel_ms"][WALK_KERNEL],
+        set_rows_interp_ms=rows_prof["by_kernel_ms"]["chain_interp_kernel"],
+        set_device_ms=walk_prof["device_ms"],
+        set_rows_device_ms=rows_prof["device_ms"],
+        set_untraced_ms=walk_prof["wall_ms"],
+        set_rows_untraced_ms=rows_prof["wall_ms"],
+        set_idle_share=walk_prof["idle_share"],
+        set_rows_idle_share=rows_prof["idle_share"],
+        walk_kernel=dict(walk_kernel_row(device, set_walk["records"],
+                                         cycles), shape=tuple(sk.shape)))
 
     # --- DELETE: keys this batch set, loaded keys, misses --------------------
     n_set, n_old, n_miss = n_delete
@@ -1826,16 +2097,18 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
         np.int32)
     fresh += s_ * n_miss
     d_live = np.ones(dk_rows.shape, bool)
-    (dres, wk, wv), del_ms, del_stages = run_traced(
-        device, lambda: store.sharded_delete(wk, wv, dev(dk_rows),
-                                             device=device))
+    (dres, wk, wv), del_walk = walk_vs_rows(
+        device, "delete", lambda: store.sharded_delete(wk, wv, dev(dk_rows),
+                                                       device=device))
+    del_ms, del_stages = del_walk["ms"], stage_summary(del_walk["stages"])
     want = window_oracle(tables, dk_rows, d_live, hopscotch.delete_many)
     require_mutation("delete", dres, want, dk_rows, d_live,
                      (hopscotch.DEL_DELETED,))
     require_tables("delete", tables, wk, wv)
     result.update(
         delete_deleted=int((want == hopscotch.DEL_DELETED).sum()),
-        delete_ms=del_ms, delete_stages=del_stages)
+        delete_ms=del_ms, delete_rows_ms=del_walk["rows_ms"],
+        delete_stages=del_stages)
 
     # --- TTL SET: per shard, new keys homed in a window plus a loaded key
     # in it; half the deadlines lapse between the two clocks
@@ -1855,10 +2128,13 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
     t_live = np.ones(tk.shape, bool)
     before = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
               for t in tables]
-    (tres, wk, wv, we), ttl_ms = timed_call(
+    recs = []
+    (tres, wk, wv, we), ttl_ms = recorded(recs, lambda: timed_call(
         device, lambda: store.sharded_set(
             wk, wv, dev(tk), dev(tv), exp=dev(np.stack(exps)),
-            deadlines=dev(deadlines), device=device))
+            deadlines=dev(deadlines), device=device)))
+    result["ttl_set_stages"] = stage_summary(require_walked(
+        device, "ttl set", recs))
     want = window_oracle(tables, tk, t_live, hopscotch.insert_many_displaced,
                          tv)
     require_mutation("ttl set", tres, want, tk, t_live, SET_TERMINAL)
@@ -1886,9 +2162,11 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
     # --- the CLOCK sweep over the window -------------------------------------
     count = ttl_span + 2 * h
     hand = np.full(s_, lo, np.int32)
-    (rep, wk, wv, we), sweep_ms, sweep_stages = run_traced(
-        device, lambda: store.sharded_sweep(wk, wv, we, dev(hand),
-                                            now_after, count, device=device))
+    (rep, wk, wv, we), sweep_walk = walk_vs_rows(
+        device, "sweep", lambda: store.sharded_sweep(
+            wk, wv, we, dev(hand), now_after, count, device=device))
+    sweep_ms = sweep_walk["ms"]
+    sweep_stages = stage_summary(sweep_walk["stages"])
     for s, t in enumerate(tables):
         st, exps[s] = hopscotch.sweep_expired(t, exps[s], now_after, lo,
                                               count)
@@ -1901,7 +2179,8 @@ def phase_kv_write(device, kv, dk, dv, n_update=12, n_insert=12, n_disp=4,
     if reclaimed < 1:
         raise AssertionError("the sweeper reclaimed no bucket")
     result.update(sweep_count=count, sweep_reclaimed=reclaimed,
-                  sweep_ms=sweep_ms, sweep_stages=sweep_stages)
+                  sweep_ms=sweep_ms, sweep_rows_ms=sweep_walk["rows_ms"],
+                  sweep_stages=sweep_stages)
 
     # --- every get path reads the touched keys back --------------------------
     rf, rv = store.reference_get(host, mixed)
@@ -2009,8 +2288,10 @@ def phase_kv_faults(device, kv, dk, dv, n_update=3, n_insert=3, n_disp=2,
     plan = faults.storm(sk.size, p_fault=0.5, max_step=60,
                         seed=faults.storm_seed(), device=device)
     plan = faults.FaultPlan(*(leaf.reshape(sk.shape) for leaf in plan))
-    (res, wk, wv), set_ms = timed_call(device, lambda: store.sharded_set(
-        dk, dv, dev(sk), dev(sv), faults=plan, device=device))
+    recs = []
+    (res, wk, wv), set_ms = recorded(recs, lambda: timed_call(
+        device, lambda: store.sharded_set(dk, dv, dev(sk), dev(sv),
+                                          faults=plan, device=device)))
     status = res.status.cpu().numpy()
     retry = ~np.isin(status, SET_TERMINAL)
     if not retry.any():
@@ -2023,8 +2304,12 @@ def phase_kv_faults(device, kv, dk, dv, n_update=3, n_insert=3, n_disp=2,
         wk, wv, rep, neighborhood=h))
     if not fsck.check_invariants(wk, wv, neighborhood=h).clean:
         raise AssertionError("fsck not clean after repair")
-    (res2, wk, wv), retry_ms = timed_call(device, lambda: store.sharded_set(
-        wk, wv, dev(sk), dev(sv), live=dev(retry), device=device))
+    (res2, wk, wv), retry_ms = recorded(recs, lambda: timed_call(
+        device, lambda: store.sharded_set(wk, wv, dev(sk), dev(sv),
+                                          live=dev(retry), device=device)))
+    # each SET stage, the storm's (fault rows on the writer) and the
+    # retry's, held to _walk on the same inputs
+    walked = require_walked(device, "storm and retry sets", recs)
     if not np.isin(res2.status.cpu().numpy()[retry], SET_TERMINAL).all():
         raise AssertionError(f"the retry left rows unserved: {res2}")
     untouched = rng.choice(np.setdiff1d(loaded, sk), s_ * 16,
@@ -2047,7 +2332,8 @@ def phase_kv_faults(device, kv, dk, dv, n_update=3, n_insert=3, n_disp=2,
                             for c in np.unique(status)},
                   violations=repr(rep), repairs=len(actions), set_ms=set_ms,
                   retry_ms=retry_ms, fsck_ms=fsck_ms, repair_ms=repair_ms,
-                  final_fsck_ms=final_ms, buckets=s_ * n)
+                  final_fsck_ms=final_ms, buckets=s_ * n,
+                  walked_stages=[w["stage"] for w in walked])
 
     # --- planted tears: the report names exactly them ------------------------
     pk, pv, pe, want = plant_tears(dk.cpu().numpy(), dv.cpu().numpy(), h)
@@ -2158,22 +2444,21 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
     rs0 = store.begin_resize(dk, dv, device=device)
 
     # --- two fault-free quanta against the host oracle -----------------------
-    clean, reports, quantum_ms = rs0, [], []
+    clean, reports, quantum_ms, quantum_rows_ms = rs0, [], [], []
+    quantum_stages = []
     for q in range(2):
-        transport.trace = [] if q == 0 else None
-        try:
-            (clean, rep), ms_q = timed_call(
-                device, lambda: store.sharded_resize(clean, step, h,
-                                                     device=device))
-            laps = transport.trace
-        finally:
-            transport.trace = None
+        (clean, rep), walked = walk_vs_rows(
+            device, f"quantum {q}", lambda: store.sharded_resize(
+                clean, step, h, device=device))
         reports.append({k: x.tolist() for k, x in rep._asdict().items()})
-        quantum_ms.append(ms_q)
+        quantum_ms.append(walked["ms"])
+        quantum_rows_ms.append(walked["rows_ms"])
+        quantum_stages.append(stage_summary(walked["stages"]))
         for o, nw in zip(olds, news):
             host_quantum(o, nw, q * step, step, ms, mm)
         if q == 0:
-            mig_steps = [r["steps"] for r in laps if r["stage"] == "migrator"]
+            mig_steps = [r["steps"] for r in walked["records"]
+                         if r["stage"] == "migrator"]
     require_frames("clean quanta", clean, olds, news)
     require_equal(clean.watermark, np.full(s_, 2 * step, np.int32),
                   "clean watermarks")
@@ -2188,9 +2473,11 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
     rows = faults.FaultPlan.none((s_, step), device=device).as_rows()
     rows[0] = faults.FaultPlan.kill_lap(step, lap, kill_step,
                                         device=device).as_rows()
-    (frs, frep), faulted_ms = timed_call(device, lambda: store.sharded_resize(
-        rs0, step, h, faults=faults.FaultPlan.from_row(rows),
-        device=device))
+    (frs, frep), faulted = walk_vs_rows(
+        device, "faulted quantum", lambda: store.sharded_resize(
+            rs0, step, h, faults=faults.FaultPlan.from_row(rows),
+            device=device))
+    faulted_ms = faulted["ms"]
     require_equal(frs.watermark, [lap] + [step] * (s_ - 1),
                   "faulted watermarks")
     rep, fsck_ms = timed_call(device, lambda: fsck.check_invariants(
@@ -2202,12 +2489,14 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
         frs, rep, neighborhood=h))
     if not fsck.check_invariants(resize=frs, neighborhood=h).clean:
         raise AssertionError("fsck not clean after repair_resize")
-    one, _ = store.sharded_resize(
+    rest = []
+    one, _ = recorded(rest, lambda: store.sharded_resize(
         store.ResizeState(*(a[:1] for a in frs)), step - lap, h,
-        device=device)
+        device=device))
     frs = store.ResizeState(*(torch.cat([a, b[1:]]) for a, b in zip(one,
                                                                      frs)))
-    frs, _ = store.sharded_resize(frs, step, h, device=device)
+    frs, _ = recorded(rest, lambda: store.sharded_resize(frs, step, h,
+                                                         device=device))
     for f in store.ResizeState._fields:
         require_equal(getattr(frs, f), getattr(clean, f),
                       f"re-driven vs fault-free {f}")
@@ -2215,7 +2504,10 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
                   killed_lap=lap, kill_step=kill_step, violations=repr(rep),
                   repairs=[a.action for a in actions],
                   faulted_quantum_ms=faulted_ms, fsck_ms=fsck_ms,
-                  repair_ms=repair_ms, buckets=s_ * 3 * n)
+                  repair_ms=repair_ms, buckets=s_ * 3 * n,
+                  quantum_rows_ms=quantum_rows_ms,
+                  quantum_stages=quantum_stages,
+                  faulted_quantum_rows_ms=faulted["rows_ms"])
 
     # --- serving from both frames --------------------------------------------
     w = 2 * step
@@ -2245,8 +2537,9 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
     # unmigrated one (updated in the old frame)
     sk = np.stack([[r[1], r[-6]] for r in qs]).astype(np.int32)
     sv = new_values(sk, v)
-    (sres, srs), set_ms = timed_call(device, lambda: store.sharded_set(
-        clean, dev(sk), dev(sv), neighborhood=h, device=device))
+    (sres, srs), set_ms = recorded(rest, lambda: timed_call(
+        device, lambda: store.sharded_set(clean, dev(sk), dev(sv),
+                                          neighborhood=h, device=device)))
     if not np.isin(sres.status.cpu().numpy(), SET_TERMINAL).all():
         raise AssertionError(f"resize sets: {sres}")
     g2 = store.sharded_get(srs, dev(q), neighborhood=h, device=device)
@@ -2274,13 +2567,18 @@ def phase_kv_resize(device, kv, dk, dv, step=16, before_end=8, n_gets=64,
     t0 = time.perf_counter()
     quanta = 0
     while not store.resize_done(rs):
-        rs, _ = store.sharded_resize(rs, step, h, device=device)
+        rs, _ = recorded(rest, lambda: store.sharded_resize(
+            rs, step, h, device=device))
         quanta += 1
     nk, nv = store.finish_resize(rs)
     require_equal(nk, np.stack([t.keys for t in grown]), "grown keys")
     require_equal(nv, np.stack([t.values for t in grown]), "grown vals")
+    # every walked stage of the re-drive, the window's sets and the growth
+    # to the end, held to _walk on the same inputs
+    walked = require_walked(device, "resize", rest)
     result.update(small_quanta=quanta,
-                  small_grow_s=time.perf_counter() - t0)
+                  small_grow_s=time.perf_counter() - t0,
+                  walked_stages=len(walked))
     return result
 
 
@@ -2646,12 +2944,13 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
     h, v = kv.neighborhood, dv.shape[2]
     result = dict(ms={})
     set_one = [9, 8, 7, 6][:v]
+    walked = []                    # the transport's records of the phase
 
     def dev(a):
         return torch.from_numpy(np.asarray(a)).to(device)
 
     def timed(name, fn):
-        value, ms = timed_call(device, fn)
+        value, ms = recorded(walked, lambda: timed_call(device, fn))
         result["ms"][name] = ms
         return value
 
@@ -2747,7 +3046,7 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
     for step in range(3):
         ks = rng.randint(2, 1 << 20, (1, 6)).astype(np.int32)
         vs = new_values(ks, v)
-        r = small.set_many(dev(ks), dev(vs))
+        r = recorded(walked, lambda: small.set_many(dev(ks), dev(vs)))
         for k, val, a in zip(ks[0], vs[0], r.applied[0].cpu().numpy()):
             if a:
                 stored[int(k)] = val.tolist()
@@ -2757,7 +3056,7 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
             raise AssertionError(f"growth step {step}: a key went missing")
         require_equal(gg.values[0], np.asarray(list(stored.values())),
                       f"growth step {step} values")
-    small.drive_resize()
+    recorded(walked, small.drive_resize)
     if small.resizes_completed < 1:
         raise AssertionError("the small service never grew")
     result["growth_s"] = time.perf_counter() - t0
@@ -2780,7 +3079,7 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
         torch.zeros(1, dtype=torch.int32, device=device))
     chain.crash_host()
     t0 = time.perf_counter()
-    chain._advance_resize()
+    recorded(walked, chain._advance_resize)
     result["chained_growth_s"] = time.perf_counter() - t0
     if chain.resize is not None or chain.chained_growths != 1:
         raise AssertionError("the dead end did not chain a second growth")
@@ -2789,6 +3088,10 @@ def phase_kv_service(device, kv, dk, dv, recycled_buckets=4096,
     if not bool(gg.found.all()):
         raise AssertionError("a key went missing in the chained growth")
     result["chained_buckets_after"] = int(chain.keys.shape[1])
+    # every walked stage of the services (the 2-lane SET's laps are the
+    # racing lanes' route), held to _walk on the same inputs
+    result["walked_stages"] = len(require_walked(device, "service",
+                                                 walked))
     return result
 
 
@@ -5349,6 +5652,10 @@ KERNELS = (
     ("chain_interp.run_interp", "chain_interp",
      "src/repro_torch/csrc/chain_interp.cu", "src/repro/core/machine.py:447",
      ("chain_interp_kernel",)),
+    # no TPU kernel: the JAX package walks a write stage's window as a
+    # lax.scan of image build, run and commit under jit
+    ("chain_interp.walk", "kv_write", "src/repro_torch/csrc/chain_interp.cu",
+     "src/repro/rdma/transport.py:196", (WALK_KERNEL,)),
     ("chain_vm.run_chains", "chain_straight",
      "src/repro_torch/csrc/chain_vm.cu",
      "src/repro/kernels/chain_vm/kernel.py:30", ("run_chains_kernel",)),
@@ -5394,6 +5701,11 @@ PHASES = ("kv_get", "kv_get_group", "chain_kernel", "chain_faults",
 # the paths whose multi-WQ chains run on the interpreter kernel
 INTERP_PATHS = ("kv_get", "kv_write", "kv_faults", "kv_resize", "kv_contend",
                 "kv_service", "chain_programs")
+# the paths whose single-chain write stages walk on the walk kernel (each
+# must launch it; kv_contend's one-lane SETs walk too)
+WALK_PATHS = ("kv_write", "kv_faults", "kv_resize", "kv_service")
+# a row whose numbers sit under a key of its phase's result
+ROW_KEYS = {"chain_interp.walk": "walk_kernel"}
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -5547,11 +5859,17 @@ def check_ptxas(ptxas: dict, kernels, head_dims) -> None:
 
 def run_phase(phases, key, fn):
     """``phases[key] = fn()``, with the interpreter kernel's launches in
-    the phase (counted from 0) as its ``interp_launches``."""
+    the phase (counted from 0; not the rows route's, the walk's
+    yardstick) as its ``interp_launches`` and the walk kernel's as its
+    ``walk_launches``."""
     t0 = time.perf_counter()
-    interp_ops.launches["run_interp"] = 0
+    interp_ops.launches["run_interp"] = interp_ops.launches["walk"] = 0
+    YARDSTICK["run_interp"] = YARDSTICK["walk"] = 0
     phases[key] = fn()
-    phases[key]["interp_launches"] = interp_ops.launches["run_interp"]
+    phases[key]["interp_launches"] = (interp_ops.launches["run_interp"]
+                                      - YARDSTICK["run_interp"])
+    phases[key]["walk_launches"] = (interp_ops.launches["walk"]
+                                    - YARDSTICK["walk"])
     shown = {k: v for k, v in phases[key].items() if k != "rows"}
     print(f"[{key}] {time.perf_counter() - t0:.1f} s: {shown}", flush=True)
 
@@ -5597,6 +5915,13 @@ def main() -> int:
     if len(interp_ptxas) != 4:
         raise AssertionError(f"{len(interp_ptxas)} chain_interp_kernel "
                              f"instances in the ptxas report, not 4")
+    walk_ptxas = ptxas_report(logs.get("chain_interp", ""), (WALK_KERNEL,))
+    print(f"[card] chain_interp: ptxas of each <one warp> instance of "
+          f"{WALK_KERNEL} {walk_ptxas}", flush=True)
+    check_spill_free(walk_ptxas, (WALK_KERNEL,))
+    if len(walk_ptxas) != 2:
+        raise AssertionError(f"{len(walk_ptxas)} {WALK_KERNEL} instances "
+                             f"in the ptxas report, not 2")
     lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
     if lib.flash_attention_wgmma_bwd_keys(256) != fa_ops.BWD_KEYS_256:
         raise AssertionError(
@@ -5668,10 +5993,24 @@ def main() -> int:
               lambda: phase_hopscotch_probe(device, kv, dk, dv))
     run_phase(phases, "kv_write", lambda: phase_kv_write(device, kv, dk, dv))
     w = phases["kv_write"]
-    print(f"[times] kv_write ({card}): SET batch {w['set_ms']:.1f} ms "
+    wk_ = w["walk_kernel"]
+    print(f"[times] kv_write ({card}): by host clock, the walk / _walk: SET "
+          f"batch {w['set_ms']:.1f} / {w['set_rows_ms']:.1f} ms "
           f"({w['sets_per_s']:.1f} SETs/s), stages {w['set_stages']}; "
-          f"DELETE batch {w['delete_ms']:.1f} ms; sweep quantum of "
-          f"{w['sweep_count']} {w['sweep_ms']:.1f} ms; peak device memory "
+          f"DELETE batch {w['delete_ms']:.1f} / {w['delete_rows_ms']:.1f} "
+          f"ms; sweep quantum of {w['sweep_count']} {w['sweep_ms']:.1f} / "
+          f"{w['sweep_rows_ms']:.1f} ms; SET batch by device time from a "
+          f"trace: {WALK_KERNEL} {w['set_walk_kernel_ms']} ms, "
+          f"_walk's chain_interp_kernel {w['set_rows_interp_ms']} ms, all "
+          f"kernels {w['set_device_ms']} / {w['set_rows_device_ms']} ms, "
+          f"idle share {w['set_idle_share']} / {w['set_rows_idle_share']} "
+          f"(of {w['set_untraced_ms']} / {w['set_rows_untraced_ms']} ms "
+          f"by host clock); the walk kernel replayed "
+          f"on the batch's stages {wk_['ms']:.4f} ms (by {wk_['timed_by']}),"
+          f" plain walk {wk_['plain_ms']:.1f} ms, serial floor "
+          f"{wk_['serial_floor_ms']:.4f} ms (lockstep "
+          f"{wk_['lockstep_floor_ms']:.4f}), bytes bound "
+          f"{wk_['bytes_bound_ms']:.6f} ms; peak device memory "
           f"{w['max_memory_allocated']} bytes", flush=True)
     run_phase(phases, "kv_faults", lambda: phase_kv_faults(device, kv, dk,
                                                            dv))
@@ -5683,9 +6022,11 @@ def main() -> int:
     run_phase(phases, "kv_resize", lambda: phase_kv_resize(device, kv, dk,
                                                            dv))
     r_ = phases["kv_resize"]
-    print(f"[times] kv_resize ({card}): quanta of {r_['step']} laps "
-          f"{r_['quantum_ms']} ms, the faulted one "
-          f"{r_['faulted_quantum_ms']} ms", flush=True)
+    print(f"[times] kv_resize ({card}): by host clock, the walk / _walk: "
+          f"quanta of {r_['step']} laps {r_['quantum_ms']} / "
+          f"{r_['quantum_rows_ms']} ms, the faulted one "
+          f"{r_['faulted_quantum_ms']} / {r_['faulted_quantum_rows_ms']} ms;"
+          f" stages {r_['quantum_stages']}", flush=True)
     run_phase(phases, "kv_contend", lambda: phase_kv_contend(device, kv, dk,
                                                              dv))
     c_ = phases["kv_contend"]
@@ -5972,6 +6313,17 @@ def main() -> int:
             raise AssertionError(f"{key}: no run_interp launch")
     phases["chain_interp"]["launches"] = sum(by_phase.values())
     phases["chain_interp"]["launches_by_phase"] = by_phase
+    # the walk kernel's are those of the write paths' stages
+    walk_by_phase = {key: phases[key]["walk_launches"]
+                     for key in WALK_PATHS + ("kv_contend",)}
+    print(f"[chain_interp] walk launches by phase: {walk_by_phase}",
+          flush=True)
+    for key in WALK_PATHS:
+        if walk_by_phase[key] < 1:
+            raise AssertionError(f"{key}: no {WALK_KERNEL} launch")
+    walk_row = phases["kv_write"]["walk_kernel"]
+    walk_row.update(launches=sum(walk_by_phase.values()),
+                    launches_by_phase=walk_by_phase, ptxas=walk_ptxas)
     # kernel #1 also carries the kill faults of chain_faults' drive and the
     # ADDLEQ guests of chain_programs'
     phases["chain_kernel"]["launches_by_phase"] = dict(
@@ -5990,6 +6342,8 @@ def main() -> int:
     rows = []
     for kname, phase, source, replaces, cuda_kernels in KERNELS:
         r = phases[phase]
+        if kname in ROW_KEYS:
+            r = r[ROW_KEYS[kname]]
         if r["launches"] < 1:
             raise AssertionError(f"{kname}: no launch on its path")
         rows.append(dict(

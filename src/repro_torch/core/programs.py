@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -807,6 +807,47 @@ def _put_rows(arr: torch.Tensor, row: torch.Tensor, put: torch.Tensor,
     return out
 
 
+class WalkFrame(NamedTuple):
+    """One table of a write-side program's image, as a serial walk over
+    one persistent image carries it (:attr:`WalkLayout.frames`).
+
+    Carry row ``b < n`` is the bucket row ``[key, pad, val_ptr]`` at
+    ``table_base + 3 b`` and the value row of ``val_len`` words at
+    ``values_base + val_len b``; image rows ``n .. rows - 1`` mirror rows
+    ``0 .. rows - n - 1`` (the unwrapped frame, ``rows - n <= n``).  The
+    key words and value rows are the carry arrays ``carry[keys]`` and
+    ``carry[vals]``; the pad words are ``carry[pad]`` when ``pad >= 0``,
+    each row's home distance (``H = home_pad`` for an empty row) when
+    ``home_pad > 0``, else the program's own constant words.  The
+    val_ptr words never belong to the carry."""
+    table_base: int
+    values_base: int
+    n: int
+    rows: int
+    val_len: int
+    keys: int
+    vals: int
+    pad: int = -1
+    home_pad: int = 0
+
+
+class WalkLayout(NamedTuple):
+    """What a walk needs of a single-chain write-side program: the frames
+    its carry lives in, and the statuses whose clean run commits.
+
+    The rule every such program's ``commit`` and ``commit_torn`` equal
+    (``tests/test_torch_walk.py``): a run keeps its writes to the carry
+    words when its fault row is armed (``commit_torn``) or its status
+    (the word at ``resp_region``) is in ``commit``, and else changes no
+    carry word; a kept word of a mirrored row takes the primary copy's
+    write, else the mirror's (``_fold_mirrored``).  No run needs to keep
+    a word outside the carry."""
+    frames: Tuple[WalkFrame, ...]
+    commit: Tuple[int, ...]
+    resp_region: int
+    recv_wq: int
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class HopscotchShardWriter:
     """The write-side companion of :class:`HopscotchShardServer`.
@@ -857,6 +898,15 @@ class HopscotchShardWriter:
         the posted-WR count bounds any run): callers with tunable unroll
         bounds must use it rather than a fixed guess."""
         return _fuel(self.state0)
+
+    @property
+    def walk_layout(self) -> WalkLayout:
+        """The table straight (no mirror rows); UPDATED and INSERTED
+        commit."""
+        return WalkLayout(
+            (WalkFrame(self.table_base, self.values_base, self.n_buckets,
+                       self.n_buckets, self.val_len, 0, 1),),
+            (SET_UPDATED, SET_INSERTED), self.resp_region, self.recv_wq)
 
     def device_state(self, keys: torch.Tensor,
                      vals: torch.Tensor) -> machine.VMState:
@@ -1447,6 +1497,19 @@ class HopscotchShardDisplacer(HopscotchShardWriter):
     max_search: int = 0
     max_moves: int = 0
 
+    @property
+    def walk_layout(self) -> WalkLayout:
+        """The unwrapped frame: ``max_search`` mirror rows, the pad words
+        each row's home distance; UPDATED, INSERTED and DISPLACED
+        commit."""
+        n = self.n_buckets
+        return WalkLayout(
+            (WalkFrame(self.table_base, self.values_base, n,
+                       n + self.max_search, self.val_len, 0, 1,
+                       home_pad=self.neighborhood),),
+            (SET_UPDATED, SET_INSERTED, SET_DISPLACED), self.resp_region,
+            self.recv_wq)
+
     def device_state(self, keys: torch.Tensor,
                      vals: torch.Tensor) -> machine.VMState:
         """Image with the shard slice scattered into the unwrapped frame:
@@ -1773,6 +1836,18 @@ class HopscotchShardMigrator:
         """Exact step budget (no WQ recycles; see
         :attr:`HopscotchShardWriter.fuel`)."""
         return _fuel(self.state0)
+
+    @property
+    def walk_layout(self) -> WalkLayout:
+        """Two frames: the old one straight, the new one of ``2n`` rows
+        with ``H - 1`` mirror rows; MOVED and DISCARDED commit."""
+        n, h, v = self.n_buckets, self.neighborhood, self.val_len
+        return WalkLayout(
+            (WalkFrame(self.old_table_base, self.old_values_base, n, n, v,
+                       0, 1),
+             WalkFrame(self.new_table_base, self.new_values_base, 2 * n,
+                       2 * n + h - 1, v, 2, 3)),
+            (MIG_MOVED, MIG_DISCARDED), self.resp_region, self.recv_wq)
 
     def device_state(self, old_keys: torch.Tensor, old_vals: torch.Tensor,
                      new_keys: torch.Tensor,
@@ -2234,6 +2309,14 @@ class HopscotchShardDeleter:
         :attr:`HopscotchShardWriter.fuel`)."""
         return _fuel(self.state0)
 
+    @property
+    def walk_layout(self) -> WalkLayout:
+        """The table straight; DELETED commits."""
+        return WalkLayout(
+            (WalkFrame(self.table_base, self.values_base, self.n_buckets,
+                       self.n_buckets, self.val_len, 0, 1),),
+            (DEL_DELETED,), self.resp_region, self.recv_wq)
+
     def device_state(self, keys: torch.Tensor,
                      vals: torch.Tensor) -> machine.VMState:
         """Image with a shard's slice scattered in (see
@@ -2401,6 +2484,15 @@ class ClockSweeper:
         """Exact step budget (no WQ recycles; see
         :attr:`HopscotchShardWriter.fuel`)."""
         return _fuel(self.state0)
+
+    @property
+    def walk_layout(self) -> WalkLayout:
+        """The table straight, the deadlines (``carry[2]``) in the pad
+        words; RECLAIMED commits."""
+        return WalkLayout(
+            (WalkFrame(self.table_base, self.values_base, self.n_buckets,
+                       self.n_buckets, self.val_len, 0, 1, pad=2),),
+            (SWEEP_RECLAIMED,), self.resp_region, self.recv_wq)
 
     def device_state(self, keys: torch.Tensor, vals: torch.Tensor,
                      exp: torch.Tensor) -> machine.VMState:

@@ -68,6 +68,30 @@
 // WQs run as one warp with __syncwarp alone; larger ones take two
 // __syncthreads a step.  The row's scalars (steps, halted, the fault
 // ordinals) live in registers, updated alike by every thread.
+//
+// The walk kernel (chain_walk_kernel).  Replaces no TPU kernel either: it is
+// the counterpart of the JAX package's lax.scan of a write stage's step over
+// each owner's receive window (src/repro/rdma/transport.py:196, :202, :271,
+// :274), which builds the owner's image from the carry, runs the chain and
+// commits, inside the store's jitted programs.  One block an owner, the
+// step above (run_steps, shared with chain_interp_kernel, so the clocks, the
+// argmin's ties, the index rules and the fault ordinals are one code), and
+// the owner's image in global memory for the whole stage, built once from
+// the carry.  Each window position in order: a row whose first word is 0 is
+// skipped; state0's per-WQ fields are restored and the request delivered as
+// machine.deliver_many does; the chain runs to its stop under the row's
+// budget and fault row, every store's address logged (a step stores at most
+// 16 words, so the fuel bounds the log); then the commit of the program's
+// WalkLayout (core/programs.py): where the row's fault row is armed or its
+// status commits, each logged carry word keeps the run's write (a mirrored
+// row's primary copy winning, both copies set, a new key's home distance
+// into the pad words), else it is restored, and every other logged word is
+// restored, from a shadow of the image as it stood at the position's start.
+// So every position starts from device_state(carry) bit for bit, and the
+// plain version (kernels/chain_interp/ref.py::plain_walk, which commits by
+// the same rule over whole images) is matched exactly.  Bound: the serial
+// floor, the sum over positions of the owners' most steps times a step's
+// round trips; an owner's positions cannot overlap.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -139,6 +163,7 @@ struct InterpArgs {
 // after the index rules.
 template <bool kSplit>
 struct Image {
+  static constexpr bool kLogged = false;
   int* priv;
   const int* base;
   int lo;
@@ -154,7 +179,7 @@ struct Image {
 
   // store v at i; returns whether it would change a window word (then it
   // is not made)
-  __device__ __forceinline__ bool st(int i, int v) const {
+  __device__ __forceinline__ bool st(int i, int v, int) const {
     if constexpr (kSplit) {
       if (i >= hi) {
         priv[i - (hi - lo)] = v;
@@ -165,6 +190,28 @@ struct Image {
     priv[i] = v;
     return false;
   }
+
+  __device__ __forceinline__ void advance(int) {}
+};
+
+// A walk's image in global memory, every store's address logged: a step's
+// stores go to log[n + slot], slot < 16, and the step then advances n by
+// their count (warp 0's registers).
+struct LogImage {
+  static constexpr bool kLogged = true;
+  int* mem;
+  int* log;
+  int n;
+
+  __device__ __forceinline__ int ld(int i) const { return mem[i]; }
+
+  __device__ __forceinline__ bool st(int i, int v, int slot) const {
+    mem[i] = v;
+    log[n + slot] = i;
+    return false;
+  }
+
+  __device__ __forceinline__ void advance(int k) { n += k; }
 };
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
@@ -211,6 +258,253 @@ __device__ __forceinline__ void warp_argmin(float& key, int& idx, int& addr) {
   }
 }
 
+template <bool kOneWarp>
+__device__ __forceinline__ void block_sync() {
+  if (kOneWarp) __syncwarp(); else __syncthreads();
+}
+
+// The per-WQ counters and clocks, in shared memory for a whole run.
+struct WqArrays {
+  int* head;
+  int* tail;
+  int* en;
+  int* comp;
+  int* mhead;
+  int* mtail;
+  int* ord;
+  float* clock;
+  float* lct;
+};
+
+__device__ __forceinline__ WqArrays carve(int* wq_s, int nq) {
+  WqArrays q;
+  q.head = wq_s;
+  q.tail = q.head + nq;
+  q.en = q.tail + nq;
+  q.comp = q.en + nq;
+  q.mhead = q.comp + nq;
+  q.mtail = q.mhead + nq;
+  q.ord = q.mtail + nq;
+  q.clock = reinterpret_cast<float*>(q.ord + nq);
+  q.lct = q.clock + nq;
+  return q;
+}
+
+// The block's argmin slots across warps and the step's pick, in shared
+// memory.
+struct Reduce {
+  float* key;
+  int* idx;
+  int* addr;
+  int* any;
+  int* pick;                             // the step's WQ (-1: none), opcode
+};
+
+// What a run reads and does not change: the image length, the message
+// slots, the fuel, this thread's WQ geometry, the cost table and the verb
+// histogram (shared), and the row's message queues (N, CAP, 16).
+struct StepEnv {
+  int nq;
+  int len;
+  int cap;
+  int max_steps;
+  int base;
+  int size;
+  int managed;
+  const float* cost;
+  int* verbs;
+  int* msgs;
+};
+
+// The row's scalars, alike in every thread (responses: warp 0's).
+struct RowScalars {
+  int steps;
+  bool halted;
+  int responses;
+  int kill;
+  int suppress_at;
+  int fail_cas;
+  int zero_enable;
+  int cas_seen;
+  int enable_seen;
+};
+
+// The step, shared by both kernels: run the row until it stops, at most
+// `quota` steps (negative: no quota), only WQs [lo, hi) eligible.  Every
+// thread of the block calls it alike.  `dirty` collects warp 0's window
+// flags (split images).
+template <bool kOneWarp, class Img>
+__device__ __forceinline__ void run_steps(const StepEnv& e, const WqArrays& q,
+                                          const Reduce& red, RowScalars& r,
+                                          Img& img, bool& dirty, int quota,
+                                          int lo, int hi) {
+  const int nq = e.nq;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int L = e.len;
+  for (int k = 0; quota < 0 || k < quota; ++k) {
+    if (r.halted || r.steps >= e.max_steps ||
+        (r.kill >= 0 && r.steps >= r.kill))
+      break;
+    // 1. this thread's WQ: eligible?  (key +inf when not)
+    float key = INFINITY;
+    int idx = tid < nq ? tid : INT_MAX;
+    // every WQ's head address, eligible or not: when every key is +inf
+    // the argmin picks the lowest WQ, and the plain loop runs its head WR
+    int addr = 0;
+    bool eligible = false;
+    if (tid < nq)
+      addr = wrap_add(e.base, wrap_mul(floor_mod(q.head[tid], e.size),
+                                       kWrWords));
+    if (tid < nq && tid >= lo && tid < hi) {
+      const int h = q.head[tid];
+      const int limit = e.managed ? min(q.tail[tid], q.en[tid]) : q.tail[tid];
+      if (h < limit) {
+        const int ctrl = img.ld(read_index(addr, L));
+        const int opa = img.ld(read_index(wrap_add(addr, F_OPA), L));
+        const int opb = img.ld(read_index(wrap_add(addr, F_OPB), L));
+        const int op = (ctrl >> kIdBits) & 0x7F;
+        eligible = (op != WAIT || q.comp[clamp_to(opb, 0, nq - 1)] >= opa)
+                   && (op != RECV || q.mtail[tid] > q.mhead[tid]);
+        if (eligible) key = q.clock[tid];
+      }
+    }
+    // 2. the argmin over the block, into warp 0
+    warp_argmin(key, idx, addr);
+    bool any = __ballot_sync(kFullMask, eligible) != 0;
+    if (!kOneWarp) {
+      if (lane == 0) {
+        red.key[warp] = key;
+        red.idx[warp] = idx;
+        red.addr[warp] = addr;
+        red.any[warp] = any;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const bool mine = lane < static_cast<int>(blockDim.x >> 5);
+        key = mine ? red.key[lane] : INFINITY;
+        idx = mine ? red.idx[lane] : INT_MAX;
+        addr = mine ? red.addr[lane] : 0;
+        any = __ballot_sync(kFullMask, mine && red.any[lane] != 0) != 0;
+        warp_argmin(key, idx, addr);
+      }
+    }
+    // 3. warp 0 executes the WR
+    int w = -1, op = NOOP;
+    if (warp == 0 && any) {
+      w = __shfl_sync(kFullMask, idx, 0);
+      addr = __shfl_sync(kFullMask, addr, 0);
+      int word = 0;
+      if (lane < kWrWords) word = img.ld(read_index(wrap_add(addr, lane), L));
+      const int ctrl = __shfl_sync(kFullMask, word, F_CTRL);
+      const int flags = __shfl_sync(kFullMask, word, F_FLAGS);
+      const int src = __shfl_sync(kFullMask, word, F_SRC);
+      const int dst = __shfl_sync(kFullMask, word, F_DST);
+      const int ln = __shfl_sync(kFullMask, word, F_LEN);
+      const int opa = __shfl_sync(kFullMask, word, F_OPA);
+      const int opb = __shfl_sync(kFullMask, word, F_OPB);
+      const int aux = __shfl_sync(kFullMask, word, F_AUX);
+      op = min((ctrl >> kIdBits) & 0x7F, kNumOpcodes - 1);
+      const bool suppress = r.suppress_at >= 0 && r.steps == r.suppress_at;
+      if (suppress) op = NOOP;
+      const bool spur = r.fail_cas >= 0 && op == CAS &&
+                        r.cas_seen == r.fail_cas;
+      const bool zero = r.zero_enable >= 0 && op == ENABLE &&
+                        r.enable_seen == r.zero_enable;
+      const int tgt = clamp_to(opb, 0, nq - 1);
+      int added = 0;                     // stores made (lane 0's count)
+      if (op == WRITE || op == READ || (op == SEND && opb < 0)) {
+        // the block copy: the source block read whole, then written
+        const int n = clamp_to(ln, 0, kMaxCopy);
+        const int cs = block_start(src, L, kMaxCopy);
+        const int cd = block_start(dst, L, kMaxCopy);
+        int v = 0;
+        if (lane < n) v = img.ld(cs + lane);
+        __syncwarp();
+        if (lane < n) dirty |= img.st(cd + lane, v, lane);
+        added = n;
+        if (op == SEND) r.responses = wrap_add(r.responses, 1);
+      } else if (op == WRITE_IMM || op == CAS || op == ADD || op == MAX ||
+                 op == MIN) {
+        // the read-modify-write store, then the atomics' return-old
+        if (lane == 0) {
+          const int d = max(dst, 0);
+          const int old = img.ld(min(d, L - 1));
+          int v = opa;
+          if (op == CAS) v = old == opa && !spur ? opb : old;
+          if (op == ADD) v = wrap_add(old, opa);
+          if (op == MAX) v = max(old, opa);
+          if (op == MIN) v = min(old, opa);
+          if (d < L) dirty |= img.st(d, v, added++);
+          if ((op == CAS || op == ADD) && src >= 0 && src < L)
+            dirty |= img.st(src, old, added++);
+        }
+      } else if (op == RECV) {
+        // the head message scattered through the table at aux, in order
+        if (lane == 0) {
+          const int* pay =
+              e.msgs + (static_cast<long long>(w) * e.cap +
+                        floor_mod(q.mhead[w], e.cap)) * kMsgWords;
+          const int at = max(aux, 0);
+          const int n = clamp_to(img.ld(read_index(at, L)), 0, kMaxScatter);
+          for (int i = 0; i < n; ++i) {
+            const int sd = max(img.ld(read_index(wrap_add(at, 1 + i), L)), 0);
+            if (sd < L) dirty |= img.st(sd, pay[i], added++);
+          }
+          q.mhead[w] = wrap_add(q.mhead[w], 1);
+        }
+      } else if (op == SEND) {
+        // to WQ opb's message queue: a 16-word payload from src
+        const int ps = block_start(max(src, 0), L, kMsgWords);
+        const int slot = floor_mod(q.mtail[tgt], e.cap);
+        if (lane < kMsgWords)
+          e.msgs[(static_cast<long long>(tgt) * e.cap + slot) * kMsgWords +
+                 lane] = img.ld(ps + lane);
+        __syncwarp();
+        if (lane == 0) q.mtail[tgt] = wrap_add(q.mtail[tgt], 1);
+      }
+      if constexpr (Img::kLogged)
+        img.advance(__shfl_sync(kFullMask, added, 0));
+      __syncwarp();
+      if (lane == 0) {
+        // ENABLE, then the bookkeeping: head, completions, clock, stats
+        if (op == ENABLE && !zero) q.en[tgt] = max(q.en[tgt], opa);
+        const int h = q.head[w];
+        const bool parked = op == WAIT || op == RECV;
+        const float fetch = h == 0 ? (parked ? 0.0f : e.cost[kDoorbellAt])
+                                   : e.cost[q.ord[w]];
+        float t = __fadd_rn(__fadd_rn(q.clock[w], fetch),
+                            e.cost[kExecAt + op]);
+        if (op == WAIT) t = fmaxf(t, q.lct[tgt]);
+        if ((flags & 1) == 0 && !suppress) {
+          q.comp[w] = wrap_add(q.comp[w], 1);
+          q.lct[w] = t;
+        }
+        q.head[w] = wrap_add(h, 1);
+        q.clock[w] = t;
+        e.verbs[op] = wrap_add(e.verbs[op], 1);
+      }
+    }
+    if (kOneWarp) {
+      __syncwarp();
+    } else {
+      if (tid == 0) {
+        red.pick[0] = w;
+        red.pick[1] = op;
+      }
+      __syncthreads();
+      w = red.pick[0];
+      op = red.pick[1];
+    }
+    if (w < 0) break;
+    r.steps = wrap_add(r.steps, 1);
+    r.halted = r.halted || op == HALT;
+    r.cas_seen += op == CAS;
+    r.enable_seen += op == ENABLE;
+  }
+}
+
 // kSplit: a split batch, its private words staged in shared memory
 template <bool kOneWarp, bool kSplit>
 __global__ void __launch_bounds__(kMaxWqs, 1)
@@ -222,63 +516,52 @@ __global__ void __launch_bounds__(kMaxWqs, 1)
   __shared__ int red_idx_s[32];
   __shared__ int red_addr_s[32];
   __shared__ int red_any_s[32];
-  __shared__ int pick_s[2];              // the step's WQ (-1: none), opcode
+  __shared__ int pick_s[2];
 
   const int nq = a.n_wq;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int L = a.len;
   const long long row = blockIdx.x;
   const long long rq = row * nq;
-  int* head_s = wq_s;
-  int* tail_s = head_s + nq;
-  int* en_s = tail_s + nq;
-  int* comp_s = en_s + nq;
-  int* mhead_s = comp_s + nq;
-  int* mtail_s = mhead_s + nq;
-  int* ord_s = mtail_s + nq;
-  float* clock_s = reinterpret_cast<float*>(ord_s + nq);
-  float* lct_s = clock_s + nq;
-  int* priv_s = reinterpret_cast<int*>(lct_s + nq);
+  const WqArrays q = carve(wq_s, nq);
+  const Reduce red{red_key_s, red_idx_s, red_addr_s, red_any_s, pick_s};
+  int* priv_s = reinterpret_cast<int*>(q.lct + nq);
   int* row_mem = a.mem + row * a.priv;
   const int* shard = kSplit ? a.base + row / a.per * L : nullptr;
-  const Image<kSplit> img{kSplit ? priv_s : row_mem, shard, a.lo, a.hi};
+  Image<kSplit> img{kSplit ? priv_s : row_mem, shard, a.lo, a.hi};
   bool dirty = false;                    // a store would change the window
-  int* msgs = a.msg_buf + rq * a.cap * kMsgWords;
 
   int base = 0, size = 1, managed = 0;
   if (tid < nq) {
     base = a.geometry[tid];
     size = a.geometry[nq + tid];
-    ord_s[tid] = a.geometry[2 * nq + tid];
+    q.ord[tid] = a.geometry[2 * nq + tid];
     managed = a.geometry[3 * nq + tid];
-    head_s[tid] = a.head[rq + tid];
-    tail_s[tid] = a.tail[rq + tid];
-    en_s[tid] = a.enable_limit[rq + tid];
-    comp_s[tid] = a.completions[rq + tid];
-    mhead_s[tid] = a.msg_head[rq + tid];
-    mtail_s[tid] = a.msg_tail[rq + tid];
-    clock_s[tid] = a.clock[rq + tid];
-    lct_s[tid] = a.last_comp_time[rq + tid];
+    q.head[tid] = a.head[rq + tid];
+    q.tail[tid] = a.tail[rq + tid];
+    q.en[tid] = a.enable_limit[rq + tid];
+    q.comp[tid] = a.completions[rq + tid];
+    q.mhead[tid] = a.msg_head[rq + tid];
+    q.mtail[tid] = a.msg_tail[rq + tid];
+    q.clock[tid] = a.clock[rq + tid];
+    q.lct[tid] = a.last_comp_time[rq + tid];
   }
   if (tid < kCostWords) cost_s[tid] = a.costs[tid];
   if (tid < kNumOpcodes) verbs_s[tid] = a.verb_counts[row * kNumOpcodes + tid];
-  // the row's scalars, alike in every thread (responses: warp 0's)
-  int steps = a.steps[row];
-  bool halted = a.halted[row] != 0;
-  int responses = a.responses[row];
-  int kill = -1, suppress_at = -1, fail_cas = -1, zero_enable = -1;
+  const StepEnv e{nq, L, a.cap, a.max_steps, base, size, managed, cost_s,
+                  verbs_s, a.msg_buf + rq * a.cap * kMsgWords};
+  RowScalars r{a.steps[row], a.halted[row] != 0, a.responses[row],
+               -1, -1, -1, -1, 0, 0};
   if (a.faults != nullptr) {
-    kill = a.faults[row * 4];
-    suppress_at = a.faults[row * 4 + 1];
-    fail_cas = a.faults[row * 4 + 2];
-    zero_enable = a.faults[row * 4 + 3];
+    r.kill = a.faults[row * 4];
+    r.suppress_at = a.faults[row * 4 + 1];
+    r.fail_cas = a.faults[row * 4 + 2];
+    r.zero_enable = a.faults[row * 4 + 3];
   }
-  int cas_seen = 0, enable_seen = 0;
   if (kSplit)
     for (int i = tid; i < a.priv; i += blockDim.x) priv_s[i] = row_mem[i];
-  if (kOneWarp) __syncwarp(); else __syncthreads();
+  block_sync<kOneWarp>();
 
   const int segments = a.quota != nullptr ? a.n_rounds * a.n_writers : 1;
   for (int g = 0; g < segments; ++g) {
@@ -290,182 +573,267 @@ __global__ void __launch_bounds__(kMaxWqs, 1)
       lo = a.slices[2 * writer];
       hi = a.slices[2 * writer + 1];
     }
-    for (int k = 0; quota < 0 || k < quota; ++k) {
-      if (halted || steps >= a.max_steps || (kill >= 0 && steps >= kill))
-        break;
-      // 1. this thread's WQ: eligible?  (key +inf when not)
-      float key = INFINITY;
-      int idx = tid < nq ? tid : INT_MAX;
-      // every WQ's head address, eligible or not: when every key is +inf
-      // the argmin picks the lowest WQ, and the plain loop runs its head WR
-      int addr = 0;
-      bool eligible = false;
-      if (tid < nq)
-        addr = wrap_add(base, wrap_mul(floor_mod(head_s[tid], size),
-                                       kWrWords));
-      if (tid < nq && tid >= lo && tid < hi) {
-        const int h = head_s[tid];
-        const int limit = managed ? min(tail_s[tid], en_s[tid]) : tail_s[tid];
-        if (h < limit) {
-          const int ctrl = img.ld(read_index(addr, L));
-          const int opa = img.ld(read_index(wrap_add(addr, F_OPA), L));
-          const int opb = img.ld(read_index(wrap_add(addr, F_OPB), L));
-          const int op = (ctrl >> kIdBits) & 0x7F;
-          eligible = (op != WAIT || comp_s[clamp_to(opb, 0, nq - 1)] >= opa)
-                     && (op != RECV || mtail_s[tid] > mhead_s[tid]);
-          if (eligible) key = clock_s[tid];
-        }
-      }
-      // 2. the argmin over the block, into warp 0
-      warp_argmin(key, idx, addr);
-      bool any = __ballot_sync(kFullMask, eligible) != 0;
-      if (!kOneWarp) {
-        if (lane == 0) {
-          red_key_s[warp] = key;
-          red_idx_s[warp] = idx;
-          red_addr_s[warp] = addr;
-          red_any_s[warp] = any;
-        }
-        __syncthreads();
-        if (warp == 0) {
-          const bool mine = lane < static_cast<int>(blockDim.x >> 5);
-          key = mine ? red_key_s[lane] : INFINITY;
-          idx = mine ? red_idx_s[lane] : INT_MAX;
-          addr = mine ? red_addr_s[lane] : 0;
-          any = __ballot_sync(kFullMask, mine && red_any_s[lane] != 0) != 0;
-          warp_argmin(key, idx, addr);
-        }
-      }
-      // 3. warp 0 executes the WR
-      int w = -1, op = NOOP;
-      if (warp == 0 && any) {
-        w = __shfl_sync(kFullMask, idx, 0);
-        addr = __shfl_sync(kFullMask, addr, 0);
-        int word = 0;
-        if (lane < kWrWords) word = img.ld(read_index(wrap_add(addr, lane), L));
-        const int ctrl = __shfl_sync(kFullMask, word, F_CTRL);
-        const int flags = __shfl_sync(kFullMask, word, F_FLAGS);
-        const int src = __shfl_sync(kFullMask, word, F_SRC);
-        const int dst = __shfl_sync(kFullMask, word, F_DST);
-        const int ln = __shfl_sync(kFullMask, word, F_LEN);
-        const int opa = __shfl_sync(kFullMask, word, F_OPA);
-        const int opb = __shfl_sync(kFullMask, word, F_OPB);
-        const int aux = __shfl_sync(kFullMask, word, F_AUX);
-        op = min((ctrl >> kIdBits) & 0x7F, kNumOpcodes - 1);
-        const bool suppress = suppress_at >= 0 && steps == suppress_at;
-        if (suppress) op = NOOP;
-        const bool spur = fail_cas >= 0 && op == CAS && cas_seen == fail_cas;
-        const bool zero = zero_enable >= 0 && op == ENABLE &&
-                          enable_seen == zero_enable;
-        const int tgt = clamp_to(opb, 0, nq - 1);
-        if (op == WRITE || op == READ || (op == SEND && opb < 0)) {
-          // the block copy: the source block read whole, then written
-          const int n = clamp_to(ln, 0, kMaxCopy);
-          const int cs = block_start(src, L, kMaxCopy);
-          const int cd = block_start(dst, L, kMaxCopy);
-          int v = 0;
-          if (lane < n) v = img.ld(cs + lane);
-          __syncwarp();
-          if (lane < n) dirty |= img.st(cd + lane, v);
-          if (op == SEND) responses = wrap_add(responses, 1);
-        } else if (op == WRITE_IMM || op == CAS || op == ADD || op == MAX ||
-                   op == MIN) {
-          // the read-modify-write store, then the atomics' return-old
-          if (lane == 0) {
-            const int d = max(dst, 0);
-            const int old = img.ld(min(d, L - 1));
-            int v = opa;
-            if (op == CAS) v = old == opa && !spur ? opb : old;
-            if (op == ADD) v = wrap_add(old, opa);
-            if (op == MAX) v = max(old, opa);
-            if (op == MIN) v = min(old, opa);
-            if (d < L) dirty |= img.st(d, v);
-            if ((op == CAS || op == ADD) && src >= 0 && src < L)
-              dirty |= img.st(src, old);
-          }
-        } else if (op == RECV) {
-          // the head message scattered through the table at aux, in order
-          if (lane == 0) {
-            const int* pay =
-                msgs + (static_cast<long long>(w) * a.cap +
-                        floor_mod(mhead_s[w], a.cap)) * kMsgWords;
-            const int at = max(aux, 0);
-            const int n = clamp_to(img.ld(read_index(at, L)), 0, kMaxScatter);
-            for (int i = 0; i < n; ++i) {
-              const int sd = max(img.ld(read_index(wrap_add(at, 1 + i), L)), 0);
-              if (sd < L) dirty |= img.st(sd, pay[i]);
-            }
-            mhead_s[w] = wrap_add(mhead_s[w], 1);
-          }
-        } else if (op == SEND) {
-          // to WQ opb's message queue: a 16-word payload from src
-          const int ps = block_start(max(src, 0), L, kMsgWords);
-          const int slot = floor_mod(mtail_s[tgt], a.cap);
-          if (lane < kMsgWords)
-            msgs[(static_cast<long long>(tgt) * a.cap + slot) * kMsgWords +
-                 lane] = img.ld(ps + lane);
-          __syncwarp();
-          if (lane == 0) mtail_s[tgt] = wrap_add(mtail_s[tgt], 1);
-        }
-        __syncwarp();
-        if (lane == 0) {
-          // ENABLE, then the bookkeeping: head, completions, clock, stats
-          if (op == ENABLE && !zero) en_s[tgt] = max(en_s[tgt], opa);
-          const int h = head_s[w];
-          const bool parked = op == WAIT || op == RECV;
-          const float fetch = h == 0 ? (parked ? 0.0f : cost_s[kDoorbellAt])
-                                     : cost_s[ord_s[w]];
-          float t = __fadd_rn(__fadd_rn(clock_s[w], fetch),
-                              cost_s[kExecAt + op]);
-          if (op == WAIT) t = fmaxf(t, lct_s[tgt]);
-          if ((flags & 1) == 0 && !suppress) {
-            comp_s[w] = wrap_add(comp_s[w], 1);
-            lct_s[w] = t;
-          }
-          head_s[w] = wrap_add(h, 1);
-          clock_s[w] = t;
-          verbs_s[op] = wrap_add(verbs_s[op], 1);
-        }
-      }
-      if (kOneWarp) {
-        __syncwarp();
-      } else {
-        if (tid == 0) {
-          pick_s[0] = w;
-          pick_s[1] = op;
-        }
-        __syncthreads();
-        w = pick_s[0];
-        op = pick_s[1];
-      }
-      if (w < 0) break;
-      steps = wrap_add(steps, 1);
-      halted = halted || op == HALT;
-      cas_seen += op == CAS;
-      enable_seen += op == ENABLE;
-    }
+    run_steps<kOneWarp>(e, q, red, r, img, dirty, quota, lo, hi);
   }
 
-  if (kOneWarp) __syncwarp(); else __syncthreads();
+  block_sync<kOneWarp>();
   if (kSplit)
     for (int i = tid; i < a.priv; i += blockDim.x) row_mem[i] = priv_s[i];
   // only warp 0 stores
   if (kSplit && warp == 0) dirty = __any_sync(kFullMask, dirty);
   if (tid < nq) {
-    a.head[rq + tid] = head_s[tid];
-    a.enable_limit[rq + tid] = en_s[tid];
-    a.completions[rq + tid] = comp_s[tid];
-    a.msg_head[rq + tid] = mhead_s[tid];
-    a.msg_tail[rq + tid] = mtail_s[tid];
-    a.clock[rq + tid] = clock_s[tid];
-    a.last_comp_time[rq + tid] = lct_s[tid];
+    a.head[rq + tid] = q.head[tid];
+    a.enable_limit[rq + tid] = q.en[tid];
+    a.completions[rq + tid] = q.comp[tid];
+    a.msg_head[rq + tid] = q.mhead[tid];
+    a.msg_tail[rq + tid] = q.mtail[tid];
+    a.clock[rq + tid] = q.clock[tid];
+    a.last_comp_time[rq + tid] = q.lct[tid];
   }
   if (tid < kNumOpcodes) a.verb_counts[row * kNumOpcodes + tid] = verbs_s[tid];
   if (tid == 0) {
-    a.steps[row] = steps;
-    a.halted[row] = halted;
-    a.responses[row] = responses;
+    a.steps[row] = r.steps;
+    a.halted[row] = r.halted;
+    a.responses[row] = r.responses;
     if (kSplit) a.changed[row] = dirty;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the walk kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxFrames = 2;
+constexpr int kFrameInts = 7;
+constexpr int kMaxCommit = 4;
+constexpr int kFaultWords = 4;
+constexpr unsigned kHashMult = 2654435761u;
+
+struct WalkArgs {
+  int* mem;                // (S, L): each owner's image
+  int* shadow;             // (S, L): the image at the position's start
+  int* msg_buf;            // (S, N, CAP, 16)
+  int* log;                // (S, log_cap): the run's store addresses
+  int* vals;               // (S, log_cap): a logged carry word's value
+  const int* rows;         // (S, P, width): the window
+  const int* faults;       // (S, P, 4), or null
+  int* resp;               // (S, P, resp_words)
+  int* steps;              // (S, P)
+  const int* head0;        // (N,) state0's fields
+  const int* tail0;
+  const int* en0;
+  const int* comp0;
+  const float* lct0;
+  const int* mhead0;
+  const int* mtail0;
+  const float* clock0;
+  const int* geometry;     // (4, N): WR base, WR slots, ordering, managed
+  const float* costs;      // kCostWords
+  // per frame: table base, values base, carry rows n, image rows, value
+  // words, pad carried, home-distance pad (0: none)
+  int frames[kMaxFrames * kFrameInts];
+  int commit[kMaxCommit];
+  int n_frames;
+  int n_commit;
+  int positions;
+  int width;
+  int n_wq;
+  int len;
+  int cap;
+  int max_steps;
+  int resp_region;
+  int resp_words;
+  int recv_wq;
+  int log_cap;
+  int steps0;
+  int halted0;
+  int responses0;
+};
+
+// A logged address as a carry word: its primary and mirror (-1: none)
+// addresses, its carry row, and for a key of a home-distance frame the
+// frame's carry rows and an empty row's pad; primary -1: no carry word.
+struct CarryWord {
+  int primary;
+  int mirror;
+  int row;
+  int n;
+  int home_pad;
+};
+
+__device__ __forceinline__ CarryWord carry_word(const WalkArgs& a, int addr) {
+  CarryWord w{-1, -1, 0, 0, 0};
+#pragma unroll
+  for (int f = 0; f < kMaxFrames; ++f) {
+    if (f >= a.n_frames || w.primary >= 0) continue;
+    const int tb = a.frames[f * kFrameInts];
+    const int vb = a.frames[f * kFrameInts + 1];
+    const int n = a.frames[f * kFrameInts + 2];
+    const int rows = a.frames[f * kFrameInts + 3];
+    const int vl = a.frames[f * kFrameInts + 4];
+    const int pad_carried = a.frames[f * kFrameInts + 5];
+    const int home_pad = a.frames[f * kFrameInts + 6];
+    const int t = addr - tb;
+    const int u = addr - vb;
+    if (t >= 0 && t < 3 * rows) {
+      const int r = t / 3;
+      const int c = t - 3 * r;
+      if (c == 0 || (c == 1 && pad_carried)) {
+        w.row = r < n ? r : r - n;
+        w.primary = tb + 3 * w.row + c;
+        w.mirror = w.row < rows - n ? w.primary + 3 * n : -1;
+        w.n = n;
+        w.home_pad = c == 0 ? home_pad : 0;
+      }
+    } else if (u >= 0 && u < vl * rows) {
+      const int r = u / vl;
+      w.row = r < n ? r : r - n;
+      w.primary = vb + vl * w.row + (u - vl * r);
+      w.mirror = w.row < rows - n ? w.primary + vl * n : -1;
+    }
+  }
+  return w;
+}
+
+// a bucket row's home distance (the displacer's pad word)
+__device__ __forceinline__ int home_distance(int key, int row, int n,
+                                             int empty) {
+  if (key == 0) return empty;
+  const int home = static_cast<int>(static_cast<unsigned>(key) * kHashMult %
+                                    static_cast<unsigned>(n));
+  return floor_mod(row - home, n);
+}
+
+// One block an owner: its window's positions in order over its image.
+template <bool kOneWarp>
+__global__ void __launch_bounds__(kMaxWqs, 1)
+    chain_walk_kernel(const WalkArgs a) {
+  extern __shared__ int wq_s[];
+  __shared__ float cost_s[kCostWords];
+  __shared__ int verbs_s[kNumOpcodes];
+  __shared__ float red_key_s[32];
+  __shared__ int red_idx_s[32];
+  __shared__ int red_addr_s[32];
+  __shared__ int red_any_s[32];
+  __shared__ int pick_s[2];
+  __shared__ int logged_s;
+
+  const int nq = a.n_wq;
+  const int tid = threadIdx.x;
+  const int L = a.len;
+  const long long owner = blockIdx.x;
+  const WqArrays q = carve(wq_s, nq);
+  const Reduce red{red_key_s, red_idx_s, red_addr_s, red_any_s, pick_s};
+  int* mem = a.mem + owner * L;
+  int* shadow = a.shadow + owner * L;
+  int* log = a.log + owner * a.log_cap;
+  int* vals = a.vals + owner * a.log_cap;
+  int* msgs = a.msg_buf + owner * nq * a.cap * kMsgWords;
+
+  int base = 0, size = 1, managed = 0;
+  if (tid < nq) {
+    base = a.geometry[tid];
+    size = a.geometry[nq + tid];
+    q.ord[tid] = a.geometry[2 * nq + tid];
+    managed = a.geometry[3 * nq + tid];
+  }
+  if (tid < kCostWords) cost_s[tid] = a.costs[tid];
+  if (tid < kNumOpcodes) verbs_s[tid] = 0;
+  const StepEnv e{nq, L, a.cap, a.max_steps, base, size, managed, cost_s,
+                  verbs_s, msgs};
+  const int slot0 = floor_mod(a.mtail0[a.recv_wq], a.cap);
+
+  for (int p = 0; p < a.positions; ++p) {
+    const long long at = owner * a.positions + p;
+    const int* req = a.rows + at * a.width;
+    if (req[0] == 0) continue;           // answers zeros, in 0 steps
+    // 1. state0's fields, and the request delivered to the receive WQ
+    if (tid < nq) {
+      q.head[tid] = a.head0[tid];
+      q.tail[tid] = a.tail0[tid];
+      q.en[tid] = a.en0[tid];
+      q.comp[tid] = a.comp0[tid];
+      q.mhead[tid] = a.mhead0[tid];
+      q.mtail[tid] = tid == a.recv_wq ? wrap_add(a.mtail0[tid], 1)
+                                      : a.mtail0[tid];
+      q.clock[tid] = a.clock0[tid];
+      q.lct[tid] = a.lct0[tid];
+    }
+    if (tid < kMsgWords)
+      msgs[(a.recv_wq * a.cap + slot0) * kMsgWords + tid] =
+          tid < a.width ? req[tid] : 0;
+    RowScalars r{a.steps0, a.halted0 != 0, a.responses0, -1, -1, -1, -1, 0, 0};
+    if (a.faults != nullptr) {
+      r.kill = a.faults[at * kFaultWords];
+      r.suppress_at = a.faults[at * kFaultWords + 1];
+      r.fail_cas = a.faults[at * kFaultWords + 2];
+      r.zero_enable = a.faults[at * kFaultWords + 3];
+    }
+    block_sync<kOneWarp>();
+    // 2. the chain run to its stop, every store logged
+    LogImage img{mem, log, 0};
+    bool dirty = false;
+    run_steps<kOneWarp>(e, q, red, r, img, dirty, -1, 0, nq);
+    if (tid == 0) logged_s = img.n;
+    block_sync<kOneWarp>();
+    // 3. the response, the steps, and whether the carry keeps the run's
+    // writes: an armed fault row, or a status that commits
+    const int status = mem[a.resp_region];
+    bool keep = r.kill >= 0 || r.suppress_at >= 0 || r.fail_cas >= 0 ||
+                r.zero_enable >= 0;
+#pragma unroll
+    for (int i = 0; i < kMaxCommit; ++i)
+      keep = keep || (i < a.n_commit && status == a.commit[i]);
+    if (tid < a.resp_words)
+      a.resp[at * a.resp_words + tid] = mem[a.resp_region + tid];
+    if (tid == 0) a.steps[at] = r.steps;
+    const int logged = logged_s;
+    // 4. each logged carry word's value (reads only): the primary copy's
+    // write, else the mirror's, else the value at the position's start
+    for (int i = tid; i < logged; i += blockDim.x) {
+      const CarryWord w = carry_word(a, log[i]);
+      if (w.primary < 0) continue;
+      const int pre = shadow[w.primary];
+      int v = pre;
+      if (keep) {
+        const int cur = mem[w.primary];
+        if (cur != pre)
+          v = cur;
+        else if (w.mirror >= 0)
+          v = mem[w.mirror];
+      }
+      vals[i] = v;
+    }
+    block_sync<kOneWarp>();
+    // 5. every other logged word back to its value at the position's start
+    for (int i = tid; i < logged; i += blockDim.x) {
+      const int addr = log[i];
+      if (carry_word(a, addr).primary < 0) mem[addr] = shadow[addr];
+    }
+    block_sync<kOneWarp>();
+    // 6. the carry words, both copies, in the image and its shadow, and a
+    // new key's home distance
+    for (int i = tid; i < logged; i += blockDim.x) {
+      const CarryWord w = carry_word(a, log[i]);
+      if (w.primary < 0) continue;
+      const int v = vals[i];
+      mem[w.primary] = v;
+      shadow[w.primary] = v;
+      if (w.mirror >= 0) {
+        mem[w.mirror] = v;
+        shadow[w.mirror] = v;
+      }
+      if (w.home_pad > 0) {
+        const int pad = home_distance(v, w.row, w.n, w.home_pad);
+        mem[w.primary + 1] = pad;
+        shadow[w.primary + 1] = pad;
+        if (w.mirror >= 0) {
+          mem[w.mirror + 1] = pad;
+          shadow[w.mirror + 1] = pad;
+        }
+      }
+    }
+    block_sync<kOneWarp>();
   }
 }
 
@@ -508,6 +876,13 @@ cudaError_t staged_budget(int* out) {
                            ? one.sharedSizeBytes : many.sharedSizeBytes;
   *out = optin - static_cast<int>(fixed);
   return cudaSuccess;
+}
+
+template <bool kOneWarp>
+cudaError_t launch_walk(const WalkArgs& a, int owners, int threads,
+                        size_t smem, cudaStream_t s) {
+  chain_walk_kernel<kOneWarp><<<owners, threads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -567,6 +942,75 @@ int chain_interp_run(void* mem, void* head, const void* tail,
   if (smem > static_cast<size_t>(budget[dev]))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<true>(a, batch, threads, smem, s));
+}
+
+// One launch a stage: owner s's window rows[s] (P positions of `width`
+// words) walked over its image mem[s], in place.  `layout`: kMaxFrames
+// frames of kFrameInts ints, then kMaxCommit commit statuses.
+int chain_walk_run(void* mem, void* shadow, void* msg_buf, void* log,
+                   void* vals, const void* rows, const void* faults,
+                   void* resp, void* steps, const void* head0,
+                   const void* tail0, const void* en0, const void* comp0,
+                   const void* lct0, const void* mhead0, const void* mtail0,
+                   const void* clock0, const void* geometry,
+                   const void* costs, const int* layout, int n_frames,
+                   int n_commit, int owners, int positions, int width,
+                   int n_wq, int len, int cap, int max_steps,
+                   int resp_region, int resp_words, int recv_wq, int log_cap,
+                   int steps0, int halted0, int responses0, void* stream) {
+  if (owners <= 0 || positions <= 0) return 0;
+  if (n_wq < 1 || n_wq > kMaxWqs || n_frames < 1 || n_frames > kMaxFrames ||
+      n_commit < 1 || n_commit > kMaxCommit || width < 1 ||
+      width > kMsgWords || cap < 1 || len < kMaxCopy || max_steps < 0 ||
+      recv_wq < 0 || recv_wq >= n_wq || resp_region < 0 || resp_words < 1 ||
+      resp_region > len - resp_words ||
+      static_cast<long long>(max_steps) * kMaxCopy > log_cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WalkArgs a{};
+  a.mem = static_cast<int*>(mem);
+  a.shadow = static_cast<int*>(shadow);
+  a.msg_buf = static_cast<int*>(msg_buf);
+  a.log = static_cast<int*>(log);
+  a.vals = static_cast<int*>(vals);
+  a.rows = static_cast<const int*>(rows);
+  a.faults = static_cast<const int*>(faults);
+  a.resp = static_cast<int*>(resp);
+  a.steps = static_cast<int*>(steps);
+  a.head0 = static_cast<const int*>(head0);
+  a.tail0 = static_cast<const int*>(tail0);
+  a.en0 = static_cast<const int*>(en0);
+  a.comp0 = static_cast<const int*>(comp0);
+  a.lct0 = static_cast<const float*>(lct0);
+  a.mhead0 = static_cast<const int*>(mhead0);
+  a.mtail0 = static_cast<const int*>(mtail0);
+  a.clock0 = static_cast<const float*>(clock0);
+  a.geometry = static_cast<const int*>(geometry);
+  a.costs = static_cast<const float*>(costs);
+  for (int i = 0; i < kMaxFrames * kFrameInts; ++i) a.frames[i] = layout[i];
+  for (int i = 0; i < kMaxCommit; ++i)
+    a.commit[i] = layout[kMaxFrames * kFrameInts + i];
+  a.n_frames = n_frames;
+  a.n_commit = n_commit;
+  a.positions = positions;
+  a.width = width;
+  a.n_wq = n_wq;
+  a.len = len;
+  a.cap = cap;
+  a.max_steps = max_steps;
+  a.resp_region = resp_region;
+  a.resp_words = resp_words;
+  a.recv_wq = recv_wq;
+  a.log_cap = log_cap;
+  a.steps0 = steps0;
+  a.halted0 = halted0;
+  a.responses0 = responses0;
+  const int threads = (n_wq + 31) / 32 * 32;
+  const size_t smem = static_cast<size_t>(n_wq) * kWqWords * 4;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(threads == 32
+                              ? launch_walk<true>(a, owners, threads, smem, s)
+                              : launch_walk<false>(a, owners, threads, smem,
+                                                   s));
 }
 
 // the dynamic shared memory a split block may take on the current device

@@ -1,6 +1,8 @@
-"""The chain interpreter's wrapper: every row of a batched ``VMState``, or
+"""The chain interpreter's wrappers: every row of a batched ``VMState``, or
 of a :class:`repro_torch.core.machine.SharedBatch`, run to its own stop,
-in place.
+in place (:func:`run_interp`); and a write-side program's stateful
+receive window walked in order over one persistent image an owner
+(:func:`run_walk`).
 
 :func:`run_interp` takes the plain version, the host loop
 :func:`repro_torch.core.machine.plain_run` (``machine._run_rows``; for a
@@ -9,8 +11,13 @@ launches the CUDA kernel (``csrc/chain_interp.cu``) for states on the
 card: one launch for the whole batch, with no host read inside it (a
 split batch then reads its rows' window flags once).  A split batch's
 private words are staged in shared memory; a full batch runs in global
-memory.  ``launches`` counts kernel launches.
-There is no fallback: a state or plan the kernel cannot take raises.
+memory.  :func:`run_walk` takes its plain version,
+:func:`repro_torch.kernels.chain_interp.ref.plain_walk`, for a window on
+the CPU, and launches ``chain_walk_kernel`` (the same source, the same
+step) for one on the card: one launch a stage, no host read.
+``launches`` counts kernel launches, ``run_interp`` and ``walk``.
+There is no fallback: a state, plan or layout the kernel cannot take
+raises.
 """
 from __future__ import annotations
 
@@ -20,10 +27,11 @@ import functools
 import numpy as np
 import torch
 
-from ...core import cost, isa, machine
+from ...core import cost, faults as faults_mod, isa, machine
 from .. import _build
+from . import ref
 
-launches = {"run_interp": 0}
+launches = {"run_interp": 0, "walk": 0}
 
 # one block a row, one thread a WQ
 MAX_WQS = 1024
@@ -39,6 +47,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.chain_interp_run.argtypes = [p] * 21 + [i] * 11 + [p]
     lib.chain_interp_run.restype = i
+    lib.chain_walk_run.argtypes = ([p] * 19 + [ctypes.POINTER(ctypes.c_int)]
+                                   + [i] * 16 + [p])
+    lib.chain_walk_run.restype = i
     lib.chain_interp_staged_budget.argtypes = [ctypes.POINTER(i)]
     lib.chain_interp_staged_budget.restype = i
     lib.cuda_error_string.argtypes = [i]
@@ -89,12 +100,9 @@ def staged_bytes(n_wq: int, private_words: int) -> int:
     return 4 * (n_wq * 9 + private_words)
 
 
-def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
-          quota=None, writer_slices=None, length=None) -> None:
-    """Raise ``ValueError`` unless the kernel can take ``s`` (batched, every
-    field contiguous on one CUDA device, of the interpreter's dtypes and
-    shapes for ``spec``), the plan and the schedule.  ``length``: the
-    image's virtual length when ``s.mem`` holds private segments."""
+def _check_spec(spec: machine.MachineSpec) -> None:
+    """Raise ``ValueError`` unless the kernel's step can take ``spec``'s
+    WQs."""
     n = spec.num_wqs
     if not 1 <= n <= MAX_WQS:
         raise ValueError(f"a spec of {n} WQs: the interpreter kernel runs "
@@ -104,6 +112,16 @@ def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
             for o in spec.orderings):
         raise ValueError(f"WQ sizes {spec.wq_sizes} must be positive and "
                          f"orderings {spec.orderings} in [0, 3)")
+
+
+def _check(spec: machine.MachineSpec, s: machine.VMState, faults=None,
+          quota=None, writer_slices=None, length=None) -> None:
+    """Raise ``ValueError`` unless the kernel can take ``s`` (batched, every
+    field contiguous on one CUDA device, of the interpreter's dtypes and
+    shapes for ``spec``), the plan and the schedule.  ``length``: the
+    image's virtual length when ``s.mem`` holds private segments."""
+    _check_spec(spec)
+    n = spec.num_wqs
     if s.mem.ndim != 2:
         raise ValueError(f"a batched state (mem (B, L)), got mem of shape "
                          f"{tuple(s.mem.shape)}")
@@ -254,3 +272,151 @@ def run_interp(spec: machine.MachineSpec, s, max_steps: int = 4096,
         if rows:
             raise machine.window_error(s, rows)
     return s
+
+
+# the walk kernel's frames and commit statuses, at most
+MAX_FRAMES = 2
+MAX_COMMIT = 4
+# log entries a step may add (a copy block, a RECV scatter)
+LOG_PER_STEP = max(isa.MAX_COPY, isa.MAX_SCATTER)
+
+
+def check_layout(prog) -> None:
+    """Raise ``ValueError`` unless the walk kernel can take ``prog``'s
+    :class:`repro_torch.core.programs.WalkLayout`: at most
+    :data:`MAX_FRAMES` frames inside the image and apart, mirror rows no
+    more than carry rows, at most :data:`MAX_COMMIT` commit statuses, the
+    response word and the receive WQ in range, and ``state0``'s message
+    queues empty (a run reads only messages it delivered or sent, so the
+    queues need no reset between positions)."""
+    layout, st0 = prog.walk_layout, prog.state0
+    length = st0.mem.shape[-1]
+    if not 1 <= len(layout.frames) <= MAX_FRAMES or not \
+            1 <= len(layout.commit) <= MAX_COMMIT:
+        raise ValueError(f"{len(layout.frames)} frames and "
+                         f"{len(layout.commit)} commit statuses: the walk "
+                         f"kernel takes 1 to {MAX_FRAMES} and 1 to "
+                         f"{MAX_COMMIT}")
+    spans = []
+    for f in layout.frames:
+        if not (1 <= f.n and f.n <= f.rows <= 2 * f.n and f.val_len >= 1):
+            raise ValueError(f"a frame of {f.n} carry rows, {f.rows} image "
+                             f"rows and {f.val_len} value words: the mirror "
+                             f"rows must number at most the carry rows")
+        spans += [(f.table_base, f.table_base + 3 * f.rows),
+                  (f.values_base, f.values_base + f.val_len * f.rows)]
+        if f.pad >= 0 and f.home_pad > 0:
+            raise ValueError("a frame's pad words are carried or home "
+                             "distances, not both")
+    spans.sort()
+    if spans[0][0] < 0 or spans[-1][1] > length or any(
+            a[1] > b[0] for a, b in zip(spans, spans[1:])):
+        raise ValueError(f"frames {spans} overlap or leave the image of "
+                         f"{length} words")
+    if not 0 <= layout.resp_region < length or not \
+            0 <= layout.recv_wq < prog.spec.num_wqs:
+        raise ValueError(f"response word {layout.resp_region} or receive WQ"
+                         f" {layout.recv_wq} out of range")
+    if bool((st0.msg_tail != st0.msg_head).any()):
+        raise ValueError("state0 holds queued messages: the walk kernel "
+                         "starts every position from empty queues")
+
+
+@functools.lru_cache(maxsize=64)
+def _walk_plan(prog) -> tuple:
+    """:func:`check_layout` once a program (its host reads included), and
+    the ints the kernel takes: 7 a frame (table and values base, carry
+    and image rows, value words, pad carried, home-distance pad) for
+    :data:`MAX_FRAMES` frames, then the commit statuses; and ``state0``'s
+    steps, halted and responses."""
+    check_layout(prog)
+    layout, st0 = prog.walk_layout, prog.state0
+    ints = [0] * (7 * MAX_FRAMES + MAX_COMMIT)
+    for i, f in enumerate(layout.frames):
+        ints[7 * i:7 * i + 7] = [f.table_base, f.values_base, f.n, f.rows,
+                                 f.val_len, int(f.pad >= 0), f.home_pad]
+    at = 7 * MAX_FRAMES
+    ints[at:at + len(layout.commit)] = list(layout.commit)
+    return tuple(ints), (int(st0.steps), int(st0.halted),
+                         int(st0.responses))
+
+
+def run_walk(prog, carry, rows: torch.Tensor, budget: int,
+             faults: torch.Tensor = None, resp_words: int = 1):
+    """Walk the S owners' windows ``rows`` (S, P, W) int32 through the
+    single-chain write-side program ``prog``: each owner's image built
+    once (``prog.device_state(*carry)``), then every position in order
+    run on it and committed by ``prog.walk_layout``, as
+    :func:`repro_torch.kernels.chain_interp.ref.plain_walk` says.
+    ``budget``: each request's ``max_steps``; ``faults`` (S, P, FIELDS)
+    int32 fault rows or None.  Returns ``(responses (S, P, resp_words),
+    steps (S, P), the new carry)``.
+
+    On the CPU the plain version; on the card one launch of
+    ``chain_walk_kernel``, a block an owner, which makes no host read."""
+    if rows.device.type == "cpu":
+        return ref.plain_walk(prog, carry, rows, budget, faults, resp_words)
+    layout, st0, spec = prog.walk_layout, prog.state0, prog.spec
+    _check_spec(spec)
+    ints, scalars = _walk_plan(prog)
+    if rows.ndim != 3 or rows.dtype != torch.int32 or \
+            not 1 <= rows.shape[-1] <= isa.MSG_WORDS or \
+            not rows.is_contiguous():
+        raise ValueError(f"a window of contiguous int32 (S, P, W) rows, W "
+                         f"in [1, {isa.MSG_WORDS}]; got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    s, positions, width = rows.shape
+    dev = rows.device
+    if faults is not None and (
+            tuple(faults.shape) != (s, positions, faults_mod.FIELDS)
+            or faults.dtype != torch.int32 or not faults.is_contiguous()
+            or faults.device != dev):
+        raise ValueError(f"fault rows of contiguous int32 "
+                         f"{(s, positions, faults_mod.FIELDS)} on {dev}; "
+                         f"got {tuple(faults.shape)} {faults.dtype}")
+    for name, t in zip(machine.VMState._fields, st0):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"state0.{name} on {t.device}, the window on "
+                             f"{dev}, or not contiguous")
+    length = st0.mem.shape[-1]
+    if not 1 <= resp_words <= length - layout.resp_region:
+        raise ValueError(f"{resp_words} response words past the image")
+    if length < isa.MAX_COPY or spec.msg_capacity < 1:
+        raise ValueError(f"an image of {length} words (at least "
+                         f"{isa.MAX_COPY}) and {spec.msg_capacity} message "
+                         f"slots (at least 1)")
+    budget = max(min(int(budget), 2 ** 31 - 1), 0)
+    log_cap = budget * LOG_PER_STEP
+    if log_cap >= 2 ** 31 // max(s, 1):
+        raise ValueError(f"a budget of {budget} steps: its store log "
+                         f"overflows")
+    resp = torch.zeros((s, positions, resp_words), dtype=torch.int32,
+                       device=dev)
+    steps = torch.zeros((s, positions), dtype=torch.int32, device=dev)
+    img = prog.device_state(*carry).mem.to(torch.int32).contiguous()
+    if tuple(img.shape) != (s, length):
+        raise ValueError(f"images of shape {tuple(img.shape)} for a window "
+                         f"of {s} owners")
+    if s == 0 or positions == 0:
+        return resp, steps, ref.read_carry(layout, img, carry)
+    shadow = img.clone()
+    msgs = st0.msg_buf.expand((s,) + tuple(st0.msg_buf.shape)).contiguous()
+    log = torch.empty((s, max(log_cap, 1)), dtype=torch.int32, device=dev)
+    vals = torch.empty_like(log)
+    geometry, costs = _tables(spec, dev)
+    frames = (ctypes.c_int * len(ints))(*ints)
+    lib = _build.load("chain_interp", _declare)
+    ptr = _build.pointer
+    _build.check(lib, lib.chain_walk_run(
+        ptr(img), ptr(shadow), ptr(msgs), ptr(log), ptr(vals), ptr(rows),
+        None if faults is None else ptr(faults), ptr(resp), ptr(steps),
+        ptr(st0.head), ptr(st0.tail), ptr(st0.enable_limit),
+        ptr(st0.completions), ptr(st0.last_comp_time), ptr(st0.msg_head),
+        ptr(st0.msg_tail), ptr(st0.clock), ptr(geometry), ptr(costs),
+        frames, len(layout.frames), len(layout.commit), s, positions, width,
+        spec.num_wqs, length, spec.msg_capacity, budget, layout.resp_region,
+        resp_words, layout.recv_wq, log.shape[1], *scalars,
+        _build.stream()),
+        "chain_walk_run")
+    launches["walk"] += 1
+    return resp, steps, ref.read_carry(layout, img, carry)

@@ -497,30 +497,6 @@ def _get_table(keys, vals, queries, method: str = "redn",
 # CLOCK sweeper over the TTL deadline column
 # ---------------------------------------------------------------------------
 
-def _guarded_step(run_rows, budget, run_rows_faulted=None):
-    """The serialized stages' step: ``run_rows(*carry rows, requests,
-    budget) -> (status, *new carry rows, steps)`` as a
-    :func:`transport.triggered_chain_stateful` step.  The guard of the
-    JAX reference's step — a key-0 slot (capacity padding, a row not
-    dispatched) skips the chain, status 0, state unchanged — is the
-    transport's: such slots never reach the step, and so neither does
-    their fault row.
-
-    With ``run_rows_faulted`` the step consumes ``(requests, fault rows)``
-    pairs (the transport's ``faults=`` wire format) and arms each chain
-    with its row's :class:`repro_torch.core.faults.FaultPlan`."""
-    def step(carry, rows):
-        if run_rows_faulted is None:
-            status, *new, steps = run_rows(*carry, rows, budget)
-        else:
-            pays, frows = rows
-            status, *new, steps = run_rows_faulted(
-                *carry, pays, budget, faults_mod.FaultPlan.from_row(frows))
-        transport.note_steps(steps)
-        return tuple(new), status[:, None]
-    return step
-
-
 class WriterFaultConflict(ValueError):
     """``sharded_set(..., n_writers=N, faults=...)``: the two arguments are
     mutually exclusive, and silently dropping either would run a different
@@ -676,11 +652,8 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
         payload = writer.device_payloads(q, home, v).reshape(
             qk.shape + (-1,))
         resp, ok, (nk, nv) = transport.triggered_chain_stateful(
-            _guarded_step(writer.run_rows, max_steps,
-                          None if frows is None
-                          else writer.run_rows_faulted),
-            (keys, vals), payload, dest, n_shards, capacity, 1, live,
-            stage="writer", faults=frows, group=group)
+            writer, max_steps, (keys, vals), payload, dest, n_shards,
+            capacity, 1, live, stage="writer", faults=frows, group=group)
     status = resp[..., 0]
     live2 = ok & (status == programs.SET_NEEDS_DISPLACEMENT)
     if frows is not None:
@@ -706,8 +679,8 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
     # the displacer's budget must cover its whole unroll: `fuel` is exact
     disp_steps = max(max_steps, disp.fuel)
     resp2, ok2, (nk, nv) = transport.triggered_chain_stateful(
-        _guarded_step(disp.run_rows, disp_steps), (nk, nv), payload2, dest,
-        n_shards, capacity, 1, live2, stage="displacer", group=group)
+        disp, disp_steps, (nk, nv), payload2, dest, n_shards, capacity, 1,
+        live2, stage="displacer", group=group)
     return torch.where(live2 & ok2, resp2[..., 0], status), ok, nk, nv
 
 
@@ -920,9 +893,9 @@ def sharded_delete(keys, vals, del_keys, neighborhood: int = 8,
             hopscotch.bucket_of(del_keys, n_buckets).reshape(-1)
         ).reshape(del_keys.shape + (-1,))
         resp, ok, (nk, nv) = transport.triggered_chain_stateful(
-            _guarded_step(deleter.run_rows, max_steps), (keys, vals),
-            payload, shard_of(del_keys, n_shards), n_shards, capacity, 1,
-            live, stage="deleter", group=group)
+            deleter, max_steps, (keys, vals), payload,
+            shard_of(del_keys, n_shards), n_shards, capacity, 1, live,
+            stage="deleter", group=group)
         status = resp[..., 0]
     applied = ok & (status == programs.DEL_DELETED)
     result = DeleteResult(status, applied, ok, *_counts(live, real, ok))
@@ -959,8 +932,8 @@ def sharded_sweep(keys, vals, exp, hand, now, count: int = 16, *,
     buckets = torch.remainder(hand[:, None] + torch.arange(
         count, dtype=torch.int32, device=dev), n)
     resp, (nk, nv, ne) = transport.local_chain_stateful(
-        _guarded_step(swp.run_rows, swp.fuel), (keys, vals, exp),
-        swp.device_payloads(buckets, now), 1, stage="sweeper")
+        swp, swp.fuel, (keys, vals, exp), swp.device_payloads(buckets, now),
+        1, stage="sweeper")
     status = resp[..., 0]
     reclaimed = (status == programs.SWEEP_RECLAIMED).sum(
         dim=1, dtype=torch.int32)
@@ -1127,14 +1100,13 @@ def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
 
     if faults is None:
         resp, (tk, tv, gk, gv) = transport.local_chain_stateful(
-            _guarded_step(mig.run_rows, mig.fuel), (ok, ov, nk, nv), pay, 1,
-            stage="migrator")
+            mig, mig.fuel, (ok, ov, nk, nv), pay, 1, stage="migrator")
         fired = torch.zeros_like(valid)
     else:
         frows = faults.as_rows().to(device=dev, dtype=torch.int32)
         resp, (tk, tv, gk, gv) = transport.local_chain_stateful(
-            _guarded_step(mig.run_rows, mig.fuel, mig.run_rows_faulted),
-            (ok, ov, nk, nv), pay, 1, stage="migrator", faults=frows)
+            mig, mig.fuel, (ok, ov, nk, nv), pay, 1, stage="migrator",
+            faults=frows)
         # a fault only fires on a lap that ran a chain
         fired = (faults_mod.FaultPlan.from_row(frows).active()
                  & (pay[..., 0] != hopscotch.EMPTY))
@@ -1154,8 +1126,7 @@ def sharded_resize(rs: ResizeState, step: int = 16, neighborhood: int = 8,
             _shard_rows(tv, b_safe).reshape(-1, v)).reshape(s, step, -1)
         pay2 = pay2 * esc[..., None]
         resp2, (gk, gv) = transport.local_chain_stateful(
-            _guarded_step(disp.run_rows, disp.fuel), (gk, gv), pay2, 1,
-            stage="mig-displacer")
+            disp, disp.fuel, (gk, gv), pay2, 1, stage="mig-displacer")
         st2 = resp2[..., 0]
         placed = esc & ((st2 == programs.SET_INSERTED)
                         | (st2 == programs.SET_DISPLACED)
@@ -1314,7 +1285,7 @@ def _set_resize(rs: ResizeState, set_keys, set_vals, neighborhood: int = 8,
         pay = prog.device_payloads(q, home.reshape(-1), qv).reshape(
             set_keys.shape + (-1,))
         resp, ok_s, carry = transport.triggered_chain_stateful(
-            _guarded_step(prog.run_rows, budget), carry, pay, dest,
+            prog, budget, carry, pay, dest,
             n_shards, capacity, 1, live_s, stage=name, group=group)
         return resp[..., 0], ok_s, carry
 

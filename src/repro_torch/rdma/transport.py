@@ -29,15 +29,25 @@ request whose answer happens to be zero.
 The read-*write* variants (:func:`triggered_chain_stateful`, the SET and
 DELETE wire pattern, and the loopback :func:`local_chain_stateful` of the
 CLOCK sweeper and the table-growth migrator) serialize each owner's
-requests: window position by window position, the S owners' requests at
-that position run as one batch of independent contexts, each against its
-own shard's state.  Their group forms (:func:`triggered_chain_group`,
-:func:`local_chain_group`) hand each owner's window to racing writer
-lanes a lap of ``n_writers`` rows at a time.
+requests: each owner's window walks in order over one persistent image
+of its shard, every request seeing every earlier one's writes, and
+owners never share state.  On the card a stage is one launch of the walk
+kernel (:func:`repro_torch.kernels.chain_interp.ops.run_walk`); on the
+CPU its plain version.  :func:`rows_stage`, the walk of the earlier
+route (:func:`_walk` over the program's ``run_rows``, one batch of the S
+owners' requests a window position), is the yardstick the tests and
+``chip_smoke.py`` hold it to.  Their group forms
+(:func:`triggered_chain_group`, :func:`local_chain_group`) hand each
+owner's window to racing writer lanes a lap of ``n_writers`` rows at a
+time, on :func:`_walk`.
 
 Setting :data:`trace` to a list records each stateful stage's serial
 depth, the chain steps of every request it ran and, on the card, CUDA
-events around it; ``None``, the default, records nothing.
+events around it; a single-chain stage also records copies of its
+output and its walk and interpreter launches, and on the walk its
+arguments (``args``, copies, for :func:`rows_stage` to replay).
+``None``, the default, records nothing (and the walk then reads
+nothing back to the host).
 """
 from __future__ import annotations
 
@@ -47,7 +57,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import faults as faults_mod
 from ..core import machine
+from ..kernels.chain_interp import ops as interp_ops
 
 #: None, or a list that each stateful stage appends a record to
 trace: Optional[list] = None
@@ -235,11 +247,91 @@ def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
     return combine(resp, dest, pos, ok, group), ok
 
 
-def note_steps(steps: torch.Tensor) -> None:
-    """Add the chain steps of the requests a stateful step just ran to
-    the current :data:`trace` record (a no-op when tracing is off)."""
-    if trace:
-        trace[-1]["steps"].append(steps)
+def _open_record(stage: str, rows: torch.Tensor):
+    """A :data:`trace` record for a single-chain stage over the window
+    ``rows`` (S, P, W), and its start event on the card; ``(None, None)``
+    when tracing is off."""
+    if trace is None:
+        return None, None
+    run = (rows[..., 0] != 0).cpu().numpy()
+    rec = dict(stage=stage, depth=int(run.sum(1).max(initial=0)),
+               runs=int(run.sum()), steps=[],
+               launches=dict(interp_ops.launches))
+    if rows.is_cuda:
+        rec.update(start=torch.cuda.Event(enable_timing=True),
+                   end=torch.cuda.Event(enable_timing=True))
+        rec["start"].record()
+    trace.append(rec)
+    return rec, run
+
+
+def _close_record(rec, run, resp, steps, carry) -> None:
+    """The stage's output, its launches (as counts since the record was
+    opened) and its requests' steps by window position."""
+    if "end" in rec:
+        rec["end"].record()
+    rec["launches"] = {k: interp_ops.launches[k] - n
+                       for k, n in rec["launches"].items()}
+    rec["out"] = (resp, steps, tuple(c.clone() for c in carry))
+    grid = steps.cpu()
+    order = [np.flatnonzero(r) for r in run]
+    for p in range(rec["depth"]):
+        owners = [o for o in range(len(order)) if len(order[o]) > p]
+        rec["steps"].append(grid[owners, [order[o][p] for o in owners]])
+
+
+def walk_stage(prog, budget: int, carry, rows: torch.Tensor,
+               faults: Optional[torch.Tensor], resp_words: int, stage: str):
+    """Walk each owner's window ``rows`` (S, P, W) through ``prog``'s
+    chain (:func:`repro_torch.kernels.chain_interp.ops.run_walk`): one
+    launch of the walk kernel on the card.  ``faults`` (S, P, FIELDS) or
+    None.  Returns (responses (S, P, resp_words), the new carry)."""
+    args = None if trace is None else (
+        prog, budget, tuple(c.clone() for c in carry), rows.clone(),
+        None if faults is None else faults.clone(), resp_words, stage)
+    rec, run = _open_record(stage, rows)
+    resp, steps, carry = interp_ops.run_walk(prog, carry, rows, budget,
+                                             faults, resp_words)
+    if rec is not None:
+        rec["args"] = args
+        _close_record(rec, run, resp, steps, carry)
+    return resp, carry
+
+
+def rows_stage(prog, budget: int, carry, rows: torch.Tensor,
+               faults: Optional[torch.Tensor], resp_words: int, stage: str):
+    """:func:`walk_stage` as the earlier route ran it, the walk's
+    yardstick: :func:`_walk` over ``prog.run_rows`` (``run_rows_faulted``
+    under fault rows), which builds the G owners' images from the carry,
+    delivers, runs (one interpreter launch) and commits them at every
+    window position.  Answers the status word alone (``resp_words``
+    1); its trace record is :func:`walk_stage`'s."""
+    if resp_words != 1:
+        raise ValueError("the rows route answers the status word alone")
+    width = rows.shape[-1]
+    wire = rows if faults is None else torch.cat(
+        [rows, faults.to(rows.dtype)], dim=-1)
+    before = dict(interp_ops.launches)
+
+    def step(c, reqs):
+        if faults is None:
+            status, *new, steps = prog.run_rows(*c, reqs, budget)
+        else:
+            status, *new, steps = prog.run_rows_faulted(
+                *c, reqs[:, :width], budget,
+                faults_mod.FaultPlan.from_row(reqs[:, width:]))
+        if trace:
+            trace[-1]["steps"].append(steps)
+        return tuple(new), torch.stack([status, steps.to(status.dtype)], 1)
+
+    run = (rows[..., 0] != 0).cpu().numpy()
+    out, carry = _walk(step, carry, wire, run, 2, stage)
+    resp, steps = out[..., :1], out[..., 1]
+    if trace is not None:
+        trace[-1].update(out=(resp, steps, tuple(c.clone() for c in carry)),
+                         launches={k: interp_ops.launches[k] - n
+                                   for k, n in before.items()})
+    return resp, carry
 
 
 def _walk(step_fn: Callable, carry, rows: torch.Tensor,
@@ -282,17 +374,25 @@ def _walk(step_fn: Callable, carry, rows: torch.Tensor,
     return resp, carry
 
 
-def _with_faults(step_fn: Callable, width: int) -> Callable:
-    """A step over wire rows ``[payload x width, fault row]``: hands
-    ``step_fn`` the ``(payloads, fault rows)`` pair."""
-    def step(carry, rows):
-        return step_fn(carry, (rows[:, :width], rows[:, width:]))
-    return step
+def _window(payload: torch.Tensor, faults: Optional[torch.Tensor], dest,
+            n_shards: int, capacity: int, live, group):
+    """Dispatch requests with their fault rows riding along.  Returns
+    ``(recv, pos, ok, window rows (S_dst, S_src * capacity, W), window
+    fault rows or None)``."""
+    width = payload.shape[-1]
+    if faults is not None:
+        payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
+    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
+    if faults is None:
+        return recv, pos, ok, flat.contiguous(), None
+    return (recv, pos, ok, flat[..., :width].contiguous(),
+            flat[..., width:].contiguous())
 
 
-def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
-                             dest: torch.Tensor, n_shards: int,
-                             capacity: int, resp_words: int,
+def triggered_chain_stateful(prog, budget: int, carry,
+                             payload: torch.Tensor, dest: torch.Tensor,
+                             n_shards: int, capacity: int, resp_words: int,
                              live: Optional[torch.Tensor] = None,
                              stage: str = "stateful",
                              faults: Optional[torch.Tensor] = None,
@@ -301,19 +401,20 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
     offload — the SET and DELETE wire pattern).
 
     Same dispatch/combine as :func:`triggered_chain_engine`, but each
-    owner's receive window ``(S_src * capacity)`` is streamed through
-    ``step_fn`` in order, so every chain run observes every earlier
-    request's writes (the NIC serializes atomics against local memory).
-    ``carry`` is a tuple of the owners' authoritative state, each with a
-    leading dim S (e.g. the shards' hopscotch arrays); ``step_fn(carry
-    rows (G, ...), requests (G, W)) -> (new carry rows, responses (G,
-    resp_words))`` serves G requests at once, one owner each.  A window
-    slot whose first word (the key) is 0 — a padded slot, or a row no
-    live request landed on — runs no chain and answers 0: the write-side
-    programs are self-guarding on such slots (status 0, state
-    unchanged).  Running only the live slots, in order, also shortens
-    the serial depth to the most live requests any owner received.
-    Returns ``(responses (S, B, resp_words), ok (S, B), final carry)``.
+    owner's receive window ``(S_src * capacity)`` walks through the
+    single-chain write-side program ``prog`` in order (:func:`walk_stage`,
+    at most ``budget`` steps a request), so every chain run observes
+    every earlier request's writes (the NIC serializes atomics against
+    local memory).  ``carry`` is a tuple of the owners' authoritative
+    state, each with a leading dim S (e.g. the shards' hopscotch arrays),
+    in the order ``prog.device_state`` takes them.  A window slot whose
+    first word (the key) is 0 — a padded slot, or a row no live request
+    landed on — runs no chain and answers 0: the write-side programs are
+    self-guarding on such slots (status 0, state unchanged).  The serial
+    depth is the most live requests any owner received.  Each response is
+    the ``resp_words`` words at the program's response region (the
+    status first).  Returns ``(responses (S, B, resp_words), ok (S, B),
+    final carry)``.
 
     Stages compose: a caller may re-dispatch a *subset* of one stage's
     admitted rows through a second stage at the same capacity, threading
@@ -326,45 +427,40 @@ def triggered_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
     :class:`repro_torch.core.faults.FaultPlan` rows, one per request.  A
     request's fault *rides its payload through dispatch* (the columns are
     concatenated onto the payload and split back off at the window), so
-    it lands wherever the request lands, and ``step_fn`` then receives
-    ``(payloads, fault rows)`` pairs.  A window slot no request landed on
-    carries an all-zero fault row — armed (``0 >= 0``) — but runs no
-    chain, like any key-0 slot.
+    it lands wherever the request lands and arms that request's chain:
+    an armed request keeps whatever its chain wrote (the program's
+    ``commit_torn``).  A window slot no request landed on carries an
+    all-zero fault row — armed (``0 >= 0``) — but runs no chain, like any
+    key-0 slot.
     """
-    width = payload.shape[-1]
-    if faults is not None:
-        payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
-        step_fn = _with_faults(step_fn, width)
-    recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
-    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
-    run = (flat[..., 0] != 0).cpu().numpy()
-    resp, carry = _walk(step_fn, carry, flat, run, resp_words, stage)
+    recv, pos, ok, flat, frows = _window(payload, faults, dest, n_shards,
+                                         capacity, live, group)
+    resp, carry = walk_stage(prog, budget, carry, flat, frows, resp_words,
+                             stage)
     resp = resp.reshape(recv.shape[:3] + (resp_words,))
     return combine(resp, dest, pos, ok, group), ok, carry
 
 
-def local_chain_stateful(step_fn: Callable, carry, payload: torch.Tensor,
+def local_chain_stateful(prog, budget: int, carry, payload: torch.Tensor,
                          resp_words: int, stage: str = "local",
                          faults: Optional[torch.Tensor] = None):
     """Loopback chains: each owner triggers its *own* pre-posted chain.
 
     Maintenance offloads (the CLOCK sweeper, table growth) originate at
     the shard that owns the data, so there is no dispatch/combine pair:
-    shard ``s``'s requests ``payload[s]`` (S, B, W) stream through
-    ``step_fn`` in order against its own state, the S shards' b-th
-    requests as one batch (see :func:`triggered_chain_stateful` for
-    ``step_fn`` and ``carry``).  A row whose first word is 0 (an EMPTY
-    migration source, a padded slot) runs no chain and answers zeros.
-    ``faults`` (optional, (S, B, FIELDS)) are scanned alongside the
-    payload: a loopback lap's fault is the shard itself dying mid-lap,
-    and ``step_fn`` then receives ``(payloads, fault rows)`` pairs.
-    Returns ``(responses (S, B, resp_words), final carry)``.
+    shard ``s``'s requests ``payload[s]`` (S, B, W) walk through
+    ``prog`` in order against its own state (see
+    :func:`triggered_chain_stateful` for ``prog``, ``budget`` and
+    ``carry``).  A row whose first word is 0 (an EMPTY migration source,
+    a padded slot) runs no chain and answers zeros.  ``faults``
+    (optional, (S, B, FIELDS)) are walked alongside the payload: a
+    loopback lap's fault is the shard itself dying mid-lap.  Returns
+    ``(responses (S, B, resp_words), final carry)``.
     """
-    run = (payload[..., 0] != 0).cpu().numpy()
     if faults is not None:
-        step_fn = _with_faults(step_fn, payload.shape[-1])
-        payload = torch.cat([payload, faults.to(payload.dtype)], dim=-1)
-    return _walk(step_fn, carry, payload, run, resp_words, stage)
+        faults = faults.to(torch.int32).contiguous()
+    return walk_stage(prog, budget, carry, payload.contiguous(), faults,
+                      resp_words, stage)
 
 
 def _walk_laps(group_fn: Callable, carry, flat: torch.Tensor, n_lanes: int,

@@ -10,7 +10,10 @@ of ``_interp_images.py``, fault rows, schedules, machines of up to 1,024
 WQs, full batches in global memory, split batches staged in shared
 memory and the raise on a changed window word, split GETs of both
 server builds;
-all 14 fields bit-equal, clocks included), the
+all 14 fields bit-equal, clocks included), the walk kernel against its
+plain walk and the rows route (every write-side program, fault rows,
+1-4 owners; no host read; no ptxas spill) and the store's write stages
+on the card against the CPU, the
 chain kernel under kill faults against the interpreter, fsck on the
 card against fsck on the CPU, and the scheduled interpreter (a batch of
 cut schedules, the racing-writer SET) on the card against the CPU.  They
@@ -20,6 +23,7 @@ skip without a card.  On the card
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import math
+import re
 
 import numpy as np
 import pytest
@@ -27,11 +31,13 @@ import torch
 
 import _chain_images as hazards
 import _interp_images as interp_images
+import _walk_corpus as walk_corpus
 from repro_torch import convert
 from repro_torch.core import faults, isa, machine, programs, turing
 from repro_torch.core.engine import ChainEngine
 from repro_torch.kernels import _build
 from repro_torch.kernels.chain_interp import ops as interp_ops
+from repro_torch.kernels.chain_interp import ref as walk_ref
 from repro_torch.kernels.chain_vm import ops as chain_ops
 from repro_torch.kernels.chain_vm import ref as chain_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
@@ -44,6 +50,7 @@ from repro_torch.kernels.rglru import ref as rg_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kvstore import cuckoo, fsck, hopscotch, store
+from repro_torch.rdma import transport
 
 pytestmark = pytest.mark.gpu
 
@@ -584,6 +591,152 @@ def test_interp_kernel_runs_split_gets(cuda, ttl):
                             exp=None if exp is None else torch.from_numpy(exp))
     for f in ("found", "values", "ok"):
         assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
+
+
+# --- the walk kernel (the write stages' windows) -----------------------------
+
+def _walk_on(device, name, s, positions, seed, faulted):
+    """A window of ``_walk_corpus``: the program built on ``device``, the
+    carry, the rows and (``faulted``) a storm of fault rows there."""
+    prog, carry, rows = walk_corpus._window(name, s, positions, seed)
+    frows = None
+    if faulted:
+        frows = faults.storm(s * positions, p_fault=0.4,
+                             max_step=prog.fuel // 2, seed=seed,
+                             device="cpu").as_rows().reshape(
+                                 s, positions, -1).contiguous()
+    prog = walk_corpus._build(name, device=device)
+    return (prog, tuple(c.to(device) for c in carry), rows.to(device),
+            None if frows is None else frows.to(device))
+
+
+def _walk_equal(got, want, what):
+    for i, (a, b) in enumerate(zip(got[:2] + got[2], want[:2] + want[2])):
+        assert torch.equal(a.cpu(), b.cpu()), (what, i)
+
+
+# every program (both mirror geometries: the displacer's unwrapped frame,
+# the migrator's new frame), fault rows disarmed and armed (not the
+# sweeper's: its stage arms none), 1 to 4 owners, key-0 rows among them
+WALK_CASES = [(name, faulted, s)
+              for i, (name, faulted) in enumerate(
+                  (n, f) for n in walk_corpus.PROGRAMS for f in (False, True)
+                  if not (f and n == "sweeper"))
+              for s in (1 + i % 4, 4 - i % 4)]
+
+
+@pytest.mark.parametrize("name,faulted,s", WALK_CASES)
+def test_walk_kernel_matches_the_plain_walk(cuda, name, faulted, s):
+    """One launch of ``chain_walk_kernel``, responses, steps and the carry
+    bit-equal to ``ref.plain_walk`` on the CPU and to the rows route on
+    the card."""
+    prog, carry, rows, frows = _walk_on(cuda, name, s, 12, 31 + s, faulted)
+    cpu = walk_corpus._build(name)
+    want = walk_ref.plain_walk(cpu, tuple(c.cpu() for c in carry), rows.cpu(),
+                               prog.fuel,
+                               None if frows is None else frows.cpu())
+    before = dict(interp_ops.launches)
+    got = interp_ops.run_walk(prog, carry, rows, prog.fuel, frows)
+    torch.cuda.synchronize()
+    assert interp_ops.launches["walk"] == before["walk"] + 1
+    assert interp_ops.launches["run_interp"] == before["run_interp"]
+    _walk_equal(got, want, f"{name} plain")
+    transport.trace = []
+    try:
+        transport.rows_stage(prog, prog.fuel, carry, rows, frows, 1, name)
+        rec = transport.trace[-1]
+    finally:
+        transport.trace = None
+    _walk_equal(got, rec["out"], f"{name} rows route")
+    assert int(want[1].max()) > 0
+
+
+def test_walk_kernel_runs_a_stage_with_no_host_read(cuda):
+    """After a first call (which checks the layout once), a stage is one
+    launch with no device-to-host read."""
+    prog, carry, rows, frows = _walk_on(cuda, "displacer", 4, 10, 5, True)
+    fuel = prog.fuel                   # (a host read of the program's)
+    want = interp_ops.run_walk(prog, carry, rows, fuel, frows)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = interp_ops.run_walk(prog, carry, rows, fuel, frows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _walk_equal(got, want, "no host read")
+
+
+def test_walk_kernel_refuses_what_it_cannot_take(cuda):
+    prog, carry, rows, frows = _walk_on(cuda, "writer", 2, 4, 1, True)
+    with pytest.raises(ValueError, match="int32"):
+        interp_ops.run_walk(prog, carry, rows.long(), prog.fuel)
+    with pytest.raises(ValueError, match="fault rows"):
+        interp_ops.run_walk(prog, carry, rows, prog.fuel, frows[:, :2])
+    with pytest.raises(ValueError, match="fault rows"):
+        interp_ops.run_walk(prog, carry, rows, prog.fuel, frows.cpu())
+
+
+def test_walk_kernel_build_is_spill_free(cuda):
+    """ptxas reports registers and no spill for both instances of
+    ``chain_walk_kernel`` (one warp, several)."""
+    log = _build.build(["chain_interp"])["chain_interp"]
+    found, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line if "chain_walk_kernel" in line else None
+            if entry:
+                found[entry] = {}
+        elif entry and "spill stores" in line:
+            stores, loads = (int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+            found[entry].update(stores=stores, loads=loads)
+        elif entry and "Used" in line and "registers" in line:
+            found[entry]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            entry = None
+    assert len(found) == 2, found
+    for entry, r in found.items():
+        assert "registers" in r and r["stores"] == r["loads"] == 0, (entry,
+                                                                     r)
+
+
+def test_write_stages_on_the_card_match_the_cpu(cuda):
+    """SET (with displacement), DELETE and a sweep through the store on
+    the card, one walk launch a stage and no interpreter launch: every
+    result and array equal to the CPU's."""
+    kv = store.ShardedKV.build(3, 64, 2, neighborhood=4)
+    rng = np.random.RandomState(9)
+    for k in rng.choice(np.arange(1, 1 << 16), 150, replace=False).tolist():
+        try:
+            kv.set(k, [k, k + 1])
+        except Exception:
+            pass
+    sk = rng.randint(1, 1 << 16, (3, 16)).astype(np.int32)
+    sk[0, 2] = 0
+    sv = np.stack([sk, sk ^ 0x55], -1).astype(np.int32)
+    exp = np.full((3, 64), hopscotch.NO_TTL, np.int32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        dk, dv = kv.device_arrays(dev)
+        before = dict(interp_ops.launches)
+        t = lambda a: torch.from_numpy(a).to(dev)      # noqa: E731
+        res, k, v, e = store.sharded_set(
+            dk, dv, t(sk), t(sv), neighborhood=4, max_search=8,
+            max_moves=4, exp=t(exp), deadlines=t(np.full_like(sk, 50)),
+            device=dev)
+        dres, k, v, e = store.sharded_delete(k, v, t(sk[:, :6]), exp=e,
+                                             neighborhood=4, device=dev)
+        rep, k, v, e = store.sharded_sweep(k, v, e, t(np.zeros(3, np.int32)),
+                                           100, 64, device=dev)
+        after = {n: interp_ops.launches[n] - before[n] for n in before}
+        outs.append((res, dres, rep, k, v, e, after))
+    card, host = outs
+    for a, b, what in zip(card[:3], host[:3], ("set", "delete", "sweep")):
+        for f, x, y in zip(a._fields, a, b):
+            assert torch.equal(x.cpu(), y), (what, f)
+    for x, y in zip(card[3:6], host[3:6]):
+        assert torch.equal(x.cpu(), y)
+    assert card[6]["run_interp"] == 0 and card[6]["walk"] >= 4, card[6]
 
 
 def test_interpreter_on_the_card_matches_the_cpu(cuda):

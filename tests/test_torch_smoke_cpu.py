@@ -487,14 +487,15 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    """Eleven rows: seven a TPU kernel each; the flash backward, which
+    """Twelve rows: seven a TPU kernel each; the flash backward, which
     replaces the JAX package's plain-JAX backward (``_make_blocked_vjp``'s
     ``bwd``); the recurrences' backward kernels, which replace JAX's
-    autodiff of its chunked forms (``_chunked_jax``); and the interpreter
-    kernel, which replaces ``machine.run``'s device-side while loop.  Each
+    autodiff of its chunked forms (``_chunked_jax``); the interpreter
+    kernel, which replaces ``machine.run``'s device-side while loop; and
+    the walk kernel, which replaces the write stages' ``lax.scan``.  Each
     row's phase runs, and the guest drive of ``chain_programs`` reaches
     kernel #1 (its launches join that row's ``launches_by_phase``)."""
-    assert len(smoke.KERNELS) == 11
+    assert len(smoke.KERNELS) == 12
     assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
     assert "chain_programs" in smoke.PHASES
     for name, phase, source, replaces, kernels in smoke.KERNELS:
@@ -509,6 +510,8 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
         pattern = (r"\s+def bwd\(res, do\):" if name.endswith(".backward")
                    else r"def _chunked_jax\(" if name.endswith("_backward")
                    else r"def run\(" if name == "chain_interp.run_interp"
+                   else r"\s+carry, resp = lax\.scan\("
+                   if name == "chain_interp.walk"
                    else r"def _\w+_kernel\(")
         assert re.match(pattern, text), (replaces, text)
 

@@ -11,12 +11,15 @@ code (the same for every checkout: a checkout with
 ``machine.deliver_shared`` runs the split batch, an earlier one its full
 copies), and ``chain_interp_kernel`` alone by device time from a trace
 on that batch and on the 4,096 guests.  Then the write path, whose
-chains run on the same kernel with full images: its
+single-chain stages run on the walk kernel (``chain_walk_kernel``, one
+launch a stage) in a checkout that has it and on the interpreter kernel
+with full images, a launch a window position, in an earlier one: its
 ``chip_smoke.phase_kv_write`` (SET, DELETE and sweep ms) and
 ``phase_kv_resize`` (ms a quantum), and a (4, 32) SET batch of updates
 and inserts timed by CUDA events and from a trace (all its kernels, and
-``chain_interp_kernel`` alone).  Each turn prints one ``AB`` line of
-JSON.  Give the checkouts in turns, e.g. an earlier commit unpacked with
+``chain_interp_kernel`` and ``chain_walk_kernel`` alone, so that two
+checkouts on either route compare like with like).  Each turn prints
+one ``AB`` line of JSON.  Give the checkouts in turns, e.g. an earlier commit unpacked with
 ``git archive`` into ``build/parent`` against this one:
 
     python3 tools/get_path_ab.py build/parent . . build/parent
@@ -136,12 +139,17 @@ def write_path():
 
     set_batch()
     _, set_ms = cs.timed_call(dev, set_batch)
-    prof = cs.device_time(set_batch, 2, ("chain_interp_kernel",))
+    kernels = ("chain_interp_kernel", "chain_walk_kernel")
+    prof = cs.device_time(set_batch, 2, kernels)
     return dict(set_ms=w["set_ms"], delete_ms=w["delete_ms"],
                 sweep_ms=w["sweep_ms"], quantum_ms=r["quantum_ms"],
+                set_walk_kernel_ms=w.get("set_walk_kernel_ms"),
+                set_rows_interp_ms=w.get("set_rows_interp_ms"),
                 set32_ms=set_ms, set32_timed_by=prof["timed_by"],
                 set32_device_ms=prof["device_ms"],
-                set32_kernel_ms=prof["by_kernel_ms"]["chain_interp_kernel"])
+                set32_kernel_ms=prof["by_kernel_ms"]["chain_interp_kernel"],
+                set32_walk_kernel_ms=prof["by_kernel_ms"][
+                    "chain_walk_kernel"])
 
 
 q = torch.from_numpy(cs.kv_batches(4, 157286, 64, 1)[0]).to(dev)

@@ -143,7 +143,18 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          oracle), and with 2 and 4 lanes on a hot-key
                          hammer (each owner's 8 keys homed at one bucket):
                          every row answered, fsck clean, every applied
-                         key read back.  The 2-writer cut sweep of
+                         key read back; and a (4, 32) such batch, the
+                         ``kv_write`` scale, at 1, 2 and 4 lanes.  The
+                         lanes' laps run on the lap kernel
+                         (``chain_laps_kernel``: a stage's laps in one
+                         launch, a block an owner), each stage held bit
+                         for bit to ``laps_rows_stage`` over ``run_group`` (the
+                         earlier route, an interpreter launch a lap
+                         position) in responses and carry, every batch
+                         timed by host clock on both routes; the lap
+                         kernel replayed on the 4-lane (4, 32) batch's
+                         stage against its plain laps, beside its serial
+                         floor.  The 2-writer cut sweep of
                          ``tests/test_faults.py`` (every cut one batch,
                          each on the AB or BA oracle), and the fairness
                          hammer under ``fair_quotas([8] * 4, 48)``
@@ -160,9 +171,10 @@ It builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
                          ``set_reliable`` under a kill plan, fsck clean;
                          a 1-shard, 8-bucket service grown by its own
                          SETs, and the chained second growth, every key
-                         served throughout.  The single-chain stages walk,
-                         each held to ``_walk``; the 2-lane SET's laps and
-                         the GETs run on the interpreter kernel.
+                         served throughout.  The single-chain stages walk
+                         and the 2-lane SET's laps run on the lap kernel,
+                         each held to ``_walk`` (``laps_rows_stage``); the GETs
+                         run on the interpreter kernel.
 6f. ``chain_programs`` — the chain-program toolchain: the static
                          verifier's sweep of its 18 registered programs,
                          built on the card, equal to ``BENCH_chains.json``
@@ -1433,11 +1445,14 @@ def phase_chain_interp(device, kv, dk, dv, n_keys=157286, batch=64,
     result["set_batch"] = tuple(sk.shape)
 
     # racing writers: a 4-lane SET of hot keys, the 2-writer cut sweep
+    # (the lanes' laps run on the lap kernel: the rows route runs their
+    # scheduled group here)
     hk, _ = hot_keys(kv, rng, sk.shape[1], int(loaded.max()) + 1)
-    case("contend", lambda: store.sharded_set(
-        dk, dv, torch.from_numpy(hk).to(dev),
-        torch.from_numpy(new_values(hk, v)).to(dev), n_writers=4,
-        device=device))
+    with rows_route():
+        case("contend", lambda: store.sharded_set(
+            dk, dv, torch.from_numpy(hk).to(dev),
+            torch.from_numpy(new_values(hk, v)).to(dev), n_writers=4,
+            device=device))
     case("cut_sweep", lambda: cut_sweep(device))
 
     # the recycled get server under a storm of all four fault kinds
@@ -1627,51 +1642,32 @@ def phase_hopscotch_probe(device, kv, dk, dv, n_queries=4096, n_keys=157286,
 # phase 6: the write path (SET with displacement, DELETE, TTL, the sweeper)
 # ---------------------------------------------------------------------------
 
-def run_traced(device, fn):
-    """``(fn(), ms, stages)`` with the transport's stateful-stage trace on:
-    per stage its ms (CUDA events; None on the CPU), serial depth (window
-    positions or laps run), requests run, and chain steps per request (max
-    and median; None for a group stage)."""
-    transport.trace = []
-    try:
-        value, ms = timed_call(device, fn)
-        records = transport.trace
-    finally:
-        transport.trace = None
-    stages = {}
-    for r in records:
-        # a group stage (racing lanes) records no per-request steps
-        steps = torch.cat(r["steps"]).cpu().numpy() if r["steps"] else None
-        stages[r["stage"]] = dict(
-            ms=r["start"].elapsed_time(r["end"]) if "start" in r else None,
-            depth=r["depth"], runs=r["runs"],
-            steps_max=None if steps is None else int(steps.max()),
-            steps_median=None if steps is None else float(np.median(steps)))
-    return value, ms, stages
-
-
 # launches made to compare: the rows route's interpreter launches (the
-# walk's yardstick) and the walk kernel's replays against its plain
-# version; no path's
-YARDSTICK = {"run_interp": 0, "walk": 0}
-# the walk kernel's ptxas instances (one warp, several)
+# walk's and the laps' yardstick) and the walk and lap kernels' replays
+# against their plain versions; no path's
+YARDSTICK = {"run_interp": 0, "walk": 0, "laps": 0}
+# the walk and lap kernels (ptxas instances: one warp, several)
 WALK_KERNEL = "chain_walk_kernel"
+LAPS_KERNEL = "chain_laps_kernel"
 
 
 @contextlib.contextmanager
 def rows_route():
-    """The single-chain write stages on the earlier route inside the block
+    """The write stages on the earlier route inside the block
     (``transport.rows_stage``: ``_walk`` over the program's ``run_rows``,
-    an interpreter launch a window position), the walk's yardstick,
-    called by this script: the package has no switch for it.  Its
-    interpreter launches count in ``YARDSTICK``, not in a path's."""
-    walk = transport.walk_stage
+    an interpreter launch a window position; ``transport.laps_rows_stage``
+    for the racing lanes: ``_walk`` over ``run_group``, one a lap
+    position), the walk's and the laps' yardstick, called by this script:
+    the package has no switch for it.  Its interpreter launches count in
+    ``YARDSTICK``, not in a path's."""
+    walk, laps = transport.walk_stage, transport.laps_stage
     before = interp_ops.launches["run_interp"]
     transport.walk_stage = transport.rows_stage
+    transport.laps_stage = transport.laps_rows_stage
     try:
         yield
     finally:
-        transport.walk_stage = walk
+        transport.walk_stage, transport.laps_stage = walk, laps
         YARDSTICK["run_interp"] += interp_ops.launches["run_interp"] - before
 
 
@@ -1722,34 +1718,40 @@ def require_same(a, b, what: str) -> None:
 
 def require_walked(device, what: str, records) -> list:
     """Every walked stage of ``records`` again on the rows route from its
-    recorded arguments: responses, steps per request and carry bit-equal
-    to ``_walk``'s; on the card each stage one ``chain_walk_kernel``
-    launch and no interpreter launch.  Returns a dict a stage: depth,
-    runs, steps, and the walk's and the rows route's ms (CUDA events,
-    None on the CPU)."""
+    recorded arguments: a single-chain stage's responses, steps per
+    request and carry bit-equal to ``_walk``'s, a lap stage's responses
+    and carry to ``laps_rows_stage``'s; on the card each stage one
+    ``chain_walk_kernel`` (``chain_laps_kernel``) launch and no
+    interpreter launch.  Returns a dict a stage: its route, depth, runs,
+    steps (a request's or a lap's), and the walk's and the rows route's
+    ms (CUDA events, None on the CPU)."""
     walked = [r for r in records if "args" in r]
     if not walked:
         raise AssertionError(f"{what}: no stage walked")
-    want = {"run_interp": 0, "walk": 1 if on_card(device) else 0}
+    yards = {"walk": (transport.rows_stage, ("responses", "steps"), "_walk"),
+             "laps": (transport.laps_rows_stage, ("responses",),
+                      "laps_rows_stage")}
     out = []
     for r in walked:
-        stage = r["stage"]
+        stage, route = r["stage"], r["route"]
+        want = {"run_interp": 0, route: 1 if on_card(device) else 0}
         if r["launches"] != want:
             raise AssertionError(f"{what} {stage}: launches {r['launches']}"
                                  f", not {want}")
+        yard_stage, fields, yard_name = yards[route]
         before = interp_ops.launches["run_interp"]
         with walk_records() as yard:
-            transport.rows_stage(*r["args"])
+            yard_stage(*r["args"])
         YARDSTICK["run_interp"] += interp_ops.launches["run_interp"] - before
         y = yard[-1]
-        for name, a, b in zip(("responses", "steps"), r["out"], y["out"]):
-            require_equal(a, b, f"{what} {stage}: {name} vs _walk")
+        for name, a, b in zip(fields, r["out"], y["out"]):
+            require_equal(a, b, f"{what} {stage}: {name} vs {yard_name}")
         for i, (a, b) in enumerate(zip(r["out"][2], y["out"][2])):
-            require_equal(a, b, f"{what} {stage}: carry[{i}] vs _walk")
+            require_equal(a, b, f"{what} {stage}: carry[{i}] vs {yard_name}")
         sync(device)
         steps = r["out"][1]
         out.append(dict(
-            stage=stage, depth=r["depth"], runs=r["runs"],
+            stage=stage, route=route, depth=r["depth"], runs=r["runs"],
             steps_max=int(steps.max()),
             steps_median=float(np.median(steps[steps > 0].cpu().numpy()))
             if bool((steps > 0).any()) else 0.0,
@@ -1760,10 +1762,11 @@ def require_walked(device, what: str, records) -> list:
 
 
 def walk_vs_rows(device, what: str, fn):
-    """``fn()`` (store calls whose single-chain stages walk) from the same
-    inputs three times: traced, each walked stage then held to the rows
-    route (``require_walked``); untraced, by host clock; and on the rows
-    route by host clock, its whole result equal to the walk's.  Returns
+    """``fn()`` (store calls whose write stages walk, single-chain or in
+    laps) from the same inputs three times: traced, each walked stage
+    then held to the rows route (``require_walked``); untraced, by host
+    clock; and on the rows route by host clock, its whole result equal
+    to the walk's.  Returns
     ``(the traced run's value, dict(ms, rows_ms, stages, records))``."""
     with walk_records() as recs:
         value = fn()
@@ -1777,8 +1780,8 @@ def walk_vs_rows(device, what: str, fn):
 
 
 def stage_summary(stages) -> dict:
-    """``require_walked``'s stages by name (a repeated name: the last),
-    as ``run_traced`` reports them."""
+    """``require_walked``'s stages by name (a repeated name: the last):
+    ms on both routes (CUDA events), depth, runs and steps."""
     return {st["stage"]: {k: st[k] for k in ("ms", "rows_ms", "depth",
                                              "runs", "steps_max",
                                              "steps_median")}
@@ -1868,6 +1871,140 @@ def walk_kernel_row(device, records, cycles) -> dict:
         out["serial_floor_ms"] += floor["owner"]
         out["lockstep_floor_ms"] += floor["lockstep"]
     YARDSTICK["walk"] += interp_ops.launches["walk"] - before
+    out["bytes_bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    out.update(bound_ms=out["bytes_bound_ms"], bound_by="bytes",
+               library_ms=None)
+    return out
+
+
+# a lap's step beyond the walk's round trips: the multi-warp argmin's
+# exchange through shared memory and the pick's broadcast, a shared-memory
+# trip and a barrier each
+LAP_BARRIER_TRIPS = 2
+
+
+def laps_floor_ms(cycles, steps) -> float:
+    """The laps' serial floor at the card's maximum SM clock: each owner's
+    lap steps summed, the most of any owner, a step ``INTERP_STEP_TRIPS``
+    dependent L2 trips and ``LAP_BARRIER_TRIPS`` shared-memory trips.  0
+    off the card."""
+    if cycles is None:
+        return 0.0
+    per = (cycles["l2"] * INTERP_STEP_TRIPS + cycles["shared"]
+           * LAP_BARRIER_TRIPS) / max_sm_clock_hz() * 1e3
+    return float(steps.sum(1).max()) * per
+
+
+def lap_read_words(mw, carry, rows, sched, budget) -> int:
+    """The distinct image words a lap stage must read, from a replay of
+    its plain laps with ``machine._execute`` watched: per owner, each WR
+    its laps executed (8 words) and each table or value word a step read
+    (a copy's source, a CAS's, ADD's, MAX's or MIN's target), once,
+    however many laps read it again."""
+    laps = mw.lap_rows(rows)
+    run = (laps[..., 0] != 0).any(-1).cpu().numpy()
+    order = [np.flatnonzero(r) for r in run]
+    spans = ((mw.table_base, mw.table_base + programs.BUCKET_WORDS
+              * mw.n_buckets),
+             (mw.values_base, mw.values_base + mw.val_len * mw.n_buckets))
+    length = mw.state0.mem.shape[-1]
+    steps, words = [], []
+    real = machine._execute
+
+    def execute(geo, s, rows_, w, fields, opcode, *rest):
+        wr = geo.bases[w] + torch.remainder(s.head[rows_, w],
+                                            geo.sizes[w]) * isa.WR_WORDS
+        steps.append((rows_.cpu(), wr.cpu(), fields.cpu(), opcode.cpu()))
+        return real(geo, s, rows_, w, fields, opcode, *rest)
+
+    def on_lap(p, img):
+        owners = torch.tensor([o for o in range(len(order))
+                               if len(order[o]) > p], dtype=torch.int64)
+        for rows_, wr, fields, op in steps:
+            own = owners[rows_][:, None]
+            j = torch.arange(isa.MAX_COPY)
+            copy = ((op == isa.WRITE) | (op == isa.READ)
+                    | ((op == isa.SEND) & (fields[:, isa.F_OPB] < 0)))
+            n = torch.where(copy, fields[:, isa.F_LEN].clamp(
+                0, isa.MAX_COPY), 0)
+            src = fields[:, isa.F_SRC, None] + j
+            rmw = ((op == isa.CAS) | (op == isa.ADD) | (op == isa.MAX)
+                   | (op == isa.MIN))
+            dst = fields[:, isa.F_DST, None]
+            operand = torch.cat([torch.where(j < n[:, None], src, -1),
+                                 torch.where(rmw[:, None], dst, -1)], 1)
+            inside = torch.zeros_like(operand, dtype=torch.bool)
+            for lo, hi in spans:
+                inside |= (operand >= lo) & (operand < hi)
+            words.append((own * length + wr[:, None].long()
+                          + torch.arange(isa.WR_WORDS)).reshape(-1))
+            words.append((own.expand_as(operand) * length
+                           + operand.long())[inside])
+        steps.clear()
+
+    machine._execute = execute
+    try:
+        walk_ref.plain_laps(mw, carry, rows, sched, budget, on_lap=on_lap)
+    finally:
+        machine._execute = real
+    return int(torch.cat(words).unique().numel()) if words else 0
+
+
+def laps_kernel_row(device, records, cycles) -> dict:
+    """The lap kernel on the lap stages of ``records`` (a batch's), each
+    replayed from its recorded arguments: the kernel's device time from a
+    trace (the sum over the stages, one launch each), the plain version
+    (``ref.plain_laps``, on the card) by host clock and bit-equal in
+    responses, lap steps and carry, the serial floor and the bytes bound:
+    the data the stage needs, once: the running laps' rows read, the
+    responses and lap steps written, each changed carry word written,
+    state0's 9 counters a WQ read, and each distinct WR and table or
+    value word an owner's laps read (:func:`lap_read_words`)."""
+    laps = [r for r in records if r.get("route") == "laps"]
+    if not laps:
+        raise AssertionError("no lap stage to replay")
+    out = dict(ms=0.0, plain_ms=0.0, max_abs_err=0, bytes=0, read_words=0,
+               serial_floor_ms=0.0, timed_by=[], lap_steps=[],
+               stages=[r["stage"] for r in laps])
+    before = interp_ops.launches["laps"]
+    for r in laps:
+        mw, sched, budget, carry, rows, resp_words, _ = r["args"]
+
+        def run(mw=mw, sched=sched, budget=budget, carry=carry, rows=rows,
+                resp_words=resp_words):
+            return interp_ops.run_laps(mw, carry, rows, sched, budget,
+                                       resp_words)
+
+        got = run()
+        plain, plain_ms = host_ms(device, lambda: walk_ref.plain_laps(
+            mw, carry, rows, sched, budget, resp_words))
+        for i, (a, b) in enumerate(zip(got[:2] + got[2],
+                                       plain[:2] + plain[2])):
+            out["max_abs_err"] = max(out["max_abs_err"], require_equal(
+                a, b, f"lap kernel vs plain laps {r['stage']} [{i}]"))
+        ms, timed_by = plain_ms, "plain"
+        if on_card(device):
+            prof = device_time(run, 2, (LAPS_KERNEL,))
+            timed_by = prof["timed_by"]
+            ms = (prof["by_kernel_ms"][LAPS_KERNEL] if timed_by == "trace"
+                  else prof["device_ms"])
+        steps = r["out"][1]
+        n = mw.n_writers
+        running = int((steps > 0).sum())
+        changed = sum(int((a != b).sum()) for a, b in zip(r["out"][2],
+                                                          carry))
+        reads = lap_read_words(mw, carry, rows, sched, budget)
+        out["read_words"] += reads
+        out["bytes"] += 4 * (running * n * rows.shape[-1]
+                             + rows.shape[0] * rows.shape[1] * resp_words
+                             + steps.numel() + changed
+                             + 9 * mw.spec.num_wqs + reads)
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["timed_by"].append(timed_by)
+        out["serial_floor_ms"] += laps_floor_ms(cycles, steps)
+        out["lap_steps"].append(int(steps.sum()))
+    YARDSTICK["laps"] += interp_ops.launches["laps"] - before
     out["bytes_bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
     out.update(bound_ms=out["bytes_bound_ms"], bound_by="bytes",
                library_ms=None)
@@ -2610,8 +2747,10 @@ def spaced_keys(kv, rng, per_owner: int, fresh: int, gap: int = 128):
             take(rng.permutation(loaded)[:256])
         while len(keys) < per_owner:
             cand = np.arange(fresh, fresh + (1 << 16), dtype=np.int64)
-            fresh += 1 << 16
+            took = len(keys)
             take(cand[store.shard_of(cand, s_) == o][:256])
+            # on past the key taken: the 24-bit key space holds every batch
+            fresh = keys[-1] + 1 if len(keys) > took else fresh + (1 << 16)
         out[o] = keys
     return out, fresh
 
@@ -2743,7 +2882,7 @@ SET_ANSWERS = SET_TERMINAL + (hopscotch.SET_NEEDS_RESIZE,)
 
 
 def phase_kv_contend(device, kv, dk, dv, per_owner=8, n_gets=64,
-                     burst=64.0, rate=0.5, seed=11):
+                     burst=64.0, rate=0.5, seed=11, wide=32):
     """Racing writers and isolation on the ``kv_get`` store.
 
     ``sharded_set`` with ``n_writers`` 2 and 4 on a (S, ``per_owner``)
@@ -2752,7 +2891,12 @@ def phase_kv_contend(device, kv, dk, dv, per_owner=8, n_gets=64,
     bit for bit; the *hot-key hammer* (each owner's keys homed at one
     bucket, sent as one source row, so a lap's claim CASes race) must
     answer every row (inserted, displaced or needs-resize), stay
-    fsck-clean and read every applied key back.  Then ``tests/
+    fsck-clean and read every applied key back; and a uniform (S,
+    ``wide``) batch, the ``kv_write`` scale, at 1, 2 and 4 lanes, equal
+    to the host oracle.  Every batch runs three times (``walk_vs_rows``):
+    each lap and walk stage held to the earlier route on the same inputs,
+    and both routes timed by host clock; the lap kernel is replayed on
+    the 4-lane wide batch's stage against its plain laps.  Then ``tests/
     test_faults.py``'s 2-writer cut sweep, every cut as one batch, each
     cut on the AB or BA oracle and bit-equal to the same batch on the CPU;
     the fairness hammer under ``fair_quotas`` (best/worst completion
@@ -2774,46 +2918,61 @@ def phase_kv_contend(device, kv, dk, dv, per_owner=8, n_gets=64,
     # from the top of the 24-bit space
     hot_start, fresh = int(loaded.max()) + 1, 0xC00000
     result = dict(shards=s_, buckets_per_shard=n, sets_per_s={},
-                  set_ms={}, set_stages={})
+                  set_ms={}, set_rows_ms={}, set_stages={})
+
+    def lanes_set(name, keys, vals, w):
+        """``sharded_set`` of ``keys`` at ``w`` lanes through
+        ``walk_vs_rows``, its times and stages under ``name/w``."""
+        value, walked = walk_vs_rows(
+            device, f"{name} n_writers={w}", lambda: store.sharded_set(
+                dk, dv, dev(keys), dev(vals), n_writers=w, device=device))
+        key = f"{name}/{w}"
+        result["set_ms"][key] = walked["ms"]
+        result["set_rows_ms"][key] = walked["rows_ms"]
+        result["sets_per_s"][key] = keys.size / (walked["ms"] * 1e-3)
+        result["set_stages"][key] = stage_summary(walked["stages"])
+        return value, walked
 
     # --- uniform traffic: the lanes never race, so every writer count
-    # commits what the serialized writer commits ---------------------------
-    spaced, fresh = spaced_keys(kv, rng, per_owner, fresh)
-    flat = np.concatenate([spaced[o] for o in range(s_)])
-    sk = rng.permutation(flat).reshape(s_, per_owner).astype(np.int32)
-    sv = new_values(sk, v)
-    live = np.ones(sk.shape, bool)
-    tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(), h)
-              for t in kv.tables]
-    want = window_oracle(tables, sk, live, hopscotch.insert_many_displaced,
-                         sv)
-    runs = {}
-    for w in (1, 2, 4):
-        runs[w], ms, stages = run_traced(device, lambda: store.sharded_set(
-            dk, dv, dev(sk), dev(sv), n_writers=w, device=device))
-        result["set_ms"][f"uniform/{w}"] = ms
-        result["sets_per_s"][f"uniform/{w}"] = sk.size / (ms * 1e-3)
-        result["set_stages"][f"uniform/{w}"] = stages
-        require_mutation(f"uniform n_writers={w}", runs[w][0], want, sk,
-                         live, SET_TERMINAL)
-        require_tables(f"uniform n_writers={w}", tables, *runs[w][1:])
-        for a, b, f in zip(runs[w][0], runs[1][0], store.SetResult._fields):
-            require_equal(a, b, f"uniform n_writers={w} vs 1 {f}")
-    result["uniform_statuses"] = {
-        hopscotch.status_name(c): int((want == c).sum())
-        for c in np.unique(want)}
+    # commits what the serialized writer commits; at per_owner and at the
+    # kv_write scale -------------------------------------------------------
+    wide_walk = None
+    for name, count in (("uniform", per_owner), (f"uniform{wide}", wide)):
+        spaced, fresh = spaced_keys(kv, rng, count, fresh)
+        flat = np.concatenate([spaced[o] for o in range(s_)])
+        sk = rng.permutation(flat).reshape(s_, count).astype(np.int32)
+        sv = new_values(sk, v)
+        live = np.ones(sk.shape, bool)
+        tables = [hopscotch.HopscotchTable(t.keys.copy(), t.values.copy(),
+                                           h) for t in kv.tables]
+        want = window_oracle(tables, sk, live,
+                             hopscotch.insert_many_displaced, sv)
+        runs = {}
+        for w in (1, 2, 4):
+            runs[w], walked = lanes_set(name, sk, sv, w)
+            require_mutation(f"{name} n_writers={w}", runs[w][0], want, sk,
+                             live, SET_TERMINAL)
+            require_tables(f"{name} n_writers={w}", tables, *runs[w][1:])
+            for a, b, f in zip(runs[w][0], runs[1][0],
+                               store.SetResult._fields):
+                require_equal(a, b, f"{name} n_writers={w} vs 1 {f}")
+        result[f"{name}_statuses"] = {
+            hopscotch.status_name(c): int((want == c).sum())
+            for c in np.unique(want)}
+        wide_walk = walked
+    cycles = ({level: chain_ops.chase_cycles(level, device)
+               for level in chain_ops.CHASE_LEVELS} if on_card(device)
+              else None)
+    result["laps_kernel"] = dict(
+        laps_kernel_row(device, wide_walk["records"], cycles),
+        shape=(s_, wide))
 
     # --- the hot-key hammer --------------------------------------------------
     hk, hot_buckets = hot_keys(kv, rng, per_owner, hot_start)
     hv = new_values(hk, v)
     result["hot_statuses"] = {}
     for w in (2, 4):
-        (res, nk, nv), ms, stages = run_traced(
-            device, lambda: store.sharded_set(dk, dv, dev(hk), dev(hv),
-                                              n_writers=w, device=device))
-        result["set_ms"][f"hot/{w}"] = ms
-        result["sets_per_s"][f"hot/{w}"] = hk.size / (ms * 1e-3)
-        result["set_stages"][f"hot/{w}"] = stages
+        (res, nk, nv), _ = lanes_set("hot", hk, hv, w)
         st = res.status.cpu().numpy()
         if not (bool(res.ok.all()) and np.isin(st, SET_ANSWERS).all()):
             raise AssertionError(f"hot n_writers={w}: unanswered rows {res}")
@@ -5656,6 +5815,10 @@ KERNELS = (
     # lax.scan of image build, run and commit under jit
     ("chain_interp.walk", "kv_write", "src/repro_torch/csrc/chain_interp.cu",
      "src/repro/rdma/transport.py:196", (WALK_KERNEL,)),
+    # no TPU kernel: the JAX package walks the racing lanes' laps as a
+    # lax.scan of MultiWriterGroup.run_group under jit
+    ("chain_interp.laps", "kv_contend", "src/repro_torch/csrc/chain_interp.cu",
+     "src/repro/rdma/transport.py:239", (LAPS_KERNEL,)),
     ("chain_vm.run_chains", "chain_straight",
      "src/repro_torch/csrc/chain_vm.cu",
      "src/repro/kernels/chain_vm/kernel.py:30", ("run_chains_kernel",)),
@@ -5704,8 +5867,12 @@ INTERP_PATHS = ("kv_get", "kv_write", "kv_faults", "kv_resize", "kv_contend",
 # the paths whose single-chain write stages walk on the walk kernel (each
 # must launch it; kv_contend's one-lane SETs walk too)
 WALK_PATHS = ("kv_write", "kv_faults", "kv_resize", "kv_service")
+# the paths whose racing writer lanes walk their laps on the lap kernel
+# (each must launch it)
+LAPS_PATHS = ("kv_contend", "kv_service")
 # a row whose numbers sit under a key of its phase's result
-ROW_KEYS = {"chain_interp.walk": "walk_kernel"}
+ROW_KEYS = {"chain_interp.walk": "walk_kernel",
+            "chain_interp.laps": "laps_kernel"}
 LM_ARCH = "qwen3-1.7b"
 # each drive's flash launches per prefill: (kernel, one per attention,
 # encoder and cross-attention layer)
@@ -5859,17 +6026,20 @@ def check_ptxas(ptxas: dict, kernels, head_dims) -> None:
 
 def run_phase(phases, key, fn):
     """``phases[key] = fn()``, with the interpreter kernel's launches in
-    the phase (counted from 0; not the rows route's, the walk's
-    yardstick) as its ``interp_launches`` and the walk kernel's as its
-    ``walk_launches``."""
+    the phase (counted from 0; not the rows route's, the walk's and the
+    laps' yardstick) as its ``interp_launches``, the walk kernel's as its
+    ``walk_launches`` and the lap kernel's as its ``laps_launches``
+    (not the replays against their plain versions)."""
     t0 = time.perf_counter()
-    interp_ops.launches["run_interp"] = interp_ops.launches["walk"] = 0
-    YARDSTICK["run_interp"] = YARDSTICK["walk"] = 0
+    for k in ("run_interp", "walk", "laps"):
+        interp_ops.launches[k] = YARDSTICK[k] = 0
     phases[key] = fn()
     phases[key]["interp_launches"] = (interp_ops.launches["run_interp"]
                                       - YARDSTICK["run_interp"])
     phases[key]["walk_launches"] = (interp_ops.launches["walk"]
                                     - YARDSTICK["walk"])
+    phases[key]["laps_launches"] = (interp_ops.launches["laps"]
+                                    - YARDSTICK["laps"])
     shown = {k: v for k, v in phases[key].items() if k != "rows"}
     print(f"[{key}] {time.perf_counter() - t0:.1f} s: {shown}", flush=True)
 
@@ -5921,6 +6091,13 @@ def main() -> int:
     check_spill_free(walk_ptxas, (WALK_KERNEL,))
     if len(walk_ptxas) != 2:
         raise AssertionError(f"{len(walk_ptxas)} {WALK_KERNEL} instances "
+                             f"in the ptxas report, not 2")
+    laps_ptxas = ptxas_report(logs.get("chain_interp", ""), (LAPS_KERNEL,))
+    print(f"[card] chain_interp: ptxas of each <one warp> instance of "
+          f"{LAPS_KERNEL} {laps_ptxas}", flush=True)
+    check_spill_free(laps_ptxas, (LAPS_KERNEL,))
+    if len(laps_ptxas) != 2:
+        raise AssertionError(f"{len(laps_ptxas)} {LAPS_KERNEL} instances "
                              f"in the ptxas report, not 2")
     lib = _build.load("flash_attention_bwd", fa_ops._declare_bwd)
     if lib.flash_attention_wgmma_bwd_keys(256) != fa_ops.BWD_KEYS_256:
@@ -6030,10 +6207,21 @@ def main() -> int:
     run_phase(phases, "kv_contend", lambda: phase_kv_contend(device, kv, dk,
                                                              dv))
     c_ = phases["kv_contend"]
-    print(f"[times] kv_contend ({card}): SETs/s "
-          + ", ".join(f"{k} {x:.1f} ({c_['set_ms'][k]:.1f} ms)"
+    lk_ = c_["laps_kernel"]
+    print(f"[times] kv_contend ({card}): by host clock, the laps / "
+          f"laps_rows_stage: SETs/s "
+          + ", ".join(f"{k} {x:.1f} ({c_['set_ms'][k]:.1f} / "
+                      f"{c_['set_rows_ms'][k]:.1f} ms)"
                       for k, x in c_["sets_per_s"].items())
-          + f"; cut sweep of {c_['cuts']} cuts in one batch "
+          + f"; stages {c_['set_stages']}; the lap kernel replayed on the "
+          f"{lk_['shape']} 4-lane batch's stage {lk_['ms']:.4f} ms (by "
+          f"{lk_['timed_by']}, {lk_['lap_steps']} lap steps), plain laps "
+          f"{lk_['plain_ms']:.1f} ms, serial floor "
+          f"{lk_['serial_floor_ms']:.4f} ms, bytes bound "
+          f"{lk_['bytes_bound_ms']:.6f} ms ({lk_['bytes']} bytes, "
+          f"{lk_['read_words']} distinct words read); cut sweep of "
+          f"{c_['cuts']} "
+          f"cuts in one batch "
           f"{c_['sweep_ms']:.1f} ms ({c_['sweep_steps_max']} lockstep "
           f"steps, {c_['sweep_steps_total']} machine steps, "
           f"{c_['sweep_steps_per_s']:.1f} steps/s); fairness run "
@@ -6324,6 +6512,16 @@ def main() -> int:
     walk_row = phases["kv_write"]["walk_kernel"]
     walk_row.update(launches=sum(walk_by_phase.values()),
                     launches_by_phase=walk_by_phase, ptxas=walk_ptxas)
+    # the lap kernel's are those of the racing lanes' stages
+    laps_by_phase = {key: phases[key]["laps_launches"] for key in LAPS_PATHS}
+    print(f"[chain_interp] laps launches by phase: {laps_by_phase}",
+          flush=True)
+    for key, count in laps_by_phase.items():
+        if count < 1:
+            raise AssertionError(f"{key}: no {LAPS_KERNEL} launch")
+    phases["kv_contend"]["laps_kernel"].update(
+        launches=sum(laps_by_phase.values()),
+        launches_by_phase=laps_by_phase, ptxas=laps_ptxas)
     # kernel #1 also carries the kill faults of chain_faults' drive and the
     # ADDLEQ guests of chain_programs'
     phases["chain_kernel"]["launches_by_phase"] = dict(

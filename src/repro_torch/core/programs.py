@@ -1157,6 +1157,15 @@ class MultiWriterGroup:
         return int(max(tails[lo:hi].sum()
                        for lo, hi in self.writer_slices)) + 1
 
+    def lap_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """An owner-major window (S, R, W) as laps of the group's lanes
+        (S, R / n_writers rounded up, n_writers, W), the last
+        zero-padded: lap ``i``'s row ``w`` feeds lane ``w``."""
+        s, r, w = rows.shape
+        pad = (-r) % self.n_writers
+        return torch.cat([rows, rows.new_zeros((s, pad, w))],
+                         dim=1).reshape(s, -1, self.n_writers, w)
+
     def device_state(self, keys: torch.Tensor, vals: torch.Tensor,
                      exp: Optional[torch.Tensor] = None) -> machine.VMState:
         """Image with the shared table scattered in: keys (..., n), vals

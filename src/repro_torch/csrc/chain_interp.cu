@@ -92,6 +92,30 @@
 // the same rule over whole images) is matched exactly.  Bound: the serial
 // floor, the sum over positions of the owners' most steps times a step's
 // round trips; an owner's positions cannot overlap.
+//
+// The lap kernel (chain_laps_kernel).  Replaces no TPU kernel: it is the
+// counterpart of the JAX package's lax.scan of MultiWriterGroup.run_group
+// over each owner's window in laps of n_writers rows
+// (src/repro/rdma/transport.py:239, :304), the racing writer lanes of
+// sharded_set(n_writers > 1).  One block an owner, its image in global
+// memory for the whole stage, built once; each lap in order: a lap whose
+// rows all have key 0 is skipped; state0's per-WQ fields are restored and
+// lane w's row delivered to lane w's receive WQ (as delivered_state does);
+// the schedule's (round, writer) segments run through run_steps, a quota
+// of 0 skipped, every store logged, at most max_steps steps in the lap;
+// then the commit of the group's lap rule (ref.py::fold_lap): a logged key
+// word or value word keeps the lap's write whatever the statuses, a pad
+// word too when the pads are carried (then every bucket whose key is EMPTY
+// gets NO_TTL: the whole column at lap 0's commit, or before the first
+// lap where lap 0 is skipped, as the reference's lap 0 does run or not,
+// and the logged buckets after every later lap), and every other logged
+// word is restored from the shadow.  A bucket's word count and NO_TTL
+// come in as arguments.
+// So every lap starts from device_state(carry) as run_group builds it, and
+// the plain version (ref.py::plain_laps) is matched exactly.  A group has
+// more than 32 WQs at 2 lanes and more, so its laps run the multi-warp
+// instance: a block-wide argmin and two __syncthreads a step.  Bound: the
+// serial floor, an owner's lap steps summed times a step's round trips.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -837,6 +861,209 @@ __global__ void __launch_bounds__(kMaxWqs, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the lap kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLanes = 32;
+constexpr int kLaneInts = 4;  // recv WQ, response word, WQs [lo, hi)
+
+struct LapArgs {
+  int* mem;                // (S, L): each owner's image
+  int* shadow;             // (S, L): the image at the lap's start
+  int* msg_buf;            // (S, N, CAP, 16)
+  int* log;                // (S, log_cap): the lap's store addresses
+  const int* rows;         // (S, laps, lanes, width): the window in laps
+  int* resp;               // (S, laps, lanes, resp_words)
+  int* steps;              // (S, laps)
+  const int* head0;        // (N,) state0's fields
+  const int* tail0;
+  const int* en0;
+  const int* comp0;
+  const float* lct0;
+  const int* mhead0;
+  const int* mtail0;
+  const float* clock0;
+  const int* geometry;     // (4, N): WR base, WR slots, ordering, managed
+  const float* costs;      // kCostWords
+  const int* quota;        // (R, W): the schedule, one plan for every lap
+  const int* lanes;        // (W, kLaneInts)
+  int n_rounds;
+  int n_lanes;
+  int laps;
+  int width;
+  int n_wq;
+  int len;
+  int cap;
+  int max_steps;
+  int resp_words;
+  int log_cap;
+  int table_base;
+  int values_base;
+  int n_buckets;
+  int val_len;
+  int bucket_words;        // a bucket's words: key, pad, value pointer
+  int pad;                 // the pad words are carried
+  int no_ttl;              // an EMPTY bucket's carried pad
+  int steps0;
+  int halted0;
+  int responses0;
+};
+
+// A logged address under the lap rule: -1 restored; else kept, and then
+// the bucket whose key or carried pad it is (-2: a value word).
+__device__ __forceinline__ int lap_word(const LapArgs& a, int addr) {
+  const int t = addr - a.table_base;
+  if (t >= 0 && t < a.bucket_words * a.n_buckets) {
+    const int b = t / a.bucket_words;
+    const int c = t - a.bucket_words * b;
+    return c == 0 || (c == 1 && a.pad) ? b : -1;
+  }
+  const int u = addr - a.values_base;
+  return u >= 0 && u < a.val_len * a.n_buckets ? -2 : -1;
+}
+
+// bucket b's pad word to NO_TTL where its key is EMPTY, image and shadow
+__device__ __forceinline__ void normalize_pad(const LapArgs& a, int* mem,
+                                              int* shadow, int b) {
+  const int key = a.table_base + a.bucket_words * b;
+  if (mem[key] == 0) {
+    mem[key + 1] = a.no_ttl;
+    shadow[key + 1] = a.no_ttl;
+  }
+}
+
+// One block an owner: its window's laps in order over its image.
+template <bool kOneWarp>
+__global__ void __launch_bounds__(kMaxWqs, 1)
+    chain_laps_kernel(const LapArgs a) {
+  extern __shared__ int wq_s[];
+  __shared__ float cost_s[kCostWords];
+  __shared__ int verbs_s[kNumOpcodes];
+  __shared__ float red_key_s[32];
+  __shared__ int red_idx_s[32];
+  __shared__ int red_addr_s[32];
+  __shared__ int red_any_s[32];
+  __shared__ int pick_s[2];
+  __shared__ int logged_s;
+  __shared__ int lane_s[kMaxLanes * kLaneInts];
+
+  const int nq = a.n_wq;
+  const int tid = threadIdx.x;
+  const long long owner = blockIdx.x;
+  const WqArrays q = carve(wq_s, nq);
+  const Reduce red{red_key_s, red_idx_s, red_addr_s, red_any_s, pick_s};
+  int* mem = a.mem + owner * a.len;
+  int* shadow = a.shadow + owner * a.len;
+  int* log = a.log + owner * a.log_cap;
+  int* msgs = a.msg_buf + owner * nq * a.cap * kMsgWords;
+
+  int base = 0, size = 1, managed = 0;
+  if (tid < nq) {
+    base = a.geometry[tid];
+    size = a.geometry[nq + tid];
+    q.ord[tid] = a.geometry[2 * nq + tid];
+    managed = a.geometry[3 * nq + tid];
+  }
+  if (tid < kCostWords) cost_s[tid] = a.costs[tid];
+  if (tid < kNumOpcodes) verbs_s[tid] = 0;
+  for (int i = tid; i < a.n_lanes * kLaneInts; i += blockDim.x)
+    lane_s[i] = a.lanes[i];
+  const StepEnv e{nq, a.len, a.cap, a.max_steps, base, size, managed,
+                  cost_s, verbs_s, msgs};
+  block_sync<kOneWarp>();
+  // messages delivered to this thread's WQ a lap (its lanes' receive WQ)
+  int delivered = 0;
+  for (int w = 0; w < a.n_lanes; ++w)
+    delivered += lane_s[w * kLaneInts] == tid;
+  // carried pads: lap 0's commit sets NO_TTL where the key is EMPTY, run
+  // or not; a skipped lap 0 commits here
+  bool lap0 = false;
+  for (int w = 0; w < a.n_lanes; ++w)
+    lap0 = lap0 || a.rows[owner * a.laps * a.n_lanes * a.width +
+                          w * a.width] != 0;
+  if (a.pad && !lap0) {
+    for (int b = tid; b < a.n_buckets; b += blockDim.x)
+      normalize_pad(a, mem, shadow, b);
+    block_sync<kOneWarp>();
+  }
+
+  for (int p = 0; p < a.laps; ++p) {
+    const long long at = owner * a.laps + p;
+    const int* req = a.rows + at * a.n_lanes * a.width;
+    bool live = false;
+    for (int w = 0; w < a.n_lanes; ++w) live = live || req[w * a.width] != 0;
+    if (!live) continue;                 // answers zeros, in 0 steps
+    // 1. state0's fields, and every lane's row delivered to its WQ
+    if (tid < nq) {
+      q.head[tid] = a.head0[tid];
+      q.tail[tid] = a.tail0[tid];
+      q.en[tid] = a.en0[tid];
+      q.comp[tid] = a.comp0[tid];
+      q.mhead[tid] = a.mhead0[tid];
+      q.mtail[tid] = wrap_add(a.mtail0[tid], delivered);
+      q.clock[tid] = a.clock0[tid];
+      q.lct[tid] = a.lct0[tid];
+    }
+    for (int i = tid; i < a.n_lanes * kMsgWords; i += blockDim.x) {
+      const int w = i / kMsgWords;
+      const int j = i - w * kMsgWords;
+      const int wq = lane_s[w * kLaneInts];
+      const int slot = floor_mod(a.mtail0[wq], a.cap);
+      msgs[(wq * a.cap + slot) * kMsgWords + j] =
+          j < a.width ? req[w * a.width + j] : 0;
+    }
+    RowScalars r{a.steps0, a.halted0 != 0, a.responses0, -1, -1, -1, -1, 0, 0};
+    block_sync<kOneWarp>();
+    // 2. the schedule's segments, every store logged
+    LogImage img{mem, log, 0};
+    bool dirty = false;
+    for (int g = 0; g < a.n_rounds * a.n_lanes; ++g) {
+      const int quota = a.quota[g];
+      if (quota == 0) continue;
+      const int w = g % a.n_lanes;
+      run_steps<kOneWarp>(e, q, red, r, img, dirty, quota,
+                          lane_s[w * kLaneInts + 2],
+                          lane_s[w * kLaneInts + 3]);
+    }
+    if (tid == 0) logged_s = img.n;
+    block_sync<kOneWarp>();
+    // 3. each lane's response words (0 for a key-0 row) and the steps
+    for (int i = tid; i < a.n_lanes * a.resp_words; i += blockDim.x) {
+      const int w = i / a.resp_words;
+      a.resp[at * a.n_lanes * a.resp_words + i] =
+          req[w * a.width] == 0
+              ? 0 : mem[lane_s[w * kLaneInts + 1] + i - w * a.resp_words];
+    }
+    if (tid == 0) a.steps[at] = r.steps;
+    const int logged = logged_s;
+    block_sync<kOneWarp>();
+    // 4. a kept word into the shadow, every other logged word restored
+    for (int i = tid; i < logged; i += blockDim.x) {
+      const int addr = log[i];
+      if (lap_word(a, addr) != -1)
+        shadow[addr] = mem[addr];
+      else
+        mem[addr] = shadow[addr];
+    }
+    block_sync<kOneWarp>();
+    // 5. carried pads: NO_TTL where the key is EMPTY, the whole column
+    // at lap 0, the logged buckets after it
+    if (a.pad) {
+      if (p == 0) {
+        for (int b = tid; b < a.n_buckets; b += blockDim.x)
+          normalize_pad(a, mem, shadow, b);
+      } else {
+        for (int i = tid; i < logged; i += blockDim.x) {
+          const int b = lap_word(a, log[i]);
+          if (b >= 0) normalize_pad(a, mem, shadow, b);
+        }
+      }
+      block_sync<kOneWarp>();
+    }
+  }
+}
+
 template <bool kSplit>
 cudaError_t launch(const InterpArgs& a, int batch, int threads, size_t smem,
                    cudaStream_t s) {
@@ -882,6 +1109,13 @@ template <bool kOneWarp>
 cudaError_t launch_walk(const WalkArgs& a, int owners, int threads,
                         size_t smem, cudaStream_t s) {
   chain_walk_kernel<kOneWarp><<<owners, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kOneWarp>
+cudaError_t launch_laps(const LapArgs& a, int owners, int threads,
+                        size_t smem, cudaStream_t s) {
+  chain_laps_kernel<kOneWarp><<<owners, threads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1010,6 +1244,80 @@ int chain_walk_run(void* mem, void* shadow, void* msg_buf, void* log,
   return static_cast<int>(threads == 32
                               ? launch_walk<true>(a, owners, threads, smem, s)
                               : launch_walk<false>(a, owners, threads, smem,
+                                                   s));
+}
+
+// One launch a stage: owner s's window in laps, rows[s] (laps x lanes rows
+// of `width` words), walked over its image mem[s], in place.  `lanes`:
+// (lanes, kLaneInts) on the device; `quota`: the schedule's (R, lanes).
+int chain_laps_run(void* mem, void* shadow, void* msg_buf, void* log,
+                   const void* rows, void* resp, void* steps,
+                   const void* head0, const void* tail0, const void* en0,
+                   const void* comp0, const void* lct0, const void* mhead0,
+                   const void* mtail0, const void* clock0,
+                   const void* geometry, const void* costs,
+                   const void* quota, const void* lanes, int n_rounds,
+                   int n_lanes, int owners, int laps, int width, int n_wq,
+                   int len, int cap, int max_steps, int resp_words,
+                   int log_cap, int table_base, int values_base,
+                   int n_buckets, int val_len, int bucket_words, int pad,
+                   int no_ttl, int steps0, int halted0, int responses0,
+                   void* stream) {
+  if (owners <= 0 || laps <= 0) return 0;
+  if (n_wq < 1 || n_wq > kMaxWqs || n_lanes < 1 || n_lanes > kMaxLanes ||
+      n_rounds < 0 || width < 1 || width > kMsgWords || cap < 1 ||
+      len < kMaxCopy || max_steps < 0 || resp_words < 1 || n_buckets < 1 ||
+      val_len < 1 || bucket_words < 2 || table_base < 0 ||
+      static_cast<long long>(bucket_words) * n_buckets > len - table_base ||
+      values_base < 0 || values_base + val_len * n_buckets > len ||
+      static_cast<long long>(max_steps) * kMaxCopy > log_cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LapArgs a{};
+  a.mem = static_cast<int*>(mem);
+  a.shadow = static_cast<int*>(shadow);
+  a.msg_buf = static_cast<int*>(msg_buf);
+  a.log = static_cast<int*>(log);
+  a.rows = static_cast<const int*>(rows);
+  a.resp = static_cast<int*>(resp);
+  a.steps = static_cast<int*>(steps);
+  a.head0 = static_cast<const int*>(head0);
+  a.tail0 = static_cast<const int*>(tail0);
+  a.en0 = static_cast<const int*>(en0);
+  a.comp0 = static_cast<const int*>(comp0);
+  a.lct0 = static_cast<const float*>(lct0);
+  a.mhead0 = static_cast<const int*>(mhead0);
+  a.mtail0 = static_cast<const int*>(mtail0);
+  a.clock0 = static_cast<const float*>(clock0);
+  a.geometry = static_cast<const int*>(geometry);
+  a.costs = static_cast<const float*>(costs);
+  a.quota = static_cast<const int*>(quota);
+  a.lanes = static_cast<const int*>(lanes);
+  a.n_rounds = n_rounds;
+  a.n_lanes = n_lanes;
+  a.laps = laps;
+  a.width = width;
+  a.n_wq = n_wq;
+  a.len = len;
+  a.cap = cap;
+  a.max_steps = max_steps;
+  a.resp_words = resp_words;
+  a.log_cap = log_cap;
+  a.table_base = table_base;
+  a.values_base = values_base;
+  a.n_buckets = n_buckets;
+  a.val_len = val_len;
+  a.bucket_words = bucket_words;
+  a.pad = pad;
+  a.no_ttl = no_ttl;
+  a.steps0 = steps0;
+  a.halted0 = halted0;
+  a.responses0 = responses0;
+  const int threads = (n_wq + 31) / 32 * 32;
+  const size_t smem = static_cast<size_t>(n_wq) * kWqWords * 4;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(threads == 32
+                              ? launch_laps<true>(a, owners, threads, smem, s)
+                              : launch_laps<false>(a, owners, threads, smem,
                                                    s));
 }
 

@@ -15,9 +15,12 @@ memory.  :func:`run_walk` takes its plain version,
 :func:`repro_torch.kernels.chain_interp.ref.plain_walk`, for a window on
 the CPU, and launches ``chain_walk_kernel`` (the same source, the same
 step) for one on the card: one launch a stage, no host read.
-``launches`` counts kernel launches, ``run_interp`` and ``walk``.
-There is no fallback: a state, plan or layout the kernel cannot take
-raises.
+:func:`run_laps`, the racing writer lanes' laps over one persistent
+image an owner, takes :func:`repro_torch.kernels.chain_interp.ref.
+plain_laps` on the CPU and launches ``chain_laps_kernel`` on the card,
+one launch a stage.  ``launches`` counts kernel launches,
+``run_interp``, ``walk`` and ``laps``.  There is no fallback: a state,
+plan or layout the kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ import numpy as np
 import torch
 
 from ...core import cost, faults as faults_mod, isa, machine
+from ...core.programs import BUCKET_WORDS, NO_TTL
 from .. import _build
 from . import ref
 
-launches = {"run_interp": 0, "walk": 0}
+launches = {"run_interp": 0, "walk": 0, "laps": 0}
 
 # one block a row, one thread a WQ
 MAX_WQS = 1024
@@ -50,6 +54,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.chain_walk_run.argtypes = ([p] * 19 + [ctypes.POINTER(ctypes.c_int)]
                                    + [i] * 16 + [p])
     lib.chain_walk_run.restype = i
+    lib.chain_laps_run.argtypes = [p] * 19 + [i] * 21 + [p]
+    lib.chain_laps_run.restype = i
     lib.chain_interp_staged_budget.argtypes = [ctypes.POINTER(i)]
     lib.chain_interp_staged_budget.restype = i
     lib.cuda_error_string.argtypes = [i]
@@ -420,3 +426,146 @@ def run_walk(prog, carry, rows: torch.Tensor, budget: int,
         "chain_walk_run")
     launches["walk"] += 1
     return resp, steps, ref.read_carry(layout, img, carry)
+
+
+# the lap kernel's lanes, at most
+MAX_LANES = 32
+
+
+def check_laps(mw) -> None:
+    """Raise ``ValueError`` unless the lap kernel can take the
+    :class:`repro_torch.core.programs.MultiWriterGroup` ``mw``: 1 to
+    :data:`MAX_LANES` lanes, each with its own receive WQ in range and
+    its response word in the image, the table and value rows inside the
+    image and apart, and ``state0``'s message queues empty (a lap reads
+    only messages it delivered or sent)."""
+    st0 = mw.state0
+    length, n_wq = st0.mem.shape[-1], mw.spec.num_wqs
+    if not 1 <= len(mw.lanes) <= MAX_LANES or \
+            len(mw.writer_slices) != len(mw.lanes):
+        raise ValueError(f"{len(mw.lanes)} lanes and "
+                         f"{len(mw.writer_slices)} writer slices: the lap "
+                         f"kernel takes 1 to {MAX_LANES} lanes, a slice each")
+    wqs = [wq for wq, _ in mw.lanes]
+    if len(set(wqs)) != len(wqs) or not all(0 <= wq < n_wq for wq in wqs):
+        raise ValueError(f"receive WQs {wqs}: one a lane, each in [0, "
+                         f"{n_wq})")
+    if not all(0 <= r < length for _, r in mw.lanes):
+        raise ValueError(f"response words {[r for _, r in mw.lanes]} "
+                         f"outside the image of {length} words")
+    spans = sorted([(mw.table_base,
+                     mw.table_base + BUCKET_WORDS * mw.n_buckets),
+                    (mw.values_base,
+                     mw.values_base + mw.val_len * mw.n_buckets)])
+    if mw.n_buckets < 1 or mw.val_len < 1 or spans[0][0] < 0 or \
+            spans[1][1] > length or spans[0][1] > spans[1][0]:
+        raise ValueError(f"a table and value rows at {spans} overlap or "
+                         f"leave the image of {length} words")
+    if bool((st0.msg_tail != st0.msg_head).any()):
+        raise ValueError("state0 holds queued messages: the lap kernel "
+                         "starts every lap from empty queues")
+
+
+@functools.lru_cache(maxsize=64)
+def _laps_plan(mw, dev: torch.device) -> tuple:
+    """:func:`check_laps` once a group and device (its host reads
+    included); the lanes as the kernel takes them, int32 (W, 4) on
+    ``dev``: receive WQ, response word and the writer's WQs ``[lo, hi)``
+    (Python's slice rule, as :func:`_slices`); and ``state0``'s steps,
+    halted and responses."""
+    check_laps(mw)
+    st0 = mw.state0
+    slices = _slices(tuple(mw.writer_slices), mw.spec.num_wqs,
+                     torch.device("cpu"))
+    rows = [(wq, r, int(lo), int(hi)) for (wq, r), (lo, hi)
+            in zip(mw.lanes, slices.tolist())]
+    return (torch.tensor(rows, dtype=torch.int32, device=dev),
+            (int(st0.steps), int(st0.halted), int(st0.responses)))
+
+
+def run_laps(mw, carry, rows: torch.Tensor, schedule, budget: int,
+             resp_words: int = 1):
+    """Walk the S owners' windows ``rows`` (S, R, W) int32 in laps of
+    ``mw.n_writers`` rows through the racing lanes of the
+    :class:`repro_torch.core.programs.MultiWriterGroup` ``mw``: each
+    owner's image built once (``mw.device_state(*carry)``), then every
+    lap in order run on it under ``schedule`` (a
+    :class:`repro_torch.core.machine.Schedule` of one (R, W) plan) with
+    at most ``budget`` steps in all, and committed by
+    the lap rule (:func:`repro_torch.kernels.chain_interp.ref.fold_lap`),
+    as :func:`repro_torch.kernels.chain_interp.ref.plain_laps` says.
+    ``carry``: ``(keys, vals)``, or ``(keys, vals, exp)`` to carry the pad
+    words.  Returns ``(responses (S, R, resp_words), steps (S, laps),
+    the new carry)``.
+
+    On the CPU the plain version; on the card one launch of
+    ``chain_laps_kernel``, a block an owner, which makes no host read
+    after a group's first call."""
+    if rows.device.type == "cpu":
+        return ref.plain_laps(mw, carry, rows, schedule, budget, resp_words)
+    st0, spec = mw.state0, mw.spec
+    _check_spec(spec)
+    dev = rows.device
+    lanes, scalars = _laps_plan(mw, dev)
+    n = len(mw.lanes)
+    if rows.ndim != 3 or rows.dtype != torch.int32 or \
+            not 1 <= rows.shape[-1] <= isa.MSG_WORDS or \
+            not rows.is_contiguous():
+        raise ValueError(f"a window of contiguous int32 (S, R, W) rows, W "
+                         f"in [1, {isa.MSG_WORDS}]; got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    quota = schedule.as_rows()
+    if quota.ndim != 2 or quota.shape[1] != n or \
+            quota.dtype != torch.int32 or quota.device != dev:
+        raise ValueError(f"a schedule of one (R, {n}) int32 plan on {dev}; "
+                         f"got {tuple(quota.shape)} {quota.dtype} on "
+                         f"{quota.device}")
+    quota = quota.contiguous()
+    for name, t in zip(machine.VMState._fields, st0):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"state0.{name} on {t.device}, the window on "
+                             f"{dev}, or not contiguous")
+    length = st0.mem.shape[-1]
+    if not 1 <= resp_words <= length - max(r for _, r in mw.lanes):
+        raise ValueError(f"{resp_words} response words past the image")
+    if length < isa.MAX_COPY or spec.msg_capacity < 1:
+        raise ValueError(f"an image of {length} words (at least "
+                         f"{isa.MAX_COPY}) and {spec.msg_capacity} message "
+                         f"slots (at least 1)")
+    s, n_rows, width = rows.shape
+    laps = mw.lap_rows(rows).contiguous()
+    n_laps = laps.shape[1]
+    budget = max(min(int(budget), 2 ** 31 - 1), 0)
+    log_cap = budget * LOG_PER_STEP
+    if log_cap >= 2 ** 31 // max(s, 1):
+        raise ValueError(f"a budget of {budget} steps: its store log "
+                         f"overflows")
+    resp = torch.zeros((s, n_laps, n, resp_words), dtype=torch.int32,
+                       device=dev)
+    steps = torch.zeros((s, n_laps), dtype=torch.int32, device=dev)
+    img = mw.device_state(*carry).mem.to(torch.int32).contiguous()
+    if tuple(img.shape) != (s, length):
+        raise ValueError(f"images of shape {tuple(img.shape)} for a window "
+                         f"of {s} owners")
+    if s == 0 or n_laps == 0:
+        return (resp.reshape(s, -1, resp_words)[:, :n_rows], steps,
+                ref.read_lap_carry(mw, img, carry))
+    shadow = img.clone()
+    msgs = st0.msg_buf.expand((s,) + tuple(st0.msg_buf.shape)).contiguous()
+    log = torch.empty((s, max(log_cap, 1)), dtype=torch.int32, device=dev)
+    geometry, costs = _tables(spec, dev)
+    lib = _build.load("chain_interp", _declare)
+    ptr = _build.pointer
+    _build.check(lib, lib.chain_laps_run(
+        ptr(img), ptr(shadow), ptr(msgs), ptr(log), ptr(laps), ptr(resp),
+        ptr(steps), ptr(st0.head), ptr(st0.tail), ptr(st0.enable_limit),
+        ptr(st0.completions), ptr(st0.last_comp_time), ptr(st0.msg_head),
+        ptr(st0.msg_tail), ptr(st0.clock), ptr(geometry), ptr(costs),
+        ptr(quota), ptr(lanes), quota.shape[0], n, s, n_laps, width,
+        spec.num_wqs, length, spec.msg_capacity, budget, resp_words,
+        log.shape[1], mw.table_base, mw.values_base, mw.n_buckets,
+        mw.val_len, BUCKET_WORDS, int(len(carry) == 3), NO_TTL, *scalars,
+        _build.stream()), "chain_laps_run")
+    launches["laps"] += 1
+    return (resp.reshape(s, -1, resp_words)[:, :n_rows], steps,
+            ref.read_lap_carry(mw, img, carry))

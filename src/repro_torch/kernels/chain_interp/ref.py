@@ -1,5 +1,7 @@
-"""The walk kernel's plain version: a stateful receive window walked over
-one persistent image an owner, in PyTorch.
+"""The walk kernels' plain versions: a stateful receive window walked over
+one persistent image an owner, in PyTorch, request by request
+(:func:`plain_walk`) or in laps of racing writer lanes
+(:func:`plain_laps`).
 
 The JAX package streams each owner's window through its stage's step as
 one ``lax.scan`` inside the store's jitted programs
@@ -23,6 +25,18 @@ commits.  Here, as in the kernel (``csrc/chain_interp.cu``,
 So at the start of every position the image equals
 ``device_state(carry)`` bit for bit, and the carry is read off the image
 once at the end (:func:`read_carry`).
+
+The laps (``chain_laps_kernel``; the JAX package's ``lax.scan`` of
+``MultiWriterGroup.run_group``, ``src/repro/rdma/transport.py:239`` and
+``:304``) run the same way: an owner's window in laps of ``n_writers``
+consecutive rows (``MultiWriterGroup.lap_rows``), a lap whose rows all
+have key 0 skipped, every other lap run whole from ``state0``'s fields
+with lane ``w``'s row delivered to lane ``w`` under the group's schedule,
+and committed by the lap rule (:func:`fold_lap`).  With the pads carried,
+the reference's lap 0 sets every EMPTY bucket's pad to ``NO_TTL`` at its
+commit even where none of its rows is live: so an owner whose lap 0 is
+skipped has its pad column normalised before its first running lap
+(:func:`normalized_pads`).
 """
 from __future__ import annotations
 
@@ -34,7 +48,7 @@ import torch
 
 from ...core import faults as faults_mod
 from ...core import machine
-from ...core.programs import BUCKET_WORDS, EMPTY_KEY, bucket_home
+from ...core.programs import BUCKET_WORDS, EMPTY_KEY, NO_TTL, bucket_home
 
 
 @functools.lru_cache(maxsize=64)
@@ -159,3 +173,118 @@ def plain_walk(prog, carry, rows: torch.Tensor, budget: int,
         if on_position is not None:
             on_position(p, img)
     return resp, steps, read_carry(layout, img, carry)
+
+
+@functools.lru_cache(maxsize=64)
+def _lap_words(mw, device: torch.device):
+    """The group's carry words as image addresses: ``(keys (n,), pads
+    (n,), values (n, val_len))``."""
+    r = torch.arange(mw.n_buckets, dtype=torch.int64, device=device)
+    keys = mw.table_base + r * BUCKET_WORDS
+    vals = mw.values_base + r[:, None] * mw.val_len + torch.arange(
+        mw.val_len, device=device)
+    return keys, keys + 1, vals
+
+
+def normalized_pads(mw, img: torch.Tensor) -> torch.Tensor:
+    """The pad words (G, n) of the images ``img`` (G, L), ``NO_TTL``
+    where the bucket's key is ``EMPTY`` (what ``run_group`` returns with
+    ``exp``)."""
+    keys, pads, _ = _lap_words(mw, img.device)
+    return torch.where(img[:, keys] == EMPTY_KEY, NO_TTL, img[:, pads])
+
+
+def fold_lap(mw, pad: bool, post: torch.Tensor,
+             pre: torch.Tensor) -> torch.Tensor:
+    """The lap rule on whole images: G laps' images ``post`` (G, L) that
+    started from ``pre`` (G, L).  Returns the images the next lap starts
+    from: ``pre`` but for every write to a bucket's key word and to its
+    value row, whatever the lanes' statuses (``run_group`` reads these
+    back from the image), and with ``pad`` (the caller carries ``exp``)
+    the pad words, each bucket whose key is ``EMPTY`` at ``NO_TTL``.
+    Every other word a lap wrote (the val_ptr words, the pads without
+    ``pad``, the lanes' staging and response regions, the guard region)
+    goes back as it was.  ``tests/test_torch_laps.py`` holds the rule to
+    ``MultiWriterGroup.run_group``."""
+    out = pre.clone()
+    keys, pads, vals = _lap_words(mw, post.device)
+    vals = vals.reshape(-1)
+    out[:, keys] = post[:, keys]
+    out[:, vals] = post[:, vals]
+    if pad:
+        out[:, pads] = normalized_pads(mw, post)
+    return out
+
+
+def read_lap_carry(mw, img: torch.Tensor, like) -> tuple:
+    """``(keys, vals[, exp])`` as the images ``img`` (S, L) hold them, in
+    the dtypes of ``like`` (the walk's input carry, whose length says
+    whether the pads are carried)."""
+    keys, pads, vals = _lap_words(mw, img.device)
+    out = (img[:, keys], img[:, vals]) + ((img[:, pads],) if len(like) == 3
+                                          else ())
+    return tuple(o.to(c.dtype) for o, c in zip(out, like))
+
+
+def plain_laps(mw, carry, rows: torch.Tensor, schedule, budget: int,
+               resp_words: int = 1, on_lap: Optional[Callable] = None):
+    """Walk the window ``rows`` (S, R, W) int32 of the S owners of
+    ``carry`` (``(keys, vals)``, or ``(keys, vals, exp)`` to carry the
+    pad words; each with a leading dim S) through the racing lanes of the
+    :class:`repro_torch.core.programs.MultiWriterGroup` ``mw``: lap by
+    lap, the owners' running laps as one batch, each against its own
+    persistent image (see the module docstring), every lap under
+    ``schedule``'s (R, W) quota and at most ``budget`` steps in all.
+    ``on_lap(p, img)``, if given, sees the images after each lap
+    position's commit.  Returns ``(responses (S, R, resp_words): the
+    words at each lane's response region, zeros for a key-0 row —,
+    steps (S, laps), the new carry)``."""
+    pad = len(carry) == 3
+    n = mw.n_writers
+    laps = mw.lap_rows(rows)
+    s, n_laps = laps.shape[:2]
+    dev = rows.device
+    img = mw.device_state(*carry).mem.to(torch.int32).clone()
+    resp = rows.new_zeros((s, n_laps, n, resp_words))
+    steps = torch.zeros((s, n_laps), dtype=torch.int32, device=dev)
+    run = (laps[..., 0] != EMPTY_KEY).any(-1).cpu().numpy()
+    if pad and n_laps:
+        # lap 0's commit normalises the pad column, run or not
+        idle = torch.as_tensor(~run[:, 0], device=dev)[:, None]
+        _, pad_words, _ = _lap_words(mw, dev)
+        img[:, pad_words] = torch.where(idle, normalized_pads(mw, img),
+                                        img[:, pad_words])
+    order = [np.flatnonzero(run[o]) for o in range(s)]
+    depth = max((len(o) for o in order), default=0)
+    quota = schedule.as_rows().to(dev)
+    pays = machine.pad_payload_rows(laps.to(torch.int32))
+    words = torch.tensor([r for _, r in mw.lanes], device=dev)[:, None] \
+        + torch.arange(resp_words, device=dev)
+    st0 = mw.state0
+    cap = st0.msg_buf.shape[-2]
+    for p in range(depth):
+        owners = [o for o in range(s) if len(order[o]) > p]
+        o_idx = torch.as_tensor(owners, device=dev)
+        l_idx = torch.as_tensor([order[o][p] for o in owners], device=dev)
+        pre = img[o_idx]
+        g = len(owners)
+        state = machine.VMState(*(
+            pre.clone() if name == "mem" else a.expand((g,) + a.shape).clone()
+            for name, a in zip(machine.VMState._fields, st0)))
+        gi = torch.arange(g, device=dev)
+        for w, (recv_wq, _) in enumerate(mw.lanes):
+            slot = torch.remainder(state.msg_tail[:, recv_wq], cap).long()
+            state.msg_buf[gi, recv_wq, slot] = pays[o_idx, l_idx, w]
+            state.msg_tail[:, recv_wq] += 1
+        machine.plain_run(mw.spec, state, budget, None,
+                          quota.expand((g,) + tuple(quota.shape)),
+                          mw.writer_slices)
+        live = laps[o_idx, l_idx, :, 0] != EMPTY_KEY
+        resp[o_idx, l_idx] = torch.where(live[..., None],
+                                         state.mem[:, words], 0)
+        steps[o_idx, l_idx] = state.steps
+        img[o_idx] = fold_lap(mw, pad, state.mem, pre)
+        if on_lap is not None:
+            on_lap(p, img)
+    resp = resp.reshape(s, -1, resp_words)[:, :rows.shape[1]]
+    return resp, steps, read_lap_carry(mw, img, carry)

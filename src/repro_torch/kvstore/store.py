@@ -638,14 +638,9 @@ def _writer_set(keys, vals, qk, qv, live, *, n_shards, capacity,
         sched = machine.Schedule.round_robin(n_writers, quantum=16,
                                              n_rounds=8, device=keys.device)
         gsteps = max(max_steps, mw.fuel)
-
-        def group_fn(carry, laps):
-            status, nk, nv = mw.run_group(*carry, laps, sched, gsteps)
-            return (nk, nv), status[..., None]
-
         resp, ok, (nk, nv) = transport.triggered_chain_group(
-            group_fn, (keys, vals), payload, dest, n_shards, capacity, 1,
-            n_writers, live, stage="writer-group", group=group)
+            mw, sched, gsteps, (keys, vals), payload, dest, n_shards,
+            capacity, 1, live, stage="writer-group", group=group)
     else:
         writer = programs.build_hopscotch_writer(
             n_buckets, val_words, neighborhood, device=keys.device)

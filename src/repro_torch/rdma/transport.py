@@ -39,15 +39,20 @@ owners' requests a window position), is the yardstick the tests and
 ``chip_smoke.py`` hold it to.  Their group forms
 (:func:`triggered_chain_group`, :func:`local_chain_group`) hand each
 owner's window to racing writer lanes a lap of ``n_writers`` rows at a
-time, on :func:`_walk`.
+time, laps in order over the same persistent image
+(:func:`laps_stage`: one launch of the lap kernel,
+:func:`repro_torch.kernels.chain_interp.ops.run_laps`, on the card);
+:func:`laps_rows_stage`, the earlier :func:`_walk` over
+``MultiWriterGroup.run_group`` a lap position, is their yardstick.
 
 Setting :data:`trace` to a list records each stateful stage's serial
-depth, the chain steps of every request it ran and, on the card, CUDA
-events around it; a single-chain stage also records copies of its
-output and its walk and interpreter launches, and on the walk its
-arguments (``args``, copies, for :func:`rows_stage` to replay).
-``None``, the default, records nothing (and the walk then reads
-nothing back to the host).
+depth (positions or laps), the chain steps of every request or lap it
+ran and, on the card, CUDA events around it; a stage also records copies
+of its output and its walk and interpreter launches, and on the walk and
+the laps its ``route`` and its arguments (``args``, copies, for
+:func:`rows_stage` or :func:`laps_rows_stage` to replay).  ``None``, the
+default, records nothing (and the walk then reads nothing back to the
+host).
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import faults as faults_mod
-from ..core import machine
+from ..core import machine, programs
 from ..kernels.chain_interp import ops as interp_ops
 
 #: None, or a list that each stateful stage appends a record to
@@ -247,17 +252,20 @@ def triggered_chain_engine(engine, state, recv_wq: int, resp_region: int,
     return combine(resp, dest, pos, ok, group), ok
 
 
-def _open_record(stage: str, rows: torch.Tensor):
-    """A :data:`trace` record for a single-chain stage over the window
-    ``rows`` (S, P, W), and its start event on the card; ``(None, None)``
-    when tracing is off."""
+def _open_record(stage: str, route: str, live: Optional[torch.Tensor]):
+    """A :data:`trace` record for a stage of ``route`` ("walk" or "laps",
+    a launch count of :mod:`repro_torch.kernels.chain_interp.ops`) whose
+    positions ``live`` (S, P) bool run, its interpreter and ``route``
+    launches, and its start event on the card; ``(None, None)`` when
+    tracing is off."""
     if trace is None:
         return None, None
-    run = (rows[..., 0] != 0).cpu().numpy()
-    rec = dict(stage=stage, depth=int(run.sum(1).max(initial=0)),
-               runs=int(run.sum()), steps=[],
-               launches=dict(interp_ops.launches))
-    if rows.is_cuda:
+    run = live.cpu().numpy()
+    rec = dict(stage=stage, route=route, depth=int(run.sum(1).max(
+        initial=0)), runs=int(run.sum()), steps=[],
+               launches={k: interp_ops.launches[k]
+                         for k in ("run_interp", route)})
+    if live.is_cuda:
         rec.update(start=torch.cuda.Event(enable_timing=True),
                    end=torch.cuda.Event(enable_timing=True))
         rec["start"].record()
@@ -267,7 +275,7 @@ def _open_record(stage: str, rows: torch.Tensor):
 
 def _close_record(rec, run, resp, steps, carry) -> None:
     """The stage's output, its launches (as counts since the record was
-    opened) and its requests' steps by window position."""
+    opened) and its requests' (or laps') steps by position."""
     if "end" in rec:
         rec["end"].record()
     rec["launches"] = {k: interp_ops.launches[k] - n
@@ -289,7 +297,8 @@ def walk_stage(prog, budget: int, carry, rows: torch.Tensor,
     args = None if trace is None else (
         prog, budget, tuple(c.clone() for c in carry), rows.clone(),
         None if faults is None else faults.clone(), resp_words, stage)
-    rec, run = _open_record(stage, rows)
+    rec, run = _open_record(stage, "walk",
+                            None if trace is None else rows[..., 0] != 0)
     resp, steps, carry = interp_ops.run_walk(prog, carry, rows, budget,
                                              faults, resp_words)
     if rec is not None:
@@ -463,69 +472,115 @@ def local_chain_stateful(prog, budget: int, carry, payload: torch.Tensor,
                       resp_words, stage)
 
 
-def _walk_laps(group_fn: Callable, carry, flat: torch.Tensor, n_lanes: int,
+def laps_stage(mw, schedule, budget: int, carry, rows: torch.Tensor,
                resp_words: int, stage: str):
-    """:func:`_walk` over laps: each owner's rows ``flat`` (S, R, W) in
-    laps of ``n_lanes`` consecutive rows (the last zero-padded), a lap
-    running while any of its rows has a nonzero first word.  Returns
-    (responses (S, R, resp_words), carry)."""
-    s, rows, w = flat.shape
-    pad = (-rows) % n_lanes
-    laps = torch.cat([flat, flat.new_zeros((s, pad, w))], dim=1).reshape(
-        s, -1, n_lanes * w)
-    run = (laps.reshape(s, laps.shape[1], n_lanes, w)[..., 0] != 0).any(
-        -1).cpu().numpy()
+    """Walk each owner's window ``rows`` (S, R, W) in laps of
+    ``mw.n_writers`` consecutive rows through the racing lanes of the
+    :class:`repro_torch.core.programs.MultiWriterGroup` ``mw``
+    (:func:`repro_torch.kernels.chain_interp.ops.run_laps`): one launch
+    of the lap kernel on the card.  Each lap runs under ``schedule`` with
+    at most ``budget`` steps in all; ``carry`` is ``(keys, vals)`` or
+    ``(keys, vals, exp)``.  Returns (responses (S, R, resp_words), the
+    new carry)."""
+    args = None if trace is None else (
+        mw, schedule, budget, tuple(c.clone() for c in carry), rows.clone(),
+        resp_words, stage)
+    rec, run = _open_record(stage, "laps", None if trace is None else (
+        mw.lap_rows(rows)[..., 0] != 0).any(-1))
+    resp, steps, carry = interp_ops.run_laps(mw, carry, rows, schedule,
+                                             budget, resp_words)
+    if rec is not None:
+        rec["args"] = args
+        _close_record(rec, run, resp, steps, carry)
+    return resp, carry
 
-    def step(c, lap_rows):
-        new, r = group_fn(c, lap_rows.reshape(-1, n_lanes, w))
-        return new, r.reshape(r.shape[0], n_lanes * resp_words)
 
-    resp, carry = _walk(step, carry, laps, run, n_lanes * resp_words, stage)
-    return resp.reshape(s, -1, resp_words)[:, :rows], carry
+def laps_rows_stage(mw, schedule, budget: int, carry, rows: torch.Tensor,
+                    resp_words: int, stage: str):
+    """:func:`laps_stage` as the earlier route ran it, the lap kernel's
+    yardstick: :func:`_walk` over laps, one ``mw.run_group`` call a lap
+    position, which builds the G owners' images from the carry, delivers,
+    runs (one interpreter launch) and reads the table back.  A lap whose
+    rows all have key 0 does not run; with ``exp`` carried, an owner
+    whose lap 0 does not run has its EMPTY buckets' deadlines set to
+    ``NO_TTL`` first, as the reference's lap 0 sets them at its commit,
+    run or not.  Answers the status word
+    alone (``resp_words`` 1) and records no steps; its trace record is
+    :func:`laps_stage`'s."""
+    if resp_words != 1:
+        raise ValueError("the rows route answers the status word alone")
+    before = dict(interp_ops.launches)
+    s, n_rows, w = rows.shape
+    n = mw.n_writers
+    laps = mw.lap_rows(rows)
+    run = (laps[..., 0] != 0).any(-1).cpu().numpy()
+    laps = laps.reshape(s, -1, n * w)
+    if len(carry) == 3 and laps.shape[1]:
+        # lap 0's commit normalises the pads, run or not
+        keys, vals, exp = carry
+        idle = torch.as_tensor(~run[:, 0], device=keys.device)[:, None]
+        carry = (keys, vals, torch.where(
+            idle & (keys == programs.EMPTY_KEY), programs.NO_TTL, exp))
+
+    def step(c, lap):
+        status, *new = mw.run_group(c[0], c[1], lap.reshape(-1, n, w),
+                                    schedule, budget,
+                                    exp=c[2] if len(c) == 3 else None)
+        return tuple(new), status
+
+    resp, carry = _walk(step, carry, laps, run, n, stage)
+    resp = resp.reshape(s, -1, 1)[:, :n_rows]
+    if trace is not None:
+        trace[-1].update(out=(resp, None, tuple(c.clone() for c in carry)),
+                         launches={k: interp_ops.launches[k] - c
+                                   for k, c in before.items()})
+    return resp, carry
 
 
-def triggered_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
-                          dest: torch.Tensor, n_shards: int, capacity: int,
-                          resp_words: int, n_writers: int,
+def triggered_chain_group(mw, schedule, budget: int, carry,
+                          payload: torch.Tensor, dest: torch.Tensor,
+                          n_shards: int, capacity: int, resp_words: int,
                           live: Optional[torch.Tensor] = None,
                           stage: str = "group", group=None):
     """:func:`triggered_chain_stateful` with each owner's receive window
     partitioned into **racing writer QPs** (the §3.5 multi-writer wire
     pattern).
 
-    The window's rows are grouped into *laps* of ``n_writers`` consecutive
-    slots (zero-padded to a whole lap); a lap's rows go to ``n_writers``
-    independent pre-posted writer lanes that execute **concurrently**
-    against the owner's shared state (one
-    :meth:`repro_torch.core.programs.MultiWriterGroup.run_group` call),
-    while laps serialize through the carry.  So within a lap the chains
-    race their claim CASes, and across laps a request observes every
-    earlier lap's writes.  At each lap position the S owners' laps run as
-    one batch.  A lap whose rows all have key 0 runs no chain (padded
-    lanes are self-guarding: status 0, state unchanged); a lap with some
-    live rows runs whole, its key-0 lanes included.
+    The window's rows are grouped into *laps* of ``mw.n_writers``
+    consecutive slots (zero-padded to a whole lap); a lap's rows go to
+    the independent pre-posted writer lanes of the
+    :class:`repro_torch.core.programs.MultiWriterGroup` ``mw``, which
+    execute **concurrently** against the owner's shared state under
+    ``schedule`` (at most ``budget`` steps a lap), while laps serialize
+    over one persistent image (:func:`laps_stage`).  So within a lap the
+    chains race their claim CASes, and across laps a request observes
+    every earlier lap's writes.  A lap whose rows all have key 0 runs no
+    chain (padded lanes are self-guarding: status 0, state unchanged); a
+    lap with some live rows runs whole, its key-0 lanes included.
 
-    ``group_fn(carry rows (G, ...), laps (G, n_writers, W)) -> (new carry
-    rows, responses (G, n_writers, resp_words))``.  Returns
-    ``(responses (S, B, resp_words), ok (S, B), final carry)``.
+    ``carry`` is ``(keys, vals)`` or ``(keys, vals, exp)``, each with a
+    leading dim S.  Returns ``(responses (S, B, resp_words), ok (S, B),
+    final carry)``.
     """
     recv, pos, ok = dispatch(payload, dest, n_shards, capacity, live, group)
-    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1])
-    resp, carry = _walk_laps(group_fn, carry, flat, n_writers, resp_words,
+    flat = recv.reshape(recv.shape[0], -1, recv.shape[-1]).contiguous()
+    resp, carry = laps_stage(mw, schedule, budget, carry, flat, resp_words,
                              stage)
     resp = resp.reshape(recv.shape[:3] + (resp_words,))
     return combine(resp, dest, pos, ok, group), ok, carry
 
 
-def local_chain_group(group_fn: Callable, carry, payload: torch.Tensor,
-                      n_lanes: int, resp_words: int, stage: str = "local"):
+def local_chain_group(mw, schedule, budget: int, carry,
+                      payload: torch.Tensor, resp_words: int,
+                      stage: str = "local"):
     """Loopback analogue of :func:`triggered_chain_group`: maintenance
     lanes that originate at the owning shard (the CLOCK sweeper's laps, a
     local compaction pass) race foreground writer lanes over the same
     shared state with no dispatch/combine pair.  Shard ``s``'s requests
-    ``payload[s]`` (S, B, W) are partitioned into laps of ``n_lanes``
-    consecutive rows, each lap delivered to the group's lanes in one
-    ``run_group`` call, laps serializing through the carry (see
-    :func:`triggered_chain_group` for ``group_fn`` and the zero-key
-    rule).  Returns ``(responses (S, B, resp_words), final carry)``."""
-    return _walk_laps(group_fn, carry, payload, n_lanes, resp_words, stage)
+    ``payload[s]`` (S, B, W) are partitioned into laps of
+    ``mw.n_writers`` consecutive rows, laps serializing over one
+    persistent image (see :func:`triggered_chain_group` for ``mw``,
+    ``schedule``, ``budget``, ``carry`` and the zero-key rule).  Returns
+    ``(responses (S, B, resp_words), final carry)``."""
+    return laps_stage(mw, schedule, budget, carry, payload.contiguous(),
+                      resp_words, stage)

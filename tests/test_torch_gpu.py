@@ -31,6 +31,7 @@ import torch
 
 import _chain_images as hazards
 import _interp_images as interp_images
+import _laps_corpus as laps_corpus
 import _walk_corpus as walk_corpus
 from repro_torch import convert
 from repro_torch.core import faults, isa, machine, programs, turing
@@ -676,14 +677,14 @@ def test_walk_kernel_refuses_what_it_cannot_take(cuda):
         interp_ops.run_walk(prog, carry, rows, prog.fuel, frows.cpu())
 
 
-def test_walk_kernel_build_is_spill_free(cuda):
-    """ptxas reports registers and no spill for both instances of
-    ``chain_walk_kernel`` (one warp, several)."""
+def _ptxas_instances(kernel: str) -> dict:
+    """Registers and spills of each instance of ``kernel`` in the
+    ``chain_interp`` library's ptxas report, by entry line."""
     log = _build.build(["chain_interp"])["chain_interp"]
     found, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line if "chain_walk_kernel" in line else None
+            entry = line if kernel in line else None
             if entry:
                 found[entry] = {}
         elif entry and "spill stores" in line:
@@ -694,6 +695,23 @@ def test_walk_kernel_build_is_spill_free(cuda):
             found[entry]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
             entry = None
+    return found
+
+
+def test_walk_kernel_build_is_spill_free(cuda):
+    """ptxas reports registers and no spill for both instances of
+    ``chain_walk_kernel`` (one warp, several)."""
+    found = _ptxas_instances("chain_walk_kernel")
+    assert len(found) == 2, found
+    for entry, r in found.items():
+        assert "registers" in r and r["stores"] == r["loads"] == 0, (entry,
+                                                                     r)
+
+
+def test_laps_kernel_build_is_spill_free(cuda):
+    """ptxas reports registers and no spill for both instances of
+    ``chain_laps_kernel`` (one warp, several)."""
+    found = _ptxas_instances("chain_laps_kernel")
     assert len(found) == 2, found
     for entry, r in found.items():
         assert "registers" in r and r["stores"] == r["loads"] == 0, (entry,
@@ -737,6 +755,154 @@ def test_write_stages_on_the_card_match_the_cpu(cuda):
     for x, y in zip(card[3:6], host[3:6]):
         assert torch.equal(x.cpu(), y)
     assert card[6]["run_interp"] == 0 and card[6]["walk"] >= 4, card[6]
+
+
+# --- the lap kernel (the racing writer lanes' laps) --------------------------
+
+def _laps_equal(got, want, what):
+    for i, (a, b) in enumerate(zip(got[:2] + got[2], want[:2] + want[2])):
+        assert torch.equal(a.cpu(), b.cpu()), (what, i)
+
+
+# 2 and 4 lanes, every window case, the write mix with its pads (random
+# where a bucket is empty: "raw"), a cut schedule, 1 to 5 owners
+LAPS_CASES = ([("set2", c, False, None, 1 + i) for i, c in
+               enumerate(laps_corpus.CASES)]
+              + [("set4", c, False, None, 4 - i) for i, c in
+                 enumerate(("mixed", "hot", "dup"))]
+              + [("mix3", "mixed", True, None, 3), ("mix4", "dup", True, 9, 2),
+                 ("set2", "hot", False, 5, 3),
+                 ("mix3", "late", "raw", None, 2),
+                 ("mix4", "idle", "raw", None, 3)])
+
+
+@pytest.mark.parametrize("kinds,case,exp,cut,s", LAPS_CASES)
+def test_laps_kernel_matches_the_plain_laps(cuda, kinds, case, exp, cut, s):
+    """One launch of ``chain_laps_kernel``: responses (two words a lane),
+    lap steps and the carry bit-equal to ``ref.plain_laps`` on the CPU;
+    the status word and the carry to the rows route on the card."""
+    mw, carry, rows = laps_corpus.window(kinds, s, 5, 31 + s, case, exp)
+    sched = laps_corpus.schedule(mw.n_writers, cut)
+    want = walk_ref.plain_laps(mw, carry, rows, sched, mw.fuel, 2)
+    gw = laps_corpus.group(kinds, cuda)
+    gs = laps_corpus.schedule(mw.n_writers, cut, cuda)
+    gc = tuple(c.to(cuda) for c in carry)
+    before = dict(interp_ops.launches)
+    got = interp_ops.run_laps(gw, gc, rows.to(cuda), gs, gw.fuel, 2)
+    torch.cuda.synchronize()
+    assert interp_ops.launches["laps"] == before["laps"] + 1
+    assert interp_ops.launches["run_interp"] == before["run_interp"]
+    _laps_equal(got, want, f"{kinds} {case} plain")
+    transport.trace = []
+    try:
+        transport.laps_rows_stage(gw, gs, gw.fuel, gc, rows.to(cuda), 1,
+                                  kinds)
+        rec = transport.trace[-1]
+    finally:
+        transport.trace = None
+    assert torch.equal(got[0][..., :1].cpu(), rec["out"][0].cpu())
+    for a, b in zip(got[2], rec["out"][2]):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(want[1].max()) > 0
+
+
+def test_laps_kernel_takes_the_multi_warp_instance(cuda):
+    """A 2-lane and a 4-lane group have more than 32 WQs: their laps run
+    ``chain_laps_kernel<false>`` (a block-wide argmin), as a trace names
+    it."""
+    for kinds in ("set2", "set4"):
+        mw, carry, rows = laps_corpus.window(kinds, 2, 3, 7)
+        gw = laps_corpus.group(kinds, cuda)
+        assert gw.spec.num_wqs > 32
+        args = (gw, tuple(c.to(cuda) for c in carry), rows.to(cuda),
+                laps_corpus.schedule(gw.n_writers, device=cuda), gw.fuel)
+        interp_ops.run_laps(*args)
+        torch.cuda.synchronize()
+        names = []
+        for _ in range(3):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                interp_ops.run_laps(*args)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()
+                     if "chain_laps_kernel" in e.key]
+            if names:
+                break
+        assert names and all("<false>" in n for n in names), names
+
+
+def test_laps_kernel_runs_a_stage_with_no_host_read(cuda):
+    """After a group's first call (which checks its layout once), a stage
+    is one launch with no device-to-host read."""
+    mw, carry, rows = laps_corpus.window("mix3", 3, 4, 5, exp=True)
+    gw = laps_corpus.group("mix3", cuda)
+    args = (gw, tuple(c.to(cuda) for c in carry), rows.to(cuda),
+            laps_corpus.schedule(3, device=cuda), gw.fuel)
+    want = interp_ops.run_laps(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = interp_ops.run_laps(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _laps_equal(got, want, "no host read")
+
+
+def test_laps_kernel_refuses_what_it_cannot_take(cuda):
+    """A budget whose store log would overflow, a window of another
+    dtype, a schedule of other lanes or on the host: each raises before
+    a launch."""
+    mw, carry, rows = laps_corpus.window("set2", 2, 3, 1)
+    gw = laps_corpus.group("set2", cuda)
+    carry, rows = tuple(c.to(cuda) for c in carry), rows.to(cuda)
+    sched = laps_corpus.schedule(2, device=cuda)
+    before = interp_ops.launches["laps"]
+    with pytest.raises(ValueError, match="log overflows"):
+        interp_ops.run_laps(gw, carry, rows, sched, 2 ** 30)
+    with pytest.raises(ValueError, match="int32"):
+        interp_ops.run_laps(gw, carry, rows.long(), sched, gw.fuel)
+    with pytest.raises(ValueError, match="schedule"):
+        interp_ops.run_laps(gw, carry, rows, laps_corpus.schedule(
+            4, device=cuda), gw.fuel)
+    with pytest.raises(ValueError, match="schedule"):
+        interp_ops.run_laps(gw, carry, rows, laps_corpus.schedule(2),
+                            gw.fuel)
+    assert interp_ops.launches["laps"] == before
+
+
+@pytest.mark.parametrize("n_writers", [2, 4])
+def test_lap_stages_on_the_card_match_the_cpu(cuda, n_writers):
+    """``sharded_set(n_writers=)`` on the card, its writer-group stage one
+    lap launch and no interpreter launch: every result and array equal to
+    the CPU's."""
+    kv = store.ShardedKV.build(3, 64, 2, neighborhood=4)
+    rng = np.random.RandomState(9 + n_writers)
+    for k in rng.choice(np.arange(1, 1 << 16), 150, replace=False).tolist():
+        try:
+            kv.set(k, [k, k + 1])
+        except Exception:
+            pass
+    sk = rng.randint(1, 1 << 16, (3, 16)).astype(np.int32)
+    sk[0, 2] = 0
+    sk[1, 5] = sk[1, 6]
+    sv = np.stack([sk, sk ^ 0x55], -1).astype(np.int32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        dk, dv = kv.device_arrays(dev)
+        before = dict(interp_ops.launches)
+        res = store.sharded_set(dk, dv, torch.from_numpy(sk).to(dev),
+                                torch.from_numpy(sv).to(dev), neighborhood=4,
+                                max_search=8, max_moves=4,
+                                n_writers=n_writers, device=dev)
+        after = {n: interp_ops.launches[n] - before[n] for n in before}
+        outs.append((res, after))
+    (card, card_n), (host, _) = outs
+    for f, x, y in zip(card[0]._fields, card[0], host[0]):
+        assert torch.equal(x.cpu(), y), f
+    for x, y in zip(card[1:], host[1:]):
+        assert torch.equal(x.cpu(), y)
+    assert card_n["laps"] == 1 and card_n["run_interp"] == 0, card_n
 
 
 def test_interpreter_on_the_card_matches_the_cpu(cuda):

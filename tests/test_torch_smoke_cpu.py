@@ -487,15 +487,17 @@ def test_script_alone_exits_nonzero(tmp_path):
 
 
 def test_kernel_rows_name_the_tpu_kernels(smoke):
-    """Twelve rows: seven a TPU kernel each; the flash backward, which
+    """Thirteen rows: seven a TPU kernel each; the flash backward, which
     replaces the JAX package's plain-JAX backward (``_make_blocked_vjp``'s
     ``bwd``); the recurrences' backward kernels, which replace JAX's
     autodiff of its chunked forms (``_chunked_jax``); the interpreter
-    kernel, which replaces ``machine.run``'s device-side while loop; and
-    the walk kernel, which replaces the write stages' ``lax.scan``.  Each
-    row's phase runs, and the guest drive of ``chain_programs`` reaches
-    kernel #1 (its launches join that row's ``launches_by_phase``)."""
-    assert len(smoke.KERNELS) == 12
+    kernel, which replaces ``machine.run``'s device-side while loop; the
+    walk kernel, which replaces the write stages' ``lax.scan``; and the
+    lap kernel, which replaces the racing lanes' ``lax.scan`` of
+    ``run_group``.  Each row's phase runs, and the guest drive of
+    ``chain_programs`` reaches kernel #1 (its launches join that row's
+    ``launches_by_phase``)."""
+    assert len(smoke.KERNELS) == 13
     assert smoke.KERNELS[0][:2] == ("chain_vm.run_managed", "chain_kernel")
     assert "chain_programs" in smoke.PHASES
     for name, phase, source, replaces, kernels in smoke.KERNELS:
@@ -511,7 +513,7 @@ def test_kernel_rows_name_the_tpu_kernels(smoke):
                    else r"def _chunked_jax\(" if name.endswith("_backward")
                    else r"def run\(" if name == "chain_interp.run_interp"
                    else r"\s+carry, resp = lax\.scan\("
-                   if name == "chain_interp.walk"
+                   if name in ("chain_interp.walk", "chain_interp.laps")
                    else r"def _\w+_kernel\(")
         assert re.match(pattern, text), (replaces, text)
 
